@@ -1,0 +1,22 @@
+"""structurepreservingiterativesolvers_torch — the PyTorch/CUDA port of
+``structurepreservingiterativesolvers_tpu``.
+
+Constraint-satisfying Krylov solvers (CGMRES, CGMRES-p, GMRES) for
+structure-preserving discretisations, in PyTorch for an NVIDIA H100, with
+the DIA sparse matrix-vector product as a hand-written CUDA kernel.  The
+JAX package stays the reference; module names follow it.  The port imports
+torch, numpy and scipy, and never JAX.
+
+Quick start::
+
+    import structurepreservingiterativesolvers_torch as spt
+    from structurepreservingiterativesolvers_torch.models import lkdv
+    sys = lkdv.linforms(M=50, degree=1, device="cuda")
+    x, info = spt.solvers.cgmres(sys.A, sys.b, k=30, tol=1e-8,
+                                 constraints=sys.constraints())
+"""
+
+from . import config  # noqa: F401
+from . import constraints, kernels, ops, precond, solvers  # noqa: F401
+
+__version__ = "0.1.0"

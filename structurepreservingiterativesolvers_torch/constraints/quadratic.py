@@ -1,0 +1,190 @@
+"""Quadratic invariant constraints and their reduction onto Krylov coefficients.
+
+A structure constraint is ``g(x) = ½ xᵀ M x + vᵀ x + c = 0`` (mass is the
+linear special case M = 0).  The reference compiles such a constraint onto
+the Krylov coefficient space by forming ``M @ Z`` from scratch at every
+constrained iteration (reference ``solvers.py:21-53``).  As in the JAX
+package, the reduction here is incremental: each Arnoldi step appends one
+vector ``z_j``, so the reduced data gains
+
+* ``t1[j]  = v·z_j + (M z_j)·x0``            — one SpMV + two dots
+* ``T2[:,j] = T2[j,:] = ½ Z (M z_j)``        — one tall matvec
+
+and the reduced constraint is the tiny dense form
+``g(y) = t0 + t1·y + yᵀ T2 y`` with Jacobian ``t1 + 2 T2 y`` (M symmetric).
+Entering the constrained endgame mid-flight catches up with one SpMM over
+the existing basis.
+
+The n-sized work runs where the basis lives; the reduced buffers (a scalar,
+a k-vector and a k×k matrix) live on the host, beside the Hessenberg matrix
+and the KKT solve that consume them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from ..config import HOST
+
+
+@dataclasses.dataclass(frozen=True)
+class MatComb:
+    """Linear combination  Σ coeff_i · A_i  as a matrix-free operator."""
+
+    coeffs: Tuple[float, ...]
+    mats: Tuple[Any, ...]
+
+    def __matmul__(self, x):
+        out = self.coeffs[0] * (self.mats[0] @ x)
+        for c, A in zip(self.coeffs[1:], self.mats[1:]):
+            out = out + c * (A @ x)
+        return out
+
+    def todense(self):
+        out = self.coeffs[0] * self.mats[0].todense()
+        for c, A in zip(self.coeffs[1:], self.mats[1:]):
+            out = out + c * A.todense()
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadraticConstraint:
+    """g(x) = ½ xᵀ M x + vᵀ x + c.  ``M``/``v`` may be None (zero); ``c`` is
+    a 0-dim tensor on the device of x."""
+
+    M: Optional[Any]
+    v: Optional[torch.Tensor]
+    c: torch.Tensor
+    name: str = "constraint"
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.c.to(x.dtype)
+        if self.v is not None:
+            out = out + torch.dot(self.v, x)
+        if self.M is not None:
+            out = out + 0.5 * torch.dot(x, self.M @ x)
+        return out
+
+    def grad(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros_like(x)
+        if self.v is not None:
+            out = out + self.v
+        if self.M is not None:
+            out = out + self.M @ x  # symmetric M
+        return out
+
+
+class ReducedBuffers(NamedTuple):
+    """Per-constraint reduced data over the Krylov coefficient space, on the
+    host."""
+
+    t0: torch.Tensor  # 0-dim
+    t1: torch.Tensor  # (k,)
+    T2: torch.Tensor  # (k, k)
+
+
+def init_buffers(con: QuadraticConstraint, x0: torch.Tensor, k: int,
+                 x0_zero: bool = False) -> ReducedBuffers:
+    """``x0_zero`` skips the g(x0) evaluation: t0 = c exactly."""
+    t0 = con.c if x0_zero else con(x0)
+    dt = x0.dtype
+    return ReducedBuffers(
+        t0=t0.to(HOST, dt), t1=torch.zeros(k, dtype=dt),
+        T2=torch.zeros((k, k), dtype=dt),
+    )
+
+
+def update_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
+                   Z: torch.Tensor, x0: torch.Tensor, j: int,
+                   x0_zero: bool = False) -> ReducedBuffers:
+    """Fold the new basis vector Z[j] into the reduced constraint.  Rows of Z
+    beyond j are zero, so only the prefix Z[:j+1] is read."""
+    zj = Z[j]
+    t1j = torch.zeros((), dtype=Z.dtype, device=Z.device)
+    if con.v is not None:
+        t1j = t1j + torch.dot(con.v, zj)
+    w = None
+    if con.M is not None:
+        u = con.M @ zj
+        if not x0_zero:
+            t1j = t1j + torch.dot(u, x0)
+        w = 0.5 * (Z[: j + 1] @ u)
+    # one device→host copy for the scalar and the new column
+    host = torch.cat([t1j.reshape(1)] + ([w] if w is not None else [])).to(HOST)
+    t1 = buf.t1.clone()
+    t1[j] = host[0]
+    T2 = buf.T2
+    if w is not None:
+        T2 = T2.clone()
+        T2[j, : j + 1] = host[1:]
+        T2[: j + 1, j] = host[1:]
+    return ReducedBuffers(t0=buf.t0, t1=t1, T2=T2)
+
+
+def catchup_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
+                    Z: torch.Tensor, x0: torch.Tensor, jmax: int,
+                    x0_zero: bool = False) -> ReducedBuffers:
+    """Recompute the full reduction over the first ``jmax`` basis vectors in
+    one batched pass (phase-entry catch-up): one SpMM and one (j, n)·(n, j)
+    matmul.  Rows of Z from ``jmax`` on are zero, so they reduce to zero."""
+    k = buf.t1.shape[0]
+    dt = buf.t1.dtype
+    t1 = torch.zeros(k, dtype=dt)
+    T2 = torch.zeros((k, k), dtype=dt)
+    if jmax == 0:
+        return ReducedBuffers(t0=buf.t0, t1=t1, T2=T2)
+    Zc = Z[:jmax]
+    t1_dev = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
+    if con.v is not None:
+        t1_dev = t1_dev + Zc @ con.v
+    if con.M is not None:
+        U = con.M @ Zc.T  # (n, jmax)
+        if not x0_zero:
+            t1_dev = t1_dev + U.T @ x0
+        T2[:jmax, :jmax] = (0.5 * (Zc @ U)).to(HOST)
+    t1[:jmax] = t1_dev.to(HOST)
+    return ReducedBuffers(t0=buf.t0, t1=t1, T2=T2)
+
+
+# The reduced forms below take y of shape (k,) or a batch (T, k).  T2 from a
+# catch-up is symmetric only up to rounding, so T2 is applied as T2 @ y, as
+# the JAX package does.
+
+
+def reduced_value(buf: ReducedBuffers, y: torch.Tensor) -> torch.Tensor:
+    T2y = y @ buf.T2.T
+    return buf.t0 + y @ buf.t1 + (y * T2y).sum(-1)
+
+
+def reduced_grad(buf: ReducedBuffers, y: torch.Tensor) -> torch.Tensor:
+    return buf.t1 + 2.0 * (y @ buf.T2.T)
+
+
+def reduced_hess(buf: ReducedBuffers) -> torch.Tensor:
+    return 2.0 * buf.T2
+
+
+def reduced_scale(buf: ReducedBuffers, y: torch.Tensor) -> torch.Tensor:
+    """Roundoff scale of the reduced constraint evaluation: the sum of the
+    magnitudes of its summands.  |g(y)| cannot be certified below
+    O(eps)·scale in finite precision — e.g. an O(1e4) energy invariant can
+    only be enforced to ~1e-12 absolute in f64.  The safety latch uses this
+    floor."""
+    return (
+        torch.abs(buf.t0)
+        + torch.sum(torch.abs(buf.t1 * y))
+        + torch.sum(torch.abs(y[:, None] * buf.T2 * y[None, :]))
+    )
+
+
+def constraint_checker(x: torch.Tensor,
+                       cons: Sequence[QuadraticConstraint]) -> torch.Tensor:
+    """Maximum absolute constraint deviation at x.
+
+    The reference's checker takes a signed max (reference solvers.py:14-18);
+    the absolute value is strictly safer for the safety latch.
+    """
+    return torch.max(torch.stack([torch.abs(c(x)) for c in cons]))

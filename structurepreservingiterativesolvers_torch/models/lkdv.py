@@ -1,0 +1,198 @@
+"""1-D linear KdV test problem (u_t + u_x + u_xxx = 0, periodic).
+
+The port of the JAX package's ``models/lkdv.py`` (reference
+``lkdv/lkdv.py``): a mixed 3-field (u, v, w) formulation on DG/CG degree q
+with a midpoint step, assembled by the numpy code in ``fem1d`` into the
+3×3 block system
+
+    A = [[ M/dt ,  G  ,  0   ]        b = [ M/dt·u0            ]
+         [ −½M  ,  M  , −½G  ]            [ ½M·u0 + ½G·w0      ]
+         [ −G   ,  0  ,  M   ]]           [ 0                  ]
+
+with invariants  mass = ω·u,  momentum = ½uᵀMu,  energy = ½wᵀMw − ½uᵀMu
+(reference lkdv/lkdv.py:122-146, lkdv/LinearSolver.py:28-44).  The operators
+land on the given device as DIA matrices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from ..config import DEFAULT_DTYPE
+from ..constraints.quadratic import QuadraticConstraint
+from ..ops.sparse import from_scipy
+from .fem1d import Space1D
+
+MLENGTH = 40.0
+
+
+@dataclasses.dataclass
+class Problem:
+    """Problem parameters (mirror of reference lkdv/lkdv.py:15-37)."""
+
+    N: int = 100
+    M: int = 50
+    degree: int = 1
+    space: str = "DG"
+    T: float = 1.0
+    mlength: float = MLENGTH
+    dim: int = 3
+
+    def fem(self) -> Space1D:
+        return Space1D(self.M, self.mlength, self.degree, self.space)
+
+    def exact(self, x: np.ndarray, t: float) -> np.ndarray:
+        """Travelling-wave initial condition (lkdv/lkdv.py:29-37)."""
+        alpha = 4.0
+        beta = alpha * 2.0 * np.pi / self.mlength
+        return np.sin(beta * (x - (1.0 - beta**2) * t)) + 1.0
+
+
+@dataclasses.dataclass
+class System:
+    """Assembled linear system and invariant data on one device."""
+
+    A: object
+    b: torch.Tensor
+    z0: torch.Tensor
+    Mmat: object  # scalar-space mass matrix
+    Gmat: object  # antisymmetric derivative operator
+    omega: torch.Tensor  # scalar-space integration vector
+    m0: torch.Tensor
+    mo0: torch.Tensor
+    e0: torch.Tensor
+    prob: Problem
+    n0: int  # scalar-space dim
+    # host-side CSR kept for oracles (direct solve / scipy cross-checks)
+    A_csr: sp.csr_matrix = dataclasses.field(repr=False, default=None)
+
+    def constraints(self):
+        """[mass, momentum, energy] — ordered as the reference conlist
+        (lkdv/LinearSolver.py:47)."""
+        n0 = self.n0
+        omega_full = torch.zeros(3 * n0, dtype=self.b.dtype, device=self.b.device)
+        omega_full[:n0] = self.omega
+        mass = QuadraticConstraint(M=None, v=omega_full, c=-self.m0, name="mass")
+        momentum = QuadraticConstraint(
+            M=_BlockDiag3(self.Mmat, (1.0, 0.0, 0.0)), v=None, c=-self.mo0,
+            name="momentum",
+        )
+        energy = QuadraticConstraint(
+            M=_BlockDiag3(self.Mmat, (-1.0, 0.0, 1.0)), v=None, c=-self.e0,
+            name="energy",
+        )
+        return [mass, momentum, energy]
+
+    def compute_invariants(self, z: torch.Tensor) -> dict:
+        u, v, w = torch.split(z, self.n0)
+        return {
+            "mass": torch.dot(self.omega, u),
+            "momentum": 0.5 * torch.dot(u, self.Mmat @ u),
+            "energy": 0.5 * torch.dot(w, self.Mmat @ w)
+            - 0.5 * torch.dot(u, self.Mmat @ u),
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class _BlockDiag3:
+    """blockdiag(c0·M, c1·M, c2·M) as an operator on the 3-field vector
+    (or on the rows of a tall (3·n0, m) matrix)."""
+
+    Mmat: object
+    coeffs: tuple
+
+    def __matmul__(self, x):
+        parts = torch.tensor_split(x, 3, dim=0)
+        return torch.cat(
+            [c * (self.Mmat @ p) if c else torch.zeros_like(p)
+             for c, p in zip(self.coeffs, parts)],
+            dim=0,
+        )
+
+    def todense(self):
+        Md = self.Mmat.todense()
+        n0 = Md.shape[0]
+        out = torch.zeros((3 * n0, 3 * n0), dtype=Md.dtype, device=Md.device)
+        for f, c in enumerate(self.coeffs):
+            if c:
+                out[f * n0:(f + 1) * n0, f * n0:(f + 1) * n0] = c * Md
+        return out
+
+
+def linforms(
+    N: int = 100,
+    M: int = 50,
+    degree: int = 1,
+    T: float = 1.0,
+    space: str = "DG",
+    zinit: Optional[np.ndarray] = None,
+    dtype=DEFAULT_DTYPE,
+    *,
+    device,
+) -> System:
+    """Assemble the lkdv step system (reference lkdv/lkdv.py:46-148) on
+    ``device``.
+
+    ``zinit`` (flat 3-field vector) re-seeds u0/w0 from a previous step, as
+    the reference's Evolve loop does (lkdv/Evolve.py:57-59).
+    """
+    prob = Problem(N=N, M=M, degree=degree, space=space, T=float(T))
+    fem = prob.fem()
+    n0 = fem.ndof
+    dt_step = prob.T / prob.N
+
+    Mh = fem.mass()
+    Gh = fem.gfunc()
+    omega_h = fem.omega()
+
+    if zinit is None:
+        u0 = fem.project(lambda x: prob.exact(x, 0.0))
+        import scipy.sparse.linalg as spla
+
+        w0 = spla.spsolve(Mh, Gh @ u0)  # gfuncproject (lkdv/lkdv.py:62-69)
+        v0 = np.zeros(n0)
+    else:
+        zinit = np.asarray(zinit)
+        u0, v0, w0 = np.split(zinit, 3)
+        # reference re-seeds only u and w (lkdv/lkdv.py:80-82)
+        v0 = np.zeros(n0)
+
+    Z = sp.csr_matrix((n0, n0))
+    A_csr = sp.bmat(
+        [
+            [Mh / dt_step, Gh, Z],
+            [-0.5 * Mh, Mh, -0.5 * Gh],
+            [-Gh, Z, Mh],
+        ],
+        format="csr",
+    )
+    b = np.concatenate([Mh @ u0 / dt_step, 0.5 * (Mh @ u0) + 0.5 * (Gh @ w0), np.zeros(n0)])
+
+    m0 = omega_h @ u0
+    mo0 = 0.5 * u0 @ (Mh @ u0)
+    e0 = 0.5 * w0 @ (Mh @ w0) - 0.5 * u0 @ (Mh @ u0)
+
+    z0 = np.concatenate([u0, v0, w0])
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return System(
+        A=from_scipy(A_csr, dtype=dtype, device=device),
+        b=dev(b),
+        z0=dev(z0),
+        Mmat=from_scipy(Mh, dtype=dtype, device=device),
+        Gmat=from_scipy(Gh, dtype=dtype, device=device),
+        omega=dev(omega_h),
+        m0=dev(m0),
+        mo0=dev(mo0),
+        e0=dev(e0),
+        prob=prob,
+        n0=n0,
+        A_csr=A_csr,
+    )

@@ -1,0 +1,1 @@
+from .sparse import DIA, dia_from_scipy, dia_spmm, dia_spmv, from_scipy, to_scipy  # noqa: F401

@@ -1,0 +1,178 @@
+"""Flexible Arnoldi building blocks shared by GMRES/CGMRES.
+
+The port of the JAX package's ``solvers/arnoldi.py``.  The workspace is
+allocated at the maximum iteration count ``k`` and updated in place.  The
+iteration index is a host integer, so every n-sized operation reads only
+the active prefix of the basis: rows beyond it are zero in the JAX package
+and contribute nothing there either.
+
+Two kinds of state, on two devices:
+
+* the n-sized basis ``Q`` and preconditioned vectors ``Z`` live with the
+  operands (the card, in production);
+* the k-sized Hessenberg matrix and its incremental Givens QR live on the
+  host.  Every step reads the new Hessenberg column and the residual
+  estimate on the host anyway, and a rotation is a handful of scalar
+  operations: on the host they cost nanoseconds, on the card one launch
+  each.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Tuple
+
+import torch
+
+from ..config import HOST
+
+
+class ArnoldiState(NamedTuple):
+    """Workspace for a k-step flexible Arnoldi factorisation.
+
+    Q : (k+1, n) orthonormal Krylov basis (rows), on the operands' device.
+    Z : (k,   n) preconditioned vectors; flexible GMRES reconstructs the
+        iterate from Z, not Q (reference solvers.py:111-115).
+    H : (k+1, k) Hessenberg matrix, on the host.
+    R, Rinv, cs, sn, g : incremental Givens QR of H, on the host — R upper
+        triangular with its explicit inverse, (cs, sn) the rotation pairs,
+        g the rotated β·e1.  |g[j+1]| is the least-squares residual estimate.
+    """
+
+    Q: torch.Tensor
+    Z: torch.Tensor
+    H: torch.Tensor
+    R: torch.Tensor
+    Rinv: torch.Tensor
+    cs: torch.Tensor
+    sn: torch.Tensor
+    g: torch.Tensor
+
+
+def init_state(r0: torch.Tensor, beta: float, k: int) -> ArnoldiState:
+    n = r0.shape[0]
+    dt = r0.dtype
+    Q = torch.zeros((k + 1, n), dtype=dt, device=r0.device)
+    Q[0] = r0 / (1.0 if beta == 0 else beta)
+    g = torch.zeros(k + 1, dtype=dt)
+    g[0] = beta
+    return ArnoldiState(
+        Q=Q,
+        Z=torch.zeros((k, n), dtype=dt, device=r0.device),
+        H=torch.zeros((k + 1, k), dtype=dt),
+        R=torch.zeros((k, k), dtype=dt),
+        Rinv=torch.zeros((k, k), dtype=dt),
+        cs=torch.zeros(k, dtype=dt),
+        sn=torch.zeros(k, dtype=dt),
+        g=g,
+    )
+
+
+def _mgs(Q: torch.Tensor, w: torch.Tensor, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Modified Gram-Schmidt of w against rows Q[0..j]; returns (w⊥, h[:j+1]).
+    Sequential; kept for strict reference parity (reference
+    solvers.py:97-99)."""
+    hs = []
+    for i in range(j + 1):
+        hij = torch.dot(Q[i], w)
+        w = w - hij * Q[i]
+        hs.append(hij)
+    return w, torch.stack(hs)
+
+
+def _cgs2(Q: torch.Tensor, w: torch.Tensor, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Classical Gram-Schmidt with reorthogonalisation (CGS2) against rows
+    Q[0..j]: two passes of two tall matvecs; returns (w⊥, h[:j+1])."""
+    Qa = Q[: j + 1]
+    h1 = Qa @ w
+    w1 = w - h1 @ Qa
+    h2 = Qa @ w1
+    w2 = w1 - h2 @ Qa
+    return w2, h1 + h2
+
+
+def arnoldi_step(
+    A,
+    prefunc: Callable[[torch.Tensor], torch.Tensor],
+    st: ArnoldiState,
+    j: int,
+    ortho: str = "cgs2",
+) -> float:
+    """One flexible-Arnoldi iteration, in place; returns h[j+1, j].
+
+    h[j+1, j] == 0 signals breakdown (reference solvers.py:101-106).
+    """
+    z = prefunc(st.Q[j])
+    w = A @ z
+    if ortho == "cgs2":
+        w, h = _cgs2(st.Q, w, j)
+    elif ortho == "mgs":
+        w, h = _mgs(st.Q, w, j)
+    else:
+        raise ValueError(f"unknown ortho {ortho!r}; use 'cgs2' or 'mgs'")
+    # one device→host copy per step: the Hessenberg column and its last entry
+    host = torch.cat([h, torch.linalg.norm(w).reshape(1)]).to(HOST)
+    hlast = float(host[-1])
+    hcol = torch.zeros(st.H.shape[0], dtype=st.H.dtype)
+    hcol[: j + 1] = host[:-1]
+    hcol[j + 1] = hlast
+    if hlast > 0:
+        st.Q[j + 1] = w / hlast
+    st.Z[j] = z
+    st.H[:, j] = hcol
+    _givens_update(st, hcol, j)
+    return hlast
+
+
+def _givens_update(st: ArnoldiState, hcol: torch.Tensor, j: int) -> None:
+    """Fold column j of H into the running QR factorisation, in place."""
+    h = hcol.tolist()
+    cs, sn = st.cs.tolist(), st.sn.tolist()
+    for i in range(j):
+        hi, hi1 = h[i], h[i + 1]
+        h[i] = cs[i] * hi + sn[i] * hi1
+        h[i + 1] = -sn[i] * hi + cs[i] * hi1
+    a, b = h[j], h[j + 1]
+    denom = math.sqrt(a * a + b * b)
+    c, s = (1.0, 0.0) if denom == 0 else (a / denom, b / denom)
+    h[j] = denom
+
+    gj = float(st.g[j])
+    st.g[j] = c * gj
+    st.g[j + 1] = -s * gj
+    k = st.R.shape[0]
+    # incremental explicit inverse of the triangular factor: appending
+    # column j to R extends R⁻¹ by one column, so every coefficient solve
+    # (lsq_coeffs) is one matvec
+    hk = torch.tensor(h[:k], dtype=st.R.dtype)
+    rjj = torch.finfo(st.R.dtype).tiny if denom == 0 else denom
+    upper = torch.where(torch.arange(k) < j, hk, 0.0)
+    newcol = -torch.sum(st.Rinv * upper[None, :], dim=1) / rjj
+    newcol[j] = 1.0 / rjj
+    st.R[:, j] = hk
+    st.Rinv[:, j] = newcol
+    st.cs[j] = c
+    st.sn[j] = s
+
+
+def lsq_coeffs(st: ArnoldiState, j: int) -> torch.Tensor:
+    """Least-squares coefficients y (k,) on the host, with y[j+1:] = 0.
+
+    Solves min ‖β e1 − H[:, :j+1] y‖ through the Givens QR as one masked
+    matvec with R⁻¹: the leading blocks of a triangular inverse are the
+    inverses of the leading blocks.  Replaces the reference's
+    np.linalg.lstsq (solvers.py:113).
+    """
+    k = st.R.shape[0]
+    rhs = torch.where(torch.arange(k) <= j, st.g[:k], 0.0)
+    return torch.sum(st.Rinv * rhs[None, :], dim=1)
+
+
+def lsq_residual_estimate(st: ArnoldiState, j: int) -> float:
+    """|g[j+1]| — the exact LSQ residual of the projected problem."""
+    return abs(float(st.g[j + 1]))
+
+
+def iterate(st: ArnoldiState, y: torch.Tensor, j: int, x0: torch.Tensor) -> torch.Tensor:
+    """x = x0 + Σ_{i≤j} y_i z_i, on the basis' device."""
+    return y[: j + 1].to(st.Z.device) @ st.Z[: j + 1] + x0

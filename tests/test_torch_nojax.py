@@ -1,0 +1,66 @@
+"""The PyTorch port runs where JAX does not exist: the machine with the card
+has no JAX.  A subprocess that blocks ``import jax`` imports the port, runs
+lkdv CGMRES and the SingleSolve command line on the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "structurepreservingiterativesolvers_torch"
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import torch
+torch.set_num_threads(1)
+from structurepreservingiterativesolvers_torch.models import lkdv
+from structurepreservingiterativesolvers_torch.solvers import cgmres
+s = lkdv.linforms(M=50, degree=1, device="cpu")
+x, info = cgmres(s.A, s.b, k=30, tol=1e-10, constraints=s.constraints())
+print("SOLVE", info["steps"], info["constrained_steps"], info["safety"],
+      info["deviation"])
+from structurepreservingiterativesolvers_torch.experiments.cli import main
+main(["single", "--problem", "lkdv", "--M", "50", "--k", "20",
+      "--device", "cpu"])
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+"""
+
+
+def test_port_imports_and_solves_without_jax():
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    solve = [ln for ln in proc.stdout.splitlines() if ln.startswith("SOLVE")]
+    _, steps, ncon, safety, dev = solve[0].split()
+    assert safety == "True" and float(dev) <= 1e-10
+    assert int(steps) >= 1 and int(ncon) >= 1
+    # SingleSolve prints every invariant deviation of the three solvers;
+    # the prototypical CGMRES ones are at roundoff
+    cg = re.findall(r"^cgmres \w+ deviation = (\S+)$", proc.stdout, re.M)
+    assert len(cg) == 3 and max(abs(float(d)) for d in cg) <= 1e-10
+
+
+def test_port_sources_never_import_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
+    offenders = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+                 if pattern.search(p.read_text())]
+    assert offenders == []
+
+
+def test_general_constraints_not_ported():
+    from structurepreservingiterativesolvers_torch.models import lkdv
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+
+    s = lkdv.linforms(M=20, degree=1, device="cpu")
+
+    def energy(x):  # a callable constraint, as the JAX package's
+        return torch.dot(x, x)  # GeneralConstraint wraps
+
+    with pytest.raises(NotImplementedError):
+        cgmres(s.A, s.b, k=5, constraints=[energy])
