@@ -7,17 +7,28 @@ Run from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; JAX is neither needed nor
 imported.  Phases, each of which raises on a failed check:
 
-1. build the DIA SpMV kernel from ``csrc/dia_spmv.cu``;
-2. hold the kernel against its plain PyTorch twin in f64 and f32 on the
+1. build both kernels from ``csrc/`` (``dia_spmv.cu``, ``stencil_spmv.cu``),
+   one ``nvcc`` for each source, started together;
+2. hold the DIA kernel against its plain PyTorch twin in f64 and f32 on the
    shallow-water operator (M=512, wrapped) and the lkdv degree-3 M=100
-   operators (A wrapped, the mass matrix not, ragged n), and time both at
-   the shallow-water shape;
+   operators (A wrapped, the mass matrix not, ragged n), and time it at the
+   shallow-water shape;
 3. lkdv: the reference SingleSolve (M=50, degree 1, k=20) and the hard
    configuration (M=100, degree 3, k=50, tol=1e-6), which CGMRES must
    certify with a ≥2× invariant gain over GMRES;
 4. swe at M=512 (n = 786,432) in f64, k=60, tol=1e-9, unpreconditioned:
    GMRES and CGMRES, held against the JAX package's record
-   (``reference/slice1.json``), counting the kernel's launches.
+   (``reference/slice1.json``), counting the DIA kernel's launches;
+5. heat at M=1024 (n = 1,050,625) in f64, k=20, tol=1e-7 absolute, with
+   the structured AMG: the TimedSolve row (``time_cgmres``), counting both
+   kernels' launches, then one more GMRES and CGMRES pair for the launches
+   per solve and the iterate, held against the JAX package's record
+   (``reference/slice2.json``);
+6. hold the stencil kernel against its plain twin in f64 and f32 on the
+   heat M=1024 and M=16 operators, and the DIA kernel on heat's matrices,
+   and time both kernels, their plain twins and one cuSPARSE CSR matvec of
+   the same matrix at the heat M=1024 shape, with the L2 cache flushed
+   before each launch, beside the least time the card could take.
 
 The line before the last is the kernel report as JSON; the last line is the
 device record.  Exits non-zero, printing no result, without a CUDA device
@@ -44,7 +55,13 @@ KERNEL_RTOL = {"float64": 1e-14, "float32": 1e-6}
 # the certificate of the solvers (the JAX package's acceptance bars)
 DEVIATION_MAX = 1e-10
 SWE_TOL, SWE_K, SWE_M = 1e-9, 60, 512
+HEAT_TOL, HEAT_K, HEAT_M = 1e-7, 20, 1024
 DEVICE = "cuda"
+SOURCES = ("dia_spmv.cu", "stencil_spmv.cu")
+# NVIDIA H100 SXM data sheet: HBM3 rate, and the f64 rate outside the
+# tensor cores (the kernels' multiply-adds run there)
+HBM_BYTES_PER_S = 3.35e12
+F64_FLOP_PER_S = 34e12
 
 
 def fail(msg: str) -> None:
@@ -57,21 +74,27 @@ def check(cond: bool, msg: str) -> None:
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from structurepreservingiterativesolvers_torch.kernels import build
 
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)  # build from source
     t0 = time.perf_counter()
-    path, log = build.build("dia_spmv.cu")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(build.build, SOURCES))
     secs = time.perf_counter() - t0
-    print(f"[build] {path.relative_to(ROOT)} in {secs:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build]   {line.strip()}")
-    build.load("dia_spmv.cu")
+    for source, (path, log) in zip(SOURCES, built):
+        print(f"[build] {path.relative_to(ROOT)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build]   {line.strip()}")
+        build.load(source)
+    print(f"[build] {len(SOURCES)} sources in {secs:.2f} s")
     return secs
 
 
 def _time_ms(fn, reps=200):
+    """Mean time per call over a run of calls: the operands stay in L2."""
     import torch
 
     for _ in range(10):
@@ -84,6 +107,61 @@ def _time_ms(fn, reps=200):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_cold_ms(fn, reps=50):
+    """Mean device time per call with the 50 MB L2 flushed before each call,
+    so every operand comes from device memory, as the bound counts it.  The
+    flush reads a 256 MB buffer: it leaves L2 holding clean lines, so the
+    timed call pays no write-back of the flush's data.  A spin of about
+    half a millisecond on the card before each flush lets the host queue
+    the flush, the events and the call ahead of the card, so the time
+    between the events holds no wait for the host."""
+    import torch
+
+    flush = torch.ones(64 * 2**20, dtype=torch.float32, device=DEVICE)
+    for _ in range(3):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(1_000_000)
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def _bound_ms(nbytes, nflop):
+    """The least time the card could take: bytes over the memory rate or
+    f64 operations over the f64 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nflop / F64_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _csr(A_csr):
+    """The library yardstick's operand: a CUDA CSR tensor (cuSPARSE SpMV)."""
+    import warnings
+
+    import torch
+
+    A = A_csr.tocsr()
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(A.indptr, dtype=torch.int64),
+            torch.as_tensor(A.indices, dtype=torch.int64),
+            torch.as_tensor(A.data, dtype=torch.float64),
+            size=A.shape, device=DEVICE)
+
+
+def _rel_err(y, ref):
+    abs_err = float((y - ref).abs().max())
+    return abs_err, abs_err / float(ref.abs().max())
 
 
 def phase_kernel(swe_sys, lkdv_sys):
@@ -104,10 +182,8 @@ def phase_kernel(swe_sys, lkdv_sys):
             x = torch.randn(A.shape[0], generator=gen, device=DEVICE, dtype=dtype)
             y = dia_spmv(data, A.offsets, A.wrap, x)
             torch.cuda.synchronize()
-            ref = dia_spmv_torch(data, A.offsets, A.wrap, x)
-            torch.cuda.synchronize()
-            abs_err = float((y - ref).abs().max())
-            rel = abs_err / float(ref.abs().max())
+            abs_err, rel = _rel_err(y, dia_spmv_torch(data, A.offsets,
+                                                      A.wrap, x))
             tag = str(dtype).split(".")[-1]
             print(f"[kernel] {name} n={A.shape[0]} ndiag={len(A.offsets)} "
                   f"wrap={A.wrap} {tag}: max|dy|/max|y| = {rel:.3e} "
@@ -126,7 +202,34 @@ def phase_kernel(swe_sys, lkdv_sys):
     print(f"[kernel] swe M=512 f64 SpMV: kernel {ms:.4f} ms "
           f"({nbytes / ms / 1e6:.0f} GB/s of {nbytes / 1e6:.1f} MB), "
           f"plain {plain_ms:.4f} ms")
-    return max_abs_f64, ms, plain_ms
+    _time_dia(A, swe_sys.A_csr, x, "swe M=512")
+    return max_abs_f64
+
+
+def _time_dia(A, A_csr, x, label):
+    """The DIA kernel, its plain twin and the cuSPARSE matvec of the same
+    matrix, each with L2 flushed; returns the timing fields of the report."""
+    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
+        dia_spmv,
+        dia_spmv_torch,
+    )
+
+    Acsr = _csr(A_csr)
+    n, ndiag = A.shape[0], len(A.offsets)
+    out = {
+        "ms": _time_cold_ms(lambda: dia_spmv(A.data, A.offsets, A.wrap, x)),
+        "plain_ms": _time_cold_ms(
+            lambda: dia_spmv_torch(A.data, A.offsets, A.wrap, x), reps=20),
+        "library_ms": _time_cold_ms(lambda: Acsr @ x),
+    }
+    # data and x read once, y written once; a multiply and an add per entry
+    out["bound_ms"], out["bound_by"] = _bound_ms((ndiag + 2) * n * 8,
+                                                 2 * ndiag * n)
+    print(f"[kernel] DIA SpMV at {label} (n={n}, ndiag={ndiag}, f64, L2 "
+          f"flushed): kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
+          f"ms, cuSPARSE CSR {out['library_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
 
 
 def _deviations(system, x):
@@ -186,8 +289,9 @@ def phase_lkdv(record):
 
 
 def phase_swe(s, record):
-    """The main path: both solvers at full size, through the wrappers a
-    user calls.  Returns the kernel launches counted over it."""
+    """The first slice's path: both solvers at full size, through the
+    wrappers a user calls.  Returns the DIA kernel launches counted over
+    it."""
     import torch
 
     from structurepreservingiterativesolvers_torch.experiments import wrappers
@@ -255,8 +359,209 @@ def phase_swe(s, record):
     return launches
 
 
+def phase_heat(record):
+    """The main path of the second slice: the heat TimedSolve row at full
+    size through ``time_cgmres`` with the heat pre-builder.  Returns the
+    system, the AMG and both kernels' launches over the row."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+        time_cgmres,
+    )
+    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
+        dia_spmv_cuda,
+    )
+    from structurepreservingiterativesolvers_torch.kernels.stencil_spmv import (
+        stencil_spmv_cuda,
+    )
+
+    seen = {}
+
+    def pre_builder(system):  # the default, keeping what it was given
+        seen["system"] = system
+        seen["pre"] = default_pre_builder("heat")(system)
+        return seen["pre"]
+
+    dia_spmv_cuda.launches = stencil_spmv_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = time_cgmres("heat", M=HEAT_M, k=HEAT_K, tol=HEAT_TOL,
+                      pre_builder=pre_builder, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dia_spmv": dia_spmv_cuda.launches,
+                "stencil_spmv": stencil_spmv_cuda.launches}
+    s, pre = seen["system"], seen["pre"]
+    rec = record[f"heat_M{HEAT_M}"]
+    levels = [L.A.shape[0] for L in pre.levels]
+    tag = f"[heat M={HEAT_M}]"
+    print(f"{tag} n={s.b.shape[0]} operator {type(s.A).__name__} "
+          f"offsets {s.A.offsets} grid_c {getattr(s.A, 'grid_c', None)}")
+    print(f"{tag} time_cgmres wall {wall:.3f} s (assembly, two AMG builds, "
+          f"warm-up and timed solves); AMG setup first build "
+          f"{out['time_pre_first']:.4f} s, second {out['time_pre']:.4f} s; "
+          f"levels {levels} (record {rec['amg_levels']}); warm-up pass "
+          f"{out['compile_time']:.4f} s")
+    print(f"{tag} gmres: steps {out['gmres_steps']} (record "
+          f"{rec['gmres']['steps']}), wall {out['time_gmres']:.4f} s, "
+          f"{1e3 * out['time_gmres'] / max(out['gmres_steps'], 1):.3f} "
+          f"ms/iteration, final residual {out['gmres_res_final']:.4e}")
+    print(f"{tag} cgmres: steps {out['steps']} (record "
+          f"{rec['cgmres']['steps']}), constrained {out['constrained_steps']} "
+          f"(record {rec['cgmres']['constrained_steps']}), safety "
+          f"{out['safety']}, wall {out['runtime']:.4f} s; phase 1 "
+          f"{1e3 * out['iter_time_unconstrained']:.3f} ms/iteration over "
+          f"{out['phase1_steps_measured']}, catch-up "
+          f"{1e3 * out['constraint_building']:.3f} ms, endgame "
+          f"{1e3 * out['iter_time_constrained']:.3f} ms/iteration; final "
+          f"residual {out['res_final']:.4e}")
+    con = out["conservation"]
+    for nm in out["invariant_names"]:
+        gain = max(con[f"gmres_{nm}"], 1e-16) / max(con[f"cgmres_{nm}"], 1e-16)
+        print(f"{tag} {nm}: deviation gmres {con[f'gmres_{nm}']:.3e}, cgmres "
+              f"{con[f'cgmres_{nm}']:.3e}, gain {gain:.3e}, floor-dominated "
+              f"{con[f'floor_{nm}']}")
+    print(f"{tag} launches over the TimedSolve row: {launches}")
+
+    # one more pair: the launches per solve, and the iterate itself
+    per_solve = {}
+    for name, call in (("gmres", wrappers.gmres_wrapper),
+                       ("cgmres", wrappers.cgmres_wrapper)):
+        dia_spmv_cuda.launches = stencil_spmv_cuda.launches = 0
+        x, info = call(s, k=HEAT_K, tol=HEAT_TOL, pre=pre)
+        torch.cuda.synchronize()
+        per_solve[name] = (x, info, dia_spmv_cuda.launches,
+                           stencil_spmv_cuda.launches)
+        print(f"{tag} one {name} solve: {info['steps']} steps, DIA kernel "
+              f"{dia_spmv_cuda.launches} launches, stencil kernel "
+              f"{stencil_spmv_cuda.launches}")
+    xc, ic = per_solve["cgmres"][:2]
+    xg, ig = per_solve["gmres"][:2]
+    res_c = float(torch.linalg.norm(s.b - s.A @ xc))
+    res_g = float(torch.linalg.norm(s.b - s.A @ xg))
+    print(f"{tag} true residuals: cgmres {res_c:.4e} (record "
+          f"{rec['cgmres']['true_residual']:.4e}), gmres {res_g:.4e} (record "
+          f"{rec['gmres']['true_residual']:.4e}); cgmres KKT deviation "
+          f"{ic['deviation']:.3e} (record {rec['cgmres']['deviation']:.3e})")
+    print(f"{tag} cgmres invariant deviations {_deviations(s, xc)}")
+
+    check(launches["dia_spmv"] > 0 and launches["stencil_spmv"] > 0,
+          f"the heat row did not go through both kernels: {launches}")
+    check(levels == rec["amg_levels"],
+          f"AMG levels {levels} vs record {rec['amg_levels']}")
+    for info in (out, ic):
+        check(info["safety"] is True, "heat CGMRES safety is not True")
+    check(max(con[f"cgmres_{nm}"] for nm in out["invariant_names"])
+          <= DEVIATION_MAX and ic["deviation"] <= DEVIATION_MAX,
+          f"heat CGMRES deviations {con}, KKT {ic['deviation']:.3e}")
+    check(math.isfinite(res_c) and res_c < HEAT_TOL,
+          f"heat CGMRES true residual {res_c:.3e}")
+    check(xc.shape == s.b.shape and bool(torch.isfinite(xc).all()),
+          "heat CGMRES iterate is not finite")
+    # the card sums in another order than the CPU that wrote the record, so
+    # the step at which the residual crosses tol may move by one
+    for info in (out, ic):
+        for key in ("steps", "constrained_steps"):
+            check(_within_one(info, rec["cgmres"], key),
+                  f"heat cgmres {key} {info.get(key)} vs record "
+                  f"{rec['cgmres'].get(key)}")
+    for steps in (out["gmres_steps"], ig["steps"]):
+        check(abs(steps - rec["gmres"]["steps"]) <= 1,
+              f"heat gmres steps {steps} vs record {rec['gmres']['steps']}")
+    return s, pre, launches
+
+
+def phase_heat_kernels(s, pre):
+    """Both kernels against their plain twins on heat's operators and the
+    AMG's, and their times at the heat M=1024 shape.  Returns the report's
+    fields."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
+        dia_spmv,
+        dia_spmv_torch,
+    )
+    from structurepreservingiterativesolvers_torch.kernels.stencil_spmv import (
+        stencil_spmv,
+        stencil_spmv_torch,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    small = heat.linforms(M=16, device=DEVICE)
+    stencil_err, dia_err = 0.0, 0.0
+    for label, S in ((f"heat M={HEAT_M}", s.A), ("heat M=16", small.A)):
+        check(S.grid_c > 0, f"{label} operator has no strips")
+        for dtype in (torch.float64, torch.float32):
+            strips = tuple(t.to(dtype) for t in S.strips)
+            x = torch.randn(S.shape[0], generator=gen, device=DEVICE,
+                            dtype=dtype)
+            args = (S.const, S.offsets, S.wrap, S.grid_c, strips, x)
+            y = stencil_spmv(*args)
+            torch.cuda.synchronize()
+            abs_err, rel = _rel_err(y, stencil_spmv_torch(*args))
+            tag = str(dtype).split(".")[-1]
+            print(f"[kernel] stencil {label} n={S.shape[0]} grid_c={S.grid_c} "
+                  f"{tag}: max|dy|/max|y| = {rel:.3e} (bound "
+                  f"{KERNEL_RTOL[tag]:.0e})")
+            check(math.isfinite(rel) and rel <= KERNEL_RTOL[tag],
+                  f"stencil kernel disagrees with plain on {label} {tag}: "
+                  f"{rel:.3e}")
+            if dtype == torch.float64:
+                stencil_err = max(stencil_err, abs_err)
+                # and the decomposition against the explicit operator
+                _, rel_d = _rel_err(y, dia_spmv_torch(S.data, S.offsets,
+                                                      S.wrap, x))
+                check(rel_d <= KERNEL_RTOL[tag],
+                      f"stencil {label} differs from its DIA: {rel_d:.3e}")
+    for label, A in (("A", s.A.dia), ("Mmat", s.Mmat), ("Emat", s.Emat),
+                     ("AMG S_P", pre.levels[0].P.S),
+                     ("AMG S_R", pre.levels[0].R.S),
+                     ("AMG level-1 A", pre.levels[1].A)):
+        x = torch.randn(A.shape[0], generator=gen, device=DEVICE,
+                        dtype=torch.float64)
+        y = dia_spmv(A.data, A.offsets, A.wrap, x)
+        torch.cuda.synchronize()
+        abs_err, rel = _rel_err(y, dia_spmv_torch(A.data, A.offsets, A.wrap, x))
+        print(f"[kernel] DIA heat M={HEAT_M} {label} n={A.shape[0]} "
+              f"ndiag={len(A.offsets)} f64: max|dy|/max|y| = {rel:.3e}")
+        check(rel <= KERNEL_RTOL["float64"],
+              f"DIA kernel disagrees with plain on heat {label}: {rel:.3e}")
+        dia_err = max(dia_err, abs_err)
+
+    # times at the main path's shapes, f64, L2 flushed before each call
+    S = s.A
+    n, ndiag = S.shape[0], len(S.offsets)
+    R = n // S.grid_c
+    x = torch.randn(n, generator=gen, device=DEVICE, dtype=torch.float64)
+    args = (S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
+    Acsr = _csr(s.A_csr)
+    st = {
+        "ms": _time_cold_ms(lambda: stencil_spmv(*args)),
+        "plain_ms": _time_cold_ms(lambda: stencil_spmv_torch(*args), reps=20),
+        "library_ms": _time_cold_ms(lambda: Acsr @ x),
+    }
+    # x read once and y written once, the strips read once
+    nbytes = (2 * n + 2 * (S.grid_c + R) * ndiag) * 8
+    st["bound_ms"], st["bound_by"] = _bound_ms(nbytes, 2 * ndiag * n)
+    warm = _time_ms(lambda: stencil_spmv(*args))
+    _, rel = _rel_err(Acsr @ x, stencil_spmv(*args))
+    print(f"[kernel] stencil SpMV at heat M={HEAT_M} (n={n}, ndiag={ndiag}, "
+          f"f64, L2 flushed): kernel {st['ms']:.4f} ms "
+          f"({nbytes / st['ms'] / 1e6:.0f} GB/s of {nbytes / 1e6:.2f} MB), "
+          f"plain {st['plain_ms']:.4f} ms, cuSPARSE CSR "
+          f"{st['library_ms']:.4f} ms (max|dy|/max|y| {rel:.1e} against the "
+          f"kernel), bound {st['bound_ms']:.4f} ms ({st['bound_by']}); "
+          f"back-to-back calls with x in L2 {warm:.4f} ms each (bound by the "
+          f"host's issue rate where it exceeds the kernel's time)")
+    check(rel <= 1e-13, f"cuSPARSE CSR disagrees with the stencil: {rel:.3e}")
+    dia = _time_dia(S.dia, s.A_csr, x, f"heat M={HEAT_M} A")
+    return stencil_err, st, dia_err, dia
+
+
 def main() -> int:
-    if not (PACKAGE / "csrc" / "dia_spmv.cu").is_file():
+    if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
     import torch
 
@@ -268,35 +573,48 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     from structurepreservingiterativesolvers_torch.models import lkdv, swe
 
-    record = json.loads((PACKAGE / "reference" / "slice1.json").read_text())
+    records = {name: json.loads((PACKAGE / "reference" / name).read_text())
+               for name in ("slice1.json", "slice2.json")}
+    t_start = time.perf_counter()
     phase_build()
     t0 = time.perf_counter()
     swe_sys = swe.linforms(M=SWE_M, device=DEVICE)
     print(f"[swe M={SWE_M}] assembly {time.perf_counter() - t0:.2f} s")
-    max_abs, ms, plain_ms = phase_kernel(
-        swe_sys, lkdv.linforms(M=100, degree=3, device=DEVICE))
+    dia_err = phase_kernel(swe_sys, lkdv.linforms(M=100, degree=3,
+                                                  device=DEVICE))
     torch.cuda.synchronize()
-    phase_lkdv(record)
+    phase_lkdv(records["slice1.json"])
     torch.cuda.synchronize()
-    launches = phase_swe(swe_sys, record)
+    swe_launches = phase_swe(swe_sys, records["slice1.json"])
     torch.cuda.synchronize()
+    del swe_sys
+    heat_sys, pre, launches = phase_heat(records["slice2.json"])
+    torch.cuda.synchronize()
+    st_err, st, dia_heat_err, dia = phase_heat_kernels(heat_sys, pre)
+    torch.cuda.synchronize()
+    print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
-    print(json.dumps({"kernels": [{
-        "name": "dia_spmv",
-        "route": "cuda",
-        "source": "structurepreservingiterativesolvers_torch/csrc/dia_spmv.cu",
-        "replaces": "structurepreservingiterativesolvers_tpu/ops/pallas_spmv.py:91",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    tpu = "structurepreservingiterativesolvers_tpu/ops/pallas_spmv.py"
+    src = "structurepreservingiterativesolvers_torch/csrc/"
+    kernels = [
+        {"name": "dia_spmv", "route": "cuda", "source": src + "dia_spmv.cu",
+         "replaces": f"{tpu}:91", "launches": launches["dia_spmv"],
+         "launches_by_path": {f"swe_M{SWE_M}": swe_launches,
+                              f"heat_M{HEAT_M}": launches["dia_spmv"]},
+         "max_abs_err": max(dia_err, dia_heat_err), **dia},
+        {"name": "stencil_spmv", "route": "cuda",
+         "source": src + "stencil_spmv.cu", "replaces": f"{tpu}:165",
+         "launches": launches["stencil_spmv"],
+         "launches_by_path": {f"heat_M{HEAT_M}": launches["stencil_spmv"]},
+         "max_abs_err": st_err, **st},
+    ]
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,146 @@
+"""Where a solve of the PyTorch port spends its time on the card: one GMRES
+and one CGMRES solve under ``torch.profiler``, after an untimed warm-up
+pass, on the slice's configurations:
+
+* ``swe``: M=512, f64, k=60, tol=1e-9, unpreconditioned;
+* ``heat``: M=1024, f64, k=20, tol=1e-7, with the structured AMG of the
+  TimedSolve pre-builder.
+
+    python scripts/profile_torch.py --problem heat [--M 1024] [--out build/profile]
+
+Prints the busiest device kernels, the device-busy time against the wall
+time of each solve (the device's idle share), the device time by kind
+(stencil kernel, DIA kernel, matrix-vector products of the Krylov basis and
+the coarse solve, the rest) and, for heat, the device time spent inside the
+AMG V-cycle; writes a Chrome trace per solver into ``--out``.  Then times
+one V-cycle and one operator product alone with CUDA events.  Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+CONFIGS = {"swe": dict(M=512, k=60, tol=1e-9), "heat": dict(M=1024, k=20, tol=1e-7)}
+VCYCLE = "amg_vcycle"  # the profiler range around each preconditioner apply
+
+
+def _kind(name: str) -> str:
+    if "stencil_spmv_kernel" in name:
+        return "stencil kernel"
+    if "dia_spmv_kernel" in name:
+        return "DIA kernel"
+    if "gemv" in name or "gemm" in name or "dot_kernel" in name:
+        return "matrix-vector products (cuBLAS)"
+    return "elementwise, norms, copies"
+
+
+def _event_ms(fn, reps=100):
+    import torch
+
+    for _ in range(5):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--problem", choices=sorted(CONFIGS), default="heat")
+    ap.add_argument("--M", type=int, default=None)
+    ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch: needs a CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.single_solve import (
+        get_model,
+    )
+
+    cfg = dict(CONFIGS[args.problem])
+    M = args.M or cfg["M"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip())
+    s = get_model(args.problem).linforms(M=M, device="cuda")
+    pre = None
+    if args.problem == "heat":
+        from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+            default_pre_builder,
+        )
+
+        amg = default_pre_builder("heat")(s)
+
+        def pre(v):
+            with record_function(VCYCLE):
+                return amg(v)
+
+    kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre)
+    solves = {
+        "gmres": lambda: wrappers.gmres_wrapper(s, **kw),
+        "cgmres": lambda: wrappers.cgmres_wrapper(s, **kw),
+    }
+    for fn in solves.values():  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    for name, fn in solves.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, info = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key != VCYCLE]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        print(f"\n== {args.problem} {name} M={M}: steps {info['steps']}, wall "
+              f"{wall * 1e3:.3f} ms (profiled), device busy {busy_us / 1e3:.3f} "
+              f"ms -> idle share {1 - busy_us / 1e6 / wall:.3f}")
+        by_kind = {}
+        for e in kernels:
+            k = _kind(e.key)
+            by_kind[k] = by_kind.get(k, 0.0) + e.self_device_time_total
+        for k, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"   {k}: {us / 1e3:.3f} ms ({us / busy_us:.1%} of device "
+                  f"busy)")
+        for e in events:
+            if e.key == VCYCLE:
+                print(f"   inside {VCYCLE} ({e.device_type}): {e.count} calls, "
+                      f"device {e.device_time_total / 1e3:.3f} ms, host "
+                      f"{e.cpu_time_total / 1e3:.3f} ms")
+        print(events.table(sort_by="self_device_time_total", row_limit=15,
+                           max_name_column_width=60))
+        prof.export_chrome_trace(str(out / f"trace_{args.problem}{M}_{name}.json"))
+
+    x = torch.randn(s.b.shape[0], dtype=s.b.dtype, device="cuda")
+    print(f"\n== alone, CUDA events, operands warm in L2: A @ x "
+          f"{_event_ms(lambda: s.A @ x):.4f} ms", end="")
+    if args.problem == "heat":
+        print(f", one AMG V-cycle {_event_ms(lambda: amg(x), reps=20):.4f} ms",
+              end="")
+    print()
+
+
+if __name__ == "__main__":
+    main()

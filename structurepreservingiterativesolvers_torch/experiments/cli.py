@@ -1,7 +1,10 @@
-"""Command-line interface of the port.  So far it has one subcommand::
+"""Command-line interface of the port.  The solves run on the card unless
+``--device`` says otherwise::
 
-    python -m structurepreservingiterativesolvers_torch single --problem lkdv --k 20 --device cuda
-    python -m structurepreservingiterativesolvers_torch single --problem swe --M 64 --k 60 --tol 1e-9 --device cuda
+    python -m structurepreservingiterativesolvers_torch single --problem lkdv --k 20
+    python -m structurepreservingiterativesolvers_torch single --problem swe --M 64 --k 60 --tol 1e-9
+    python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 1024
+    python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 16 32 --device cpu
 """
 
 from __future__ import annotations
@@ -13,14 +16,26 @@ def main(argv=None):
     parser = argparse.ArgumentParser(prog="structurepreservingiterativesolvers_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    def device_arg(p):
+        p.add_argument("--device", default="cuda",
+                       help="torch device to solve on (default cuda)")
+
     p = sub.add_parser("single", help="one-step solver comparison (SingleSolve)")
-    p.add_argument("--problem", default="lkdv", choices=["lkdv", "swe"])
+    p.add_argument("--problem", default="lkdv", choices=["lkdv", "swe", "heat"])
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--tol", type=float, default=1e-50)
     p.add_argument("--M", type=int, default=50)
     p.add_argument("--degree", type=int, default=1)
-    p.add_argument("--device", required=True,
-                   help="torch device to solve on, e.g. cuda or cpu")
+    device_arg(p)
+
+    p = sub.add_parser("timed", help="TimedSolve size sweep with the "
+                                     "problem's default preconditioner")
+    p.add_argument("--problem", default="heat", choices=["heat"])
+    p.add_argument("--sizes", type=int, nargs="+", default=None)
+    p.add_argument("--k", type=int, default=20)
+    p.add_argument("--tol", type=float, default=1e-7)
+    p.add_argument("--tol-mode", default="abs", choices=["abs", "rhs"])
+    device_arg(p)
 
     args = parser.parse_args(argv)
 
@@ -29,6 +44,11 @@ def main(argv=None):
 
         single_solve(args.problem, k=args.k, tol=args.tol, M=args.M,
                      degree=args.degree, device=args.device)
+    elif args.cmd == "timed":
+        from .timed_solve import timed_solve
+
+        timed_solve(args.problem, sizes=args.sizes, tol=args.tol, k=args.k,
+                    tol_mode=args.tol_mode, device=args.device)
 
 
 if __name__ == "__main__":

@@ -14,9 +14,9 @@ from . import report, wrappers
 
 
 def get_model(name: str):
-    from ..models import lkdv, swe
+    from ..models import heat, lkdv, swe
 
-    models = {"lkdv": lkdv, "swe": swe}
+    models = {"lkdv": lkdv, "swe": swe, "heat": heat}
     if name not in models:
         raise NotImplementedError(
             f"problem {name!r} is not ported; the port has {sorted(models)}"

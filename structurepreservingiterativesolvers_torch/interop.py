@@ -14,7 +14,17 @@ is a dict:
   ``A_csr`` for the direct solve;
 * swe: ``A``; ``b``, ``z0``, ``omega``; the energy weights
   ``energy_scales`` (three per-field factors); ``m0``, ``e0``; ``n0``;
-  ``N``, ``M``, ``degree``, ``T``; optionally ``A_csr``.
+  ``N``, ``M``, ``degree``, ``T``; optionally ``A_csr``;
+* heat: ``A`` (the explicit DIA of the JAX package's Stencil, decomposed
+  again here by ``maybe_stencil``), ``Mmat``, ``Lmat``, ``Emat``; ``b``,
+  ``z0``, ``Lz0``, ``omega``; ``m0``, ``e0``, ``old_energy``; ``N``, ``M``,
+  ``degree``, ``T``; optionally ``A_csr``.
+
+An exported AMG hierarchy (``amg_hierarchy``) is the list of its levels,
+each a dict of numpy arrays and sizes: ``A`` (the level operator's
+``(data, offsets)``), ``dinv`` and ``omega``, and on every level but the
+coarsest the smoother bands ``SP`` and ``SR`` and the grid sizes ``C1``,
+``C2``, ``Cc1``, ``Cc2`` and ``box``.
 """
 
 from __future__ import annotations
@@ -23,8 +33,10 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_DTYPE
-from .models import lkdv, swe
+from .models import heat, lkdv, swe
 from .ops.sparse import DIA
+from .ops.stencil import maybe_stencil
+from .precond import amg as _amg
 
 
 def dia(data, offsets, wrap, *, device, dtype=DEFAULT_DTYPE) -> DIA:
@@ -74,3 +86,49 @@ def swe_system(arrays: dict, *, device) -> swe.System:
         n0=int(a["n0"]),
         A_csr=a.get("A_csr"),
     )
+
+
+def heat_system(arrays: dict, *, device) -> heat.System:
+    a = arrays
+    prob = heat.Problem(N=a["N"], M=a["M"], degree=a["degree"], T=float(a["T"]))
+    return heat.System(
+        A=maybe_stencil(dia(*a["A"], device=device)),
+        b=_tensor(a["b"], device),
+        z0=_tensor(a["z0"], device),
+        Mmat=dia(*a["Mmat"], device=device),
+        Lmat=dia(*a["Lmat"], device=device),
+        Emat=dia(*a["Emat"], device=device),
+        Lz0=_tensor(a["Lz0"], device),
+        omega=_tensor(a["omega"], device),
+        m0=_tensor(a["m0"], device),
+        e0=_tensor(a["e0"], device),
+        old_energy=_tensor(a["old_energy"], device),
+        prob=prob,
+        A_csr=a.get("A_csr"),
+    )
+
+
+def amg_hierarchy(levels, coarse_inv, nu: int, *, device) -> _amg.AMG:
+    """The port's AMG on the exported levels of a JAX hierarchy, so the
+    V-cycle can be compared apart from the setup."""
+    out = []
+    for lv in levels:
+        A = dia(lv["A"][0], lv["A"][1], False, device=device)
+        dinv = _tensor(lv["dinv"], device)
+        if "SP" not in lv:
+            out.append(_amg._Level(A=A, P=None, R=None, dinv=dinv,
+                                   omega=float(lv["omega"])))
+            continue
+        grid = dict(C1=int(lv["C1"]), C2=int(lv["C2"]), b=int(lv["box"]),
+                    Cc1=int(lv["Cc1"]), Cc2=int(lv["Cc2"]))
+        out.append(_amg._Level(
+            A=A,
+            P=_amg.BoxProlong(S=dia(lv["SP"], A.offsets, False, device=device),
+                              **grid),
+            R=_amg.BoxRestrict(S=dia(lv["SR"], A.offsets, False, device=device),
+                               **grid),
+            dinv=dinv,
+            omega=float(lv["omega"]),
+        ))
+    return _amg.AMG(levels=tuple(out), coarse_inv=_tensor(coarse_inv, device),
+                    nu=int(nu))

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch twins.
 
 ``dia_spmv``: the DIA sparse matrix-vector product (``csrc/dia_spmv.cu``).
-Importing this package builds nothing; a kernel is compiled from ``csrc/``
-the first time a CUDA tensor reaches its wrapper.
+``stencil_spmv``: the constant-stencil product with its boundary-strip
+correction (``csrc/stencil_spmv.cu``).  Importing this package builds
+nothing; a kernel is compiled from ``csrc/`` the first time a CUDA tensor
+reaches its wrapper.
 """

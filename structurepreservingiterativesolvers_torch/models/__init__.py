@@ -1,2 +1,2 @@
-"""Model problems of the port: lkdv (1-D linear KdV) and swe (2-D linear
-rotating shallow water)."""
+"""Model problems of the port: lkdv (1-D linear KdV), swe (2-D linear
+rotating shallow water) and heat (2-D heat equation)."""

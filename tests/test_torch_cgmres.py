@@ -23,9 +23,7 @@ The committed JAX record (``reference/slice1.json``), which the card run is
 held against, is regenerated here for its lkdv and swe M=64 entries.
 """
 
-import importlib.util
 import math
-from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -37,8 +35,6 @@ from structurepreservingiterativesolvers_torch import solvers as tsol
 from structurepreservingiterativesolvers_tpu import solvers as jsol
 from structurepreservingiterativesolvers_tpu.models import lkdv as jlkdv
 from structurepreservingiterativesolvers_tpu.models import swe as jswe
-
-ROOT = Path(__file__).resolve().parents[1]
 
 SYSTEMS = {
     "easy": lambda: jlkdv.linforms(**torch_parity.LKDV_EASY),
@@ -212,14 +208,6 @@ def test_solvers_refuse_f32_storage(systems):
         tsol.cgmres(ts.A, b32, k=5, constraints=ts.constraints())
 
 
-def _reference_script():
-    spec = importlib.util.spec_from_file_location(
-        "make_torch_reference", ROOT / "scripts" / "make_torch_reference.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def _same_summary(new, rec, beta):
     for key in ("steps", "constrained_steps", "safety"):
         assert new.get(key) == rec.get(key), key
@@ -236,11 +224,11 @@ def _same_summary(new, rec, beta):
 @pytest.mark.parametrize("name", ["lkdv_easy", "lkdv_hard", "swe_M64"])
 def test_reference_record_is_current(systems, name):
     """Regenerate an entry of the committed JAX record and compare."""
-    script = _reference_script()
+    script = torch_parity.reference_script()
     sys_name = {"lkdv_easy": "easy", "lkdv_hard": "hard"}.get(name)
     s = systems(sys_name)[0] if sys_name else None
     new = script.record(name, s=s)
-    rec = script.load()[name]
+    rec = script.load(name)[name]
     assert new["config"]["k"] == rec["config"]["k"]
     assert new["n"] == rec["n"]
     for solver in ("gmres", "cgmres"):
@@ -250,8 +238,8 @@ def test_reference_record_is_current(systems, name):
 @pytest.mark.slow
 def test_reference_record_swe_m512():
     """The largest entry (n = 786,432), which the card run is held to."""
-    script = _reference_script()
+    script = torch_parity.reference_script()
     new = script.record("swe_M512")
-    rec = script.load()["swe_M512"]
+    rec = script.load("swe_M512")["swe_M512"]
     for solver in ("gmres", "cgmres"):
         _same_summary(new[solver], rec[solver], rec["beta"])

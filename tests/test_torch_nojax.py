@@ -1,6 +1,7 @@
 """The PyTorch port runs where JAX does not exist: the machine with the card
-has no JAX.  A subprocess that blocks ``import jax`` imports the port, runs
-lkdv CGMRES and the SingleSolve command line on the CPU."""
+has no JAX.  A subprocess that blocks ``import jax`` and the JAX package
+imports the port, runs lkdv CGMRES, the SingleSolve command line and the
+heat TimedSolve command line on the CPU."""
 
 import re
 import subprocess
@@ -16,6 +17,7 @@ PORT = ROOT / "structurepreservingiterativesolvers_torch"
 SCRIPT = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["structurepreservingiterativesolvers_tpu"] = None
 import torch
 torch.set_num_threads(1)
 from structurepreservingiterativesolvers_torch.models import lkdv
@@ -27,8 +29,9 @@ print("SOLVE", info["steps"], info["constrained_steps"], info["safety"],
 from structurepreservingiterativesolvers_torch.experiments.cli import main
 main(["single", "--problem", "lkdv", "--M", "50", "--k", "20",
       "--device", "cpu"])
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+main(["timed", "--problem", "heat", "--sizes", "16", "--device", "cpu"])
+assert not any(m.split(".")[0] in ("jax", "structurepreservingiterativesolvers_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
 """
 
 
@@ -44,13 +47,24 @@ def test_port_imports_and_solves_without_jax():
     # the prototypical CGMRES ones are at roundoff
     cg = re.findall(r"^cgmres \w+ deviation = (\S+)$", proc.stdout, re.M)
     assert len(cg) == 3 and max(abs(float(d)) for d in cg) <= 1e-10
+    # the TimedSolve table: one heat row, certified
+    row = [ln for ln in proc.stdout.splitlines() if ln.startswith("| 16 |")]
+    assert len(row) == 1 and row[0].split("|")[2].strip() == "True"
 
 
 def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import jax|from jax)", re.M)
-    offenders = [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+    """Neither the port nor ``chip_smoke.py`` imports JAX or the JAX
+    package, not even a module of it that does not import JAX."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|structurepreservingiterativesolvers_tpu)\b"
+        r"|import_module\(\s*[\"'](jax|structurepreservingiterativesolvers_tpu)\b",
+        re.M)
+    sources = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
+    offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []
+    assert pattern.search("from structurepreservingiterativesolvers_tpu.models import fem2d")
+    assert pattern.search("    import jax.numpy as jnp")
 
 
 def test_general_constraints_not_ported():

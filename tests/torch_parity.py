@@ -9,6 +9,10 @@ the CPU in f64.
 
 from __future__ import annotations
 
+import importlib.util
+import math
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -16,6 +20,8 @@ from structurepreservingiterativesolvers_torch import interop
 
 # the suite runs several pytest workers side by side
 torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
 
 LKDV_EASY = dict(degree=1, M=50, N=100)
 LKDV_HARD = dict(degree=3, M=100, N=100)
@@ -48,8 +54,37 @@ def export_swe(s) -> dict:
     }
 
 
+def export_heat(s) -> dict:
+    p = s.prob
+    return {
+        "A": dia_triple(getattr(s.A, "dia", s.A)), "Mmat": dia_triple(s.Mmat),
+        "Lmat": dia_triple(s.Lmat), "Emat": dia_triple(s.Emat),
+        "b": np.asarray(s.b), "z0": np.asarray(s.z0), "Lz0": np.asarray(s.Lz0),
+        "omega": np.asarray(s.omega), "m0": float(s.m0), "e0": float(s.e0),
+        "old_energy": float(s.old_energy), "N": p.N, "M": p.M,
+        "degree": p.degree, "T": p.T, "A_csr": s.A_csr,
+    }
+
+
+def export_amg(pre) -> dict:
+    """A JAX AMG hierarchy as the arguments of ``interop.amg_hierarchy``."""
+    levels = []
+    for L in pre.levels:
+        lv = {"A": (np.asarray(L.A.data), tuple(L.A.offsets)),
+              "dinv": np.asarray(L.dinv), "omega": L.omega}
+        if L.P is not None:
+            lv.update(SP=np.asarray(L.P.S.data), SR=np.asarray(L.R.S.data),
+                      C1=L.P.C1, C2=L.P.C2, Cc1=L.P.Cc1, Cc2=L.P.Cc2,
+                      box=L.P.b)
+        levels.append(lv)
+    return {"levels": levels, "coarse_inv": np.asarray(pre.coarse_inv),
+            "nu": pre.nu}
+
+
 def to_port(jax_system):
-    """The port's twin of a JAX lkdv or swe system, on the CPU."""
+    """The port's twin of a JAX lkdv, swe or heat system, on the CPU."""
+    if hasattr(jax_system, "Lmat"):
+        return interop.heat_system(export_heat(jax_system), device="cpu")
     if hasattr(jax_system, "Mmat"):
         return interop.lkdv_system(export_lkdv(jax_system), device="cpu")
     return interop.swe_system(export_swe(jax_system), device="cpu")
@@ -67,3 +102,61 @@ def perturbed(b, seed=0, size=1e-15):
     b = np.asarray(b)
     rng = np.random.default_rng(seed)
     return b * (1.0 + size * rng.standard_normal(b.shape))
+
+
+def close(a, b, rtol):
+    """max|a − b| ≤ rtol · max|b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = max(float(np.max(np.abs(b))), 1e-300)
+    assert np.max(np.abs(a - b)) <= rtol * scale
+
+
+def heat_systems():
+    """A getter of (JAX system, port twin, JAX AMG of the TimedSolve
+    pre-builder) per heat M, each built on first use."""
+    import importlib
+
+    from structurepreservingiterativesolvers_tpu.models import heat as jheat
+
+    # the JAX package's experiments namespace exports a function of this name
+    jts = importlib.import_module(
+        "structurepreservingiterativesolvers_tpu.experiments.timed_solve")
+    cache = {}
+
+    def get(M):
+        if M not in cache:
+            js = jheat.linforms(M=M)
+            cache[M] = (js, to_port(js), jts.default_pre_builder("heat")(js))
+        return cache[M]
+
+    return get
+
+
+def reference_script():
+    """``scripts/make_torch_reference.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_reference", ROOT / "scripts" / "make_torch_reference.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_record(new, rec):
+    """A regenerated entry of the JAX record against the committed one:
+    counts equal, residuals and deviations to 1e-6, invariants to 1e-12."""
+    assert new["n"] == rec["n"]
+    assert new.get("amg_levels") == rec.get("amg_levels")
+    beta = rec["beta"]
+    for solver in ("gmres", "cgmres"):
+        n, r = new[solver], rec[solver]
+        for key in ("steps", "constrained_steps", "safety"):
+            assert n.get(key) == r.get(key), (solver, key)
+        for key in ("res", "true_residual"):
+            assert math.isclose(n[key], r[key], rel_tol=1e-6,
+                                abs_tol=1e-12 * beta), (solver, key)
+        if "deviation" in r:
+            assert math.isclose(n["deviation"], r["deviation"], rel_tol=1e-6,
+                                abs_tol=1e-12), (solver, "deviation")
+        for key, val in r["invariants"].items():
+            assert math.isclose(n["invariants"][key], val, rel_tol=1e-12,
+                                abs_tol=1e-14), (solver, key)
