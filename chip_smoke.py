@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; JAX is neither needed nor
 imported.  Phases, each of which raises on a failed check:
 
-1. build both kernels from ``csrc/`` (``dia_spmv.cu``, ``stencil_spmv.cu``),
-   one ``nvcc`` for each source, started together;
+1. build the three kernel sources from ``csrc/`` (``dia_spmv.cu``,
+   ``stencil_spmv.cu``, ``poly_apply.cu``), one ``nvcc`` for each source,
+   started together;
 2. hold the DIA kernel against its plain PyTorch twin in f64 and f32 on the
    shallow-water operator (M=512, wrapped) and the lkdv degree-3 M=100
    operators (A wrapped, the mass matrix not, ragged n), and time it at the
@@ -28,7 +29,22 @@ imported.  Phases, each of which raises on a failed check:
    heat M=1024 and M=16 operators, and the DIA kernel on heat's matrices,
    and time both kernels, their plain twins and one cuSPARSE CSR matvec of
    the same matrix at the heat M=1024 shape, with the L2 cache flushed
-   before each launch, beside the least time the card could take.
+   before each launch, beside the least time the card could take;
+7. hold the fused Chebyshev and Neumann applies (``poly_apply.cu``) against
+   their plain twins in f64 and f32 on the heat M=1024 and M=16 stencils
+   and the swe M=512 wrapped DIA, and time them at heat M=1024 in f64 with
+   L2 flushed, beside their bound, their plain twins and the unfused chain
+   of SpMV kernels (``fused=False``);
+8. the third slice's full-width rows: the heat M=1024 TimedSolve row
+   (k=20, tol=1e-7) through ``time_cgmres`` with a ``chebyshev(degree=8)``
+   and a ``neumann(degree=4)`` pre-builder in place of the AMG, counting
+   the kernels' launches over each row and per solve, held against the JAX
+   package's record (``reference/slice3.json``).  A fixed-degree polynomial
+   stalls at this size, in the JAX package too, so these rows end
+   uncertified, and no deviation is compared;
+9. the certified anchors of the third slice: heat M=256 (k=60) with cheb8
+   and heat M=64 (k=60) with cheb8 and with neu4, each held to its record's
+   counts and safety and to the certificate.
 
 The line before the last is the kernel report as JSON; the last line is the
 device record.  Exits non-zero, printing no result, without a CUDA device
@@ -52,12 +68,23 @@ PACKAGE = ROOT / "structurepreservingiterativesolvers_torch"
 # but the compiler contracts them into fused multiply-adds, which round once
 # instead of twice; the bounds are on max|Δy| / max|y|
 KERNEL_RTOL = {"float64": 1e-14, "float32": 1e-6}
+# the fused polynomial applies against their plain twins: the same
+# recurrence in the same order, p products each summed as the SpMV kernels
+# sum it, so the contraction differences of p steps add up; max|Δy| / max|y|
+POLY_RTOL = {"float64": 1e-13, "float32": 1e-5}
 # the certificate of the solvers (the JAX package's acceptance bars)
 DEVIATION_MAX = 1e-10
 SWE_TOL, SWE_K, SWE_M = 1e-9, 60, 512
 HEAT_TOL, HEAT_K, HEAT_M = 1e-7, 20, 1024
 DEVICE = "cuda"
-SOURCES = ("dia_spmv.cu", "stencil_spmv.cu")
+SOURCES = ("dia_spmv.cu", "stencil_spmv.cu", "poly_apply.cu")
+# the third slice: the polynomial pre-builders as a user writes them
+# (degree, and Neumann's default damping), and its record's tolerances
+CHEB_DEGREE, NEU_DEGREE, NEU_OMEGA = 8, 4, 0.8
+BOUNDS_RTOL, RESIDUAL_RTOL = 1e-10, 1e-6
+ANCHORS = (("heat_M256_cheb8", 256, 60, "cheb8"),
+           ("heat_M64_cheb8", 64, 60, "cheb8"),
+           ("heat_M64_neu4", 64, 60, "neu4"))
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f64 rate outside the
 # tensor cores (the kernels' multiply-adds run there)
 HBM_BYTES_PER_S = 3.35e12
@@ -560,6 +587,353 @@ def phase_heat_kernels(s, pre):
     return stencil_err, st, dia_err, dia
 
 
+
+def _poly_builders():
+    """name -> the pre-builder of the third slice, as a user writes it."""
+    from structurepreservingiterativesolvers_torch.precond import (
+        chebyshev,
+        neumann,
+    )
+
+    return {"cheb8": lambda s: chebyshev(s.A, degree=CHEB_DEGREE),
+            "neu4": lambda s: neumann(s.A, degree=NEU_DEGREE, omega=NEU_OMEGA)}
+
+
+def _poly_launches():
+    """The launch counters of the four kernels, by name."""
+    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
+        dia_spmv_cuda,
+    )
+    from structurepreservingiterativesolvers_torch.kernels.poly_apply import (
+        cheb_apply_cuda,
+        neumann_apply_cuda,
+    )
+    from structurepreservingiterativesolvers_torch.kernels.stencil_spmv import (
+        stencil_spmv_cuda,
+    )
+
+    return {"cheb_apply": cheb_apply_cuda, "neumann_apply": neumann_apply_cuda,
+            "stencil_spmv": stencil_spmv_cuda, "dia_spmv": dia_spmv_cuda}
+
+
+def _reset_launches():
+    for fn in _poly_launches().values():
+        fn.launches = 0
+
+
+def _read_launches():
+    return {name: fn.launches for name, fn in _poly_launches().items()}
+
+
+def phase_poly_kernels(ops, applies=None):
+    """Kernels #3 and #4 against their plain twins in f64 and f32 on each
+    operator of ``ops`` (label -> operator on the card), Chebyshev with the
+    bounds ``chebyshev()`` computes for it and Neumann with the builder's
+    D⁻¹.  ``applies`` maps a label to its (kind, degree) list, by default
+    (cheb, 8) and (neumann, 4).  Returns the largest f64 absolute error of
+    each kernel."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.precond import (
+        chebyshev,
+        neumann,
+    )
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    errs = {"cheb_apply": 0.0, "neumann_apply": 0.0}
+    for label, A in ops.items():
+        base = chebyshev(A, degree=CHEB_DEGREE)
+        theta = 0.5 * (base.lmax + base.lmin)
+        delta = 0.5 * (base.lmax - base.lmin)
+        todo = (applies or {}).get(label, [("cheb", CHEB_DEGREE),
+                                           ("neumann", NEU_DEGREE)])
+        for dtype in (torch.float64, torch.float32):
+            Ad = A.astype(dtype)
+            dinv = neumann(Ad, degree=NEU_DEGREE).dinv
+            v = torch.randn(A.shape[0], generator=gen, device=DEVICE,
+                            dtype=dtype)
+            tag = str(dtype).split(".")[-1]
+            for kind, degree in todo:
+                if kind == "cheb":
+                    args = (Ad, degree, theta, delta, theta / delta, v)
+                    y = pa.cheb_apply(*args)
+                    torch.cuda.synchronize()
+                    ref = pa.cheb_apply_torch(*args)
+                else:
+                    args = (Ad, dinv, degree, NEU_OMEGA, v)
+                    y = pa.neumann_apply(*args)
+                    torch.cuda.synchronize()
+                    ref = pa.neumann_apply_torch(*args)
+                abs_err, rel = _rel_err(y, ref)
+                print(f"[poly] {kind} p={degree} {label} n={A.shape[0]} "
+                      f"{type(A).__name__} wrap={A.wrap} {tag}: max|dy|/max|y| "
+                      f"= {rel:.3e} (bound {POLY_RTOL[tag]:.0e})")
+                check(y.dtype == dtype and math.isfinite(rel)
+                      and rel <= POLY_RTOL[tag],
+                      f"{kind} kernel disagrees with plain on {label} p={degree} "
+                      f"{tag}: {rel:.3e}")
+                if dtype == torch.float64:
+                    name = f"{kind}_apply"
+                    errs[name] = max(errs[name], abs_err)
+    return errs
+
+
+def phase_poly_timing(s):
+    """Kernels #3 and #4 at the heat M=1024 stencil in f64, L2 flushed,
+    beside their bounds, their plain twins and the unfused chain (p launches
+    of the stencil kernel and the vector updates between them).  Returns the
+    report's fields per kernel."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.precond import (
+        chebyshev,
+        neumann,
+    )
+
+    S = s.A
+    n, ndiag = S.shape[0], len(S.offsets)
+    R = n // S.grid_c
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    v = torch.randn(n, generator=gen, device=DEVICE, dtype=torch.float64)
+    strip_bytes = 2 * (S.grid_c + R) * ndiag * 8
+
+    cheb = chebyshev(S, degree=CHEB_DEGREE)
+    check(cheb.fused is True, "chebyshev() of a card operator did not fuse")
+    chain = chebyshev(S, cheb.lmin, cheb.lmax, degree=CHEB_DEGREE, fused=False)
+    theta = 0.5 * (cheb.lmax + cheb.lmin)
+    delta = 0.5 * (cheb.lmax - cheb.lmin)
+    cargs = (S, CHEB_DEGREE, theta, delta, theta / delta, v)
+    _, rel = _rel_err(cheb(v), chain(v))
+    check(rel <= POLY_RTOL["float64"],
+          f"fused Chebyshev differs from the chain: {rel:.3e}")
+    p = CHEB_DEGREE
+    # v read once, y written once, the strips read once; per row the first
+    # sweep's v/θ, product, r and d (2·ndiag + 3), each later step's x, r,
+    # product and d (2·ndiag + 5), and the last x + d
+    out = {"cheb_apply": {
+        "ms": _time_cold_ms(lambda: pa.cheb_apply(*cargs)),
+        "plain_ms": _time_cold_ms(lambda: pa.cheb_apply_torch(*cargs), reps=10),
+        "library_ms": None,
+        "chain_ms": _time_cold_ms(lambda: chain(v)),
+        "warm_ms": _time_ms(lambda: pa.cheb_apply(*cargs)),
+        "warm_chain_ms": _time_ms(lambda: chain(v)),
+    }}
+    out["cheb_apply"]["bound_ms"], out["cheb_apply"]["bound_by"] = _bound_ms(
+        2 * n * 8 + strip_bytes,
+        n * ((2 * ndiag + 3) + (p - 1) * (2 * ndiag + 5) + 1))
+
+    neu = neumann(S, degree=NEU_DEGREE, omega=NEU_OMEGA)
+    check(neu.fused is True, "neumann() of a card operator did not fuse")
+    nchain = neumann(S, degree=NEU_DEGREE, omega=NEU_OMEGA, fused=False)
+    nargs = (S, neu.dinv, NEU_DEGREE, NEU_OMEGA, v)
+    _, rel = _rel_err(neu(v), nchain(v))
+    check(rel <= POLY_RTOL["float64"],
+          f"fused Neumann differs from the chain: {rel:.3e}")
+    p = NEU_DEGREE
+    # v and D⁻¹ read once, y written once, the strips read once; per row the
+    # first sweep's z, product, next z and acc (2·ndiag + 6), each later
+    # step's product, z and acc (2·ndiag + 4)
+    out["neumann_apply"] = {
+        "ms": _time_cold_ms(lambda: pa.neumann_apply(*nargs)),
+        "plain_ms": _time_cold_ms(lambda: pa.neumann_apply_torch(*nargs),
+                                  reps=10),
+        "library_ms": None,
+        "chain_ms": _time_cold_ms(lambda: nchain(v)),
+        "warm_ms": _time_ms(lambda: pa.neumann_apply(*nargs)),
+        "warm_chain_ms": _time_ms(lambda: nchain(v)),
+    }
+    out["neumann_apply"]["bound_ms"], out["neumann_apply"]["bound_by"] = (
+        _bound_ms(3 * n * 8 + strip_bytes,
+                  n * ((2 * ndiag + 6) + (p - 2) * (2 * ndiag + 4))))
+    for name, t in out.items():
+        print(f"[poly] {name} at heat M={HEAT_M} (n={n}, f64, L2 flushed): "
+              f"kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; kernel at {t['bound_ms'] / t['ms']:.1%} of "
+              f"it), plain twin {t['plain_ms']:.4f} ms, unfused chain "
+              f"{t['chain_ms']:.4f} ms; back to back with operands in L2: "
+              f"kernel {t['warm_ms']:.4f} ms, chain {t['warm_chain_ms']:.4f} "
+              f"ms")
+    return out
+
+
+def _check_counts(tag, got, rec, keys):
+    for key in keys:
+        check(_within_one(got, rec, key),
+              f"{tag} {key} {got.get(key)} vs record {rec.get(key)}")
+
+
+def _check_bounds(tag, pre, rec):
+    for key in ("lmin", "lmax"):
+        if key in rec:
+            got = float(getattr(pre, key))
+            print(f"{tag} {key} {got!r} (record {rec[key]!r})")
+            check(math.isclose(got, rec[key], rel_tol=BOUNDS_RTOL),
+                  f"{tag} {key} {got!r} vs record {rec[key]!r}")
+
+
+def phase_poly_rows(record):
+    """The third slice's main path: the heat M=1024 TimedSolve row through
+    ``time_cgmres`` with each polynomial pre-builder, then one more GMRES
+    and CGMRES pair for the launches per solve and the iterates.  Returns
+    the launches over each row."""
+    import warnings
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        time_cgmres,
+    )
+
+    rows = {}
+    for short, builder in _poly_builders().items():
+        name = f"heat_M{HEAT_M}_{short}"
+        rec = record[name]
+        tag = f"[{name}]"
+        seen = {}
+
+        def pre_builder(system, builder=builder):
+            seen["system"] = system
+            seen["pre"] = builder(system)
+            return seen["pre"]
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = time_cgmres("heat", M=HEAT_M, k=HEAT_K, tol=HEAT_TOL,
+                              pre_builder=pre_builder, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows[name] = launches = _read_launches()
+        s, pre = seen["system"], seen["pre"]
+        print(f"{tag} time_cgmres wall {wall:.3f} s (assembly, two builds, "
+              f"warm-up and timed solves); build first "
+              f"{out['time_pre_first']:.4f} s, second {out['time_pre']:.4f} s")
+        print(f"{tag} {type(pre).__name__} fused={pre.fused} degree "
+              f"{pre.degree}")
+        _check_bounds(tag, pre, rec)
+        print(f"{tag} gmres: steps {out['gmres_steps']} (record "
+              f"{rec['gmres']['steps']}), wall {out['time_gmres']:.4f} s, "
+              f"{1e3 * out['time_gmres'] / max(out['gmres_steps'], 1):.3f} "
+              f"ms/iteration, final residual {out['gmres_res_final']:.6e} "
+              f"(record {rec['gmres']['res']:.6e})")
+        print(f"{tag} cgmres: steps {out['steps']} (record "
+              f"{rec['cgmres']['steps']}), constrained "
+              f"{out['constrained_steps']} (record "
+              f"{rec['cgmres']['constrained_steps']}), safety {out['safety']} "
+              f"(record {rec['cgmres']['safety']}), wall {out['runtime']:.4f} "
+              f"s; phase 1 {1e3 * out['iter_time_unconstrained']:.3f} "
+              f"ms/iteration, catch-up {1e3 * out['constraint_building']:.3f} "
+              f"ms, endgame {1e3 * out['iter_time_constrained']:.3f} "
+              f"ms/iteration; final residual {out['res_final']:.6e} (record "
+              f"{rec['cgmres']['res']:.6e})")
+        for w in caught:
+            print(f"{tag} warning ({w.category.__name__}): {w.message}")
+        print(f"{tag} launches over the TimedSolve row: {launches}")
+
+        per_solve = {}
+        for solver, call in (("gmres", wrappers.gmres_wrapper),
+                             ("cgmres", wrappers.cgmres_wrapper)):
+            _reset_launches()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                x, info = call(s, k=HEAT_K, tol=HEAT_TOL, pre=pre)
+            torch.cuda.synchronize()
+            per_solve[solver] = (x, info)
+            print(f"{tag} one {solver} solve: {info['steps']} steps, "
+                  f"launches {_read_launches()}")
+        xg, ig = per_solve["gmres"]
+        xc, ic = per_solve["cgmres"]
+        res_g = float(torch.linalg.norm(s.b - s.A @ xg))
+        res_c = float(torch.linalg.norm(s.b - s.A @ xc))
+        print(f"{tag} true residuals: gmres {res_g:.6e} (record "
+              f"{rec['gmres']['true_residual']:.6e}), cgmres {res_c:.6e} "
+              f"(record {rec['cgmres']['true_residual']:.6e}); cgmres KKT "
+              f"deviation {ic['deviation']:.3e} (record "
+              f"{rec['cgmres']['deviation']:.3e}, not certified)")
+        print(f"{tag} invariant deviations: gmres {_deviations(s, xg)} "
+              f"(record {rec['gmres']['deviations']}), cgmres "
+              f"{_deviations(s, xc)} (record {rec['cgmres']['deviations']})")
+
+        kernel = "cheb_apply" if short.startswith("cheb") else "neumann_apply"
+        check(launches[kernel] > 0, f"{tag} launched no {kernel} kernel")
+        check(pre.fused is True, f"{tag} the builder did not fuse")
+        for info in (out, ic):
+            check(info["safety"] == rec["cgmres"]["safety"],
+                  f"{tag} safety {info['safety']} vs record "
+                  f"{rec['cgmres']['safety']}")
+            _check_counts(tag + " cgmres", info, rec["cgmres"],
+                          ("steps", "constrained_steps"))
+        for steps in (out["gmres_steps"], ig["steps"]):
+            check(abs(steps - rec["gmres"]["steps"]) <= 1,
+                  f"{tag} gmres steps {steps} vs record {rec['gmres']['steps']}")
+        check(math.isclose(res_g, rec["gmres"]["true_residual"],
+                           rel_tol=RESIDUAL_RTOL),
+              f"{tag} gmres true residual {res_g:.6e} vs record "
+              f"{rec['gmres']['true_residual']:.6e}")
+        for x in (xg, xc):
+            check(x.shape == s.b.shape and bool(torch.isfinite(x).all()),
+                  f"{tag} iterate is not finite")
+        del s, pre, seen
+    return rows
+
+
+def phase_poly_anchors(record):
+    """The certified anchors of the third slice, through the wrappers with
+    the port's builders.  Returns the launches per anchor."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    builders = _poly_builders()
+    out = {}
+    for name, M, k, short in ANCHORS:
+        rec = record[name]
+        tag = f"[{name}]"
+        s = heat.linforms(M=M, device=DEVICE)
+        _reset_launches()
+        pre = builders[short](s)
+        xg, ig = wrappers.gmres_wrapper(s, k=k, tol=HEAT_TOL, pre=pre)
+        xc, ic = wrappers.cgmres_wrapper(s, k=k, tol=HEAT_TOL, pre=pre)
+        torch.cuda.synchronize()
+        out[name] = _read_launches()
+        _check_bounds(tag, pre, rec)
+        res_g = float(torch.linalg.norm(s.b - s.A @ xg))
+        res_c = float(torch.linalg.norm(s.b - s.A @ xc))
+        dev = _deviations(s, xc)
+        print(f"{tag} gmres {ig['steps']} steps (record "
+              f"{rec['gmres']['steps']}), true residual {res_g:.4e} (record "
+              f"{rec['gmres']['true_residual']:.4e}); cgmres {ic['steps']} "
+              f"steps, {ic['constrained_steps']} constrained, safety "
+              f"{ic['safety']} (record {rec['cgmres']['steps']} / "
+              f"{rec['cgmres']['constrained_steps']} / "
+              f"{rec['cgmres']['safety']}), KKT deviation "
+              f"{ic['deviation']:.3e} (record {rec['cgmres']['deviation']:.3e}),"
+              f" true residual {res_c:.4e} (record "
+              f"{rec['cgmres']['true_residual']:.4e}), invariant deviations "
+              f"{dev}; launches {out[name]}")
+        check(pre.fused is True, f"{tag} the builder did not fuse")
+        kernel = "cheb_apply" if short.startswith("cheb") else "neumann_apply"
+        check(out[name][kernel] > 0, f"{tag} launched no {kernel} kernel")
+        check(abs(ig["steps"] - rec["gmres"]["steps"]) <= 1,
+              f"{tag} gmres steps {ig['steps']} vs record")
+        _check_counts(tag + " cgmres", ic, rec["cgmres"],
+                      ("steps", "constrained_steps"))
+        check(ic["safety"] == rec["cgmres"]["safety"] is True,
+              f"{tag} safety {ic['safety']} vs record")
+        check(ic["deviation"] <= DEVIATION_MAX
+              and max(abs(d) for d in dev.values()) <= DEVIATION_MAX,
+              f"{tag} not certified: KKT {ic['deviation']:.3e}, {dev}")
+        if rec["cgmres"]["true_residual"] < HEAT_TOL:  # converged anchors
+            check(res_c < HEAT_TOL, f"{tag} cgmres true residual {res_c:.3e}")
+        check(bool(torch.isfinite(xc).all()), f"{tag} iterate is not finite")
+    return out
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -576,10 +950,10 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
-    from structurepreservingiterativesolvers_torch.models import lkdv, swe
+    from structurepreservingiterativesolvers_torch.models import heat, lkdv, swe
 
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
-               for name in ("slice1.json", "slice2.json")}
+               for name in ("slice1.json", "slice2.json", "slice3.json")}
     t_start = time.perf_counter()
     phase_build()
     t0 = time.perf_counter()
@@ -587,6 +961,8 @@ def main() -> int:
     print(f"[swe M={SWE_M}] assembly {time.perf_counter() - t0:.2f} s")
     dia_err = phase_kernel(swe_sys, lkdv.linforms(M=100, degree=3,
                                                   device=DEVICE))
+    torch.cuda.synchronize()
+    poly_err = phase_poly_kernels({f"swe M={SWE_M}": swe_sys.A})
     torch.cuda.synchronize()
     phase_lkdv(records["slice1.json"])
     torch.cuda.synchronize()
@@ -597,22 +973,58 @@ def main() -> int:
     torch.cuda.synchronize()
     st_err, st, dia_heat_err, dia = phase_heat_kernels(heat_sys, pre)
     torch.cuda.synchronize()
+    small = heat.linforms(M=16, device=DEVICE)
+    for name, err in phase_poly_kernels(
+            {f"heat M={HEAT_M}": heat_sys.A, "heat M=16": small.A},
+            {"heat M=16": [("cheb", 1), ("cheb", 2), ("cheb", CHEB_DEGREE),
+                           ("neumann", 1), ("neumann", 2), ("neumann", 3),
+                           ("neumann", NEU_DEGREE)]}).items():
+        poly_err[name] = max(poly_err[name], err)
+    poly_times = phase_poly_timing(heat_sys)
+    torch.cuda.synchronize()
+    del heat_sys, pre, small
+    rows = phase_poly_rows(records["slice3.json"])
+    torch.cuda.synchronize()
+    anchors = phase_poly_anchors(records["slice3.json"])
+    torch.cuda.synchronize()
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
-    tpu = "structurepreservingiterativesolvers_tpu/ops/pallas_spmv.py"
+    tpu = "structurepreservingiterativesolvers_tpu/ops/"
     src = "structurepreservingiterativesolvers_torch/csrc/"
+    cheb_row, neu_row = (f"heat_M{HEAT_M}_{short}" for short in ("cheb8", "neu4"))
+
+    def by_path(name, **first):
+        """A kernel's launches on each path that ran it."""
+        paths = {**first, **{row: rows[row][name] for row in rows},
+                 **{a: anchors[a][name] for a in anchors}}
+        return {path: n for path, n in paths.items() if n}
+
     kernels = [
         {"name": "dia_spmv", "route": "cuda", "source": src + "dia_spmv.cu",
-         "replaces": f"{tpu}:91", "launches": launches["dia_spmv"],
-         "launches_by_path": {f"swe_M{SWE_M}": swe_launches,
-                              f"heat_M{HEAT_M}": launches["dia_spmv"]},
+         "replaces": f"{tpu}pallas_spmv.py:91", "launches": launches["dia_spmv"],
+         "launches_by_path": by_path("dia_spmv", **{
+             f"swe_M{SWE_M}": swe_launches,
+             f"heat_M{HEAT_M}": launches["dia_spmv"]}),
          "max_abs_err": max(dia_err, dia_heat_err), **dia},
         {"name": "stencil_spmv", "route": "cuda",
-         "source": src + "stencil_spmv.cu", "replaces": f"{tpu}:165",
+         "source": src + "stencil_spmv.cu",
+         "replaces": f"{tpu}pallas_spmv.py:165",
          "launches": launches["stencil_spmv"],
-         "launches_by_path": {f"heat_M{HEAT_M}": launches["stencil_spmv"]},
+         "launches_by_path": by_path("stencil_spmv", **{
+             f"heat_M{HEAT_M}": launches["stencil_spmv"]}),
          "max_abs_err": st_err, **st},
     ]
+    for name, row, line in (("cheb_apply", cheb_row, 217),
+                            ("neumann_apply", neu_row, 230)):
+        t = {key: poly_times[name][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "chain_ms")}
+        kernels.append(
+            {"name": name, "route": "cuda", "source": src + "poly_apply.cu",
+             "replaces": f"{tpu}pallas_poly.py:{line}",
+             "launches": rows[row][name],
+             "launches_by_path": by_path(name), "max_abs_err": poly_err[name],
+             **t})
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

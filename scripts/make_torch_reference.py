@@ -4,17 +4,20 @@ against it.
 
 Runs the JAX package on the CPU in f64 and writes, under
 ``structurepreservingiterativesolvers_torch/reference/``, ``slice1.json``
-(lkdv and swe, unpreconditioned) and ``slice2.json`` (heat with the
-structured AMG of the TimedSolve pre-builder): for each configuration,
+(lkdv and swe, unpreconditioned), ``slice2.json`` (heat with the structured
+AMG of the TimedSolve pre-builder) and ``slice3.json`` (heat with the
+Chebyshev and Neumann polynomial preconditioners): for each configuration,
 GMRES and CGMRES through the experiment wrappers, with their steps,
 constrained steps, safety latch, KKT deviation, final true residual and the
-invariants of the returned iterate; for heat also the AMG level sizes.
+invariants of the returned iterate; with the AMG also its level sizes, with
+the Chebyshev preconditioner also its spectral bounds.
 
     python scripts/make_torch_reference.py            # every configuration
     python scripts/make_torch_reference.py swe_M64    # only the named ones
 
 ``swe_M512`` (n = 786,432) and ``heat_M1024`` (n = 1,050,625) take a few
-minutes each on the CPU.
+minutes each on the CPU, ``heat_M1024_cheb8`` and ``heat_M1024_neu4`` one
+to two.
 """
 
 from __future__ import annotations
@@ -28,27 +31,45 @@ ROOT = Path(__file__).resolve().parents[1]
 REFERENCE = ROOT / "structurepreservingiterativesolvers_torch" / "reference"
 
 # name -> (problem, linforms parameters, k, tol, x0 is zeros (else None),
-# history).  lkdv_easy is the reference SingleSolve (tol below 1e-20 selects
-# the prototypical CGMRES); lkdv_hard is the configuration of
-# tests/test_cgmres_lkdv.py::test_cgmres_beats_gmres_on_invariants; swe is
-# the f64 dynamics configuration, unpreconditioned.  heat is the reference's
-# TimedSolve (k=20, tol=1e-7 absolute) with the structured AMG that
-# experiments/timed_solve.py::default_pre_builder pairs it with.
+# history, preconditioner).  lkdv_easy is the reference SingleSolve (tol
+# below 1e-20 selects the prototypical CGMRES); lkdv_hard is the
+# configuration of tests/test_cgmres_lkdv.py::
+# test_cgmres_beats_gmres_on_invariants; swe is the f64 dynamics
+# configuration, unpreconditioned.  heat is the reference's TimedSolve
+# (tol=1e-7 absolute): at k=20 with the structured AMG that
+# experiments/timed_solve.py::default_pre_builder pairs it with, and with
+# the polynomial preconditioners (builder name, parameters) that a
+# pre_builder of precond.chebyshev or precond.neumann gives.  At M=1024 the
+# polynomial rows stall and end uncertified; M=256 and M=64 at k=60 are the
+# certified anchors, M=32 at k=30 the size of the CPU parity tests.
+CHEB8 = ("chebyshev", dict(degree=8))
+NEU4 = ("neumann", dict(degree=4))
 CONFIGS = {
-    "lkdv_easy": ("lkdv", dict(degree=1, M=50, N=100), 20, 1e-50, True, True),
-    "lkdv_hard": ("lkdv", dict(degree=3, M=100, N=100), 50, 1e-6, False, False),
-    "swe_M64": ("swe", dict(M=64), 60, 1e-9, False, False),
-    "swe_M512": ("swe", dict(M=512), 60, 1e-9, False, False),
-    "heat_M32": ("heat", dict(M=32), 20, 1e-7, False, False),
-    "heat_M64": ("heat", dict(M=64), 20, 1e-7, False, False),
-    "heat_M1024": ("heat", dict(M=1024), 20, 1e-7, False, False),
+    "lkdv_easy": ("lkdv", dict(degree=1, M=50, N=100), 20, 1e-50, True, True,
+                  None),
+    "lkdv_hard": ("lkdv", dict(degree=3, M=100, N=100), 50, 1e-6, False,
+                  False, None),
+    "swe_M64": ("swe", dict(M=64), 60, 1e-9, False, False, None),
+    "swe_M512": ("swe", dict(M=512), 60, 1e-9, False, False, None),
+    "heat_M32": ("heat", dict(M=32), 20, 1e-7, False, False, "amg"),
+    "heat_M64": ("heat", dict(M=64), 20, 1e-7, False, False, "amg"),
+    "heat_M1024": ("heat", dict(M=1024), 20, 1e-7, False, False, "amg"),
+    "heat_M1024_cheb8": ("heat", dict(M=1024), 20, 1e-7, False, False, CHEB8),
+    "heat_M1024_neu4": ("heat", dict(M=1024), 20, 1e-7, False, False, NEU4),
+    "heat_M256_cheb8": ("heat", dict(M=256), 60, 1e-7, False, False, CHEB8),
+    "heat_M64_cheb8": ("heat", dict(M=64), 60, 1e-7, False, False, CHEB8),
+    "heat_M64_neu4": ("heat", dict(M=64), 60, 1e-7, False, False, NEU4),
+    "heat_M32_cheb8": ("heat", dict(M=32), 30, 1e-7, False, False, CHEB8),
 }
 
 
 def out_path(name) -> Path:
-    """The record file that holds configuration ``name``."""
-    heat = CONFIGS[name][0] == "heat"
-    return REFERENCE / ("slice2.json" if heat else "slice1.json")
+    """The record file that holds configuration ``name``: by its
+    preconditioner (none, the AMG, a polynomial)."""
+    pre = CONFIGS[name][6]
+    if pre is None:
+        return REFERENCE / "slice1.json"
+    return REFERENCE / ("slice2.json" if pre == "amg" else "slice3.json")
 
 
 def _jax_cpu():
@@ -68,6 +89,23 @@ def system(name):
 
     problem, params = CONFIGS[name][:2]
     return {"lkdv": lkdv, "swe": swe, "heat": heat}[problem].linforms(**params)
+
+
+def pre_builder(name):
+    """The JAX package's preconditioner builder of configuration ``name``
+    (a function of the system), or None."""
+    pre = CONFIGS[name][6]
+    if pre is None:
+        return None
+    from structurepreservingiterativesolvers_tpu import precond
+    from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
+        default_pre_builder,
+    )
+
+    if pre == "amg":
+        return default_pre_builder(CONFIGS[name][0])
+    builder, kwargs = pre
+    return lambda s: getattr(precond, builder)(s.A, **kwargs)
 
 
 def _summary(s, measure, x, info):
@@ -96,13 +134,11 @@ def record(name, s=None):
     import jax.numpy as jnp
 
     from structurepreservingiterativesolvers_tpu.experiments import wrappers
-    from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
-        default_pre_builder,
-    )
 
-    problem, params, k, tol, zero_x0, history = CONFIGS[name]
+    problem, params, k, tol, zero_x0, history, pre_spec = CONFIGS[name]
     s = system(name) if s is None else s
-    pre = default_pre_builder(problem)(s) if problem == "heat" else None
+    build = pre_builder(name)
+    pre = None if build is None else build(s)
     # the invariants and the true residual of an iterate, as one program
     measure = jax.jit(lambda x: (s.compute_invariants(x),
                                  jnp.linalg.norm(s.A @ x - s.b)))
@@ -122,9 +158,14 @@ def record(name, s=None):
         "gmres": _summary(s, measure, xg, ig),
         "cgmres": _summary(s, measure, xc, ic),
     }
-    if pre is not None:
+    if pre_spec == "amg":
         out["config"]["pre"] = "amg"
         out["amg_levels"] = [int(L.A.shape[0]) for L in pre.levels]
+    elif pre_spec is not None:
+        builder, kwargs = pre_spec
+        out["config"]["pre"] = {"name": builder, **kwargs}
+        if hasattr(pre, "lmin"):
+            out["lmin"], out["lmax"] = float(pre.lmin), float(pre.lmax)
     return out
 
 

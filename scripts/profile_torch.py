@@ -4,17 +4,19 @@ pass, on the slice's configurations:
 
 * ``swe``: M=512, f64, k=60, tol=1e-9, unpreconditioned;
 * ``heat``: M=1024, f64, k=20, tol=1e-7, with the structured AMG of the
-  TimedSolve pre-builder.
+  TimedSolve pre-builder, or with ``--pre cheb8`` / ``--pre neu4`` the
+  polynomial pre-builders ``chebyshev(A, degree=8)`` /
+  ``neumann(A, degree=4)``, each apply one launch of the fused kernel.
 
-    python scripts/profile_torch.py --problem heat [--M 1024] [--out build/profile]
+    python scripts/profile_torch.py --problem heat [--pre amg|cheb8|neu4] [--M 1024] [--out build/profile]
 
 Prints the busiest device kernels, the device-busy time against the wall
 time of each solve (the device's idle share), the device time by kind
-(stencil kernel, DIA kernel, matrix-vector products of the Krylov basis and
-the coarse solve, the rest) and, for heat, the device time spent inside the
-AMG V-cycle; writes a Chrome trace per solver into ``--out``.  Then times
-one V-cycle and one operator product alone with CUDA events.  Needs a CUDA
-device.
+(stencil kernel, DIA kernel, fused polynomial kernels, matrix-vector
+products of the Krylov basis and the coarse solve, the rest) and, for heat,
+the device and host time spent inside the preconditioner's applies; writes a
+Chrome trace per solver into ``--out``.  Then times one preconditioner apply
+and one operator product alone with CUDA events.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CONFIGS = {"swe": dict(M=512, k=60, tol=1e-9), "heat": dict(M=1024, k=20, tol=1e-7)}
-VCYCLE = "amg_vcycle"  # the profiler range around each preconditioner apply
+# the profiler range around each preconditioner apply, per --pre
+PRE_RANGES = {"amg": "amg_vcycle", "cheb8": "chebyshev_apply",
+              "neu4": "neumann_apply"}
 
 
 def _kind(name: str) -> str:
@@ -36,6 +40,8 @@ def _kind(name: str) -> str:
         return "stencil kernel"
     if "dia_spmv_kernel" in name:
         return "DIA kernel"
+    if "cheb_kernel" in name or "neumann_kernel" in name:
+        return "fused polynomial kernel"
     if "gemv" in name or "gemm" in name or "dot_kernel" in name:
         return "matrix-vector products (cuBLAS)"
     return "elementwise, norms, copies"
@@ -59,6 +65,8 @@ def _event_ms(fn, reps=100):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", choices=sorted(CONFIGS), default="heat")
+    ap.add_argument("--pre", choices=sorted(PRE_RANGES), default="amg",
+                    help="heat's preconditioner (default: the AMG)")
     ap.add_argument("--M", type=int, default=None)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
@@ -81,17 +89,21 @@ def main():
         capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())
     s = get_model(args.problem).linforms(M=M, device="cuda")
-    pre = None
+    pre = apply = None
+    span = PRE_RANGES[args.pre]
     if args.problem == "heat":
+        from structurepreservingiterativesolvers_torch import precond
         from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
             default_pre_builder,
         )
 
-        amg = default_pre_builder("heat")(s)
+        apply = {"amg": lambda: default_pre_builder("heat")(s),
+                 "cheb8": lambda: precond.chebyshev(s.A, degree=8),
+                 "neu4": lambda: precond.neumann(s.A, degree=4)}[args.pre]()
 
         def pre(v):
-            with record_function(VCYCLE):
-                return amg(v)
+            with record_function(span):
+                return apply(v)
 
     kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre)
     solves = {
@@ -112,9 +124,10 @@ def main():
         events = prof.key_averages()
         kernels = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.key != VCYCLE]
+                   and e.key != span]
         busy_us = sum(e.self_device_time_total for e in kernels)
-        print(f"\n== {args.problem} {name} M={M}: steps {info['steps']}, wall "
+        label = f"{args.problem} --pre {args.pre}" if apply else args.problem
+        print(f"\n== {label} {name} M={M}: steps {info['steps']}, wall "
               f"{wall * 1e3:.3f} ms (profiled), device busy {busy_us / 1e3:.3f} "
               f"ms -> idle share {1 - busy_us / 1e6 / wall:.3f}")
         by_kind = {}
@@ -125,19 +138,21 @@ def main():
             print(f"   {k}: {us / 1e3:.3f} ms ({us / busy_us:.1%} of device "
                   f"busy)")
         for e in events:
-            if e.key == VCYCLE:
-                print(f"   inside {VCYCLE} ({e.device_type}): {e.count} calls, "
+            if e.key == span:
+                print(f"   inside {span} ({e.device_type}): {e.count} calls, "
                       f"device {e.device_time_total / 1e3:.3f} ms, host "
                       f"{e.cpu_time_total / 1e3:.3f} ms")
         print(events.table(sort_by="self_device_time_total", row_limit=15,
                            max_name_column_width=60))
-        prof.export_chrome_trace(str(out / f"trace_{args.problem}{M}_{name}.json"))
+        tag = f"_{args.pre}" if apply else ""
+        prof.export_chrome_trace(
+            str(out / f"trace_{args.problem}{M}{tag}_{name}.json"))
 
     x = torch.randn(s.b.shape[0], dtype=s.b.dtype, device="cuda")
     print(f"\n== alone, CUDA events, operands warm in L2: A @ x "
           f"{_event_ms(lambda: s.A @ x):.4f} ms", end="")
-    if args.problem == "heat":
-        print(f", one AMG V-cycle {_event_ms(lambda: amg(x), reps=20):.4f} ms",
+    if apply is not None:
+        print(f", one {span} {_event_ms(lambda: apply(x), reps=20):.4f} ms",
               end="")
     print()
 

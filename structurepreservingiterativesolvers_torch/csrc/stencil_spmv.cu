@@ -3,23 +3,12 @@
 //
 //   y[i] = sum_d c_d * x[i + off_d]  +  E[i, :] x
 //
-// The shifted reads of x are flat: the column i + off_d is taken mod n when
-// `wrap` is set, and is a structural zero outside [0, n) otherwise.  E is the
-// residual of a structured-grid operator against its constants, and lives
-// only on the boundary strips of the (R, C) grid view of the flat index
-// (C = grid_c, R = n / C):
-//
-//   rows [0, C)           top[d, i]            (ndiag, C)
-//   rows [n - C, n)       bot[d, i - (n - C)]  (ndiag, C)
-//   rows with i % C == 0      left[d, i / C]   (ndiag, R)
-//   rows with i % C == C - 1  right[d, i / C]  (ndiag, R)
-//
-// Each residual term reads the same flat shifted x as the constant part, so
-// the left and right strips cancel what the +-1 diagonals read across the
-// ends of a grid row.  left and right hold zeros at grid rows 0 and R - 1,
-// which the top and bottom strips cover, so adding every strip that holds a
-// row is right at the corners too.  grid_c == 0 means no strips (an exactly
-// constant operator, possibly periodic); strips never come with wrap.
+// The row arithmetic, and the layout of the strips (the residuals of a
+// structured-grid operator against its constants on the boundary rows and
+// columns of the (R, C) grid view, C = grid_c), are in stencil_row.cuh,
+// which the fused polynomial applies of poly_apply.cu share.  grid_c == 0
+// means no strips (an exactly constant operator, possibly periodic); strips
+// never come with wrap.
 //
 // Replaces the TPU kernel ops/pallas_spmv.py::stencil_spmv_pallas of the JAX
 // package, together with the separate strip pass ops/stencil.py::
@@ -45,26 +34,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define STENCIL_MAX_DIAGS 64
-
-template <typename T>
-struct StencilParams {
-  long long off[STENCIL_MAX_DIAGS];
-  T c[STENCIL_MAX_DIAGS];
-};
-
-template <typename T, bool WRAP>
-__device__ __forceinline__ T shifted(const T* __restrict__ x, long long j,
-                                     long long n) {
-  // |off| < n is checked by the caller, so one add or subtract brings a
-  // wrapped column back into range
-  if (WRAP) {
-    if (j < 0) j += n;
-    else if (j >= n) j -= n;
-    return x[j];
-  }
-  return (j >= 0 && j < n) ? x[j] : T(0);
-}
+#include "stencil_row.cuh"
 
 template <typename T, bool WRAP>
 __global__ void stencil_spmv_kernel(const T* __restrict__ x,
@@ -76,34 +46,11 @@ __global__ void stencil_spmv_kernel(const T* __restrict__ x,
                                     const T* __restrict__ left,
                                     const T* __restrict__ right) {
   const long long stride = (long long)gridDim.x * blockDim.x;
+  const ReadOnlyLoad<T> ld{x};
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    T acc = T(0);
-    for (int d = 0; d < ndiag; ++d) {
-      acc += p.c[d] * shifted<T, WRAP>(x, i + p.off[d], n);
-    }
-    if (C > 0) {
-      const long long r = i / C;
-      const long long col = i - r * C;
-      const bool in_top = i < C;
-      const bool in_bot = i >= n - C;
-      const bool in_left = col == 0;
-      const bool in_right = col == C - 1;
-      if (in_top || in_bot || in_left || in_right) {
-        // the four strip sums apart, then added in the plain version's
-        // order: ((top + bot) + left) + right
-        T t = T(0), b = T(0), l = T(0), rt = T(0);
-        for (int d = 0; d < ndiag; ++d) {
-          const T xv = shifted<T, WRAP>(x, i + p.off[d], n);
-          if (in_top) t += top[(long long)d * C + i] * xv;
-          if (in_bot) b += bot[(long long)d * C + (i - (n - C))] * xv;
-          if (in_left) l += left[(long long)d * R + r] * xv;
-          if (in_right) rt += right[(long long)d * R + r] * xv;
-        }
-        acc = acc + (((t + b) + l) + rt);
-      }
-    }
-    y[i] = acc;
+    y[i] = stencil_row<T, WRAP>(ld, i, n, ndiag, p, C, R, top, bot, left,
+                                right);
   }
 }
 

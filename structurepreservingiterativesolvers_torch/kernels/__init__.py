@@ -2,7 +2,9 @@
 
 ``dia_spmv``: the DIA sparse matrix-vector product (``csrc/dia_spmv.cu``).
 ``stencil_spmv``: the constant-stencil product with its boundary-strip
-correction (``csrc/stencil_spmv.cu``).  Importing this package builds
+correction (``csrc/stencil_spmv.cu``).
+``poly_apply``: the fused degree-p Chebyshev and Neumann preconditioner
+applies, one launch each (``csrc/poly_apply.cu``).  Importing this package builds
 nothing; a kernel is compiled from ``csrc/`` the first time a CUDA tensor
 reaches its wrapper.
 """

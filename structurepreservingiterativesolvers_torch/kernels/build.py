@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
 ``nvcc`` into ``build/torch_kernels/`` at the root of the checkout, keyed by a
-hash of the source and the flags, then loaded with ``ctypes``.  Nothing is
-built when a module is imported: the first launch on a CUDA tensor builds.
+hash of the source, the headers it includes from ``csrc/`` and the flags,
+then loaded with ``ctypes``.  Nothing is built when a module is imported:
+the first launch on a CUDA tensor builds.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,6 +25,35 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _with_headers(src: Path) -> list:
+    """``src`` and, recursively, the headers of ``csrc/`` that it includes
+    with quotes, each once, in the order first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            header = path.parent / name
+            if header.is_file():
+                todo.append(header)
+    return seen
+
+
+def source_key(src: Path) -> str:
+    """The build key of ``src``: a hash of it, of the headers it includes and
+    of the flags, so that an edited header rebuilds every source that
+    includes it."""
+    return hashlib.sha256(
+        b"".join(p.read_bytes() for p in _with_headers(src))
+        + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
 
 
 def nvcc_path() -> str:
@@ -48,9 +79,7 @@ def build(source_name: str) -> tuple:
     returns ``(library path, compiler log)``.  The log is empty when the
     library was already there."""
     src = CSRC_DIR / source_name
-    key = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    key = source_key(src)
     out = BUILD_DIR / f"{src.stem}_{key}.so"
     if out.exists():
         return out, ""

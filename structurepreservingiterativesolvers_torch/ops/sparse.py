@@ -47,6 +47,9 @@ class DIA:
     def device(self) -> torch.device:
         return self.data.device
 
+    def astype(self, dtype) -> "DIA":
+        return dataclasses.replace(self, data=self.data.to(dtype))
+
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
         if other.dim() == 1:
             return dia_spmv(self, other)

@@ -75,6 +75,15 @@ class Stencil:
             return None
         return self.top_vals, self.bot_vals, self.left_vals, self.right_vals
 
+    def astype(self, dtype) -> "Stencil":
+        """The operator in ``dtype``; the constants stay host floats, which
+        the kernels round to ``dtype``."""
+        cast = lambda t: None if t is None else t.to(dtype)  # noqa: E731
+        return dataclasses.replace(
+            self, dia=self.dia.astype(dtype), top_vals=cast(self.top_vals),
+            bot_vals=cast(self.bot_vals), left_vals=cast(self.left_vals),
+            right_vals=cast(self.right_vals))
+
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
         if other.dim() == 1:
             return stencil_spmv(self, other)

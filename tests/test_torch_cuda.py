@@ -1,7 +1,8 @@
 """Tests of the PyTorch port that need an NVIDIA card: the CUDA DIA and
-stencil kernels against their plain twins, and CGMRES solves on the card
-(lkdv, and heat with the structured AMG) against the same solves on the
-CPU.  They skip where no card is present.
+stencil kernels and the fused Chebyshev and Neumann applies against their
+plain twins, and CGMRES solves on the card (lkdv, and heat with the
+structured AMG) against the same solves on the CPU.  They skip where no card
+is present.
 
 This file imports no JAX, so it also runs on the machine with the card,
 which has none (``--noconftest`` keeps the JAX set-up of ``conftest.py``
@@ -191,3 +192,128 @@ def test_heat_amg_cgmres_on_card_matches_cpu():
         assert ig[key] == ic[key]
     assert ig["safety"] is True and ig["deviation"] <= 1e-10
     assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-8
+
+
+# the fused polynomial applies (kernels #3 and #4): the same recurrence in
+# the same order as the plain twins, each of the p products summed as the
+# SpMV kernels sum it; the bounds are on max|Δy| / max|y| after p steps
+POLY_RTOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+# (name, degree) of each apply; degree 3 runs both ping-pong buffers
+POLY_APPLIES = [("cheb", 1), ("cheb", 2), ("cheb", 3), ("cheb", 8),
+                ("neumann", 1), ("neumann", 2), ("neumann", 3),
+                ("neumann", 4)]
+# a DIA on a ragged n without wrap and one with wrap, a stencil with strips
+# on a ragged grid, and an exactly constant periodic stencil
+POLY_FORMS = ["dia_ragged", "dia_wrap", "stencil_strips", "stencil_periodic"]
+
+
+def _poly_operator(form, dtype):
+    """A diagonally dominant operator of the port on the card, so that p
+    steps of either recurrence stay bounded, and its inverse diagonal."""
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+    from structurepreservingiterativesolvers_torch.ops.stencil import Stencil
+
+    g = torch.Generator().manual_seed(POLY_FORMS.index(form))
+    if form.startswith("dia"):
+        n, offsets, wrap = ((1000, (-3, -1, 0, 1, 3), False)
+                            if form == "dia_ragged"
+                            else (1024, (-130, -1, 0, 1, 130), True))
+        data = 0.2 * torch.randn(len(offsets), n, generator=g, dtype=dtype)
+        data[offsets.index(0)] += 2.0
+        A = DIA(data=data.cuda(), offsets=offsets, shape=(n, n), wrap=wrap)
+        return A, 1.0 / A.data[offsets.index(0)]
+    R, C, offsets, wrap, strips = ((37, 29, None, False, True)
+                                   if form == "stencil_strips"
+                                   else (1, 1000, (-130, -1, 0, 1, 130), True,
+                                         False))
+    const, offsets, grid_c, st = _stencil_operands(R, C, offsets, wrap, strips,
+                                                   dtype)
+    const = tuple(0.2 * c + (2.0 if o == 0 else 0.0)
+                  for c, o in zip(const, offsets))
+    if st is not None:
+        st = tuple(0.2 * s for s in st)
+    n = R * C
+    dia = DIA(data=torch.zeros(len(offsets), n, dtype=dtype, device="cuda"),
+              offsets=offsets, shape=(n, n), wrap=wrap)
+    A = Stencil(dia=dia, const=const, top_vals=st and st[0],
+                bot_vals=st and st[1], left_vals=st and st[2],
+                right_vals=st and st[3], grid_c=grid_c)
+    diag = torch.full((n,), const[offsets.index(0)], dtype=dtype,
+                      device="cuda")
+    return A, 1.0 / diag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", POLY_FORMS)
+@pytest.mark.parametrize("kind,degree", POLY_APPLIES)
+def test_poly_kernels_match_plain(dtype, form, kind, degree):
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+
+    A, dinv = _poly_operator(form, dtype)
+    v = torch.randn(A.shape[0], generator=torch.Generator().manual_seed(3),
+                    dtype=dtype).cuda()
+    if kind == "cheb":
+        lmin, lmax = 1.0, 3.5
+        theta, delta = 0.5 * (lmax + lmin), 0.5 * (lmax - lmin)
+        args = (A, degree, theta, delta, theta / delta, v)
+        kernel, plain, counter = pa.cheb_apply, pa.cheb_apply_torch, pa.cheb_apply_cuda
+    else:
+        args = (A, dinv, degree, 0.8, v)
+        kernel, plain = pa.neumann_apply, pa.neumann_apply_torch
+        counter = pa.neumann_apply_cuda
+    before = counter.launches
+    y = kernel(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref = plain(*args)
+    assert y.dtype == dtype and bool(torch.isfinite(y).all())
+    assert float((y - ref).abs().max() / ref.abs().max()) <= POLY_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_poly_builders_fuse_on_the_card():
+    """chebyshev() and neumann() of a card operator take the fused kernels,
+    and give what the unfused chain of SpMV kernels gives; fused=False keeps
+    the chain."""
+    _card()
+    from structurepreservingiterativesolvers_torch import precond
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    s = heat.linforms(M=32, device="cuda")
+    v = torch.randn(s.b.shape[0], generator=torch.Generator().manual_seed(5),
+                    dtype=torch.float64).cuda()
+    for build in (lambda **kw: precond.chebyshev(s.A, degree=8, **kw),
+                  lambda **kw: precond.neumann(s.A, degree=4, **kw)):
+        fused, chain = build(), build(fused=False)
+        assert fused.fused is True and chain.fused is False
+        before = (pa.cheb_apply_cuda.launches + pa.neumann_apply_cuda.launches,
+                  stencil_spmv_cuda.launches)
+        y = fused(v)
+        torch.cuda.synchronize()
+        assert (pa.cheb_apply_cuda.launches + pa.neumann_apply_cuda.launches,
+                stencil_spmv_cuda.launches) == (before[0] + 1, before[1])
+        ref = chain(v)
+        assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-13
+
+
+@pytest.mark.cuda
+def test_poly_kernels_refuse_what_they_do_not_take():
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+
+    A, dinv = _poly_operator("stencil_strips", torch.float64)
+    v = torch.randn(A.shape[0], dtype=torch.float64, device="cuda")
+    args = (2.0, 1.0, 2.0)
+    with pytest.raises(TypeError):  # f32 vector, f64 strips
+        pa.cheb_apply(A, 8, *args, v.float())
+    with pytest.raises(TypeError):
+        pa.neumann_apply(A, dinv.cpu(), 4, 0.8, v)
+    with pytest.raises(ValueError):
+        pa.cheb_apply(A, pa.MAX_DEGREE + 1, *args, v)
+    with pytest.raises(ValueError):
+        pa.neumann_apply(A, dinv, 4, 0.8, v[:-1])
+    with pytest.raises(ValueError):
+        pa.cheb_apply_cuda(A, 8, *args, v.cpu())

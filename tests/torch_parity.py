@@ -111,9 +111,10 @@ def close(a, b, rtol):
     assert np.max(np.abs(a - b)) <= rtol * scale
 
 
-def heat_systems():
-    """A getter of (JAX system, port twin, JAX AMG of the TimedSolve
-    pre-builder) per heat M, each built on first use."""
+def heat_systems(pre_builder=None):
+    """A getter of (JAX system, port twin, JAX preconditioner) per heat M,
+    each built on first use.  The preconditioner is ``pre_builder``'s of the
+    JAX system, by default the AMG of the TimedSolve pre-builder."""
     import importlib
 
     from structurepreservingiterativesolvers_tpu.models import heat as jheat
@@ -121,12 +122,13 @@ def heat_systems():
     # the JAX package's experiments namespace exports a function of this name
     jts = importlib.import_module(
         "structurepreservingiterativesolvers_tpu.experiments.timed_solve")
+    build = pre_builder or jts.default_pre_builder("heat")
     cache = {}
 
     def get(M):
         if M not in cache:
             js = jheat.linforms(M=M)
-            cache[M] = (js, to_port(js), jts.default_pre_builder("heat")(js))
+            cache[M] = (js, to_port(js), build(js))
         return cache[M]
 
     return get
@@ -143,9 +145,14 @@ def reference_script():
 
 def check_record(new, rec):
     """A regenerated entry of the JAX record against the committed one:
-    counts equal, residuals and deviations to 1e-6, invariants to 1e-12."""
+    configuration and counts equal, residuals and deviations to 1e-6,
+    invariants and spectral bounds to 1e-12."""
     assert new["n"] == rec["n"]
     assert new.get("amg_levels") == rec.get("amg_levels")
+    assert new["config"] == rec["config"]
+    for key in ("lmin", "lmax"):
+        if key in rec:
+            assert math.isclose(new[key], rec[key], rel_tol=1e-12), key
     beta = rec["beta"]
     for solver in ("gmres", "cgmres"):
         n, r = new[solver], rec[solver]
