@@ -7,9 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; JAX is neither needed nor
 imported.  Phases, each of which raises on a failed check:
 
-1. build the three kernel sources from ``csrc/`` (``dia_spmv.cu``,
-   ``stencil_spmv.cu``, ``poly_apply.cu``), one ``nvcc`` for each source,
-   started together;
+1. build the four kernel sources from ``csrc/`` (``dia_spmv.cu``,
+   ``stencil_spmv.cu``, ``poly_apply.cu``, ``ortho_fused.cu``), one ``nvcc``
+   for each source, started together;
 2. hold the DIA kernel against its plain PyTorch twin in f64 and f32 on the
    shallow-water operator (M=512, wrapped) and the lkdv degree-3 M=100
    operators (A wrapped, the mass matrix not, ragged n), and time it at the
@@ -44,7 +44,21 @@ imported.  Phases, each of which raises on a failed check:
    uncertified, and no deviation is compared;
 9. the certified anchors of the third slice: heat M=256 (k=60) with cheb8
    and heat M=64 (k=60) with cheb8 and with neu4, each held to its record's
-   counts and safety and to the certificate.
+   counts and safety and to the certificate;
+10. hold the fused CGS2 update (kernel #5, ``ortho_fused.cu``) against its
+    plain twin in f64 and f32 for m = 1, 2, 21, 61 and 128 basis rows at
+    n = 786,432 (swe M=512), 1,050,625 (heat M=1024) and a ragged 1,000,
+    with two launches on the same input bit-equal, and time it with L2
+    flushed at swe M=512 (m = 21, 61) and heat M=1024 (m = 21) beside its
+    bound and the unfused pair of cuBLAS products, its plain twin;
+11. the first slice's swe M=512 row again (k=60, tol=1e-9) with
+    ``ortho="cgs2_fused"``, where the basis grows to 41 rows, held to
+    ``reference/slice1.json``, with kernel #5 launched once per Arnoldi step;
+12. the fourth slice's full-width rows, held to ``reference/slice4.json``:
+    the swe M=512 TimedSolve row (k=20, tol=1e-7) through ``time_cgmres``
+    with the default skew-normal Chebyshev pre-builder and the fused
+    orthogonalisation, and three steps of ``evolve`` on swe M=512 (T=0.3,
+    so dt = 0.1 as in the row), counting kernels #1 and #5 over each.
 
 The line before the last is the kernel report as JSON; the last line is the
 device record.  Exits non-zero, printing no result, without a CUDA device
@@ -76,8 +90,10 @@ POLY_RTOL = {"float64": 1e-13, "float32": 1e-5}
 DEVIATION_MAX = 1e-10
 SWE_TOL, SWE_K, SWE_M = 1e-9, 60, 512
 HEAT_TOL, HEAT_K, HEAT_M = 1e-7, 20, 1024
+SWE_N, HEAT_N = 3 * SWE_M**2, (HEAT_M + 1) ** 2
 DEVICE = "cuda"
-SOURCES = ("dia_spmv.cu", "stencil_spmv.cu", "poly_apply.cu")
+SOURCES = ("dia_spmv.cu", "stencil_spmv.cu", "poly_apply.cu",
+           "ortho_fused.cu")
 # the third slice: the polynomial pre-builders as a user writes them
 # (degree, and Neumann's default damping), and its record's tolerances
 CHEB_DEGREE, NEU_DEGREE, NEU_OMEGA = 8, 4, 0.8
@@ -85,6 +101,14 @@ BOUNDS_RTOL, RESIDUAL_RTOL = 1e-10, 1e-6
 ANCHORS = (("heat_M256_cheb8", 256, 60, "cheb8"),
            ("heat_M64_cheb8", 64, 60, "cheb8"),
            ("heat_M64_neu4", 64, 60, "neu4"))
+# the fused CGS2 update against its plain twin (two cuBLAS products): the
+# same sums in another order; max|Δ| / max|ref| on w1 and on u2, with random
+# h so that u2 does not cancel
+ORTHO_RTOL = {"float64": 1e-13, "float32": 1e-5}
+ORTHO_ROWS = (1, 2, 21, 61, 128)
+# the fourth slice: the swe TimedSolve row and the evolution
+SNC_TOL, SNC_K = 1e-7, 20
+EVOLVE_N, EVOLVE_T = 3, 0.3
 # NVIDIA H100 SXM data sheet: HBM3 rate, and the f64 rate outside the
 # tensor cores (the kernels' multiply-adds run there)
 HBM_BYTES_PER_S = 3.35e12
@@ -934,6 +958,330 @@ def phase_poly_anchors(record):
     return out
 
 
+def phase_ortho_kernel():
+    """Kernel #5 against its plain twin in f64 and f32 at every basis size
+    and width of the paths, two launches on the same input bit-equal.
+    Returns the largest f64 absolute error."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import ortho
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    max_abs = 0.0
+    for n in (SWE_N, HEAT_N, 1000):
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype).split(".")[-1]
+            for m in ORTHO_ROWS:
+                Q = torch.randn(m, n, generator=gen, device=DEVICE, dtype=dtype)
+                w = torch.randn(n, generator=gen, device=DEVICE, dtype=dtype)
+                h = torch.randn(m, generator=gen, device=DEVICE, dtype=dtype)
+                w1, u2 = ortho.fused_update_matvec(Q, w, h)
+                w1b, u2b = ortho.fused_update_matvec(Q, w, h)
+                torch.cuda.synchronize()
+                ref_w1, ref_u2 = ortho.fused_update_matvec_torch(Q, w, h)
+                err_w1, rel_w1 = _rel_err(w1, ref_w1)
+                err_u2, rel_u2 = _rel_err(u2, ref_u2)
+                same = torch.equal(w1, w1b) and torch.equal(u2, u2b)
+                print(f"[ortho] m={m} n={n} {tag}: max|dw1|/max|w1| = "
+                      f"{rel_w1:.3e}, max|du2|/max|u2| = {rel_u2:.3e} (bound "
+                      f"{ORTHO_RTOL[tag]:.0e}); repeated launch bit-equal "
+                      f"{same}")
+                check(math.isfinite(rel_w1) and math.isfinite(rel_u2)
+                      and max(rel_w1, rel_u2) <= ORTHO_RTOL[tag],
+                      f"fused CGS2 kernel disagrees with plain at m={m} n={n} "
+                      f"{tag}: {rel_w1:.3e}, {rel_u2:.3e}")
+                check(same, f"fused CGS2 kernel not deterministic at m={m} "
+                            f"n={n} {tag}")
+                if dtype == torch.float64:
+                    max_abs = max(max_abs, err_w1, err_u2)
+                del Q
+    return max_abs
+
+
+def phase_ortho_timing():
+    """Kernel #5 in f64 with L2 flushed at the paths' shapes, beside its
+    bound and its plain twin, which is the unfused pair of cuBLAS products
+    (``w − h @ Q``, then ``Q @ w1``).  Returns the report's fields of each
+    shape, the swe M=512, m = 21 one first."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import ortho
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    out = {}
+    for label, n, m in ((f"swe_M{SWE_M}_m21", SWE_N, 21),
+                        (f"swe_M{SWE_M}_m61", SWE_N, 61),
+                        (f"heat_M{HEAT_M}_m21", HEAT_N, 21)):
+        Q = torch.randn(m, n, generator=gen, device=DEVICE, dtype=torch.float64)
+        w = torch.randn(n, generator=gen, device=DEVICE, dtype=torch.float64)
+        h = Q @ w
+        pair = _time_cold_ms(lambda: ortho.fused_update_matvec_torch(Q, w, h))
+        t = {
+            "ms": _time_cold_ms(lambda: ortho.fused_update_matvec(Q, w, h)),
+            "plain_ms": pair, "chain_ms": pair, "library_ms": None,
+            "warm_ms": _time_ms(lambda: ortho.fused_update_matvec(Q, w, h)),
+            "warm_chain_ms": _time_ms(
+                lambda: ortho.fused_update_matvec_torch(Q, w, h)),
+        }
+        # Q and w read once, w1 written once; a multiply-add per entry of Q
+        # in each of the two products
+        nbytes = (m * n + 2 * n) * 8
+        t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 4 * m * n)
+        print(f"[ortho] fused CGS2 update at {label} (n={n}, m={m}, f64, L2 "
+              f"flushed): kernel {t['ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.0f}"
+              f" GB/s of {nbytes / 1e6:.1f} MB), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; kernel at {t['bound_ms'] / t['ms']:.1%} of "
+              f"it), plain twin = unfused cuBLAS pair {pair:.4f} ms; back to "
+              f"back with operands in L2: kernel {t['warm_ms']:.4f} ms, pair "
+              f"{t['warm_chain_ms']:.4f} ms")
+        out[label] = t
+        del Q
+    return out
+
+
+def _ortho_launches():
+    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
+        dia_spmv_cuda,
+    )
+    from structurepreservingiterativesolvers_torch.kernels.ortho import (
+        fused_update_matvec_cuda,
+    )
+
+    return {"dia_spmv": dia_spmv_cuda, "fused_update_matvec": fused_update_matvec_cuda}
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _counts(counters):
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def phase_swe_fused(s, record):
+    """The first slice's swe M=512 row with the fused orthogonalisation:
+    GMRES and CGMRES through the wrappers.  Returns the launches over it."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+
+    tag = f"[swe M={SWE_M} cgs2_fused]"
+    kw = dict(k=SWE_K, tol=SWE_TOL, ortho="cgs2_fused")
+    counters = _ortho_launches()
+    _zero(counters)
+    t0 = time.perf_counter()
+    xg, ig = wrappers.gmres_wrapper(s, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    xc, ic = wrappers.cgmres_wrapper(s, timing=True, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _counts(counters)
+    rec = record["swe_M512"]
+    t = ic["timings"]
+    print(f"{tag} gmres: steps {ig['steps']} (record {rec['gmres']['steps']}), "
+          f"wall {t1 - t0:.4f} s, {1e3 * (t1 - t0) / max(ig['steps'], 1):.3f} "
+          f"ms/iteration; cgmres: steps {ic['steps']} (record "
+          f"{rec['cgmres']['steps']}), constrained {ic['constrained_steps']} "
+          f"(record {rec['cgmres']['constrained_steps']}), safety "
+          f"{ic['safety']}, deviation {ic['deviation']:.3e}, wall "
+          f"{t2 - t1:.4f} s, phase 1 {1e3 * t['iter_time_unconstrained']:.3f} "
+          f"ms/iteration")
+    print(f"{tag} launches over both solves: {launches}")
+    res_c = float(torch.linalg.norm(s.b - s.A @ xc))
+    print(f"{tag} cgmres true residual {res_c:.4e} (record "
+          f"{rec['cgmres']['true_residual']:.4e}), invariant deviations "
+          f"{_deviations(s, xc)}")
+    check(ic["safety"] is True, f"{tag} CGMRES safety is not True")
+    check(ic["deviation"] <= DEVIATION_MAX,
+          f"{tag} CGMRES deviation {ic['deviation']:.3e}")
+    check(math.isfinite(res_c) and res_c < SWE_TOL,
+          f"{tag} CGMRES true residual {res_c:.3e}")
+    _check_counts(tag + " cgmres", ic, rec["cgmres"],
+                  ("steps", "constrained_steps"))
+    check(_within_one(ig, rec["gmres"], "steps"),
+          f"{tag} gmres steps {ig['steps']} vs record {rec['gmres']['steps']}")
+    check(launches["fused_update_matvec"] == ig["steps"] + ic["steps"],
+          f"{tag} kernel #5 launched {launches['fused_update_matvec']} times "
+          f"over {ig['steps'] + ic['steps']} Arnoldi steps")
+    return launches
+
+
+def phase_snc_row(record):
+    """The fourth slice's main path: the swe M=512 TimedSolve row through
+    ``time_cgmres`` with the default pre-builder and the fused
+    orthogonalisation, then one more GMRES and CGMRES pair for the launches
+    per solve and the iterate.  Returns the launches over the row and the
+    row's numbers."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+        time_cgmres,
+    )
+
+    name = f"swe_M{SWE_M}_snc"
+    rec = record[name]
+    tag = f"[{name}]"
+    seen = {}
+
+    def pre_builder(system):  # the default, keeping what it was given
+        seen["system"] = system
+        seen["pre"] = default_pre_builder("swe")(system)
+        return seen["pre"]
+
+    counters = _ortho_launches()
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = time_cgmres("swe", M=SWE_M, k=SNC_K, tol=SNC_TOL,
+                      pre_builder=pre_builder, ortho="cgs2_fused",
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts(counters)
+    s, pre = seen["system"], seen["pre"]
+    print(f"{tag} time_cgmres wall {wall:.3f} s (assembly, two builds, "
+          f"warm-up and timed solves); build first {out['time_pre_first']:.4f}"
+          f" s, second {out['time_pre']:.4f} s; {type(pre).__name__} degree "
+          f"{pre.degree} (record {rec['degree']}), {2 * pre.degree + 1} "
+          f"products per apply; warm-up pass {out['compile_time']:.4f} s")
+    _check_bounds(tag, pre, rec)
+    print(f"{tag} gmres: steps {out['gmres_steps']} (record "
+          f"{rec['gmres']['steps']}), wall {out['time_gmres']:.4f} s, "
+          f"{1e3 * out['time_gmres'] / max(out['gmres_steps'], 1):.3f} "
+          f"ms/iteration, final residual {out['gmres_res_final']:.4e}")
+    print(f"{tag} cgmres: steps {out['steps']} (record "
+          f"{rec['cgmres']['steps']}), constrained {out['constrained_steps']} "
+          f"(record {rec['cgmres']['constrained_steps']}), safety "
+          f"{out['safety']}, wall {out['runtime']:.4f} s (CGMRES/GMRES "
+          f"{out['runtime'] / out['time_gmres']:.3f}); phase 1 "
+          f"{1e3 * out['iter_time_unconstrained']:.3f} ms/iteration over "
+          f"{out['phase1_steps_measured']}, catch-up "
+          f"{1e3 * out['constraint_building']:.3f} ms, endgame "
+          f"{1e3 * out['iter_time_constrained']:.3f} ms/iteration; final "
+          f"residual {out['res_final']:.4e}")
+    con = out["conservation"]
+    for nm in out["invariant_names"]:
+        gain = max(con[f"gmres_{nm}"], 1e-16) / max(con[f"cgmres_{nm}"], 1e-16)
+        print(f"{tag} {nm}: deviation gmres {con[f'gmres_{nm}']:.3e}, cgmres "
+              f"{con[f'cgmres_{nm}']:.3e}, gain {gain:.3e}, floor-dominated "
+              f"{con[f'floor_{nm}']}")
+    print(f"{tag} launches over the TimedSolve row: {launches}")
+
+    per_solve = {}
+    for solver, call in (("gmres", wrappers.gmres_wrapper),
+                         ("cgmres", wrappers.cgmres_wrapper)):
+        _zero(counters)
+        x, info = call(s, k=SNC_K, tol=SNC_TOL, pre=pre, ortho="cgs2_fused")
+        torch.cuda.synchronize()
+        per_solve[solver] = (x, info)
+        print(f"{tag} one {solver} solve: {info['steps']} steps, launches "
+              f"{_counts(counters)}")
+    xg, ig = per_solve["gmres"]
+    xc, ic = per_solve["cgmres"]
+    res_c = float(torch.linalg.norm(s.b - s.A @ xc))
+    print(f"{tag} cgmres true residual {res_c:.4e} (record "
+          f"{rec['cgmres']['true_residual']:.4e}), KKT deviation "
+          f"{ic['deviation']:.3e} (record {rec['cgmres']['deviation']:.3e}), "
+          f"invariant deviations {_deviations(s, xc)}")
+
+    check(launches["dia_spmv"] > 0 and launches["fused_update_matvec"] > 0,
+          f"{tag} did not go through kernels #1 and #5: {launches}")
+    check(pre.degree == rec["degree"],
+          f"{tag} degree {pre.degree} vs record {rec['degree']}")
+    for info in (out, ic):
+        check(info["safety"] is True, f"{tag} CGMRES safety is not True")
+        _check_counts(tag + " cgmres", info, rec["cgmres"],
+                      ("steps", "constrained_steps"))
+    for steps in (out["gmres_steps"], ig["steps"]):
+        check(abs(steps - rec["gmres"]["steps"]) <= 1,
+              f"{tag} gmres steps {steps} vs record {rec['gmres']['steps']}")
+    check(ic["deviation"] <= DEVIATION_MAX,
+          f"{tag} CGMRES KKT deviation {ic['deviation']:.3e}")
+    for nm in out["invariant_names"]:
+        check(con[f"floor_{nm}"]
+              or 2.0 * con[f"cgmres_{nm}"] <= con[f"gmres_{nm}"],
+              f"{tag} no 2x gain on {nm} and not floor-dominated: {con}")
+    check(math.isfinite(res_c) and res_c < SNC_TOL,
+          f"{tag} CGMRES true residual {res_c:.3e}")
+    check(xc.shape == s.b.shape and bool(torch.isfinite(xc).all()),
+          f"{tag} CGMRES iterate is not finite")
+    return launches, out
+
+
+def phase_snc_evolve(record):
+    """The Evolve path at full width: three steps of swe M=512 with the
+    skew-normal Chebyshev built on a system of the same N and T, CGMRES with
+    the fused orthogonalisation.  Returns the launches and the wall of each
+    step."""
+    import functools
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        evolve,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.models import swe
+
+    name = f"swe_M{SWE_M}_snc_evolve"
+    rec = record[name]
+    tag = f"[{name}]"
+    params = dict(M=SWE_M, N=EVOLVE_N, T=EVOLVE_T)
+    pre = default_pre_builder("swe")(swe.linforms(device=DEVICE, **params))
+    _check_bounds(tag, pre, rec)
+    check(pre.degree == rec["degree"],
+          f"{tag} degree {pre.degree} vs record {rec['degree']}")
+    solve = functools.partial(wrappers.cgmres_wrapper, ortho="cgs2_fused")
+    starts = []
+
+    def solver(system, **kw):  # the start of each step's solve
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return solve(system, **kw)
+
+    counters = _ortho_launches()
+    _zero(counters)
+    t0 = time.perf_counter()
+    out = evolve("swe", k=SNC_K, tol=SNC_TOL, pre=pre, device=DEVICE,
+                 solver=solver, **params)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = _counts(counters)
+    # a step: its solve, the host read of the invariants and the next
+    # system's step_update, from one solve's start to the next's
+    step_walls = [b - a for a, b in zip(starts, starts[1:] + [t_end])]
+    e0 = abs(out["energy"][0])
+    print(f"{tag} evolve wall {t_end - t0:.3f} s, of it assembly "
+          f"{starts[0] - t0:.3f} s and {EVOLVE_N} steps of "
+          f"{', '.join(f'{1e3 * w:.3f}' for w in step_walls)} ms; steps "
+          f"{out['steps']} (record {rec['steps']}), constrained "
+          f"{out['constrained_steps']} (record {rec['constrained_steps']}), "
+          f"safety {out['safety']}")
+    print(f"{tag} drift dm {[float(d) for d in out['dm']]} (record "
+          f"{rec['drift']['dm']}), de/|e0| {[float(d / e0) for d in out['de']]}")
+    print(f"{tag} launches over the evolution: {launches}")
+    check(launches["dia_spmv"] > 0 and launches["fused_update_matvec"] > 0,
+          f"{tag} did not go through kernels #1 and #5: {launches}")
+    check(len(out["steps"]) == EVOLVE_N, f"{tag} ran {len(out['steps'])} steps")
+    for got, want in zip(out["steps"], rec["steps"]):
+        check(abs(got - want) <= 1, f"{tag} steps {out['steps']} vs record "
+                                    f"{rec['steps']}")
+    check(all(sf is True for sf in out["safety"]),
+          f"{tag} safety {out['safety']}")
+    # the bars of tests/test_experiments.py::test_fused_evolve_swe
+    check(all(d < 1e-9 for d in out["dm"]), f"{tag} mass drift {out['dm']}")
+    check(all(d / e0 < 1e-13 for d in out["de"]),
+          f"{tag} energy drift {out['de']}")
+    check(bool(torch.isfinite(out["sol"]).all()), f"{tag} solution not finite")
+    return launches, step_walls
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -953,7 +1301,8 @@ def main() -> int:
     from structurepreservingiterativesolvers_torch.models import heat, lkdv, swe
 
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
-               for name in ("slice1.json", "slice2.json", "slice3.json")}
+               for name in ("slice1.json", "slice2.json", "slice3.json",
+                            "slice4.json")}
     t_start = time.perf_counter()
     phase_build()
     t0 = time.perf_counter()
@@ -967,6 +1316,11 @@ def main() -> int:
     phase_lkdv(records["slice1.json"])
     torch.cuda.synchronize()
     swe_launches = phase_swe(swe_sys, records["slice1.json"])
+    torch.cuda.synchronize()
+    ortho_err = phase_ortho_kernel()
+    ortho_times = phase_ortho_timing()
+    torch.cuda.synchronize()
+    fused_launches = phase_swe_fused(swe_sys, records["slice1.json"])
     torch.cuda.synchronize()
     del swe_sys
     heat_sys, pre, launches = phase_heat(records["slice2.json"])
@@ -987,11 +1341,18 @@ def main() -> int:
     torch.cuda.synchronize()
     anchors = phase_poly_anchors(records["slice3.json"])
     torch.cuda.synchronize()
+    snc_launches, _ = phase_snc_row(records["slice4.json"])
+    torch.cuda.synchronize()
+    evolve_launches, _ = phase_snc_evolve(records["slice4.json"])
+    torch.cuda.synchronize()
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
     src = "structurepreservingiterativesolvers_torch/csrc/"
     cheb_row, neu_row = (f"heat_M{HEAT_M}_{short}" for short in ("cheb8", "neu4"))
+    swe_paths = {f"swe_M{SWE_M}_cgs2_fused": fused_launches,
+                 f"swe_M{SWE_M}_snc": snc_launches,
+                 f"swe_M{SWE_M}_snc_evolve": evolve_launches}
 
     def by_path(name, **first):
         """A kernel's launches on each path that ran it."""
@@ -1004,7 +1365,8 @@ def main() -> int:
          "replaces": f"{tpu}pallas_spmv.py:91", "launches": launches["dia_spmv"],
          "launches_by_path": by_path("dia_spmv", **{
              f"swe_M{SWE_M}": swe_launches,
-             f"heat_M{HEAT_M}": launches["dia_spmv"]}),
+             f"heat_M{HEAT_M}": launches["dia_spmv"],
+             **{path: n["dia_spmv"] for path, n in swe_paths.items()}}),
          "max_abs_err": max(dia_err, dia_heat_err), **dia},
         {"name": "stencil_spmv", "route": "cuda",
          "source": src + "stencil_spmv.cu",
@@ -1025,6 +1387,21 @@ def main() -> int:
              "launches": rows[row][name],
              "launches_by_path": by_path(name), "max_abs_err": poly_err[name],
              **t})
+    head = f"swe_M{SWE_M}_m21"  # the row's basis at k=20 is 21 rows at most
+    kernels.append(
+        {"name": "fused_update_matvec", "route": "cuda",
+         "source": src + "ortho_fused.cu",
+         "replaces": f"{tpu}pallas_ortho.py:67",
+         "launches": snc_launches["fused_update_matvec"],
+         "launches_by_path": {path: n["fused_update_matvec"]
+                              for path, n in swe_paths.items()},
+         "max_abs_err": ortho_err, "timed_at": head,
+         **{key: ortho_times[head][key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "chain_ms")},
+         "times": {label: {key: t[key] for key in (
+             "ms", "chain_ms", "bound_ms", "warm_ms", "warm_chain_ms")}
+             for label, t in ortho_times.items()}})
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,19 +5,24 @@ against it.
 Runs the JAX package on the CPU in f64 and writes, under
 ``structurepreservingiterativesolvers_torch/reference/``, ``slice1.json``
 (lkdv and swe, unpreconditioned), ``slice2.json`` (heat with the structured
-AMG of the TimedSolve pre-builder) and ``slice3.json`` (heat with the
-Chebyshev and Neumann polynomial preconditioners): for each configuration,
-GMRES and CGMRES through the experiment wrappers, with their steps,
-constrained steps, safety latch, KKT deviation, final true residual and the
-invariants of the returned iterate; with the AMG also its level sizes, with
-the Chebyshev preconditioner also its spectral bounds.
+AMG of the TimedSolve pre-builder), ``slice3.json`` (heat with the
+Chebyshev and Neumann polynomial preconditioners) and ``slice4.json`` (swe
+with the skew-normal Chebyshev preconditioner of the TimedSolve
+pre-builder, and time evolutions): for each solve configuration, GMRES and
+CGMRES through the experiment wrappers, with their steps, constrained
+steps, safety latch, KKT deviation, final true residual and the invariants
+of the returned iterate; with the AMG also its level sizes, with a
+Chebyshev preconditioner also its spectral bounds (and, skew-normal, its
+degree).  For each evolution (``EVOLVES``), ``experiments.evolve`` with
+CGMRES: per step the solver's steps, constrained steps, safety and KKT
+deviation, and the invariant series with their drifts.
 
     python scripts/make_torch_reference.py            # every configuration
     python scripts/make_torch_reference.py swe_M64    # only the named ones
 
-``swe_M512`` (n = 786,432) and ``heat_M1024`` (n = 1,050,625) take a few
-minutes each on the CPU, ``heat_M1024_cheb8`` and ``heat_M1024_neu4`` one
-to two.
+``swe_M512`` (n = 786,432), ``swe_M512_snc``, ``swe_M512_snc_evolve`` and
+``heat_M1024`` (n = 1,050,625) take a few minutes each on the CPU,
+``heat_M1024_cheb8`` and ``heat_M1024_neu4`` one to two.
 """
 
 from __future__ import annotations
@@ -41,7 +46,10 @@ REFERENCE = ROOT / "structurepreservingiterativesolvers_torch" / "reference"
 # the polynomial preconditioners (builder name, parameters) that a
 # pre_builder of precond.chebyshev or precond.neumann gives.  At M=1024 the
 # polynomial rows stall and end uncertified; M=256 and M=64 at k=60 are the
-# certified anchors, M=32 at k=30 the size of the CPU parity tests.
+# certified anchors, M=32 at k=30 the size of the CPU parity tests.  swe with
+# "snc" is the swe TimedSolve row (k=20, tol=1e-7 absolute) with the
+# skew-normal Chebyshev preconditioner that default_pre_builder("swe")
+# builds, at full size and at the sizes of the CPU tests.
 CHEB8 = ("chebyshev", dict(degree=8))
 NEU4 = ("neumann", dict(degree=4))
 CONFIGS = {
@@ -60,15 +68,36 @@ CONFIGS = {
     "heat_M64_cheb8": ("heat", dict(M=64), 60, 1e-7, False, False, CHEB8),
     "heat_M64_neu4": ("heat", dict(M=64), 60, 1e-7, False, False, NEU4),
     "heat_M32_cheb8": ("heat", dict(M=32), 30, 1e-7, False, False, CHEB8),
+    "swe_M32_snc": ("swe", dict(M=32), 20, 1e-7, False, False, "snc"),
+    "swe_M64_snc": ("swe", dict(M=64), 20, 1e-7, False, False, "snc"),
+    "swe_M512_snc": ("swe", dict(M=512), 20, 1e-7, False, False, "snc"),
+}
+
+# evolutions: name -> (problem, evolve/linforms parameters, k, tol,
+# preconditioner built on the evolution's first system).  swe at M=512 runs
+# three steps of dt = T/N = 0.1, the dt of the TimedSolve row; swe M=16 is
+# the configuration of tests/test_experiments.py::test_fused_evolve_swe with
+# its preconditioner, lkdv that of test_evolve_lkdv_drift_suppression, heat
+# that of test_evolve_heat_runs.
+EVOLVES = {
+    "swe_M512_snc_evolve": ("swe", dict(M=512, N=3, T=0.3), 20, 1e-7, "snc"),
+    "swe_M16_evolve": ("swe", dict(M=16, N=5, T=1.0), 20, 1e-7, "snc"),
+    "lkdv_M50_evolve": ("lkdv", dict(M=50, N=10, degree=2), 30, 1e-6, None),
+    "heat_M16_cheb8_evolve": ("heat", dict(M=16, N=5), 25, 1e-8, CHEB8),
 }
 
 
 def out_path(name) -> Path:
     """The record file that holds configuration ``name``: by its
-    preconditioner (none, the AMG, a polynomial)."""
+    preconditioner (none, the AMG, a polynomial, the skew-normal
+    Chebyshev), and evolutions with the skew-normal slice."""
+    if name in EVOLVES:
+        return REFERENCE / "slice4.json"
     pre = CONFIGS[name][6]
     if pre is None:
         return REFERENCE / "slice1.json"
+    if pre == "snc":
+        return REFERENCE / "slice4.json"
     return REFERENCE / ("slice2.json" if pre == "amg" else "slice3.json")
 
 
@@ -92,9 +121,10 @@ def system(name):
 
 
 def pre_builder(name):
-    """The JAX package's preconditioner builder of configuration ``name``
-    (a function of the system), or None."""
-    pre = CONFIGS[name][6]
+    """The JAX package's preconditioner builder of configuration or
+    evolution ``name`` (a function of the system), or None."""
+    problem, pre = ((EVOLVES[name][0], EVOLVES[name][4]) if name in EVOLVES
+                    else (CONFIGS[name][0], CONFIGS[name][6]))
     if pre is None:
         return None
     from structurepreservingiterativesolvers_tpu import precond
@@ -102,8 +132,8 @@ def pre_builder(name):
         default_pre_builder,
     )
 
-    if pre == "amg":
-        return default_pre_builder(CONFIGS[name][0])
+    if pre in ("amg", "snc"):
+        return default_pre_builder(problem)
     builder, kwargs = pre
     return lambda s: getattr(precond, builder)(s.A, **kwargs)
 
@@ -162,11 +192,63 @@ def record(name, s=None):
         out["config"]["pre"] = "amg"
         out["amg_levels"] = [int(L.A.shape[0]) for L in pre.levels]
     elif pre_spec is not None:
+        _pre_fields(out, pre_spec, pre)
+    return out
+
+
+def _pre_fields(out, pre_spec, pre):
+    """The preconditioner's name and parameters into ``out["config"]``, its
+    spectral bounds (and, skew-normal, its degree) into ``out``."""
+    if pre_spec == "snc":
+        out["config"]["pre"] = "skew_normal_chebyshev"
+        out["degree"] = int(pre.degree)
+    else:
         builder, kwargs = pre_spec
         out["config"]["pre"] = {"name": builder, **kwargs}
-        if hasattr(pre, "lmin"):
-            out["lmin"], out["lmax"] = float(pre.lmin), float(pre.lmax)
-    return out
+    if hasattr(pre, "lmin"):
+        out["lmin"], out["lmax"] = float(pre.lmin), float(pre.lmax)
+
+
+def record_evolve(name):
+    """Run the JAX package's ``evolve`` with CGMRES on evolution ``name``;
+    returns its entry of the record."""
+    _jax_cpu()
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments import wrappers
+    from structurepreservingiterativesolvers_tpu.experiments.evolve import evolve
+
+    problem, params, k, tol, pre_spec = EVOLVES[name]
+    from structurepreservingiterativesolvers_tpu.models import heat, lkdv, swe
+
+    s = {"lkdv": lkdv, "swe": swe, "heat": heat}[problem].linforms(**params)
+    build = pre_builder(name)
+    pre = None if build is None else build(s)
+    infos = []
+
+    def solver(system, **kw):
+        x, info = wrappers.cgmres_wrapper(system, **kw)
+        infos.append(info)
+        return x, info
+
+    out = evolve(problem, k=k, tol=tol, pre=pre, solver=solver, **params)
+    rec = {
+        "config": {"problem": problem, "params": params, "k": k, "tol": tol,
+                   "solver": "cgmres"},
+        "n": int(s.b.shape[0]),
+        "time": [float(t) for t in out["time"]],
+        "steps": [int(i["steps"]) for i in infos],
+        "constrained_steps": [int(i["constrained_steps"]) for i in infos],
+        "safety": [i["safety"] for i in infos],
+        "deviation": [float(i["deviation"]) for i in infos],
+        "series": {key: [float(v) for v in np.asarray(out[key])]
+                   for key in ("mass", "momentum", "energy") if key in out},
+        "drift": {key: [float(v) for v in np.asarray(out[key])]
+                  for key in ("dm", "dmo", "de") if key in out},
+    }
+    if pre_spec is not None:
+        _pre_fields(rec, pre_spec, pre)
+    return rec
 
 
 def load(name):
@@ -177,14 +259,14 @@ def load(name):
 def main(names):
     import jax
 
-    for name in names or list(CONFIGS):
+    for name in names or [*CONFIGS, *EVOLVES]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
             "JAX package on the CPU in f64 (jax " + jax.__version__ + "); "
             "written by scripts/make_torch_reference.py"
         )
-        rec[name] = record(name)
+        rec[name] = record_evolve(name) if name in EVOLVES else record(name)
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(rec, indent=1, sort_keys=True) + "\n")

@@ -2,13 +2,20 @@
 and one CGMRES solve under ``torch.profiler``, after an untimed warm-up
 pass, on the slice's configurations:
 
-* ``swe``: M=512, f64, k=60, tol=1e-9, unpreconditioned;
+* ``swe``: M=512, f64, k=60, tol=1e-9, unpreconditioned, or with
+  ``--pre snc`` the TimedSolve row (k=20, tol=1e-7) with the skew-normal
+  Chebyshev of the swe pre-builder, each apply 2·degree + 1 launches of the
+  DIA kernel;
 * ``heat``: M=1024, f64, k=20, tol=1e-7, with the structured AMG of the
   TimedSolve pre-builder, or with ``--pre cheb8`` / ``--pre neu4`` the
   polynomial pre-builders ``chebyshev(A, degree=8)`` /
   ``neumann(A, degree=4)``, each apply one launch of the fused kernel.
 
+``--ortho cgs2_fused`` runs the Arnoldi orthogonalisation's middle pair
+through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
+
     python scripts/profile_torch.py --problem heat [--pre amg|cheb8|neu4] [--M 1024] [--out build/profile]
+    python scripts/profile_torch.py --problem swe [--pre none|snc] [--ortho cgs2|cgs2_fused]
 
 Prints the busiest device kernels, the device-busy time against the wall
 time of each solve (the device's idle share), the device time by kind
@@ -30,9 +37,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CONFIGS = {"swe": dict(M=512, k=60, tol=1e-9), "heat": dict(M=1024, k=20, tol=1e-7)}
+# the swe TimedSolve row with its preconditioner
+SNC_CONFIG = dict(M=512, k=20, tol=1e-7)
 # the profiler range around each preconditioner apply, per --pre
 PRE_RANGES = {"amg": "amg_vcycle", "cheb8": "chebyshev_apply",
-              "neu4": "neumann_apply"}
+              "neu4": "neumann_apply", "snc": "skew_normal_chebyshev_apply"}
+# the preconditioners of each problem; the first is the default
+PRES = {"swe": ("none", "snc"), "heat": ("amg", "cheb8", "neu4")}
 
 
 def _kind(name: str) -> str:
@@ -42,6 +53,8 @@ def _kind(name: str) -> str:
         return "DIA kernel"
     if "cheb_kernel" in name or "neumann_kernel" in name:
         return "fused polynomial kernel"
+    if "fused_update_matvec_kernel" in name or "sum_partials_kernel" in name:
+        return "fused CGS2 kernel"
     if "gemv" in name or "gemm" in name or "dot_kernel" in name:
         return "matrix-vector products (cuBLAS)"
     return "elementwise, norms, copies"
@@ -65,11 +78,17 @@ def _event_ms(fn, reps=100):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", choices=sorted(CONFIGS), default="heat")
-    ap.add_argument("--pre", choices=sorted(PRE_RANGES), default="amg",
-                    help="heat's preconditioner (default: the AMG)")
+    ap.add_argument("--pre", choices=["none", *sorted(PRE_RANGES)],
+                    default=None,
+                    help="the preconditioner (default: none for swe, the "
+                         "AMG for heat)")
+    ap.add_argument("--ortho", choices=["cgs2", "cgs2_fused"], default="cgs2")
     ap.add_argument("--M", type=int, default=None)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
+    args.pre = args.pre or PRES[args.problem][0]
+    if args.pre not in PRES[args.problem]:
+        ap.error(f"--pre {args.pre} is not a preconditioner of {args.problem}")
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -82,7 +101,7 @@ def main():
         get_model,
     )
 
-    cfg = dict(CONFIGS[args.problem])
+    cfg = dict(SNC_CONFIG if args.pre == "snc" else CONFIGS[args.problem])
     M = args.M or cfg["M"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -90,14 +109,15 @@ def main():
     print(smi.stdout.strip())
     s = get_model(args.problem).linforms(M=M, device="cuda")
     pre = apply = None
-    span = PRE_RANGES[args.pre]
-    if args.problem == "heat":
+    span = PRE_RANGES.get(args.pre)
+    if args.pre != "none":
         from structurepreservingiterativesolvers_torch import precond
         from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
             default_pre_builder,
         )
 
         apply = {"amg": lambda: default_pre_builder("heat")(s),
+                 "snc": lambda: default_pre_builder("swe")(s),
                  "cheb8": lambda: precond.chebyshev(s.A, degree=8),
                  "neu4": lambda: precond.neumann(s.A, degree=4)}[args.pre]()
 
@@ -105,7 +125,7 @@ def main():
             with record_function(span):
                 return apply(v)
 
-    kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre)
+    kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre, ortho=args.ortho)
     solves = {
         "gmres": lambda: wrappers.gmres_wrapper(s, **kw),
         "cgmres": lambda: wrappers.cgmres_wrapper(s, **kw),
@@ -126,7 +146,7 @@ def main():
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.key != span]
         busy_us = sum(e.self_device_time_total for e in kernels)
-        label = f"{args.problem} --pre {args.pre}" if apply else args.problem
+        label = f"{args.problem} --pre {args.pre} --ortho {args.ortho}"
         print(f"\n== {label} {name} M={M}: steps {info['steps']}, wall "
               f"{wall * 1e3:.3f} ms (profiled), device busy {busy_us / 1e3:.3f} "
               f"ms -> idle share {1 - busy_us / 1e6 / wall:.3f}")
@@ -144,7 +164,8 @@ def main():
                       f"{e.cpu_time_total / 1e3:.3f} ms")
         print(events.table(sort_by="self_device_time_total", row_limit=15,
                            max_name_column_width=60))
-        tag = f"_{args.pre}" if apply else ""
+        tag = (f"_{args.pre}" if apply else "") + (
+            "_fused" if args.ortho == "cgs2_fused" else "")
         prof.export_chrome_trace(
             str(out / f"trace_{args.problem}{M}{tag}_{name}.json"))
 

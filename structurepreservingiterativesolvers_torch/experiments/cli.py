@@ -5,6 +5,12 @@
     python -m structurepreservingiterativesolvers_torch single --problem swe --M 64 --k 60 --tol 1e-9
     python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 1024
     python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 16 32 --device cpu
+    python -m structurepreservingiterativesolvers_torch timed --problem swe --sizes 512 --ortho cgs2_fused
+    python -m structurepreservingiterativesolvers_torch evolve --problem swe --M 16 --N 5 --tol 1e-6 --k 30 --device cpu
+
+``--ortho`` picks the Arnoldi orthogonalisation of both solvers: ``cgs2``
+(the default), ``cgs2_fused`` (its middle pair through the fused CGS2
+kernel on the card) or ``mgs``.
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ def main(argv=None):
     def device_arg(p):
         p.add_argument("--device", default="cuda",
                        help="torch device to solve on (default cuda)")
+        p.add_argument("--ortho", default="cgs2",
+                       choices=["cgs2", "cgs2_fused", "mgs"],
+                       help="Arnoldi orthogonalisation (default cgs2)")
 
     p = sub.add_parser("single", help="one-step solver comparison (SingleSolve)")
     p.add_argument("--problem", default="lkdv", choices=["lkdv", "swe", "heat"])
@@ -30,11 +39,21 @@ def main(argv=None):
 
     p = sub.add_parser("timed", help="TimedSolve size sweep with the "
                                      "problem's default preconditioner")
-    p.add_argument("--problem", default="heat", choices=["heat"])
+    p.add_argument("--problem", default="heat", choices=["heat", "swe"])
     p.add_argument("--sizes", type=int, nargs="+", default=None)
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--tol", type=float, default=1e-7)
     p.add_argument("--tol-mode", default="abs", choices=["abs", "rhs"])
+    device_arg(p)
+
+    p = sub.add_parser("evolve", help="time evolution with drift tracking "
+                                      "(CGMRES, unpreconditioned)")
+    p.add_argument("--problem", default="lkdv", choices=["lkdv", "swe", "heat"])
+    p.add_argument("--N", type=int, default=100)
+    p.add_argument("--M", type=int, default=50)
+    p.add_argument("--degree", type=int, default=1)
+    p.add_argument("--k", type=int, default=50)
+    p.add_argument("--tol", type=float, default=1e-6)
     device_arg(p)
 
     args = parser.parse_args(argv)
@@ -43,12 +62,26 @@ def main(argv=None):
         from .single_solve import single_solve
 
         single_solve(args.problem, k=args.k, tol=args.tol, M=args.M,
-                     degree=args.degree, device=args.device)
+                     degree=args.degree, device=args.device, ortho=args.ortho)
     elif args.cmd == "timed":
         from .timed_solve import timed_solve
 
         timed_solve(args.problem, sizes=args.sizes, tol=args.tol, k=args.k,
-                    tol_mode=args.tol_mode, device=args.device)
+                    tol_mode=args.tol_mode, device=args.device,
+                    ortho=args.ortho)
+    elif args.cmd == "evolve":
+        import functools
+
+        from . import wrappers
+        from .evolve import evolve
+
+        out = evolve(args.problem, N=args.N, M=args.M, degree=args.degree,
+                     k=args.k, tol=args.tol, device=args.device,
+                     solver=functools.partial(wrappers.cgmres_wrapper,
+                                              ortho=args.ortho))
+        for key in ("dm", "dmo", "de"):
+            if key in out:
+                print(f"final {key}: {out[key][-1]:.3e}")
 
 
 if __name__ == "__main__":

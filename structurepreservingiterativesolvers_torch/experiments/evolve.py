@@ -1,0 +1,130 @@
+"""Evolve experiment: time stepping with invariant-drift tracking.
+
+The port of the JAX package's ``experiments/evolve.py`` (reference
+lkdv/Evolve.py:18-114, swe/Evolve.py:18-99, and heat, which the reference
+has no Evolve for).  Unlike the reference, which reassembles the whole
+system every step, the loop re-seeds b and the invariant targets on the
+system's device (``System.step_update``) and reuses the operators.
+
+Left out: ``fused_evolve``, the JAX package's whole evolution as one jitted
+``lax.scan``, a TPU dispatch workaround whose counterpart here would be a
+CUDA graph; the L2 error series (``compute_error``), which only lkdvRK has;
+and the figure of ``deviation_plotter``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import wrappers
+from .single_solve import get_model
+
+# each invariant's target attribute on the system, and its drift key in the
+# result
+TARGETS = {"mass": "m0", "momentum": "mo0", "energy": "e0"}
+DRIFT_KEYS = {"mass": "dm", "momentum": "dmo", "energy": "de"}
+
+
+def evolve(
+    problem: str = "lkdv",
+    N: int = 100,
+    M: int = 50,
+    degree: int = 1,
+    k: int = 50,
+    tol: float = 1e-6,
+    contol: float = 10.0,
+    solver=wrappers.cgmres_wrapper,
+    pre=None,
+    warm_start: bool = False,
+    checkpoint: Optional[str] = None,
+    checkpoint_every: int = 50,
+    *,
+    device,
+    **params,
+):
+    """Run N time steps on ``device``; returns the time points, the solver's
+    steps per step, the final solution, and per invariant its series and its
+    drift from the initial value (``dm``, ``dmo``, ``de``).
+
+    ``solver(system, x0=, k=, tol=, pre=)`` solves each step, by default
+    CGMRES through its wrapper; ``functools.partial`` passes it options such
+    as ``ortho``.  ``params`` go to the model's ``linforms`` (``T`` among
+    them).  As in the JAX package, each step starts from zero unless
+    ``warm_start`` (the reference zeroes x0 for lkdv and swe,
+    lkdv/Evolve.py:43-45), and ``contol`` is accepted and unused.  Where the
+    solver reports them, ``safety`` and ``constrained_steps`` per step are
+    returned too.
+
+    ``checkpoint``: an ``.npz`` path; the state is saved every
+    ``checkpoint_every`` steps and at the last, and the run resumes from the
+    file if it exists."""
+    model = get_model(problem)
+    system = model.linforms(N=N, M=M, degree=degree, device=device, **params)
+    x = system.z0
+    names = [nm for nm, attr in TARGETS.items() if hasattr(system, attr)]
+    targets0 = torch.stack([getattr(system, TARGETS[nm])
+                            for nm in names]).cpu().tolist()
+    series = {nm: [v] for nm, v in zip(names, targets0)}
+    time_pts = [0.0]
+    steps_hist, safety_hist, constrained_hist = [], [], []
+
+    start_step = 1
+    if checkpoint:
+        from ..utils.checkpoint import load_state, save_state
+
+        resume = load_state(checkpoint)
+        if resume is not None:
+            start_step, z_saved, saved_series = resume
+            x = torch.as_tensor(z_saved, dtype=system.b.dtype,
+                                device=system.b.device)
+            for nm in names:
+                if nm in saved_series:
+                    series[nm] = list(saved_series[nm])
+            time_pts = list(saved_series.get("time", [0.0]))
+            if start_step > 1:
+                system = system.step_update(x)
+            start_step += 1
+
+    dt_step = float(system.prob.T) / N
+    for i in range(start_step, N + 1):
+        x0 = x if warm_start else torch.zeros_like(system.b)
+        x, info = solver(system, x0=x0, k=k, tol=tol, pre=pre)
+        steps_hist.append(info.get("steps", -1) if isinstance(info, dict) else -1)
+        if isinstance(info, dict) and "safety" in info:
+            safety_hist.append(info["safety"])
+            constrained_hist.append(info["constrained_steps"])
+        # one host read of the invariants per step
+        inv = system.compute_invariants(x)
+        values = torch.stack([inv[nm] for nm in names]).cpu().tolist()
+        for nm, v in zip(names, values):
+            series[nm].append(v)
+        time_pts.append(dt_step * i)
+        if checkpoint and (i % checkpoint_every == 0 or i == N):
+            save_state(checkpoint, i, x, {**series, "time": time_pts})
+        if i < N:
+            system = system.step_update(x)
+
+    out = {"time": np.asarray(time_pts), "steps": steps_hist, "sol": x}
+    if safety_hist:
+        out["safety"] = safety_hist
+        out["constrained_steps"] = constrained_hist
+    for nm in names:
+        arr = np.asarray(series[nm])
+        out[DRIFT_KEYS[nm]] = np.abs(arr - arr[0])
+        out[nm] = arr
+    return out
+
+
+def deviation_plotter(problem: str = "lkdv", tol: float = 1e-6, *, device,
+                      **kwargs):
+    """GMRES against CGMRES invariant drift (reference DeviationPlotter):
+    both evolutions, ``{"GMRES": ..., "CGMRES": ...}``.  The figure of the
+    JAX package (``report.deviation_plot``) is not ported."""
+    standard = evolve(problem, tol=tol, solver=wrappers.gmres_wrapper,
+                      device=device, **kwargs)
+    conserved = evolve(problem, tol=tol, solver=wrappers.cgmres_wrapper,
+                       device=device, **kwargs)
+    return {"GMRES": standard, "CGMRES": conserved}

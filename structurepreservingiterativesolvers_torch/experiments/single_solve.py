@@ -32,16 +32,16 @@ def single_solve(
     verbose: bool = True,
     *,
     device,
+    ortho: str = "cgs2",
     **params,
 ):
     model = get_model(problem)
     system = model.linforms(device=device, **params)
     x0 = torch.zeros_like(system.b)
 
-    x, solvedict = wrappers.gmres_wrapper(system, x0=x0, k=k, tol=tol, pre=pre,
-                                          history=True)
-    x_con, geodict = wrappers.cgmres_wrapper(system, x0=x0, k=k, tol=tol,
-                                             pre=pre, history=True)
+    kw = dict(x0=x0, k=k, tol=tol, pre=pre, history=True, ortho=ortho)
+    x, solvedict = wrappers.gmres_wrapper(system, **kw)
+    x_con, geodict = wrappers.cgmres_wrapper(system, **kw)
     x_dir, _ = wrappers.exact(system)
 
     def rel_error(v):

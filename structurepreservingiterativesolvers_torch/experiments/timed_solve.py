@@ -30,8 +30,9 @@ def _sync(device: torch.device) -> None:
 def default_pre_builder(problem: str):
     """Preconditioner choice per problem, as the JAX package pairs them:
     heat → structured smoothed-aggregation AMG on the (M+1)×(M+1) vertex
-    grid, built on the operator's device.  The other pairings (swe's
-    skew-normal Chebyshev, lkdvRK's RAS + Neumann) are not ported yet."""
+    grid, built on the operator's device; swe → the skew-normal Chebyshev
+    polynomial of its shifted-skew operator A = I/dt − S/2 (a = 1/dt).
+    lkdvRK's RAS + Neumann is not ported yet."""
     if problem == "heat":
         from ..precond.amg import amg
 
@@ -40,6 +41,11 @@ def default_pre_builder(problem: str):
             return amg(system.A, dtype=system.b.dtype, grid=(C, C))
 
         return build
+    if problem == "swe":
+        from ..precond.chebyshev import skew_normal_chebyshev
+
+        return lambda system: skew_normal_chebyshev(system.A,
+                                                    a=1.0 / system.prob.dt)
     raise NotImplementedError(
         f"no default preconditioner for {problem!r} in the port yet")
 
@@ -60,9 +66,12 @@ def time_cgmres(
     tol_mode: str = "abs",
     *,
     device,
+    ortho: str = "cgs2",
     **params,
 ):
-    """One row of the sweep.  ``tol_mode='rhs'`` scales ``tol`` by ‖b‖."""
+    """One row of the sweep.  ``tol_mode='rhs'`` scales ``tol`` by ‖b‖;
+    ``ortho`` is both solvers' Arnoldi orthogonalisation
+    (``solvers.arnoldi.arnoldi_step``)."""
     model = get_model(problem)
     system = model.linforms(M=M, degree=degree, device=device, **params)
     dev = system.b.device
@@ -86,20 +95,19 @@ def time_cgmres(
     end_pre2 = time.perf_counter()
 
     # warm up both solvers so the reported times are steady-state
+    kw = dict(x0=x0, k=k, tol=tol, pre=pre, ortho=ortho)
     t0 = time.perf_counter()
-    wrappers.gmres_wrapper(system, x0=x0, k=k, tol=tol, pre=pre)
-    wrappers.cgmres_wrapper(system, x0=x0, k=k, tol=tol, pre=pre, timing=True)
+    wrappers.gmres_wrapper(system, **kw)
+    wrappers.cgmres_wrapper(system, timing=True, **kw)
     _sync(dev)
     compile_time = time.perf_counter() - t0
 
     start_gmres = time.perf_counter()
-    gmres_x, solvedict = wrappers.gmres_wrapper(system, x0=x0, k=k, tol=tol,
-                                                pre=pre)
+    gmres_x, solvedict = wrappers.gmres_wrapper(system, **kw)
     _sync(dev)
     end_gmres = time.perf_counter()
 
-    cgmres_x, geodict = wrappers.cgmres_wrapper(
-        system, x0=x0, k=k, tol=tol, pre=pre, timing=True)
+    cgmres_x, geodict = wrappers.cgmres_wrapper(system, timing=True, **kw)
 
     # conservation-gain check (reference heat/TimedSolve.py:67-80)
     names = []
@@ -165,10 +173,11 @@ def timed_solve(
     tol_mode: str = "abs",
     *,
     device,
+    ortho: str = "cgs2",
     **params,
 ):
-    """Size sweep (reference: heat M=2⁴..2¹¹).  Returns one dict per size
-    and prints them as a markdown table like the reference."""
+    """Size sweep (reference: heat M=2⁴..2¹¹, swe M=2⁴..2⁹).  Returns one
+    dict per size and prints them as a markdown table like the reference."""
     if sizes is None:
         sizes = [2**i for i in range(4, 9)]
 
@@ -176,7 +185,7 @@ def timed_solve(
     for M in sizes:
         out = time_cgmres(problem, M=M, degree=degree, tol=tol, k=k,
                           pre_builder=pre_builder, tol_mode=tol_mode,
-                          device=device, **params)
+                          device=device, ortho=ortho, **params)
         con = out["conservation"]
         row = {
             "M": M,

@@ -10,6 +10,10 @@ validation only.
 
 The JAX package's ``reduction_mode`` picks the in-loop reduction arithmetic
 for f32 storage; the port stores f64 only, so it has no counterpart.
+
+Both wrappers pass ``**solver_opts`` (``ortho`` among them) to the solver.
+The JAX ``gmres_wrapper`` takes none: its fused orthogonalisation is
+switched by an environment variable, the port's by ``ortho="cgs2_fused"``.
 """
 
 from __future__ import annotations
@@ -36,14 +40,15 @@ def cgmres_wrapper(system, x0=None, k=20, tol=1e-50, contol=10.0, pre=None,
             "Timings are not available for the prototypical solver"
         )
     return cgmres_p(system.A, system.b, x0, k=k, constraints=cons, pre=pre,
-                    history=history)
+                    history=history, **solver_opts)
 
 
 def gmres_wrapper(system, x0=None, k=20, tol=1e-50, contol=None, pre=None,
-                  history=False):
+                  history=False, **solver_opts):
     if contol is not None:
         warnings.warn("contol is ignored as not used in GMRES")
-    return gmres(system.A, system.b, x0, k=k, tol=tol, pre=pre, history=history)
+    return gmres(system.A, system.b, x0, k=k, tol=tol, pre=pre, history=history,
+                 **solver_opts)
 
 
 def exact(system, x0=None, k=None, tol=None, pre=None, contol=None):

@@ -104,6 +104,23 @@ class System:
         )
         return {"mass": mass, "energy": energy}
 
+    def step_update(self, z_prev: torch.Tensor) -> "System":
+        """The next step's system from a solution, on the system's device:
+        b, the energy constraint's linear term and the invariant targets
+        re-seeded, the operators reused."""
+        dt_step = self.prob.dt
+        Lz0 = self.Lmat @ z_prev
+        Mu0 = self.Mmat @ z_prev
+        return dataclasses.replace(
+            self,
+            b=Mu0 / dt_step - 0.5 * Lz0,
+            z0=z_prev,
+            Lz0=Lz0,
+            m0=torch.dot(self.omega, z_prev),
+            old_energy=0.5 * torch.dot(z_prev, Mu0)
+            - 0.25 * dt_step * torch.dot(z_prev, Lz0),
+        )
+
 
 def linforms(
     N: int = 100,

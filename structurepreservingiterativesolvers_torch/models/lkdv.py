@@ -97,6 +97,28 @@ class System:
             - 0.5 * torch.dot(u, self.Mmat @ u),
         }
 
+    def step_update(self, z_prev: torch.Tensor) -> "System":
+        """The next step's system from a solution: b and the invariant
+        targets re-seeded on the system's device, the operators reused (the
+        reference reassembles the whole system every step,
+        lkdv/Evolve.py:57-59)."""
+        dt_step = self.prob.T / self.prob.N
+        u0, _, w0 = torch.split(z_prev, self.n0)
+        Mu0 = self.Mmat @ u0
+        b = torch.cat([
+            Mu0 / dt_step,
+            0.5 * Mu0 + 0.5 * (self.Gmat @ w0),
+            torch.zeros(self.n0, dtype=z_prev.dtype, device=z_prev.device),
+        ])
+        return dataclasses.replace(
+            self,
+            b=b,
+            z0=z_prev,
+            m0=torch.dot(self.omega, u0),
+            mo0=0.5 * torch.dot(u0, Mu0),
+            e0=0.5 * torch.dot(w0, self.Mmat @ w0) - 0.5 * torch.dot(u0, Mu0),
+        )
+
 
 @dataclasses.dataclass(frozen=True)
 class _BlockDiag3:

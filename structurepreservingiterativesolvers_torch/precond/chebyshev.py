@@ -12,6 +12,9 @@ GMRES, and it replaces the reference's ILU/AMG triangular machinery
 * ``neumann(A, degree, omega)``: the truncated Neumann series of the
   Jacobi-scaled system.
 * ``power_bounds(A)``: a spectral-interval estimate of D⁻¹A.
+* ``skew_normal_chebyshev(A, a)``: the polynomial approximate inverse of a
+  shifted-skew operator A = aI − K (the swe midpoint step), a chain of
+  2·degree + 1 products ``A @ v`` (on the card through the DIA kernel).
 
 ``fused`` keeps its JAX meaning.  ``False`` runs the unfused recurrence, p
 products ``A @ x`` (on the card through the DIA or stencil kernel) and the
@@ -24,13 +27,13 @@ twin, the same recurrence.
 Left out: the JAX builders' TPU tiling knobs (``block_rows``,
 ``interpret``, the pre-gathered ``datawin``/``dinvwin`` windows and the
 VMEM fit of ``_fuse_block_rows``), which the card's kernels do not need.
-``SkewNormalChebyshev`` and ``NeumannComposite`` arrive with the swe and
-lkdvRK slices.
+``NeumannComposite`` arrives with the lkdvRK slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -90,6 +93,89 @@ class Neumann:
 
     def solve(self, v: torch.Tensor) -> torch.Tensor:
         return self(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class SkewNormalChebyshev:
+    """Polynomial approximate inverse for shifted-skew systems A = aI − K
+    with K skew in some inner product: the swe midpoint operator
+    A = I/dt − S/2 (reference swe/swe.py:61-66, which pairs it with SuperLU
+    spilu).
+
+    A·(2aI − A) = a²I − K² =: N is SPD in that inner product, with spectrum
+    in [a², a² + ρ(K)²], so A⁻¹ = (2aI − A)·N⁻¹ ≈ (2aI − A)·q(N) with q the
+    degree-``degree`` Chebyshev approximation of the inverse on
+    [lmin, lmax].  Each N-apply is two products ``A @ v``: the whole apply is
+    a chain of 2·degree + 1, in the JAX package's order."""
+
+    A: object
+    a: float  # the shift: A = aI − K
+    lmin: float  # lower spectral bound of N (a²)
+    lmax: float  # upper bound (a² + ρ(K)², with margin)
+    degree: int
+
+    def _N(self, v: torch.Tensor) -> torch.Tensor:
+        # N v = A (2a v − A v) = (a²I − K²) v
+        return self.A @ (2.0 * self.a * v - self.A @ v)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        theta = 0.5 * (self.lmax + self.lmin)
+        delta = 0.5 * (self.lmax - self.lmin)
+        sigma = theta / delta
+        rho = 1.0 / sigma
+        x = v / theta
+        r = v - self._N(x)
+        d = (2.0 * rho / delta) * r
+        for _ in range(self.degree - 1):
+            x = x + d
+            r = r - self._N(d)
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
+            rho = rho_new
+        u = x + d if self.degree >= 1 else x
+        return 2.0 * self.a * u - self.A @ u
+
+    def solve(self, v: torch.Tensor) -> torch.Tensor:
+        return self(v)
+
+
+def skew_normal_chebyshev(A, a: float, rho_k: Optional[float] = None,
+                          degree: Optional[int] = None,
+                          target: float = 0.03) -> SkewNormalChebyshev:
+    """Build a SkewNormalChebyshev for A = aI − K (K skew).
+
+    ``rho_k``, the spectral radius of K, is estimated when not given by 30
+    steps of power iteration on K = aI − A from a fixed random start (one
+    host read per step), taking the largest norm of steps 25–29 and a 1.1
+    margin, as the JAX package does.  ``degree=None`` picks the smallest
+    degree whose Chebyshev min-max error on [a², a² + ρ(K)²] is at most
+    ``target``."""
+    if rho_k is None:
+        n = A.shape[0]
+        d = diagonal(A)
+        v = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
+                            dtype=d.dtype, device=d.device)
+        v = v / torch.linalg.norm(v)
+        est = 0.0
+        for it in range(30):
+            w = a * v - A @ v  # K v
+            nw = float(torch.linalg.norm(w))
+            if it >= 25:
+                est = max(est, nw)
+            v = w / nw
+        rho_k = 1.1 * est
+    lmin = float(a) ** 2
+    lmax = lmin + float(rho_k) ** 2
+    if degree is None:
+        kappa = lmax / lmin
+        factor = (math.sqrt(kappa) - 1.0) / (math.sqrt(kappa) + 1.0)
+        if factor <= 0:
+            degree = 1
+        else:
+            degree = max(1, math.ceil(math.log(2.0 / target)
+                                      / math.log(1.0 / factor)))
+    return SkewNormalChebyshev(A=A, a=float(a), lmin=lmin, lmax=lmax,
+                               degree=int(degree))
 
 
 def power_bounds(A, iters: int = 30, seed: int = 0):

@@ -25,6 +25,11 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 
 from ..config import HOST
+from ..kernels.ortho import fused_update_matvec
+
+# the orthogonalisations of ``arnoldi_step``; "cgs2_xla" is the JAX
+# package's name of the plain form
+ORTHO = ("cgs2", "cgs2_fused", "cgs2_xla", "mgs")
 
 
 class ArnoldiState(NamedTuple):
@@ -80,13 +85,22 @@ def _mgs(Q: torch.Tensor, w: torch.Tensor, j: int) -> Tuple[torch.Tensor, torch.
     return w, torch.stack(hs)
 
 
-def _cgs2(Q: torch.Tensor, w: torch.Tensor, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _cgs2(Q: torch.Tensor, w: torch.Tensor, j: int,
+          fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Classical Gram-Schmidt with reorthogonalisation (CGS2) against rows
-    Q[0..j]: two passes of two tall matvecs; returns (w⊥, h[:j+1])."""
+    Q[0..j]: two passes of two tall matvecs; returns (w⊥, h[:j+1]).
+
+    With ``fused`` the middle pair (the first update and the second
+    projection) runs as one read of the basis, ``kernels/ortho.py`` (the
+    kernel on a CUDA basis, its plain twin on the CPU); the outer two stay
+    matrix products, as in the JAX package."""
     Qa = Q[: j + 1]
     h1 = Qa @ w
-    w1 = w - h1 @ Qa
-    h2 = Qa @ w1
+    if fused:
+        w1, h2 = fused_update_matvec(Qa, w, h1)
+    else:
+        w1 = w - h1 @ Qa
+        h2 = Qa @ w1
     w2 = w1 - h2 @ Qa
     return w2, h1 + h2
 
@@ -100,16 +114,23 @@ def arnoldi_step(
 ) -> float:
     """One flexible-Arnoldi iteration, in place; returns h[j+1, j].
 
+    ``ortho``: ``"cgs2"`` (the plain form, four matrix products; the JAX
+    package's ``"cgs2_xla"`` is the same), ``"cgs2_fused"`` (its middle pair
+    through the fused kernel #5 on a CUDA basis, the kernel's plain twin on
+    the CPU) or ``"mgs"`` (the reference's sequential recurrence).  The
+    explicit ``"cgs2_fused"`` stands in for the JAX package's environment
+    variable ``SPIS_ORTHO_ENGINE=pallas``.
+
     h[j+1, j] == 0 signals breakdown (reference solvers.py:101-106).
     """
+    if ortho not in ORTHO:
+        raise ValueError(f"unknown ortho {ortho!r}; use one of {ORTHO}")
     z = prefunc(st.Q[j])
     w = A @ z
-    if ortho == "cgs2":
-        w, h = _cgs2(st.Q, w, j)
-    elif ortho == "mgs":
+    if ortho == "mgs":
         w, h = _mgs(st.Q, w, j)
     else:
-        raise ValueError(f"unknown ortho {ortho!r}; use 'cgs2' or 'mgs'")
+        w, h = _cgs2(st.Q, w, j, fused=ortho == "cgs2_fused")
     # one device→host copy per step: the Hessenberg column and its last entry
     host = torch.cat([h, torch.linalg.norm(w).reshape(1)]).to(HOST)
     hlast = float(host[-1])

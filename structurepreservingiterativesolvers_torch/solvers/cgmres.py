@@ -58,6 +58,38 @@ from .kkt import constrained_lsq
 _SAFETY_NONE, _SAFETY_OK, _SAFETY_BAD = 0, 1, 2
 
 
+# a dual-start candidate whose roundoff scale exceeds the fallback's by this
+# factor is a diverged Newton iterate, not a constrained minimiser
+DIVERGED_SCALE = 1e8
+
+
+def _take_fresh(warm, fresh, r_warm: float, r_fresh: float, scale_fb: float,
+                ctol: float, dt: torch.dtype) -> bool:
+    """The dual start's choice: whether the candidate from the fresh LSQ
+    start replaces the one from the previous coefficients.  Feasible first,
+    then the smaller Hessenberg residual; a NaN candidate is never taken.
+
+    Both candidates are judged against ONE floor, built from the roundoff
+    scale ``scale_fb`` of the fallback (unconstrained) coefficients, as the
+    far-branch rejection builds its own, and a candidate whose scale is
+    ``DIVERGED_SCALE`` times that or more is infeasible.  The JAX package
+    judges each candidate against its own scale (``cgmres.py:331-337``), so
+    there a diverged candidate, whose inflated scale inflates its floor past
+    its deviation, counts as feasible and can displace a sane one."""
+    floor = max(ctol, 32.0 * torch.finfo(dt).eps * scale_fb)
+    cap = DIVERGED_SCALE * max(scale_fb, torch.finfo(dt).tiny)
+
+    def merit(kk, r):
+        nan = bool(torch.any(torch.isnan(kk.y)))
+        feasible = not nan and kk.deviation <= floor and kk.scale < cap
+        return (np.inf if nan else r), feasible, nan
+
+    r_a, feas_a, _ = merit(warm, r_warm)
+    r_b, feas_b, nan_b = merit(fresh, r_fresh)
+    take = feas_b if feas_a != feas_b else r_b < r_a
+    return take and not nan_b
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -103,32 +135,32 @@ class _Solve:
         )
         e1 = (torch.arange(k + 1) == 0).to(dt)
 
-        def merit(kk):
-            r = float(torch.linalg.norm(beta * e1 - H @ kk.y))
-            nan = bool(torch.any(torch.isnan(kk.y)))
-            floor_m = max(self.ctol, 32.0 * torch.finfo(dt).eps * kk.scale)
-            return r, (kk.deviation <= floor_m) and not nan, nan
+        def residual(kk):
+            return float(torch.linalg.norm(beta * e1 - H @ kk.y))
 
         if not self.prototypical:
+            # the roundoff scale and deviation at the fallback
+            # (unconstrained) coefficients: the dual start's one floor, and
+            # the kept point's numbers if the far branch rejects the
+            # constrained one
+            dev_fb = float(torch.max(torch.stack(
+                [torch.abs(reduced_value(bf, y_unc)) for bf in bufs]) * con_mask))
+            scale_fb = float(torch.max(torch.stack(
+                [reduced_scale(bf, y_unc) for bf in bufs]) * con_mask))
             # dual-start Newton: the nonconvex constraints have several
             # feasible basins and neither start dominates, so solve from the
-            # fresh LSQ start too and keep the better candidate: feasible
-            # first, then the smaller Hessenberg residual
+            # fresh LSQ start too and keep the better candidate
             kkt_f = constrained_lsq(H, beta, bufs, y_unc, active, con_mask,
                                     kkt_tol=kkt_tol)
-            r_a, feas_a, nan_a = merit(kkt)
-            r_b, feas_b, nan_b = merit(kkt_f)
-            r_a = np.inf if nan_a else r_a
-            r_b = np.inf if nan_b else r_b
-            take_b = feas_b if feas_a != feas_b else r_b < r_a
-            if take_b and not nan_b:
+            if _take_fresh(kkt, kkt_f, residual(kkt), residual(kkt_f),
+                           scale_fb, self.ctol, dt):
                 kkt = kkt_f
         bad = bool(torch.any(torch.isnan(kkt.y)))
         # far-branch rejection: the Newton-KKT iteration can converge to a
         # far feasible point, one whose residual exceeds the initial one;
         # keep the unconstrained coefficients and trip the latch there, as
         # the reference's SLSQP checker does (reference solvers.py:256-284)
-        res_kkt = float(torch.linalg.norm(beta * e1 - H @ kkt.y))
+        res_kkt = residual(kkt)
         res_unc = lsq_residual_estimate(st, j)
         far = (not bad) and res_kkt > 0.5 * beta and res_kkt > 1e3 * res_unc
         deviation, scale = kkt.deviation, kkt.scale
@@ -138,10 +170,7 @@ class _Solve:
             far = False
         elif far:
             # the roundoff scale must describe the KEPT point
-            deviation = float(torch.max(torch.stack(
-                [torch.abs(reduced_value(bf, y_unc)) for bf in bufs]) * con_mask))
-            scale = float(torch.max(torch.stack(
-                [reduced_scale(bf, y_unc) for bf in bufs]) * con_mask))
+            deviation, scale = dev_fb, scale_fb
         y = y_unc if (bad or far) else kkt.y
         # NaN fallback leaves the latch untouched; success sets it; a
         # deviation above the tolerance trips it.  The tolerance is floored
@@ -331,7 +360,8 @@ def cgmres(
     Matches the reference output contract (solvers.py:316-322): ``info`` has
     ``name='cgmres'``, per-iteration true residuals ``res``, ``steps``, and a
     ``timings`` entry when ``timing=True`` — plus ``deviation``, ``safety``,
-    ``constrained_steps``, ``kkt_iters`` and ``fallbacks``.
+    ``constrained_steps``, ``kkt_iters`` and ``fallbacks``.  ``ortho`` is
+    the Arnoldi orthogonalisation (``arnoldi_step``).
     """
     return _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
                 timing, prototypical=False, ortho=ortho)
@@ -346,10 +376,11 @@ def cgmres_p(
     pre=None,
     ctol: float = CTOL,
     history: bool = False,
+    ortho: str = "cgs2",
 ):
     """Prototypical CGMRES: fixed ``k`` iterations, constraints enforced
     cumulatively (iteration j enforces the first j), no stopping tolerance
     (reference solvers.py:328-445; info name 'geosolve')."""
     return _run(A, b, x0, k, tol=0.0, contol=0.0, constraints=constraints,
                 pre=pre, ctol=ctol, history=history, timing=False,
-                prototypical=True)
+                prototypical=True, ortho=ortho)

@@ -2,8 +2,9 @@
 
 The port of the JAX package's ``solvers/gmres.py`` (reference
 ``solvers.py:58-127``): right preconditioning with the flexible Z-basis
-reconstruction, CGS2 Arnoldi (``ortho='mgs'`` for the reference's
-sequential recurrence), the true residual ‖Ax−b‖ every iteration,
+reconstruction, CGS2 Arnoldi (``ortho='cgs2_fused'`` for its middle pair
+through the fused kernel, ``ortho='mgs'`` for the reference's sequential
+recurrence; see ``arnoldi_step``), the true residual ‖Ax−b‖ every iteration,
 breakdown detection, and the reference's ``(x, info)`` contract.  The
 iteration loop runs on the host; each step reads its residual there.
 """

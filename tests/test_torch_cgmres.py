@@ -235,6 +235,52 @@ def test_reference_record_is_current(systems, name):
         _same_summary(new[solver], rec[solver], rec["beta"])
 
 
+def _candidate(y, deviation, scale):
+    from structurepreservingiterativesolvers_torch.solvers.kkt import KKTResult
+
+    return KKTResult(y=torch.tensor(y, dtype=torch.float64), lam=torch.zeros(2),
+                     deviation=deviation, scale=scale, kkt_norm=0.0, iters=1,
+                     Kinv=torch.zeros(4, 4), refacts=0)
+
+
+def test_dual_start_merit_rejects_a_diverged_candidate():
+    """The dual start judges both candidates against the fallback's floor.
+    The JAX package's merit judges each against its own scale
+    (cgmres.py:331-337): a diverged fresh-start candidate, whose scale
+    (2.5e287, as observed) lifts its floor past its deviation, counts as
+    feasible there and displaces a sane warm-start candidate that is not
+    feasible yet.  The port keeps the sane one."""
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        _take_fresh,
+    )
+
+    eps, ctol, scale_fb = np.finfo(np.float64).eps, 1e-12, 3e4
+    warm = _candidate([1.0, 0.5], deviation=1e-6, scale=3e4)
+    diverged = _candidate([1e140, -1e140], deviation=1e270, scale=2.5e287)
+
+    def jax_feasible(kk):  # the JAX package's rule
+        return kk.deviation <= max(ctol, 32.0 * eps * kk.scale)
+
+    assert jax_feasible(diverged) and not jax_feasible(warm)
+    assert not _take_fresh(warm, diverged, 1e-6, 1e139, scale_fb, ctol,
+                           torch.float64)
+    # a diverged scale alone makes a candidate infeasible
+    inflated = _candidate([1.0, 0.4], deviation=1e-13, scale=1e13)
+    sane = _candidate([1.0, 0.4], deviation=1e-13, scale=3e4)
+    assert not _take_fresh(warm, inflated, 1e-6, 1e-6, scale_fb, ctol,
+                           torch.float64)
+    assert _take_fresh(warm, sane, 1e-6, 1e-6, scale_fb, ctol, torch.float64)
+    # otherwise unchanged: feasible first, then the smaller residual, and a
+    # NaN candidate never
+    done = _candidate([1.0, 0.5], deviation=1e-14, scale=3e4)
+    assert not _take_fresh(done, sane, 1e-6, 2e-6, scale_fb, ctol,
+                           torch.float64)
+    assert _take_fresh(done, sane, 2e-6, 1e-6, scale_fb, ctol, torch.float64)
+    nan = _candidate([float("nan"), 0.0], deviation=float("nan"), scale=3e4)
+    assert not _take_fresh(warm, nan, 1e-6, float("nan"), scale_fb, ctol,
+                           torch.float64)
+
+
 @pytest.mark.slow
 def test_reference_record_swe_m512():
     """The largest entry (n = 786,432), which the card run is held to."""

@@ -1,8 +1,9 @@
 """Tests of the PyTorch port that need an NVIDIA card: the CUDA DIA and
-stencil kernels and the fused Chebyshev and Neumann applies against their
-plain twins, and CGMRES solves on the card (lkdv, and heat with the
-structured AMG) against the same solves on the CPU.  They skip where no card
-is present.
+stencil kernels, the fused Chebyshev and Neumann applies and the fused CGS2
+update against their plain twins, and solves on the card (lkdv, heat with
+the structured AMG, swe with the fused orthogonalisation and the skew-normal
+Chebyshev) against the same solves on the CPU.  They skip where no card is
+present.
 
 This file imports no JAX, so it also runs on the machine with the card,
 which has none (``--noconftest`` keeps the JAX set-up of ``conftest.py``
@@ -317,3 +318,92 @@ def test_poly_kernels_refuse_what_they_do_not_take():
         pa.neumann_apply(A, dinv, 4, 0.8, v[:-1])
     with pytest.raises(ValueError):
         pa.cheb_apply_cuda(A, 8, *args, v.cpu())
+
+
+# the fused CGS2 update (kernel #5) against its twin, the pair of products
+# w − h @ Q and Q @ w1: the same sums in another order; max|Δ| / max|ref|,
+# with a random h so that u2 does not cancel
+ORTHO_RTOL = {torch.float64: 1e-13, torch.float32: 1e-5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [1, 2, 21, 61, 128])
+@pytest.mark.parametrize("n", [33, 1000, 70000])
+def test_ortho_kernel_matches_plain(dtype, m, n):
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import ortho
+
+    g = torch.Generator().manual_seed(m * n)
+    Q, w, h = (torch.randn(*shape, generator=g, dtype=dtype).cuda()
+               for shape in ((m, n), (n,), (m,)))
+    before = ortho.fused_update_matvec_cuda.launches
+    w1, u2 = ortho.fused_update_matvec(Q, w, h)
+    w1b, u2b = ortho.fused_update_matvec(Q, w, h)
+    torch.cuda.synchronize()
+    assert ortho.fused_update_matvec_cuda.launches == before + 2
+    assert torch.equal(w1, w1b) and torch.equal(u2, u2b)  # no atomics
+    ref_w1, ref_u2 = ortho.fused_update_matvec_torch(Q, w, h)
+    for got, ref in ((w1, ref_w1), (u2, ref_u2)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert float((got - ref).abs().max() / ref.abs().max()) <= ORTHO_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_ortho_kernel_refuses_what_it_does_not_take():
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import ortho
+
+    Q = torch.randn(4, 100, dtype=torch.float64, device="cuda")
+    w = torch.randn(100, dtype=torch.float64, device="cuda")
+    h = torch.randn(4, dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError):
+        ortho.fused_update_matvec(torch.zeros(ortho.MAX_ROWS + 1, 100,
+                                              dtype=torch.float64, device="cuda"),
+                                  w, torch.zeros(ortho.MAX_ROWS + 1,
+                                                 dtype=torch.float64,
+                                                 device="cuda"))
+    with pytest.raises(TypeError):
+        ortho.fused_update_matvec(Q, w.float(), h)
+    with pytest.raises(ValueError):
+        ortho.fused_update_matvec(Q.T.contiguous().T, w, h)
+    with pytest.raises(ValueError):
+        ortho.fused_update_matvec(Q, w, h.cpu())
+    with pytest.raises(ValueError):
+        ortho.fused_update_matvec_cuda(Q.cpu(), w.cpu(), h.cpu())
+
+
+@pytest.mark.cuda
+def test_swe_fused_ortho_and_snc_on_card_match_cpu():
+    """swe M=32 with the skew-normal Chebyshev and the fused
+    orthogonalisation: the same degree, bounds, steps and safety on the card
+    as on the CPU, kernel #5 once per Arnoldi step and kernel #1 in every
+    product, and the same iterate to 1e-8."""
+    _card()
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.kernels import ortho
+    from structurepreservingiterativesolvers_torch.models import swe
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        s = swe.linforms(M=32, device=device)
+        pre = default_pre_builder("swe")(s)
+        before = (dia_spmv_cuda.launches, ortho.fused_update_matvec_cuda.launches)
+        x, info = wrappers.cgmres_wrapper(s, k=20, tol=1e-7, pre=pre,
+                                          ortho="cgs2_fused")
+        torch.cuda.synchronize()
+        out[device] = (pre, x.cpu(), info,
+                       dia_spmv_cuda.launches - before[0],
+                       ortho.fused_update_matvec_cuda.launches - before[1])
+    (pc, xc, ic, dc, oc), (pg, xg, ig, dg, og) = out["cpu"], out["cuda"]
+    assert dc == oc == 0 and dg > 0 and og == ig["steps"]
+    assert pg.degree == pc.degree
+    for key in ("lmin", "lmax"):
+        assert abs(getattr(pg, key) - getattr(pc, key)) <= 1e-10 * getattr(pc, key)
+    for key in ("steps", "constrained_steps", "safety"):
+        assert ig[key] == ic[key]
+    assert ig["safety"] is True and ig["deviation"] <= 1e-10
+    assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-8

@@ -1,7 +1,8 @@
 """The PyTorch port runs where JAX does not exist: the machine with the card
 has no JAX.  A subprocess that blocks ``import jax`` and the JAX package
-imports the port, runs lkdv CGMRES, the SingleSolve command line and the
-heat TimedSolve command line on the CPU."""
+imports the port, runs lkdv CGMRES, the SingleSolve command line, the heat
+and swe TimedSolve command lines and the swe Evolve command line (with the
+fused orthogonalisation's plain twin) on the CPU."""
 
 import re
 import subprocess
@@ -30,6 +31,12 @@ from structurepreservingiterativesolvers_torch.experiments.cli import main
 main(["single", "--problem", "lkdv", "--M", "50", "--k", "20",
       "--device", "cpu"])
 main(["timed", "--problem", "heat", "--sizes", "16", "--device", "cpu"])
+main(["timed", "--problem", "swe", "--sizes", "16", "--device", "cpu",
+      "--ortho", "cgs2_fused"])
+main(["evolve", "--problem", "swe", "--M", "16", "--N", "2", "--k", "30",
+      "--tol", "1e-8", "--device", "cpu", "--ortho", "cgs2_fused"])
+from structurepreservingiterativesolvers_torch.solvers import cg
+from structurepreservingiterativesolvers_torch.utils import checkpoint
 assert not any(m.split(".")[0] in ("jax", "structurepreservingiterativesolvers_tpu")
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -47,9 +54,13 @@ def test_port_imports_and_solves_without_jax():
     # the prototypical CGMRES ones are at roundoff
     cg = re.findall(r"^cgmres \w+ deviation = (\S+)$", proc.stdout, re.M)
     assert len(cg) == 3 and max(abs(float(d)) for d in cg) <= 1e-10
-    # the TimedSolve table: one heat row, certified
-    row = [ln for ln in proc.stdout.splitlines() if ln.startswith("| 16 |")]
-    assert len(row) == 1 and row[0].split("|")[2].strip() == "True"
+    # the TimedSolve tables: one heat row and one swe row, certified
+    rows = [ln for ln in proc.stdout.splitlines() if ln.startswith("| 16 |")]
+    assert len(rows) == 2 and all(r.split("|")[2].strip() == "True"
+                                  for r in rows)
+    # the Evolve drifts of mass and energy, at roundoff
+    drifts = re.findall(r"^final d(?:m|e): (\S+)$", proc.stdout, re.M)
+    assert len(drifts) == 2 and max(float(d) for d in drifts) <= 1e-9
 
 
 def test_port_sources_never_import_jax():
