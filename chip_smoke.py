@@ -7,9 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; JAX is neither needed nor
 imported.  Phases, each of which raises on a failed check:
 
-1. build the four kernel sources from ``csrc/`` (``dia_spmv.cu``,
-   ``stencil_spmv.cu``, ``poly_apply.cu``, ``ortho_fused.cu``), one ``nvcc``
-   for each source, started together;
+1. build the five kernel sources from ``csrc/`` (``dia_spmv.cu``,
+   ``stencil_spmv.cu``, ``poly_apply.cu``, ``poly_tiled.cu``,
+   ``ortho_fused.cu``), one ``nvcc`` for each source, started together;
 2. hold the DIA kernel against its plain PyTorch twin in f64 and f32 on the
    shallow-water operator (M=512, wrapped) and the lkdv degree-3 M=100
    operators (A wrapped, the mass matrix not, ragged n), and time it at the
@@ -30,21 +30,26 @@ imported.  Phases, each of which raises on a failed check:
    and time both kernels, their plain twins and one cuSPARSE CSR matvec of
    the same matrix at the heat M=1024 shape, with the L2 cache flushed
    before each launch, beside the least time the card could take;
-7. hold the fused Chebyshev and Neumann applies (``poly_apply.cu``) against
-   their plain twins in f64 and f32 on the heat M=1024 and M=16 stencils
-   and the swe M=512 wrapped DIA, and time them at heat M=1024 in f64 with
-   L2 flushed, beside their bound, their plain twins and the unfused chain
-   of SpMV kernels (``fused=False``);
+7. hold the fused Chebyshev and Neumann applies against their plain twins
+   in f64 and f32, in the design the dispatch picks from the shapes: the
+   tiled one (``poly_tiled.cu``) on the heat M=1024 and M=16 stencils, with
+   two launches on the same input bit-equal, and the flat one
+   (``poly_apply.cu``) on the swe M=512 wrapped DIA; then time them at heat
+   M=1024 in f64 with L2 flushed, the tiled design (at its plan and at every
+   tile that fits, which must all give the same bits) beside the flat one on
+   the same input, their bound, their plain twins and the unfused chain of
+   SpMV kernels (``fused=False``);
 8. the third slice's full-width rows: the heat M=1024 TimedSolve row
    (k=20, tol=1e-7) through ``time_cgmres`` with a ``chebyshev(degree=8)``
    and a ``neumann(degree=4)`` pre-builder in place of the AMG, counting
    the kernels' launches over each row and per solve, held against the JAX
-   package's record (``reference/slice3.json``).  A fixed-degree polynomial
+   package's record (``reference/slice3.json``); every apply of these rows
+   runs the tiled design, none the flat one.  A fixed-degree polynomial
    stalls at this size, in the JAX package too, so these rows end
    uncertified, and no deviation is compared;
 9. the certified anchors of the third slice: heat M=256 (k=60) with cheb8
    and heat M=64 (k=60) with cheb8 and with neu4, each held to its record's
-   counts and safety and to the certificate;
+   counts and safety and to the certificate, through the tiled design;
 10. hold the fused CGS2 update (kernel #5, ``ortho_fused.cu``) against its
     plain twin in f64 and f32 for m = 1, 2, 21, 61 and 128 basis rows at
     n = 786,432 (swe M=512), 1,050,625 (heat M=1024) and a ragged 1,000,
@@ -92,7 +97,7 @@ SWE_TOL, SWE_K, SWE_M = 1e-9, 60, 512
 HEAT_TOL, HEAT_K, HEAT_M = 1e-7, 20, 1024
 SWE_N, HEAT_N = 3 * SWE_M**2, (HEAT_M + 1) ** 2
 DEVICE = "cuda"
-SOURCES = ("dia_spmv.cu", "stencil_spmv.cu", "poly_apply.cu",
+SOURCES = ("dia_spmv.cu", "stencil_spmv.cu", "poly_apply.cu", "poly_tiled.cu",
            "ortho_fused.cu")
 # the third slice: the polynomial pre-builders as a user writes them
 # (degree, and Neumann's default damping), and its record's tolerances
@@ -624,20 +629,31 @@ def _poly_builders():
 
 
 def _poly_launches():
-    """The launch counters of the four kernels, by name."""
+    """The launch counters of the four kernels by name, and of each design
+    of the polynomial applies (``<name>_tiled``, ``<name>_flat``)."""
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
     from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
         dia_spmv_cuda,
-    )
-    from structurepreservingiterativesolvers_torch.kernels.poly_apply import (
-        cheb_apply_cuda,
-        neumann_apply_cuda,
     )
     from structurepreservingiterativesolvers_torch.kernels.stencil_spmv import (
         stencil_spmv_cuda,
     )
 
-    return {"cheb_apply": cheb_apply_cuda, "neumann_apply": neumann_apply_cuda,
+    return {"cheb_apply": pa.cheb_apply_cuda,
+            "cheb_apply_tiled": pa.cheb_apply_tiled_cuda,
+            "cheb_apply_flat": pa.cheb_apply_flat_cuda,
+            "neumann_apply": pa.neumann_apply_cuda,
+            "neumann_apply_tiled": pa.neumann_apply_tiled_cuda,
+            "neumann_apply_flat": pa.neumann_apply_flat_cuda,
             "stencil_spmv": stencil_spmv_cuda, "dia_spmv": dia_spmv_cuda}
+
+
+def _check_tiled(tag, launches, kernel):
+    """Every launch of ``kernel`` in ``launches`` ran the tiled design."""
+    tiled, flat = launches[f"{kernel}_tiled"], launches[f"{kernel}_flat"]
+    print(f"{tag} {kernel} design: {tiled} tiled, {flat} flat launches")
+    check(launches[kernel] > 0 and tiled == launches[kernel] and flat == 0,
+          f"{tag} {kernel}: {launches[kernel]} launches, {tiled} tiled")
 
 
 def _reset_launches():
@@ -653,7 +669,10 @@ def phase_poly_kernels(ops, applies=None):
     """Kernels #3 and #4 against their plain twins in f64 and f32 on each
     operator of ``ops`` (label -> operator on the card), Chebyshev with the
     bounds ``chebyshev()`` computes for it and Neumann with the builder's
-    D⁻¹.  ``applies`` maps a label to its (kind, degree) list, by default
+    D⁻¹, through the dispatch, which must pick the design ``poly_design``
+    names (tiled on a stencil with strips): each launch counts there and
+    nowhere else, and a second launch of the tiled design gives the same
+    bits.  ``applies`` maps a label to its (kind, degree) list, by default
     (cheb, 8) and (neumann, 4).  Returns the largest f64 absolute error of
     each kernel."""
     import torch
@@ -679,20 +698,34 @@ def phase_poly_kernels(ops, applies=None):
                             dtype=dtype)
             tag = str(dtype).split(".")[-1]
             for kind, degree in todo:
+                design = pa.poly_design(Ad, kind, degree, dtype)
                 if kind == "cheb":
                     args = (Ad, degree, theta, delta, theta / delta, v)
-                    y = pa.cheb_apply(*args)
-                    torch.cuda.synchronize()
-                    ref = pa.cheb_apply_torch(*args)
+                    apply, plain = pa.cheb_apply, pa.cheb_apply_torch
                 else:
                     args = (Ad, dinv, degree, NEU_OMEGA, v)
-                    y = pa.neumann_apply(*args)
+                    apply, plain = pa.neumann_apply, pa.neumann_apply_torch
+                counter = getattr(pa, f"{kind}_apply_{design}_cuda")
+                before = counter.launches
+                y = apply(*args)
+                torch.cuda.synchronize()
+                check(counter.launches == before + 1,
+                      f"{kind} p={degree} {label} did not launch the "
+                      f"{design} design")
+                ref = plain(*args)
+                repeat = ""
+                if design == "tiled":
+                    again = apply(*args)
                     torch.cuda.synchronize()
-                    ref = pa.neumann_apply_torch(*args)
+                    check(torch.equal(y, again),
+                          f"{kind} p={degree} {label} {tag}: two launches "
+                          f"of the tiled design differ")
+                    repeat = ", a second launch bit-equal"
                 abs_err, rel = _rel_err(y, ref)
                 print(f"[poly] {kind} p={degree} {label} n={A.shape[0]} "
-                      f"{type(A).__name__} wrap={A.wrap} {tag}: max|dy|/max|y| "
-                      f"= {rel:.3e} (bound {POLY_RTOL[tag]:.0e})")
+                      f"{type(A).__name__} wrap={A.wrap} {tag}, {design} "
+                      f"design: max|dy|/max|y| = {rel:.3e} (bound "
+                      f"{POLY_RTOL[tag]:.0e}){repeat}")
                 check(y.dtype == dtype and math.isfinite(rel)
                       and rel <= POLY_RTOL[tag],
                       f"{kind} kernel disagrees with plain on {label} p={degree} "
@@ -703,11 +736,37 @@ def phase_poly_kernels(ops, applies=None):
     return errs
 
 
+def _time_tiles(label, S, kind, degree, apply_tiled, y_ref, best):
+    """The tiled design at every tile that fits, L2 flushed: each must give
+    the bits of the planned tile (a point's arithmetic does not depend on
+    the tile that holds it).  Returns {"RxC": ms}."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+
+    out = {}
+    for plan in pa.tile_candidates(S.shape[0], S.grid_c, tuple(S.offsets),
+                                   pa.sweeps(kind, degree), 8):
+        y = apply_tiled(plan)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y_ref),
+              f"{label} tile {plan.tile_r}x{plan.tile_c} changes the bits")
+        key = f"{plan.tile_r}x{plan.tile_c}"
+        out[key] = _time_cold_ms(lambda: apply_tiled(plan), reps=20)
+        print(f"[poly] {label} tile {key}{' (planned)' if plan == best else ''}"
+              f": {out[key]:.4f} ms L2 flushed; {plan.blocks_per_sm} blocks "
+              f"per SM, {plan.tiles} tiles, {plan.smem_bytes} B shared, "
+              f"planner's cost {plan.cost}")
+    return out
+
+
 def phase_poly_timing(s):
-    """Kernels #3 and #4 at the heat M=1024 stencil in f64, L2 flushed,
-    beside their bounds, their plain twins and the unfused chain (p launches
-    of the stencil kernel and the vector updates between them).  Returns the
-    report's fields per kernel."""
+    """Kernels #3 and #4 at the heat M=1024 stencil in f64, L2 flushed: the
+    tiled design the main path runs (at its plan, and at every tile that
+    fits) beside the flat one on the same input, their bound, their plain
+    twins and the unfused chain (p launches of the stencil kernel and the
+    vector updates between them).  Returns the report's fields per
+    kernel."""
     import torch
 
     from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
@@ -729,56 +788,75 @@ def phase_poly_timing(s):
     theta = 0.5 * (cheb.lmax + cheb.lmin)
     delta = 0.5 * (cheb.lmax - cheb.lmin)
     cargs = (S, CHEB_DEGREE, theta, delta, theta / delta, v)
-    _, rel = _rel_err(cheb(v), chain(v))
-    check(rel <= POLY_RTOL["float64"],
-          f"fused Chebyshev differs from the chain: {rel:.3e}")
-    p = CHEB_DEGREE
-    # v read once, y written once, the strips read once; per row the first
-    # sweep's v/θ, product, r and d (2·ndiag + 3), each later step's x, r,
-    # product and d (2·ndiag + 5), and the last x + d
-    out = {"cheb_apply": {
-        "ms": _time_cold_ms(lambda: pa.cheb_apply(*cargs)),
-        "plain_ms": _time_cold_ms(lambda: pa.cheb_apply_torch(*cargs), reps=10),
-        "library_ms": None,
-        "chain_ms": _time_cold_ms(lambda: chain(v)),
-        "warm_ms": _time_ms(lambda: pa.cheb_apply(*cargs)),
-        "warm_chain_ms": _time_ms(lambda: chain(v)),
-    }}
-    out["cheb_apply"]["bound_ms"], out["cheb_apply"]["bound_by"] = _bound_ms(
-        2 * n * 8 + strip_bytes,
-        n * ((2 * ndiag + 3) + (p - 1) * (2 * ndiag + 5) + 1))
-
     neu = neumann(S, degree=NEU_DEGREE, omega=NEU_OMEGA)
     check(neu.fused is True, "neumann() of a card operator did not fuse")
     nchain = neumann(S, degree=NEU_DEGREE, omega=NEU_OMEGA, fused=False)
     nargs = (S, neu.dinv, NEU_DEGREE, NEU_OMEGA, v)
-    _, rel = _rel_err(neu(v), nchain(v))
-    check(rel <= POLY_RTOL["float64"],
-          f"fused Neumann differs from the chain: {rel:.3e}")
-    p = NEU_DEGREE
-    # v and D⁻¹ read once, y written once, the strips read once; per row the
-    # first sweep's z, product, next z and acc (2·ndiag + 6), each later
-    # step's product, z and acc (2·ndiag + 4)
-    out["neumann_apply"] = {
-        "ms": _time_cold_ms(lambda: pa.neumann_apply(*nargs)),
-        "plain_ms": _time_cold_ms(lambda: pa.neumann_apply_torch(*nargs),
-                                  reps=10),
-        "library_ms": None,
-        "chain_ms": _time_cold_ms(lambda: nchain(v)),
-        "warm_ms": _time_ms(lambda: pa.neumann_apply(*nargs)),
-        "warm_chain_ms": _time_ms(lambda: nchain(v)),
+    p, q = CHEB_DEGREE, NEU_DEGREE
+    cases = {
+        # v read once, y written once, the strips read once; per row the
+        # first sweep's v/θ, product, r and d (2·ndiag + 3), each later
+        # step's x, r, product and d (2·ndiag + 5), and the last x + d
+        "cheb_apply": (
+            "cheb", p, cargs, cheb, chain, pa.cheb_apply,
+            pa.cheb_apply_torch, pa.cheb_apply_flat_cuda,
+            lambda plan: pa.cheb_apply_tiled_cuda(S, plan, *cargs[1:]),
+            (2 * n * 8 + strip_bytes,
+             n * ((2 * ndiag + 3) + (p - 1) * (2 * ndiag + 5) + 1))),
+        # v and D⁻¹ read once, y written once, the strips read once; per row
+        # the first sweep's z, product, next z and acc (2·ndiag + 6), each
+        # later step's product, z and acc (2·ndiag + 4)
+        "neumann_apply": (
+            "neumann", q, nargs, neu, nchain, pa.neumann_apply,
+            pa.neumann_apply_torch, pa.neumann_apply_flat_cuda,
+            lambda plan: pa.neumann_apply_tiled_cuda(S, plan, *nargs[1:]),
+            (3 * n * 8 + strip_bytes,
+             n * ((2 * ndiag + 6) + (q - 2) * (2 * ndiag + 4)))),
     }
-    out["neumann_apply"]["bound_ms"], out["neumann_apply"]["bound_by"] = (
-        _bound_ms(3 * n * 8 + strip_bytes,
-                  n * ((2 * ndiag + 6) + (p - 2) * (2 * ndiag + 4))))
-    for name, t in out.items():
+    out = {}
+    for name, (kind, degree, args, pre, chain_pre, apply, plain, flat,
+               tiled, bound) in cases.items():
+        label = f"{kind} p={degree} heat M={HEAT_M}"
+        plan = pa.poly_plan(S, kind, degree, torch.float64)
+        check(plan is not None, f"{label}: no tile plan")
+        y = apply(*args)
+        y_flat = flat(*args)
+        torch.cuda.synchronize()
+        _, rel = _rel_err(pre(v), chain_pre(v))
+        check(rel <= POLY_RTOL["float64"],
+              f"fused {kind} differs from the chain: {rel:.3e}")
+        _, rel_flat = _rel_err(y, y_flat)
+        check(rel_flat <= POLY_RTOL["float64"],
+              f"{label}: the tiled and flat designs differ by {rel_flat:.3e}")
+        t = {
+            "design": "tiled",
+            "plan": {"tile": [plan.tile_r, plan.tile_c], "halo": plan.sweeps,
+                     "tiles": plan.tiles, "smem_bytes": plan.smem_bytes,
+                     "blocks_per_sm": plan.blocks_per_sm},
+            "ms": _time_cold_ms(lambda: apply(*args)),
+            "flat_ms": _time_cold_ms(lambda: flat(*args)),
+            "plain_ms": _time_cold_ms(lambda: plain(*args), reps=10),
+            "library_ms": None,
+            "chain_ms": _time_cold_ms(lambda: chain_pre(v)),
+            "warm_ms": _time_ms(lambda: apply(*args)),
+            "warm_flat_ms": _time_ms(lambda: flat(*args)),
+            "warm_chain_ms": _time_ms(lambda: chain_pre(v)),
+            "tiled_equals_flat": bool(torch.equal(y, y_flat)),
+        }
+        t["bound_ms"], t["bound_by"] = _bound_ms(*bound)
+        t["tiles_ms"] = _time_tiles(label, S, kind, degree, tiled, y, plan)
+        out[name] = t
         print(f"[poly] {name} at heat M={HEAT_M} (n={n}, f64, L2 flushed): "
-              f"kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}; kernel at {t['bound_ms'] / t['ms']:.1%} of "
-              f"it), plain twin {t['plain_ms']:.4f} ms, unfused chain "
-              f"{t['chain_ms']:.4f} ms; back to back with operands in L2: "
-              f"kernel {t['warm_ms']:.4f} ms, chain {t['warm_chain_ms']:.4f} "
-              f"ms")
+              f"tiled kernel {t['ms']:.4f} ms (tile {plan.tile_r}x"
+              f"{plan.tile_c}, halo {plan.sweeps}), flat kernel "
+              f"{t['flat_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; tiled at {t['bound_ms'] / t['ms']:.1%} of "
+              f"it, flat at {t['bound_ms'] / t['flat_ms']:.1%}), plain twin "
+              f"{t['plain_ms']:.4f} ms, unfused chain {t['chain_ms']:.4f} ms; "
+              f"tiled against flat max|dy|/max|y| {rel_flat:.1e} (bit-equal: "
+              f"{t['tiled_equals_flat']}); back to back with operands in L2: "
+              f"tiled {t['warm_ms']:.4f} ms, flat {t['warm_flat_ms']:.4f} ms, "
+              f"chain {t['warm_chain_ms']:.4f} ms")
     return out
 
 
@@ -884,6 +962,7 @@ def phase_poly_rows(record):
 
         kernel = "cheb_apply" if short.startswith("cheb") else "neumann_apply"
         check(launches[kernel] > 0, f"{tag} launched no {kernel} kernel")
+        _check_tiled(tag, launches, kernel)
         check(pre.fused is True, f"{tag} the builder did not fuse")
         for info in (out, ic):
             check(info["safety"] == rec["cgmres"]["safety"],
@@ -943,6 +1022,7 @@ def phase_poly_anchors(record):
         check(pre.fused is True, f"{tag} the builder did not fuse")
         kernel = "cheb_apply" if short.startswith("cheb") else "neumann_apply"
         check(out[name][kernel] > 0, f"{tag} launched no {kernel} kernel")
+        _check_tiled(tag, out[name], kernel)
         check(abs(ig["steps"] - rec["gmres"]["steps"]) <= 1,
               f"{tag} gmres steps {ig['steps']} vs record")
         _check_counts(tag + " cgmres", ic, rec["cgmres"],
@@ -1380,11 +1460,15 @@ def main() -> int:
                             ("neumann_apply", neu_row, 230)):
         t = {key: poly_times[name][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "chain_ms")}
+            "chain_ms", "design", "flat_ms", "plan", "tiles_ms")}
         kernels.append(
-            {"name": name, "route": "cuda", "source": src + "poly_apply.cu",
+            {"name": name, "route": "cuda", "source": src + "poly_tiled.cu",
+             "flat_source": src + "poly_apply.cu",
              "replaces": f"{tpu}pallas_poly.py:{line}",
              "launches": rows[row][name],
+             "launches_by_design": {
+                 design: rows[row][f"{name}_{design}"]
+                 for design in ("tiled", "flat")},
              "launches_by_path": by_path(name), "max_abs_err": poly_err[name],
              **t})
     head = f"swe_M{SWE_M}_m21"  # the row's basis at k=20 is 21 rows at most

@@ -9,7 +9,8 @@ pass, on the slice's configurations:
 * ``heat``: M=1024, f64, k=20, tol=1e-7, with the structured AMG of the
   TimedSolve pre-builder, or with ``--pre cheb8`` / ``--pre neu4`` the
   polynomial pre-builders ``chebyshev(A, degree=8)`` /
-  ``neumann(A, degree=4)``, each apply one launch of the fused kernel.
+  ``neumann(A, degree=4)``, each apply one launch of the fused kernel (its
+  tiled design on heat's stencil).
 
 ``--ortho cgs2_fused`` runs the Arnoldi orthogonalisation's middle pair
 through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
@@ -19,11 +20,12 @@ through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
 
 Prints the busiest device kernels, the device-busy time against the wall
 time of each solve (the device's idle share), the device time by kind
-(stencil kernel, DIA kernel, fused polynomial kernels, matrix-vector
-products of the Krylov basis and the coarse solve, the rest) and, for heat,
-the device and host time spent inside the preconditioner's applies; writes a
-Chrome trace per solver into ``--out``.  Then times one preconditioner apply
-and one operator product alone with CUDA events.  Needs a CUDA device.
+(stencil kernel, DIA kernel, fused polynomial kernels by design,
+matrix-vector products of the Krylov basis and the coarse solve, the rest)
+and, for heat, the device and host time spent inside the preconditioner's
+applies; writes a Chrome trace per solver into ``--out``.  Then times one
+preconditioner apply and one operator product alone with CUDA events.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,8 +53,10 @@ def _kind(name: str) -> str:
         return "stencil kernel"
     if "dia_spmv_kernel" in name:
         return "DIA kernel"
+    if "tiled_kernel" in name:
+        return "fused polynomial kernel, tiled"
     if "cheb_kernel" in name or "neumann_kernel" in name:
-        return "fused polynomial kernel"
+        return "fused polynomial kernel, flat"
     if "fused_update_matvec_kernel" in name or "sum_partials_kernel" in name:
         return "fused CGS2 kernel"
     if "gemv" in name or "gemm" in name or "dot_kernel" in name:

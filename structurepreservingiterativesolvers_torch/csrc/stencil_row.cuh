@@ -1,6 +1,7 @@
 // One row of a constant-stencil product with its boundary-strip correction,
-// shared by csrc/stencil_spmv.cu (one product) and csrc/poly_apply.cu (the
-// fused polynomial applies, which run p products in one launch).
+// shared by csrc/stencil_spmv.cu (one product), csrc/poly_apply.cu (the
+// fused polynomial applies, p flat products in one launch) and
+// csrc/poly_tiled.cu (the same applies on 2-D tiles in shared memory).
 //
 //   (A x)[i] = sum_d c_d * x[i + off_d]  +  E[i, :] x
 //
@@ -69,23 +70,24 @@ __device__ __forceinline__ T shifted(const L& ld, long long j,
   return (j >= 0 && j < n) ? ld(j) : T(0);
 }
 
-// The constant chain in diagonal order, then, on a strip row, the four strip
-// sums apart, added in the plain version's order: ((top + bot) + left) +
-// right.  The strip test is one 64-bit division per row; only the O(R + C)
-// strip rows read strip data.
-template <typename T, bool WRAP, class L>
-__device__ __forceinline__ T stencil_row(
-    const L& ld, long long i, long long n, int ndiag,
-    const StencilParams<T>& p, long long C, long long R,
+// The product at row i, which lies at column `col` of grid row `r`
+// (i = r C + col; unread when C == 0), with xv(d) the shifted value
+// x[i + off_d] of diagonal d: the constant chain in diagonal order, then, on
+// a strip row, the four strip sums apart, added in the plain version's
+// order: ((top + bot) + left) + right.  Only the O(R + C) strip rows read
+// strip data.  A caller that knows r and col (a tile of the grid) passes
+// them; stencil_row derives them from the flat index.
+template <typename T, class XV>
+__device__ __forceinline__ T stencil_sum(
+    const XV& xv, long long i, long long r, long long col, long long n,
+    int ndiag, const StencilParams<T>& p, long long C, long long R,
     const T* __restrict__ top, const T* __restrict__ bot,
     const T* __restrict__ left, const T* __restrict__ right) {
   T acc = T(0);
   for (int d = 0; d < ndiag; ++d) {
-    acc += p.c[d] * shifted<T, WRAP>(ld, i + p.off[d], n);
+    acc += p.c[d] * xv(d);
   }
   if (C > 0) {
-    const long long r = i / C;
-    const long long col = i - r * C;
     const bool in_top = i < C;
     const bool in_bot = i >= n - C;
     const bool in_left = col == 0;
@@ -93,14 +95,28 @@ __device__ __forceinline__ T stencil_row(
     if (in_top || in_bot || in_left || in_right) {
       T t = T(0), b = T(0), l = T(0), rt = T(0);
       for (int d = 0; d < ndiag; ++d) {
-        const T xv = shifted<T, WRAP>(ld, i + p.off[d], n);
-        if (in_top) t += top[(long long)d * C + i] * xv;
-        if (in_bot) b += bot[(long long)d * C + (i - (n - C))] * xv;
-        if (in_left) l += left[(long long)d * R + r] * xv;
-        if (in_right) rt += right[(long long)d * R + r] * xv;
+        const T x = xv(d);
+        if (in_top) t += top[(long long)d * C + i] * x;
+        if (in_bot) b += bot[(long long)d * C + (i - (n - C))] * x;
+        if (in_left) l += left[(long long)d * R + r] * x;
+        if (in_right) rt += right[(long long)d * R + r] * x;
       }
       acc = acc + (((t + b) + l) + rt);
     }
   }
   return acc;
+}
+
+// stencil_sum at flat row i, reading x[i + off_d] through the loader; the
+// strip test costs one 64-bit division per row
+template <typename T, bool WRAP, class L>
+__device__ __forceinline__ T stencil_row(
+    const L& ld, long long i, long long n, int ndiag,
+    const StencilParams<T>& p, long long C, long long R,
+    const T* __restrict__ top, const T* __restrict__ bot,
+    const T* __restrict__ left, const T* __restrict__ right) {
+  const auto xv = [&](int d) { return shifted<T, WRAP>(ld, i + p.off[d], n); };
+  const long long r = C > 0 ? i / C : 0;
+  return stencil_sum<T>(xv, i, r, i - r * C, n, ndiag, p, C, R, top, bot,
+                        left, right);
 }

@@ -1,6 +1,7 @@
 """Tests of the PyTorch port that need an NVIDIA card: the CUDA DIA and
-stencil kernels, the fused Chebyshev and Neumann applies and the fused CGS2
-update against their plain twins, and solves on the card (lkdv, heat with
+stencil kernels, the fused Chebyshev and Neumann applies (both designs, and
+the dispatch between them) and the fused CGS2 update against their plain
+twins, and solves on the card (lkdv, heat with
 the structured AMG, swe with the fused orthogonalisation and the skew-normal
 Chebyshev) against the same solves on the CPU.  They skip where no card is
 present.
@@ -318,6 +319,160 @@ def test_poly_kernels_refuse_what_they_do_not_take():
         pa.neumann_apply(A, dinv, 4, 0.8, v[:-1])
     with pytest.raises(ValueError):
         pa.cheb_apply_cuda(A, 8, *args, v.cpu())
+
+
+# the tiled design of kernels #3 and #4 (csrc/poly_tiled.cu) on heat's
+# stencil: every degree here has a tile plan at these sizes
+TILED_SIZES = (16, 64, 256, 1024)
+TILED_DEGREES = (1, 2, 3, 8, 16)
+
+
+@pytest.fixture(scope="module")
+def heat_on_card():
+    """M -> (operator, inverse diagonal, theta, delta) of heat on the card,
+    assembled once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from structurepreservingiterativesolvers_torch import precond
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    out = {}
+    for M in TILED_SIZES:
+        A = heat.linforms(M=M, device="cuda").A
+        base = precond.chebyshev(A, degree=8)
+        out[M] = (A, precond.neumann(A, degree=4).dinv,
+                  0.5 * (base.lmax + base.lmin), 0.5 * (base.lmax - base.lmin))
+    return out
+
+
+def _tiled_apply(pa, sys_, kind, degree, dtype, seed=11):
+    A, dinv, theta, delta = sys_
+    A, dinv = A.astype(dtype), dinv.to(dtype)
+    v = torch.randn(A.shape[0], generator=torch.Generator().manual_seed(seed),
+                    dtype=dtype).cuda()
+    if kind == "cheb":
+        args = (A, degree, theta, delta, theta / delta, v)
+        return args, pa.cheb_apply, pa.cheb_apply_torch
+    args = (A, dinv, degree, 0.8, v)
+    return args, pa.neumann_apply, pa.neumann_apply_torch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("M", TILED_SIZES)
+def test_tiled_poly_kernels_match_plain(heat_on_card, M, dtype):
+    """The tiled design against the plain twins at degrees 1, 2, 3, 8 and
+    16, launched through the dispatch, which picks it on heat's stencil."""
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+
+    for kind in ("cheb", "neumann"):
+        tiled = getattr(pa, f"{kind}_apply_tiled_cuda")
+        for degree in TILED_DEGREES:
+            args, kernel, plain = _tiled_apply(pa, heat_on_card[M], kind,
+                                               degree, dtype)
+            assert pa.poly_design(args[0], kind, degree, dtype) == "tiled"
+            before = tiled.launches
+            y = kernel(*args)
+            torch.cuda.synchronize()
+            assert tiled.launches == before + 1
+            ref = plain(*args)
+            assert y.dtype == dtype and bool(torch.isfinite(y).all())
+            rel = float((y - ref).abs().max() / ref.abs().max())
+            assert rel <= POLY_RTOL[dtype], (kind, degree, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_poly_stencil_beyond_the_box_runs_flat(dtype):
+    """A stencil with strips whose offsets reach two grid rows has no tile
+    plan: the dispatch launches the flat design, against the plain twins on
+    a ragged grid at degrees 1, 2, 3 and 8."""
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+    from structurepreservingiterativesolvers_torch.ops.stencil import Stencil
+
+    R, C = 53, 41
+    offsets = (-2 * C, -C - 1, -1, 0, 1, C + 1, 2 * C)
+    const, offsets, grid_c, st = _stencil_operands(R, C, offsets, False, True,
+                                                   dtype)
+    const = tuple(0.1 * c + (2.0 if o == 0 else 0.0)
+                  for c, o in zip(const, offsets))
+    st = tuple(0.1 * s for s in st)
+    n = R * C
+    dia = DIA(data=torch.zeros(len(offsets), n, dtype=dtype, device="cuda"),
+              offsets=offsets, shape=(n, n), wrap=False)
+    A = Stencil(dia=dia, const=const, top_vals=st[0], bot_vals=st[1],
+                left_vals=st[2], right_vals=st[3], grid_c=grid_c)
+    dinv = torch.full((n,), 1.0 / const[offsets.index(0)], dtype=dtype,
+                      device="cuda")
+    v = torch.randn(n, generator=torch.Generator().manual_seed(2),
+                    dtype=dtype).cuda()
+    for degree in (1, 2, 3, 8):
+        for kind, args, plain in (
+                ("cheb", (A, degree, 2.0, 1.0, 2.0, v), pa.cheb_apply_torch),
+                ("neumann", (A, dinv, degree, 0.8, v),
+                 pa.neumann_apply_torch)):
+            assert pa.poly_design(A, kind, degree, dtype) == "flat"
+            flat = getattr(pa, f"{kind}_apply_flat_cuda")
+            before = flat.launches
+            y = getattr(pa, f"{kind}_apply")(*args)
+            torch.cuda.synchronize()
+            assert flat.launches == before + 1
+            ref = plain(*args)
+            rel = float((y - ref).abs().max() / ref.abs().max())
+            assert rel <= POLY_RTOL[dtype], (kind, degree, rel)
+
+
+@pytest.mark.cuda
+def test_tiled_poly_kernels_repeat_bit_equal(heat_on_card):
+    """No atomics and a fixed order of sums: two launches on the same input
+    give the same bits, at the size of the main path and a small one."""
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+
+    for M in (64, 1024):
+        for kind, degree in (("cheb", 8), ("neumann", 4)):
+            for dtype in (torch.float64, torch.float32):
+                args, kernel, _ = _tiled_apply(pa, heat_on_card[M], kind,
+                                               degree, dtype)
+                first, second = kernel(*args), kernel(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(first, second), (M, kind, degree, dtype)
+
+
+@pytest.mark.cuda
+def test_poly_dispatch_by_shape_on_card(heat_on_card):
+    """heat's stencil runs the tiled design; swe's DIA, and a degree whose
+    halo no tile holds, run the flat one.  Each design counts its own
+    launches, and the dispatch counts both."""
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.models import swe
+
+    A_swe = swe.linforms(M=32, device="cuda").A
+    dinv_swe = 1.0 / A_swe.data[A_swe.offsets.index(0)]
+    v_swe = torch.randn(A_swe.shape[0], dtype=torch.float64, device="cuda")
+    A, dinv, theta, delta = heat_on_card[64]
+    v = torch.randn(A.shape[0], dtype=torch.float64, device="cuda")
+    calls = [
+        ("tiled", lambda: pa.cheb_apply(A, 8, theta, delta, theta / delta, v)),
+        ("tiled", lambda: pa.neumann_apply(A, dinv, 4, 0.8, v)),
+        ("flat", lambda: pa.cheb_apply(A_swe, 8, 2.0, 1.0, 2.0, v_swe)),
+        ("flat", lambda: pa.neumann_apply(A_swe, dinv_swe, 4, 0.8, v_swe)),
+        ("flat", lambda: pa.cheb_apply(A, pa.MAX_DEGREE, theta, delta,
+                                       theta / delta, v)),
+    ]
+    counters = (pa.cheb_apply_tiled_cuda, pa.neumann_apply_tiled_cuda,
+                pa.cheb_apply_flat_cuda, pa.neumann_apply_flat_cuda,
+                pa.cheb_apply_cuda, pa.neumann_apply_cuda)
+    for design, call in calls:
+        before = [c.launches for c in counters]
+        call()
+        torch.cuda.synchronize()
+        grew = [c.launches - b for c, b in zip(counters, before)]
+        tiled, flat, total = (grew[0] + grew[1], grew[2] + grew[3],
+                              grew[4] + grew[5])
+        assert (tiled, flat, total) == ((1, 0, 1) if design == "tiled"
+                                        else (0, 1, 1))
 
 
 # the fused CGS2 update (kernel #5) against its twin, the pair of products
