@@ -12,8 +12,14 @@ imported.  Phases, each of which raises on a failed check:
    ``ortho_fused.cu``), one ``nvcc`` for each source, started together;
 2. hold the DIA kernel against its plain PyTorch twin in f64 and f32 on the
    shallow-water operator (M=512, wrapped) and the lkdv degree-3 M=100
-   operators (A wrapped, the mass matrix not, ragged n), and time it at the
-   shallow-water shape;
+   operators (A wrapped, the mass matrix not, ragged n), through each
+   operator's live plan, with the dense design (every diagonal) and
+   ``A @ x`` (live where the plan pays, dense elsewhere) giving the same
+   bits and two launches bit-equal; then time it at the shallow-water shape
+   with L2 flushed: ``A @ x``, the live design (at its chunk and at others),
+   the dense design, the plain twin and cuSPARSE, beside the bounds on the
+   stored non-zeros, on the live segments and on every diagonal, and the
+   host's time per product;
 3. lkdv: the reference SingleSolve (M=50, degree 1, k=20) and the hard
    configuration (M=100, degree 3, k=50, tol=1e-6), which CGMRES must
    certify with a ≥2× invariant gain over GMRES;
@@ -26,10 +32,16 @@ imported.  Phases, each of which raises on a failed check:
    per solve and the iterate, held against the JAX package's record
    (``reference/slice2.json``);
 6. hold the stencil kernel against its plain twin in f64 and f32 on the
-   heat M=1024 and M=16 operators, and the DIA kernel on heat's matrices,
-   and time both kernels, their plain twins and one cuSPARSE CSR matvec of
-   the same matrix at the heat M=1024 shape, with the L2 cache flushed
-   before each launch, beside the least time the card could take;
+   heat M=1024, M=16 and M=17 operators in its tiled design, which must
+   give the flat design's bits, two launches bit-equal, and the DIA kernel
+   on heat's matrices and every operator of the AMG hierarchy, whose plans
+   do not pay; time what the AMG's live plans cost to build; and time both
+   kernels (the stencil's tiled design at its tile and at every tile, and
+   its flat one, through the same dispatcher; the DIA's ``A @ x``, live and
+   dense designs), their plain twins and one cuSPARSE CSR matvec of the
+   same matrix at the heat M=1024 shape, with the L2 cache flushed before
+   each launch, beside the least time the card could take, and the host's
+   time per stencil product;
 7. hold the fused Chebyshev and Neumann applies against their plain twins
    in f64 and f32, in the design the dispatch picks from the shapes: the
    tiled one (``poly_tiled.cu``) on the heat M=1024 and M=16 stencils, with
@@ -65,9 +77,12 @@ imported.  Phases, each of which raises on a failed check:
     orthogonalisation, and three steps of ``evolve`` on swe M=512 (T=0.3,
     so dt = 0.1 as in the row), counting kernels #1 and #5 over each.
 
-The line before the last is the kernel report as JSON; the last line is the
-device record.  Exits non-zero, printing no result, without a CUDA device
-or outside a checkout.
+Every main path checks, by the launch counters, that its DIA products ran
+the design its operators' plans pick (live on swe, dense on heat) and its
+stencil products the tiled one.  The line before
+the last is the kernel report as JSON; the last line is the device record.
+Exits non-zero, printing no result, without a CUDA device or outside a
+checkout.
 """
 
 from __future__ import annotations
@@ -165,6 +180,23 @@ def _time_ms(fn, reps=200):
     return start.elapsed_time(end) / reps
 
 
+def _host_us(fn, reps=500):
+    """Microseconds of the host's time per call over a run of calls that
+    the card runs faster than the host issues them, so the host never
+    waits: what a call costs the host, Python and launch included."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
 def _time_cold_ms(fn, reps=50):
     """Mean device time per call with the 50 MB L2 flushed before each call,
     so every operand comes from device memory, as the bound counts it.  The
@@ -220,7 +252,67 @@ def _rel_err(y, ref):
     return abs_err, abs_err / float(ref.abs().max())
 
 
+def _check_dia(label, A, gen, dtypes=("float64", "float32")):
+    """Kernel #1 on the DIA ``A`` against its plain twin in each dtype: the
+    live design with A's plan, and the dense design on the same input,
+    which must give the same bits; two launches bit-equal; and ``A @ x``,
+    which must give them too, in the design the plan picks (live where it
+    pays).  Each launch counts in its design and nowhere else.  Returns the
+    largest f64 absolute error."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+
+    max_abs = 0.0
+    for tag in dtypes:
+        dtype = getattr(torch, tag)
+        Ad = A if A.dtype == dtype else A.astype(dtype)
+        x = torch.randn(A.shape[0], generator=gen, device=DEVICE, dtype=dtype)
+        plan = Ad.live()
+        before = (kd.dia_spmv_live_cuda.launches,
+                  kd.dia_spmv_dense_cuda.launches)
+        y = kd.dia_spmv_live_cuda(Ad.data, Ad.offsets, Ad.wrap, plan, x)
+        again = kd.dia_spmv_live_cuda(Ad.data, Ad.offsets, Ad.wrap, plan, x)
+        dense = kd.dia_spmv_cuda(Ad.data, Ad.offsets, Ad.wrap, x)
+        product = Ad @ x
+        torch.cuda.synchronize()
+        check((kd.dia_spmv_live_cuda.launches, kd.dia_spmv_dense_cuda.launches)
+              == (before[0] + 2 + plan.pays, before[1] + 1 + (not plan.pays)),
+              f"DIA {label} {tag}: the launches did not go to their designs")
+        abs_err, rel = _rel_err(y, kd.dia_spmv_torch(Ad.data, Ad.offsets,
+                                                     Ad.wrap, x))
+        live = int(_popcounts(plan.words).sum())
+        print(f"[kernel] DIA {label} n={A.shape[0]} ndiag={len(A.offsets)} "
+              f"wrap={A.wrap} {tag}: live design max|dy|/max|y| = {rel:.3e} "
+              f"(bound {KERNEL_RTOL[tag]:.0e}); live diagonals a chunk "
+              f"{live / len(plan.words):.2f} of {len(A.offsets)} (chunk "
+              f"{plan.chunk}), live share {plan.share:.4f}, so A @ x runs "
+              f"{'live' if plan.pays else 'dense'}; equals the dense design "
+              f"{torch.equal(y, dense)}, a second launch "
+              f"{torch.equal(y, again)}, A @ x {torch.equal(y, product)}")
+        check(math.isfinite(rel) and rel <= KERNEL_RTOL[tag],
+              f"DIA kernel disagrees with plain on {label} {tag}: {rel:.3e}")
+        check(torch.equal(y, dense) and torch.equal(y, again)
+              and torch.equal(y, product),
+              f"DIA {label} {tag}: live and dense designs or repeats differ")
+        if tag == "float64":
+            max_abs = max(max_abs, abs_err)
+    return max_abs
+
+
+def _popcounts(words):
+    """The set bits of each int64 word of a live plan."""
+    import torch
+
+    bits = torch.arange(64, device=words.device)
+    return ((words[:, None] >> bits) & 1).sum(dim=1)
+
+
 def phase_kernel(swe_sys, lkdv_sys):
+    """Kernel #1 against its plain twin in f64 and f32 on the swe M=512 and
+    lkdv operators, each through its live plan, beside the dense design;
+    then its times at the swe M=512 shape.  Returns the largest f64 error
+    and the timing fields of the report."""
     import torch
 
     from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
@@ -228,63 +320,100 @@ def phase_kernel(swe_sys, lkdv_sys):
         dia_spmv_torch,
     )
 
-    ops = {"swe_M512_A": swe_sys.A, "lkdv_hard_A": lkdv_sys.A,
-           "lkdv_hard_Mmat": lkdv_sys.Mmat}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     max_abs_f64 = 0.0
-    for name, A in ops.items():
-        for dtype in (torch.float64, torch.float32):
-            data = A.data.to(dtype)
-            x = torch.randn(A.shape[0], generator=gen, device=DEVICE, dtype=dtype)
-            y = dia_spmv(data, A.offsets, A.wrap, x)
-            torch.cuda.synchronize()
-            abs_err, rel = _rel_err(y, dia_spmv_torch(data, A.offsets,
-                                                      A.wrap, x))
-            tag = str(dtype).split(".")[-1]
-            print(f"[kernel] {name} n={A.shape[0]} ndiag={len(A.offsets)} "
-                  f"wrap={A.wrap} {tag}: max|dy|/max|y| = {rel:.3e} "
-                  f"(bound {KERNEL_RTOL[tag]:.0e})")
-            check(math.isfinite(rel) and rel <= KERNEL_RTOL[tag],
-                  f"kernel disagrees with plain on {name} {tag}: {rel:.3e}")
-            if dtype == torch.float64:
-                max_abs_f64 = max(max_abs_f64, abs_err)
+    for name, A in {"swe_M512_A": swe_sys.A, "lkdv_hard_A": lkdv_sys.A,
+                    "lkdv_hard_Mmat": lkdv_sys.Mmat}.items():
+        max_abs_f64 = max(max_abs_f64, _check_dia(name, A, gen))
 
     A = swe_sys.A
     x = torch.randn(A.shape[0], generator=gen, device=DEVICE, dtype=torch.float64)
-    ms = _time_ms(lambda: dia_spmv(A.data, A.offsets, A.wrap, x))
+    check(A.live().pays, "the swe M=512 operator's plan does not pay")
+    ms = _time_ms(lambda: A @ x)
     plain_ms = _time_ms(lambda: dia_spmv_torch(A.data, A.offsets, A.wrap, x),
                         reps=50)
-    nbytes = (len(A.offsets) + 2) * A.shape[0] * 8
-    print(f"[kernel] swe M=512 f64 SpMV: kernel {ms:.4f} ms "
-          f"({nbytes / ms / 1e6:.0f} GB/s of {nbytes / 1e6:.1f} MB), "
-          f"plain {plain_ms:.4f} ms")
-    _time_dia(A, swe_sys.A_csr, x, "swe M=512")
-    return max_abs_f64
+    dense_ms = _time_ms(lambda: dia_spmv(A.data, A.offsets, A.wrap, x))
+    # the host's time per product: through the operator's kept launch, and
+    # through the raw wrapper, which checks and resolves it on every call
+    plan = A.live()
+    host = {"A @ x": _host_us(lambda: A @ x),
+            "resolved per call": _host_us(
+                lambda: dia_spmv(A.data, A.offsets, A.wrap, x, plan))}
+    print(f"[kernel] swe M=512 f64 SpMV back to back with x in L2: live "
+          f"design {ms:.4f} ms, dense design {dense_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; the host's time per call: " + ", ".join(
+              f"{k} {t:.2f} us" for k, t in host.items()))
+    out = _time_dia(A, swe_sys.A_csr, x, "swe M=512")
+    out["host_us"] = host
+    return max_abs_f64, out
 
 
 def _time_dia(A, A_csr, x, label):
-    """The DIA kernel, its plain twin and the cuSPARSE matvec of the same
-    matrix, each with L2 flushed; returns the timing fields of the report."""
-    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
-        dia_spmv,
-        dia_spmv_torch,
-    )
+    """Kernel #1 as ``A @ x`` runs it (in the design A's plan picks), the
+    live design with the DIA's plan, the same kernel with every bit set (the
+    dense read), its plain twin and the cuSPARSE matvec of the same matrix,
+    each with L2 flushed, and the live design at other chunk lengths;
+    returns the timing fields of the report.  The bound counts the stored
+    non-zeros with x and y; the bounds of the live segments and of the dense
+    read stand beside it."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
 
     Acsr = _csr(A_csr)
     n, ndiag = A.shape[0], len(A.offsets)
+    plan = A.live()
     out = {
-        "ms": _time_cold_ms(lambda: dia_spmv(A.data, A.offsets, A.wrap, x)),
+        "design": "live" if plan.pays else "dense",
+        "live_share": plan.share,
+        "ms": _time_cold_ms(lambda: A @ x),
+        "live_ms": _time_cold_ms(
+            lambda: kd.dia_spmv_live_cuda(A.data, A.offsets, A.wrap, plan, x)),
+        "dense_ms": _time_cold_ms(
+            lambda: kd.dia_spmv_cuda(A.data, A.offsets, A.wrap, x)),
         "plain_ms": _time_cold_ms(
-            lambda: dia_spmv_torch(A.data, A.offsets, A.wrap, x), reps=20),
+            lambda: kd.dia_spmv_torch(A.data, A.offsets, A.wrap, x), reps=20),
         "library_ms": _time_cold_ms(lambda: Acsr @ x),
+        "chunk": plan.chunk,
+        "chunks_ms": {},
     }
-    # data and x read once, y written once; a multiply and an add per entry
-    out["bound_ms"], out["bound_by"] = _bound_ms((ndiag + 2) * n * 8,
-                                                 2 * ndiag * n)
-    print(f"[kernel] DIA SpMV at {label} (n={n}, ndiag={ndiag}, f64, L2 "
-          f"flushed): kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} "
-          f"ms, cuSPARSE CSR {out['library_ms']:.4f} ms, bound "
-          f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    for chunk in (64, 128, 256, 512, 1024, 4096):
+        other = kd.live_plan(A.data, chunk)
+        y = kd.dia_spmv_live_cuda(A.data, A.offsets, A.wrap, other, x)
+        check(torch.equal(y, A @ x),
+              f"DIA {label}: chunk {chunk} changes the bits")
+        out["chunks_ms"][str(chunk)] = _time_cold_ms(
+            lambda: kd.dia_spmv_live_cuda(A.data, A.offsets, A.wrap, other, x),
+            reps=20)
+    nnz = int(torch.count_nonzero(A.data))
+    rows = _popcounts(plan.words) * plan.chunk
+    live_rows = int(rows.sum()) - int(_popcounts(plan.words[-1:]).sum()) * (
+        len(plan.words) * plan.chunk - n)  # the ragged last chunk
+    # the stored non-zeros (a multiply and an add each), x read once, y
+    # written once; the live segments with the plan; every diagonal
+    out["bound_ms"], out["bound_by"] = _bound_ms((nnz + 2 * n) * 8, 2 * nnz)
+    out["bound_live_ms"], _ = _bound_ms(
+        (live_rows + 2 * n) * 8 + len(plan.words) * 8, 2 * live_rows)
+    out["bound_dense_ms"], _ = _bound_ms((ndiag + 2) * n * 8, 2 * ndiag * n)
+    out["nnz_per_row"] = nnz / n
+    out["live_per_row"] = live_rows / n
+    print(f"[kernel] DIA SpMV at {label} (n={n}, ndiag={ndiag}, {nnz / n:.2f} "
+          f"non-zeros and {live_rows / n:.2f} live diagonals a row, live "
+          f"share {plan.share:.4f}, f64, L2 flushed): A @ x "
+          f"({out['design']} design) {out['ms']:.4f} ms, live design "
+          f"{out['live_ms']:.4f} ms (chunk {plan.chunk}), "
+          f"dense design {out['dense_ms']:.4f} ms, plain "
+          f"{out['plain_ms']:.4f} ms, cuSPARSE CSR {out['library_ms']:.4f} "
+          f"ms; bound {out['bound_ms']:.4f} ms on the non-zeros "
+          f"({out['bound_by']}; A @ x at {out['bound_ms'] / out['ms']:.1%} "
+          f"of it, live design at {out['bound_ms'] / out['live_ms']:.1%}), "
+          f"{out['bound_live_ms']:.4f} ms on the live segments "
+          f"({out['bound_live_ms'] / out['live_ms']:.1%}), "
+          f"{out['bound_dense_ms']:.4f} ms on every diagonal (dense design "
+          f"at {out['bound_dense_ms'] / out['dense_ms']:.1%})")
+    print(f"[kernel] DIA SpMV at {label}, live design by chunk length (L2 "
+          f"flushed): " + ", ".join(f"{c}: {t:.4f} ms"
+                                   for c, t in out["chunks_ms"].items()))
     return out
 
 
@@ -351,9 +480,6 @@ def phase_swe(s, record):
     import torch
 
     from structurepreservingiterativesolvers_torch.experiments import wrappers
-    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
-        dia_spmv_cuda,
-    )
 
     # one untimed, uncounted pass first: the library set-up of the first
     # large f64 products and the allocator's first blocks are paid there
@@ -364,7 +490,7 @@ def phase_swe(s, record):
     print(f"[swe M={SWE_M}] first pass (GMRES + CGMRES, set-up included) "
           f"{time.perf_counter() - t0:.4f} s")
 
-    dia_spmv_cuda.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     xg, ig = wrappers.gmres_wrapper(s, k=SWE_K, tol=SWE_TOL)
     torch.cuda.synchronize()
@@ -372,7 +498,8 @@ def phase_swe(s, record):
     xc, ic = wrappers.cgmres_wrapper(s, k=SWE_K, tol=SWE_TOL, timing=True)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = dia_spmv_cuda.launches
+    counts = _read_launches()
+    launches = counts["dia_spmv"]
 
     rec = record["swe_M512"]
     wall_g, wall_c = t1 - t0, t2 - t1
@@ -395,7 +522,7 @@ def phase_swe(s, record):
     print(f"[swe M={SWE_M}] true residuals: cgmres {res_c:.4e} (record "
           f"{rec['cgmres']['true_residual']:.4e}), gmres {res_g:.4e}")
     print(f"[swe M={SWE_M}] cgmres invariant deviations {_deviations(s, xc)}")
-    check(launches > 0, "the swe solves launched no DIA kernel")
+    _check_design(f"[swe M={SWE_M}]", counts, "dia_spmv")
     check(ic["safety"] is True, "swe CGMRES safety is not True")
     check(ic["deviation"] <= DEVIATION_MAX,
           f"swe CGMRES deviation {ic['deviation']:.3e}")
@@ -426,12 +553,6 @@ def phase_heat(record):
         default_pre_builder,
         time_cgmres,
     )
-    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
-        dia_spmv_cuda,
-    )
-    from structurepreservingiterativesolvers_torch.kernels.stencil_spmv import (
-        stencil_spmv_cuda,
-    )
 
     seen = {}
 
@@ -440,14 +561,14 @@ def phase_heat(record):
         seen["pre"] = default_pre_builder("heat")(system)
         return seen["pre"]
 
-    dia_spmv_cuda.launches = stencil_spmv_cuda.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     out = time_cgmres("heat", M=HEAT_M, k=HEAT_K, tol=HEAT_TOL,
                       pre_builder=pre_builder, device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"dia_spmv": dia_spmv_cuda.launches,
-                "stencil_spmv": stencil_spmv_cuda.launches}
+    launches = {key: n for key, n in _read_launches().items()
+                if key.startswith(("dia_spmv", "stencil_spmv"))}
     s, pre = seen["system"], seen["pre"]
     rec = record[f"heat_M{HEAT_M}"]
     levels = [L.A.shape[0] for L in pre.levels]
@@ -484,14 +605,18 @@ def phase_heat(record):
     per_solve = {}
     for name, call in (("gmres", wrappers.gmres_wrapper),
                        ("cgmres", wrappers.cgmres_wrapper)):
-        dia_spmv_cuda.launches = stencil_spmv_cuda.launches = 0
+        _reset_launches()
         x, info = call(s, k=HEAT_K, tol=HEAT_TOL, pre=pre)
         torch.cuda.synchronize()
-        per_solve[name] = (x, info, dia_spmv_cuda.launches,
-                           stencil_spmv_cuda.launches)
+        counts = _read_launches()
+        per_solve[name] = (x, info)
         print(f"{tag} one {name} solve: {info['steps']} steps, DIA kernel "
-              f"{dia_spmv_cuda.launches} launches, stencil kernel "
-              f"{stencil_spmv_cuda.launches}")
+              f"{counts['dia_spmv']} launches ({counts['dia_spmv_dense']} "
+              f"dense), stencil kernel {counts['stencil_spmv']} "
+              f"({counts['stencil_spmv_tiled']} tiled)")
+        for kernel in ("dia_spmv", "stencil_spmv"):
+            _check_design(f"{tag} one {name} solve", counts, kernel,
+                          designs=HEAT_DESIGNS)
     xc, ic = per_solve["cgmres"][:2]
     xg, ig = per_solve["gmres"][:2]
     res_c = float(torch.linalg.norm(s.b - s.A @ xc))
@@ -502,8 +627,8 @@ def phase_heat(record):
           f"{ic['deviation']:.3e} (record {rec['cgmres']['deviation']:.3e})")
     print(f"{tag} cgmres invariant deviations {_deviations(s, xc)}")
 
-    check(launches["dia_spmv"] > 0 and launches["stencil_spmv"] > 0,
-          f"the heat row did not go through both kernels: {launches}")
+    for kernel in ("dia_spmv", "stencil_spmv"):
+        _check_design(tag, launches, kernel, designs=HEAT_DESIGNS)
     check(levels == rec["amg_levels"],
           f"AMG levels {levels} vs record {rec['amg_levels']}")
     for info in (out, ic):
@@ -528,63 +653,114 @@ def phase_heat(record):
     return s, pre, launches
 
 
+def _check_stencil(label, S, gen, split_tag="float64"):
+    """Kernel #2 on the stencil ``S`` against its plain twin in f64 and
+    f32, through the dispatch, which must pick the tiled design (S has
+    strips within the box), beside the flat design on the same input, which
+    must give the same bits; two launches bit-equal; and, in f64, against
+    S's explicit operator within the bound of ``split_tag``, the dtype in
+    which S was split into its constants and strips.  Returns the largest
+    f64 absolute error."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
+        dia_spmv_torch,
+    )
+
+    check(S.grid_c > 0, f"{label} operator has no strips")
+    check(ks.stencil_plan(S.shape[0], S.grid_c, S.offsets, S.wrap)
+          is not None, f"{label}: the stencil is not planned tiled")
+    max_abs = 0.0
+    for dtype in (torch.float64, torch.float32):
+        strips = tuple(t.to(dtype) for t in S.strips)
+        x = torch.randn(S.shape[0], generator=gen, device=DEVICE, dtype=dtype)
+        args = (S.const, S.offsets, S.wrap, S.grid_c, strips, x)
+        before = (ks.stencil_spmv_tiled_cuda.launches,
+                  ks.stencil_spmv_flat_cuda.launches)
+        y = ks.stencil_spmv(*args)
+        again = ks.stencil_spmv(*args)
+        flat = ks.stencil_spmv_flat_cuda(*args)
+        torch.cuda.synchronize()
+        check((ks.stencil_spmv_tiled_cuda.launches,
+               ks.stencil_spmv_flat_cuda.launches)
+              == (before[0] + 2, before[1] + 1),
+              f"stencil {label}: the launches did not go to their designs")
+        abs_err, rel = _rel_err(y, ks.stencil_spmv_torch(*args))
+        tag = str(dtype).split(".")[-1]
+        print(f"[kernel] stencil {label} n={S.shape[0]} grid_c={S.grid_c} "
+              f"{tag}: tiled design max|dy|/max|y| = {rel:.3e} (bound "
+              f"{KERNEL_RTOL[tag]:.0e}); equals the flat design "
+              f"{torch.equal(y, flat)}, a second launch "
+              f"{torch.equal(y, again)}")
+        check(math.isfinite(rel) and rel <= KERNEL_RTOL[tag],
+              f"stencil kernel disagrees with plain on {label} {tag}: "
+              f"{rel:.3e}")
+        check(torch.equal(y, flat) and torch.equal(y, again),
+              f"stencil {label} {tag}: tiled and flat designs or repeats "
+              f"differ")
+        if dtype == torch.float64:
+            max_abs = max(max_abs, abs_err)
+            # and the decomposition against the explicit operator
+            _, rel_d = _rel_err(y, dia_spmv_torch(S.data, S.offsets, S.wrap,
+                                                  x))
+            check(rel_d <= KERNEL_RTOL[split_tag],
+                  f"stencil {label} differs from its DIA: {rel_d:.3e}")
+    return max_abs
+
+
+def _amg_operators(pre):
+    """label -> every DIA of the AMG hierarchy: each level's operator and
+    smoothers."""
+    ops = {}
+    for i, L in enumerate(pre.levels):
+        ops[f"AMG level-{i} A"] = L.A
+        if L.P is not None:
+            ops[f"AMG level-{i} S_P"] = L.P.S
+            ops[f"AMG level-{i} S_R"] = L.R.S
+    return ops
+
+
 def phase_heat_kernels(s, pre):
     """Both kernels against their plain twins on heat's operators and the
     AMG's, and their times at the heat M=1024 shape.  Returns the report's
     fields."""
     import torch
 
-    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
-        dia_spmv,
-        dia_spmv_torch,
-    )
-    from structurepreservingiterativesolvers_torch.kernels.stencil_spmv import (
-        stencil_spmv,
-        stencil_spmv_torch,
-    )
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
     from structurepreservingiterativesolvers_torch.models import heat
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    small = heat.linforms(M=16, device=DEVICE)
     stencil_err, dia_err = 0.0, 0.0
-    for label, S in ((f"heat M={HEAT_M}", s.A), ("heat M=16", small.A)):
-        check(S.grid_c > 0, f"{label} operator has no strips")
-        for dtype in (torch.float64, torch.float32):
-            strips = tuple(t.to(dtype) for t in S.strips)
-            x = torch.randn(S.shape[0], generator=gen, device=DEVICE,
-                            dtype=dtype)
-            args = (S.const, S.offsets, S.wrap, S.grid_c, strips, x)
-            y = stencil_spmv(*args)
-            torch.cuda.synchronize()
-            abs_err, rel = _rel_err(y, stencil_spmv_torch(*args))
-            tag = str(dtype).split(".")[-1]
-            print(f"[kernel] stencil {label} n={S.shape[0]} grid_c={S.grid_c} "
-                  f"{tag}: max|dy|/max|y| = {rel:.3e} (bound "
-                  f"{KERNEL_RTOL[tag]:.0e})")
-            check(math.isfinite(rel) and rel <= KERNEL_RTOL[tag],
-                  f"stencil kernel disagrees with plain on {label} {tag}: "
-                  f"{rel:.3e}")
-            if dtype == torch.float64:
-                stencil_err = max(stencil_err, abs_err)
-                # and the decomposition against the explicit operator
-                _, rel_d = _rel_err(y, dia_spmv_torch(S.data, S.offsets,
-                                                      S.wrap, x))
-                check(rel_d <= KERNEL_RTOL[tag],
-                      f"stencil {label} differs from its DIA: {rel_d:.3e}")
-    for label, A in (("A", s.A.dia), ("Mmat", s.Mmat), ("Emat", s.Emat),
-                     ("AMG S_P", pre.levels[0].P.S),
-                     ("AMG S_R", pre.levels[0].R.S),
-                     ("AMG level-1 A", pre.levels[1].A)):
-        x = torch.randn(A.shape[0], generator=gen, device=DEVICE,
-                        dtype=torch.float64)
-        y = dia_spmv(A.data, A.offsets, A.wrap, x)
+    # odd M assembles as a stencil in f32, split into constants and strips
+    # with f32 roundings
+    odd = heat.linforms(M=17, device=DEVICE, dtype=torch.float32).A
+    for label, S, split_tag in (
+            (f"heat M={HEAT_M}", s.A, "float64"),
+            ("heat M=16", heat.linforms(M=16, device=DEVICE).A, "float64"),
+            ("heat M=17", odd.astype(torch.float64), "float32")):
+        stencil_err = max(stencil_err,
+                          _check_stencil(label, S, gen, split_tag))
+    for label, A in {"A": s.A.dia, "Mmat": s.Mmat, "Emat": s.Emat,
+                     **_amg_operators(pre)}.items():
+        dia_err = max(dia_err, _check_dia(f"heat M={HEAT_M} {label}", A, gen))
+
+    # what the live plans of the AMG hierarchy cost to build: one reduction
+    # each and one host read of its live share, on the operators of the
+    # setup (time_pre)
+    builds = []
+    for label, A in _amg_operators(pre).items():
         torch.cuda.synchronize()
-        abs_err, rel = _rel_err(y, dia_spmv_torch(A.data, A.offsets, A.wrap, x))
-        print(f"[kernel] DIA heat M={HEAT_M} {label} n={A.shape[0]} "
-              f"ndiag={len(A.offsets)} f64: max|dy|/max|y| = {rel:.3e}")
-        check(rel <= KERNEL_RTOL["float64"],
-              f"DIA kernel disagrees with plain on heat {label}: {rel:.3e}")
-        dia_err = max(dia_err, abs_err)
+        t0 = time.perf_counter()
+        kd.live_plan(A.data, kd.live_chunk(A.dtype))
+        torch.cuda.synchronize()
+        builds.append(time.perf_counter() - t0)
+    print(f"[kernel] live plans of the {len(builds)} AMG operators: "
+          f"{1e3 * sum(builds):.3f} ms in all, each built and synchronised "
+          f"alone ({', '.join(f'{1e3 * b:.3f}' for b in builds)} ms); the "
+          f"setup builds the levels' plans (time_pre), the smoothers' on "
+          f"their first product")
 
     # times at the main path's shapes, f64, L2 flushed before each call
     S = s.A
@@ -592,29 +768,77 @@ def phase_heat_kernels(s, pre):
     R = n // S.grid_c
     x = torch.randn(n, generator=gen, device=DEVICE, dtype=torch.float64)
     args = (S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
+    # both designs through the same dispatcher (``ks.launch``), each resolved
+    # once, as the operator keeps its own
+    tiled = ks.stencil_launch(*args)
+    flat = ks.stencil_launch(*args, design="flat")
+    plan = tiled.tile
+    check(tiled.design == "tiled", "heat's stencil is not planned tiled")
     Acsr = _csr(s.A_csr)
     st = {
-        "ms": _time_cold_ms(lambda: stencil_spmv(*args)),
-        "plain_ms": _time_cold_ms(lambda: stencil_spmv_torch(*args), reps=20),
+        "design": "tiled",
+        "tile": [plan.tx, plan.ty, plan.run],
+        "ms": _time_cold_ms(lambda: ks.launch(tiled, x)),
+        "flat_ms": _time_cold_ms(lambda: ks.launch(flat, x)),
+        "plain_ms": _time_cold_ms(lambda: ks.stencil_spmv_torch(*args),
+                                  reps=20),
         "library_ms": _time_cold_ms(lambda: Acsr @ x),
+        "tiles_ms": {},
     }
+    y = S @ x
+    check(torch.equal(y, ks.launch(flat, x)),
+          "the stencil's designs differ through the dispatcher")
+    for tile in ks.stencil_tiles(n, S.grid_c, tuple(S.offsets), S.wrap):
+        key = f"{tile.tx}x{tile.ty}x{tile.run}"
+        rec = ks.stencil_launch(*args, design="tiled", tile=tile)
+        check(torch.equal(ks.launch(rec, x), y),
+              f"stencil tile {key} changes the bits")
+        st["tiles_ms"][key] = _time_cold_ms(lambda: ks.launch(rec, x),
+                                            reps=20)
     # x read once and y written once, the strips read once
     nbytes = (2 * n + 2 * (S.grid_c + R) * ndiag) * 8
     st["bound_ms"], st["bound_by"] = _bound_ms(nbytes, 2 * ndiag * n)
-    warm = _time_ms(lambda: stencil_spmv(*args))
-    _, rel = _rel_err(Acsr @ x, stencil_spmv(*args))
+    # yardsticks of what a launch costs by this timing: a device copy of x
+    # into a vector of its size (the bytes of the bound but the strips'),
+    # and a launch that moves 8 bytes, the floor of any kernel's time here
+    y_copy, tiny = torch.empty_like(x), torch.empty(1, device=DEVICE)
+    st["copy_ms"] = _time_cold_ms(lambda: y_copy.copy_(x))
+    st["launch_floor_ms"] = _time_cold_ms(lambda: tiny.zero_())
+    warm = _time_ms(lambda: ks.launch(tiled, x))
+    warm_flat = _time_ms(lambda: ks.launch(flat, x))
+    # the host's time per call: through the operator's kept launch, through
+    # the dispatcher in each design, and through the raw wrapper, which
+    # resolves the launch on every call
+    st["host_us"] = {
+        "S @ x": _host_us(lambda: S @ x),
+        "tiled": _host_us(lambda: ks.launch(tiled, x)),
+        "flat": _host_us(lambda: ks.launch(flat, x)),
+        "resolved per call": _host_us(lambda: ks.stencil_spmv(*args)),
+    }
+    _, rel = _rel_err(Acsr @ x, y)
     print(f"[kernel] stencil SpMV at heat M={HEAT_M} (n={n}, ndiag={ndiag}, "
-          f"f64, L2 flushed): kernel {st['ms']:.4f} ms "
-          f"({nbytes / st['ms'] / 1e6:.0f} GB/s of {nbytes / 1e6:.2f} MB), "
-          f"plain {st['plain_ms']:.4f} ms, cuSPARSE CSR "
-          f"{st['library_ms']:.4f} ms (max|dy|/max|y| {rel:.1e} against the "
-          f"kernel), bound {st['bound_ms']:.4f} ms ({st['bound_by']}); "
-          f"back-to-back calls with x in L2 {warm:.4f} ms each (bound by the "
-          f"host's issue rate where it exceeds the kernel's time)")
+          f"f64, L2 flushed): tiled design {st['ms']:.4f} ms (tile "
+          f"{plan.tx}x{plan.ty * plan.run}, runs of {plan.run}; "
+          f"{nbytes / st['ms'] / 1e6:.0f} GB/s of {nbytes / 1e6:.2f} MB), "
+          f"flat design {st['flat_ms']:.4f} ms, plain {st['plain_ms']:.4f} "
+          f"ms, cuSPARSE CSR {st['library_ms']:.4f} ms (max|dy|/max|y| "
+          f"{rel:.1e} against the kernel), bound {st['bound_ms']:.4f} ms "
+          f"({st['bound_by']}; tiled at {st['bound_ms'] / st['ms']:.1%} of "
+          f"it, flat at {st['bound_ms'] / st['flat_ms']:.1%}); a device "
+          f"copy of x, the same bytes but the strips', {st['copy_ms']:.4f} "
+          f"ms, and a launch that moves 8 bytes {st['launch_floor_ms']:.4f} "
+          f"ms by the same timing; back-to-back "
+          f"calls through the dispatcher with x in L2: tiled {warm:.4f} ms, "
+          f"flat {warm_flat:.4f} ms each (bound by the host's issue rate "
+          f"where it exceeds the kernel's time); the host's time per call: "
+          + ", ".join(f"{k} {t:.2f} us" for k, t in st["host_us"].items()))
+    print(f"[kernel] stencil SpMV at heat M={HEAT_M}, tiled design by tile "
+          f"(TXxTYxRUN, L2 flushed): " + ", ".join(
+              f"{k}: {t:.4f} ms" for k, t in st["tiles_ms"].items()))
     check(rel <= 1e-13, f"cuSPARSE CSR disagrees with the stencil: {rel:.3e}")
     dia = _time_dia(S.dia, s.A_csr, x, f"heat M={HEAT_M} A")
+    dia["plan_build_ms"] = 1e3 * sum(builds)
     return stencil_err, st, dia_err, dia
-
 
 
 def _poly_builders():
@@ -628,41 +852,58 @@ def _poly_builders():
             "neu4": lambda s: neumann(s.A, degree=NEU_DEGREE, omega=NEU_OMEGA)}
 
 
-def _poly_launches():
-    """The launch counters of the four kernels by name, and of each design
-    of the polynomial applies (``<name>_tiled``, ``<name>_flat``)."""
+def _launch_counters():
+    """The launch counters of the five kernels by name, and of each design
+    of kernels #1 to #4 (``<name>_<design>``)."""
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
     from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
-    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
-        dia_spmv_cuda,
-    )
-    from structurepreservingiterativesolvers_torch.kernels.stencil_spmv import (
-        stencil_spmv_cuda,
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+    from structurepreservingiterativesolvers_torch.kernels.ortho import (
+        fused_update_matvec_cuda,
     )
 
-    return {"cheb_apply": pa.cheb_apply_cuda,
+    return {"dia_spmv": kd.dia_spmv_cuda,
+            "dia_spmv_live": kd.dia_spmv_live_cuda,
+            "dia_spmv_dense": kd.dia_spmv_dense_cuda,
+            "stencil_spmv": ks.stencil_spmv_cuda,
+            "stencil_spmv_tiled": ks.stencil_spmv_tiled_cuda,
+            "stencil_spmv_flat": ks.stencil_spmv_flat_cuda,
+            "cheb_apply": pa.cheb_apply_cuda,
             "cheb_apply_tiled": pa.cheb_apply_tiled_cuda,
             "cheb_apply_flat": pa.cheb_apply_flat_cuda,
             "neumann_apply": pa.neumann_apply_cuda,
             "neumann_apply_tiled": pa.neumann_apply_tiled_cuda,
             "neumann_apply_flat": pa.neumann_apply_flat_cuda,
-            "stencil_spmv": stencil_spmv_cuda, "dia_spmv": dia_spmv_cuda}
+            "fused_update_matvec": fused_update_matvec_cuda}
 
 
-def _check_tiled(tag, launches, kernel):
-    """Every launch of ``kernel`` in ``launches`` ran the tiled design."""
-    tiled, flat = launches[f"{kernel}_tiled"], launches[f"{kernel}_flat"]
-    print(f"{tag} {kernel} design: {tiled} tiled, {flat} flat launches")
-    check(launches[kernel] > 0 and tiled == launches[kernel] and flat == 0,
-          f"{tag} {kernel}: {launches[kernel]} launches, {tiled} tiled")
+# the design every launch of a kernel on a main path must run, and the other
+DESIGNS = {"dia_spmv": ("live", "dense"), "stencil_spmv": ("tiled", "flat"),
+           "cheb_apply": ("tiled", "flat"), "neumann_apply": ("tiled", "flat")}
+# but heat's DIA operators, live in all but their boundary rows' segments,
+# have plans that do not pay, so their products run the dense design
+HEAT_DESIGNS = {**DESIGNS, "dia_spmv": ("dense", "live")}
+
+
+def _check_design(tag, launches, kernel, required=True, designs=DESIGNS):
+    """Every launch of ``kernel`` in ``launches`` ran its design of the main
+    path (the first of ``designs[kernel]``), and, where ``required``, there
+    was one."""
+    want, other = designs[kernel]
+    good, bad = launches[f"{kernel}_{want}"], launches[f"{kernel}_{other}"]
+    print(f"{tag} {kernel} design: {good} {want}, {bad} {other} launches")
+    check((launches[kernel] > 0 or not required)
+          and good == launches[kernel] and bad == 0,
+          f"{tag} {kernel}: {launches[kernel]} launches, {good} {want}")
 
 
 def _reset_launches():
-    for fn in _poly_launches().values():
+    for fn in _launch_counters().values():
         fn.launches = 0
 
 
 def _read_launches():
-    return {name: fn.launches for name, fn in _poly_launches().items()}
+    return {name: fn.launches for name, fn in _launch_counters().items()}
 
 
 def phase_poly_kernels(ops, applies=None):
@@ -962,7 +1203,10 @@ def phase_poly_rows(record):
 
         kernel = "cheb_apply" if short.startswith("cheb") else "neumann_apply"
         check(launches[kernel] > 0, f"{tag} launched no {kernel} kernel")
-        _check_tiled(tag, launches, kernel)
+        _check_design(tag, launches, kernel)
+        _check_design(tag, launches, "stencil_spmv")
+        _check_design(tag, launches, "dia_spmv", required=False,
+                      designs=HEAT_DESIGNS)
         check(pre.fused is True, f"{tag} the builder did not fuse")
         for info in (out, ic):
             check(info["safety"] == rec["cgmres"]["safety"],
@@ -1022,7 +1266,10 @@ def phase_poly_anchors(record):
         check(pre.fused is True, f"{tag} the builder did not fuse")
         kernel = "cheb_apply" if short.startswith("cheb") else "neumann_apply"
         check(out[name][kernel] > 0, f"{tag} launched no {kernel} kernel")
-        _check_tiled(tag, out[name], kernel)
+        _check_design(tag, out[name], kernel)
+        _check_design(tag, out[name], "stencil_spmv")
+        _check_design(tag, out[name], "dia_spmv", required=False,
+                      designs=HEAT_DESIGNS)
         check(abs(ig["steps"] - rec["gmres"]["steps"]) <= 1,
               f"{tag} gmres steps {ig['steps']} vs record")
         _check_counts(tag + " cgmres", ic, rec["cgmres"],
@@ -1119,26 +1366,6 @@ def phase_ortho_timing():
     return out
 
 
-def _ortho_launches():
-    from structurepreservingiterativesolvers_torch.kernels.dia_spmv import (
-        dia_spmv_cuda,
-    )
-    from structurepreservingiterativesolvers_torch.kernels.ortho import (
-        fused_update_matvec_cuda,
-    )
-
-    return {"dia_spmv": dia_spmv_cuda, "fused_update_matvec": fused_update_matvec_cuda}
-
-
-def _zero(counters):
-    for fn in counters.values():
-        fn.launches = 0
-
-
-def _counts(counters):
-    return {name: fn.launches for name, fn in counters.items()}
-
-
 def phase_swe_fused(s, record):
     """The first slice's swe M=512 row with the fused orthogonalisation:
     GMRES and CGMRES through the wrappers.  Returns the launches over it."""
@@ -1148,8 +1375,7 @@ def phase_swe_fused(s, record):
 
     tag = f"[swe M={SWE_M} cgs2_fused]"
     kw = dict(k=SWE_K, tol=SWE_TOL, ortho="cgs2_fused")
-    counters = _ortho_launches()
-    _zero(counters)
+    _reset_launches()
     t0 = time.perf_counter()
     xg, ig = wrappers.gmres_wrapper(s, **kw)
     torch.cuda.synchronize()
@@ -1157,7 +1383,7 @@ def phase_swe_fused(s, record):
     xc, ic = wrappers.cgmres_wrapper(s, timing=True, **kw)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = _counts(counters)
+    launches = _read_launches()
     rec = record["swe_M512"]
     t = ic["timings"]
     print(f"{tag} gmres: steps {ig['steps']} (record {rec['gmres']['steps']}), "
@@ -1182,6 +1408,7 @@ def phase_swe_fused(s, record):
                   ("steps", "constrained_steps"))
     check(_within_one(ig, rec["gmres"], "steps"),
           f"{tag} gmres steps {ig['steps']} vs record {rec['gmres']['steps']}")
+    _check_design(tag, launches, "dia_spmv")
     check(launches["fused_update_matvec"] == ig["steps"] + ic["steps"],
           f"{tag} kernel #5 launched {launches['fused_update_matvec']} times "
           f"over {ig['steps'] + ic['steps']} Arnoldi steps")
@@ -1212,15 +1439,14 @@ def phase_snc_row(record):
         seen["pre"] = default_pre_builder("swe")(system)
         return seen["pre"]
 
-    counters = _ortho_launches()
-    _zero(counters)
+    _reset_launches()
     t0 = time.perf_counter()
     out = time_cgmres("swe", M=SWE_M, k=SNC_K, tol=SNC_TOL,
                       pre_builder=pre_builder, ortho="cgs2_fused",
                       device=DEVICE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _counts(counters)
+    launches = _read_launches()
     s, pre = seen["system"], seen["pre"]
     print(f"{tag} time_cgmres wall {wall:.3f} s (assembly, two builds, "
           f"warm-up and timed solves); build first {out['time_pre_first']:.4f}"
@@ -1253,12 +1479,12 @@ def phase_snc_row(record):
     per_solve = {}
     for solver, call in (("gmres", wrappers.gmres_wrapper),
                          ("cgmres", wrappers.cgmres_wrapper)):
-        _zero(counters)
+        _reset_launches()
         x, info = call(s, k=SNC_K, tol=SNC_TOL, pre=pre, ortho="cgs2_fused")
         torch.cuda.synchronize()
         per_solve[solver] = (x, info)
         print(f"{tag} one {solver} solve: {info['steps']} steps, launches "
-              f"{_counts(counters)}")
+              f"{_read_launches()}")
     xg, ig = per_solve["gmres"]
     xc, ic = per_solve["cgmres"]
     res_c = float(torch.linalg.norm(s.b - s.A @ xc))
@@ -1269,6 +1495,7 @@ def phase_snc_row(record):
 
     check(launches["dia_spmv"] > 0 and launches["fused_update_matvec"] > 0,
           f"{tag} did not go through kernels #1 and #5: {launches}")
+    _check_design(tag, launches, "dia_spmv")
     check(pre.degree == rec["degree"],
           f"{tag} degree {pre.degree} vs record {rec['degree']}")
     for info in (out, ic):
@@ -1325,14 +1552,13 @@ def phase_snc_evolve(record):
         starts.append(time.perf_counter())
         return solve(system, **kw)
 
-    counters = _ortho_launches()
-    _zero(counters)
+    _reset_launches()
     t0 = time.perf_counter()
     out = evolve("swe", k=SNC_K, tol=SNC_TOL, pre=pre, device=DEVICE,
                  solver=solver, **params)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = _counts(counters)
+    launches = _read_launches()
     # a step: its solve, the host read of the invariants and the next
     # system's step_update, from one solve's start to the next's
     step_walls = [b - a for a, b in zip(starts, starts[1:] + [t_end])]
@@ -1348,6 +1574,7 @@ def phase_snc_evolve(record):
     print(f"{tag} launches over the evolution: {launches}")
     check(launches["dia_spmv"] > 0 and launches["fused_update_matvec"] > 0,
           f"{tag} did not go through kernels #1 and #5: {launches}")
+    _check_design(tag, launches, "dia_spmv")
     check(len(out["steps"]) == EVOLVE_N, f"{tag} ran {len(out['steps'])} steps")
     for got, want in zip(out["steps"], rec["steps"]):
         check(abs(got - want) <= 1, f"{tag} steps {out['steps']} vs record "
@@ -1388,8 +1615,8 @@ def main() -> int:
     t0 = time.perf_counter()
     swe_sys = swe.linforms(M=SWE_M, device=DEVICE)
     print(f"[swe M={SWE_M}] assembly {time.perf_counter() - t0:.2f} s")
-    dia_err = phase_kernel(swe_sys, lkdv.linforms(M=100, degree=3,
-                                                  device=DEVICE))
+    dia_err, dia_swe = phase_kernel(swe_sys, lkdv.linforms(M=100, degree=3,
+                                                           device=DEVICE))
     torch.cuda.synchronize()
     poly_err = phase_poly_kernels({f"swe M={SWE_M}": swe_sys.A})
     torch.cuda.synchronize()
@@ -1447,11 +1674,17 @@ def main() -> int:
              f"swe_M{SWE_M}": swe_launches,
              f"heat_M{HEAT_M}": launches["dia_spmv"],
              **{path: n["dia_spmv"] for path, n in swe_paths.items()}}),
-         "max_abs_err": max(dia_err, dia_heat_err), **dia},
+         "launches_by_design": {design: launches[f"dia_spmv_{design}"]
+                                for design in ("live", "dense")},
+         "max_abs_err": max(dia_err, dia_heat_err),
+         "timed_at": f"heat_M{HEAT_M}_A", **dia,
+         "times": {f"swe_M{SWE_M}_A": dia_swe, f"heat_M{HEAT_M}_A": dia}},
         {"name": "stencil_spmv", "route": "cuda",
          "source": src + "stencil_spmv.cu",
          "replaces": f"{tpu}pallas_spmv.py:165",
          "launches": launches["stencil_spmv"],
+         "launches_by_design": {design: launches[f"stencil_spmv_{design}"]
+                                for design in ("tiled", "flat")},
          "launches_by_path": by_path("stencil_spmv", **{
              f"heat_M{HEAT_M}": launches["stencil_spmv"]}),
          "max_abs_err": st_err, **st},

@@ -20,7 +20,7 @@ through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
 
 Prints the busiest device kernels, the device-busy time against the wall
 time of each solve (the device's idle share), the device time by kind
-(stencil kernel, DIA kernel, fused polynomial kernels by design,
+(stencil kernel and fused polynomial kernels by design, DIA kernel,
 matrix-vector products of the Krylov basis and the coarse solve, the rest)
 and, for heat, the device and host time spent inside the preconditioner's
 applies; writes a Chrome trace per solver into ``--out``.  Then times one
@@ -50,7 +50,9 @@ PRES = {"swe": ("none", "snc"), "heat": ("amg", "cheb8", "neu4")}
 
 def _kind(name: str) -> str:
     if "stencil_spmv_kernel" in name:
-        return "stencil kernel"
+        return "stencil kernel, flat"
+    if "stencil_tiled_kernel" in name:
+        return "stencil kernel, tiled"
     if "dia_spmv_kernel" in name:
         return "DIA kernel"
     if "tiled_kernel" in name:

@@ -1,4 +1,5 @@
-// DIA sparse matrix-vector product for Hopper (sm_90a), f64 and f32.
+// DIA sparse matrix-vector product for Hopper (sm_90a), f64 and f32, that
+// reads only the live segments of the diagonals.
 //
 //   y[i] = sum_d data[d, i] * x[i + off_d]
 //
@@ -13,79 +14,210 @@
 // (+-263,167 of n = 786,432) each halo is about two thirds of x.  None of
 // that is carried over.
 //
-// What bounds it: bytes.  Each row reads ndiag coefficients and writes one
-// result; x is read ndiag times but from ndiag contiguous shifted runs, so
-// after the first touch it is served by L2 (x is 6.3 MB in f64 at n =
-// 786,432, against a 50 MB L2).  Device-memory traffic is therefore about
-// (ndiag + 2) * n * sizeof(T): 145 MB per product for the 21-diagonal
-// shallow-water operator in f64, 0.2 flop per byte, far below the card's
-// balance point.
+// What bounds it: the bytes of the live segments.  A DIA stores every
+// diagonal over every row, but an operator need not use them so: the
+// shallow-water operator couples its three C-grid fields (u, v, rho) through
+// different subsets of its 21 offsets, so 70% of `data` is exact zeros (6.33
+// non-zeros a row).  Reading every diagonal moves (ndiag + 2) * n *
+// sizeof(T), 145 MB at swe M=512 in f64; the operator's non-zeros with x and
+// y are 52 MB.  x is read once per live diagonal, but from contiguous
+// shifted runs that after the first touch come from L2 (6.3 MB against a
+// 50 MB L2).
 //
-// What the design does about it: one thread per row in a grid-stride loop,
-// so a warp reads 32 consecutive coefficients of one diagonal (coalesced)
-// and 32 consecutive entries of x at one shift.  Offsets travel by value in
-// the kernel's parameter block, so no thread loads an index.  Index
-// arithmetic is 64-bit and offsets are signed; the out-of-range mask is
-// applied even where the coefficient is zero, so an Inf or NaN in x never
-// leaks through a padding slot.  Shared-memory tiling, vector loads and TMA
-// are left for later work.
+// What the design does about it: the live plan.  The rows are cut into
+// chunks of 2^chunk_shift rows, and one 64-bit word per chunk (`live`,
+// built once per operator on the device, kernels/dia_spmv.py::live_plan)
+// has bit d set where data[d, chunk] holds any non-zero; DIA_MAX_DIAGS is 64,
+// so a word always suffices.  A warp takes 32 * RPT consecutive rows (RPT =
+// 16 / sizeof(T): one 16-byte load of a diagonal per thread), which lie in
+// one chunk, reads the chunk's word, and walks its set bits in ascending d,
+// DIA_BATCH at a time: the loop is uniform across the warp, and a batch's
+// loads are all in flight before its multiply-adds.  Coefficients are read
+// with the evict-first hint (__ldcs), so single-use coefficients do not push
+// x out of L2; x is read through the read-only path (__ldg).  Where n is a
+// multiple of RPT and `data` is 16-byte aligned, a thread reads its RPT
+// consecutive rows of a diagonal as one vector; otherwise each of its RPT
+// loads is a coalesced scalar load, 32 apart.  A null `live` runs the same
+// kernel with every bit set: the dense read of the first design.  The host
+// launches it so for an operator whose plan would skip less than a tenth of
+// its coefficients (heat's, live but at the boundary rows): there the
+// word's dependent load costs more than the skipped bytes save
+// (kernels/dia_spmv.py::LIVE_MIN_SKIP).
+//
+// Semantics.  Each row sums its live diagonals in ascending d, with the
+// fused multiply-adds of the dense design, and the out-of-range mask is
+// applied even where the coefficient is non-zero, so a padding slot never
+// reads past x.  A skipped term has a coefficient that is exactly 0 over its
+// whole chunk, so for finite x the result is the dense design's bit for bit
+// (up to the sign of a zero).  An Inf or NaN of x that only skipped zero
+// coefficients read no longer reaches y, as in a CSR product; the plain
+// PyTorch twin multiplies every diagonal.  Index arithmetic is 64-bit and
+// offsets are signed.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define DIA_MAX_DIAGS 64
+#define DIA_THREADS 256
+// live diagonals whose loads a warp issues before their multiply-adds:
+// four measured faster than eight on an H100 at both main-path operators
+// (swe M=512, heat M=1024), the registers of eight costing resident warps
+#define DIA_BATCH 4
 
 struct DiaOffsets {
   long long off[DIA_MAX_DIAGS];
 };
 
+// a 16-byte vector of T, and its RPT lanes
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<double> {
+  using type = double2;
+  __device__ static void split(const double2& v, double (&a)[2]) {
+    a[0] = v.x;
+    a[1] = v.y;
+  }
+  __device__ static double2 join(const double (&a)[2]) {
+    return make_double2(a[0], a[1]);
+  }
+};
+template <>
+struct Vec16<float> {
+  using type = float4;
+  __device__ static void split(const float4& v, float (&a)[4]) {
+    a[0] = v.x;
+    a[1] = v.y;
+    a[2] = v.z;
+    a[3] = v.w;
+  }
+  __device__ static float4 join(const float (&a)[4]) {
+    return make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+
+// x at column j of a row of the operator: wrapped mod n, or 0 outside [0, n)
 template <typename T, bool WRAP>
-__global__ void dia_spmv_kernel(const T* __restrict__ data,
-                                const T* __restrict__ x,
-                                T* __restrict__ y,
-                                long long n, int ndiag, DiaOffsets offs) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    T acc = T(0);
-    for (int d = 0; d < ndiag; ++d) {
-      // |off| < n is checked by the caller, so one add or subtract
-      // brings a wrapped column back into range.
-      long long j = i + offs.off[d];
-      T xv;
-      if (WRAP) {
-        if (j < 0) j += n;
-        else if (j >= n) j -= n;
-        xv = x[j];
-      } else {
-        xv = (j >= 0 && j < n) ? x[j] : T(0);
-      }
-      acc += data[(long long)d * n + i] * xv;
+__device__ __forceinline__ T x_at(const T* __restrict__ x, long long j,
+                                  long long n) {
+  // |off| < n is checked by the caller, so one add or subtract brings a
+  // wrapped column back into range
+  if (WRAP) {
+    if (j < 0) j += n;
+    else if (j >= n) j -= n;
+    return __ldg(x + j);
+  }
+  return (j >= 0 && j < n) ? __ldg(x + j) : T(0);
+}
+
+// VEC: thread t of a warp holds rows w0 + RPT t + k (n % RPT == 0, so all
+// or none of them exist); otherwise rows w0 + t + 32 k
+template <typename T, bool WRAP, bool VEC>
+__global__ void __launch_bounds__(DIA_THREADS)
+    dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
+                    T* __restrict__ y, long long n, int ndiag,
+                    const unsigned long long* __restrict__ live,
+                    int chunk_shift, const __grid_constant__ DiaOffsets offs) {
+  constexpr int RPT = 16 / sizeof(T);
+  constexpr int WARP_ROWS = 32 * RPT;
+  const int lane = threadIdx.x & 31;
+  const long long w0 =
+      ((long long)blockIdx.x * (DIA_THREADS / 32) + (threadIdx.x >> 5)) *
+      WARP_ROWS;
+  if (w0 >= n) return;
+  long long row[RPT];
+  bool in[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    row[k] = VEC ? w0 + RPT * lane + k : w0 + lane + 32 * k;
+    in[k] = row[k] < n;
+  }
+  const unsigned long long all =
+      ndiag >= 64 ? ~0ULL : ((1ULL << ndiag) - 1ULL);
+  unsigned long long m = live ? (__ldg(live + (w0 >> chunk_shift)) & all) : all;
+  T acc[RPT];
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) acc[k] = T(0);
+  while (m) {
+    int dd[DIA_BATCH];
+#pragma unroll
+    for (int u = 0; u < DIA_BATCH; ++u) {
+      dd[u] = m ? __ffsll((long long)m) - 1 : -1;
+      m &= m - 1ULL;  // stays 0 once empty
     }
-    y[i] = acc;
+    T a[DIA_BATCH][RPT], xv[DIA_BATCH][RPT];
+#pragma unroll
+    for (int u = 0; u < DIA_BATCH; ++u) {
+      if (dd[u] < 0) continue;
+      const T* drow = data + (long long)dd[u] * n;
+      const long long off = offs.off[dd[u]];
+      if (VEC) {
+        using V = typename Vec16<T>::type;
+        if (in[0]) Vec16<T>::split(__ldcs(reinterpret_cast<const V*>(drow + row[0])), a[u]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < RPT; ++k) a[u][k] = in[k] ? __ldcs(drow + row[k]) : T(0);
+      }
+#pragma unroll
+      for (int k = 0; k < RPT; ++k)
+        xv[u][k] = in[k] ? x_at<T, WRAP>(x, row[k] + off, n) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < DIA_BATCH; ++u) {
+      if (dd[u] < 0) continue;
+#pragma unroll
+      for (int k = 0; k < RPT; ++k) acc[k] += a[u][k] * xv[u][k];
+    }
+  }
+  if (VEC) {
+    if (in[0])
+      *reinterpret_cast<typename Vec16<T>::type*>(y + row[0]) =
+          Vec16<T>::join(acc);
+  } else {
+#pragma unroll
+    for (int k = 0; k < RPT; ++k)
+      if (in[k]) y[row[k]] = acc[k];
   }
 }
 
+template <typename T, bool WRAP, bool VEC>
+static void run(const void* data, const void* x, void* y, long long n,
+                int ndiag, const unsigned long long* live, int chunk_shift,
+                const DiaOffsets& offs, long long blocks, cudaStream_t s) {
+  dia_spmv_kernel<T, WRAP, VEC><<<(unsigned)blocks, DIA_THREADS, 0, s>>>(
+      (const T*)data, (const T*)x, (T*)y, n, ndiag, live, chunk_shift, offs);
+}
+
+// live: one word per chunk of 2^chunk_shift rows, or null for every
+// diagonal; a chunk holds whole warps (checked here)
 template <typename T>
 static int launch(const void* data, const void* x, void* y, long long n,
-                  int ndiag, const long long* offsets, int wrap, int device,
+                  int ndiag, const long long* offsets, int wrap,
+                  const void* live, int chunk_shift, int device,
                   void* stream) {
+  constexpr int RPT = 16 / sizeof(T);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ndiag < 0 || ndiag > DIA_MAX_DIAGS) return (int)cudaErrorInvalidValue;
+  if (ndiag < 0 || ndiag > DIA_MAX_DIAGS || n < 1)
+    return (int)cudaErrorInvalidValue;
+  if (live && (chunk_shift < 0 || chunk_shift > 40 ||
+               (1LL << chunk_shift) % (32 * RPT) != 0))
+    return (int)cudaErrorInvalidValue;
   DiaOffsets offs;
   for (int d = 0; d < DIA_MAX_DIAGS; ++d) offs.off[d] = d < ndiag ? offsets[d] : 0;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 8192) blocks = 8192;  // grid-stride loop covers the rest
-  if (blocks < 1) blocks = 1;
+  const long long block_rows = (long long)DIA_THREADS * RPT;
+  const long long blocks = (n + block_rows - 1) / block_rows;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = n % RPT == 0 && (uintptr_t)data % 16 == 0 &&
+                   (uintptr_t)y % 16 == 0;
+  const auto* words = (const unsigned long long*)live;
   cudaStream_t s = (cudaStream_t)stream;
   if (wrap) {
-    dia_spmv_kernel<T, true><<<(unsigned)blocks, threads, 0, s>>>(
-        (const T*)data, (const T*)x, (T*)y, n, ndiag, offs);
+    if (vec) run<T, true, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+    else run<T, true, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
   } else {
-    dia_spmv_kernel<T, false><<<(unsigned)blocks, threads, 0, s>>>(
-        (const T*)data, (const T*)x, (T*)y, n, ndiag, offs);
+    if (vec) run<T, false, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+    else run<T, false, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
   }
   return (int)cudaGetLastError();
 }
@@ -93,15 +225,19 @@ static int launch(const void* data, const void* x, void* y, long long n,
 extern "C" {
 
 int dia_spmv_f64(const void* data, const void* x, void* y, long long n,
-                 int ndiag, const long long* offsets, int wrap, int device,
+                 int ndiag, const long long* offsets, int wrap,
+                 const void* live, int chunk_shift, int device,
                  void* stream) {
-  return launch<double>(data, x, y, n, ndiag, offsets, wrap, device, stream);
+  return launch<double>(data, x, y, n, ndiag, offsets, wrap, live,
+                        chunk_shift, device, stream);
 }
 
 int dia_spmv_f32(const void* data, const void* x, void* y, long long n,
-                 int ndiag, const long long* offsets, int wrap, int device,
+                 int ndiag, const long long* offsets, int wrap,
+                 const void* live, int chunk_shift, int device,
                  void* stream) {
-  return launch<float>(data, x, y, n, ndiag, offsets, wrap, device, stream);
+  return launch<float>(data, x, y, n, ndiag, offsets, wrap, live,
+                       chunk_shift, device, stream);
 }
 
 }  // extern "C"

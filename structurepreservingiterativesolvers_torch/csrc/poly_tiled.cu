@@ -417,11 +417,8 @@ static int grid_op(GridOp<T>* op, long long n, int ndiag,
   }
   for (int k = 0; k < 9; ++k) op->box[k] = T(0);
   for (int d = 0; d < ndiag; ++d) {
-    const long long half = grid_c / 2;
-    long long dr = (offsets[d] + half) / grid_c;
-    if ((offsets[d] + half) % grid_c < 0) --dr;  // floor
-    const long long dc = offsets[d] - dr * grid_c;
-    if (dr < -1 || dr > 1 || dc < -1 || dc > 1 ||
+    int dr, dc;
+    if (!box_cell(offsets[d], grid_c, &dr, &dc) ||
         (d > 0 && offsets[d] <= offsets[d - 1]))
       return (int)cudaErrorInvalidValue;  // the box sums in this order
     op->delta[d] = (int)(dr * op->stride + dc);

@@ -1,7 +1,8 @@
 // One row of a constant-stencil product with its boundary-strip correction,
-// shared by csrc/stencil_spmv.cu (one product), csrc/poly_apply.cu (the
-// fused polynomial applies, p flat products in one launch) and
-// csrc/poly_tiled.cu (the same applies on 2-D tiles in shared memory).
+// shared by csrc/stencil_spmv.cu (one product, flat or on 2-D tiles of the
+// grid), csrc/poly_apply.cu (the fused polynomial applies, p flat products
+// in one launch) and csrc/poly_tiled.cu (the same applies on 2-D tiles in
+// shared memory).
 //
 //   (A x)[i] = sum_d c_d * x[i + off_d]  +  E[i, :] x
 //
@@ -119,4 +120,20 @@ __device__ __forceinline__ T stencil_row(
   const long long r = C > 0 ? i / C : 0;
   return stencil_sum<T>(xv, i, r, i - r * C, n, ndiag, p, C, R, top, bot,
                         left, right);
+}
+
+// The cell of the 3 x 3 box of one grid row and one grid column that a flat
+// offset lands in, on a grid row of C columns: off = dr C + dc with
+// -C/2 <= dc < C/2, as kernels/stencil_spmv.py::split_offsets splits it.
+// False where |dr| or |dc| exceeds 1.  Host code, shared by the tiled
+// designs of stencil_spmv.cu and poly_tiled.cu.
+static inline bool box_cell(long long off, long long C, int* dr, int* dc) {
+  const long long half = C / 2;
+  long long r = (off + half) / C;
+  if ((off + half) % C < 0) --r;  // floor
+  const long long c = off - r * C;
+  if (r < -1 || r > 1 || c < -1 || c > 1) return false;
+  *dr = (int)r;
+  *dc = (int)c;
+  return true;
 }

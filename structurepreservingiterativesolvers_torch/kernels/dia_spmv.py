@@ -7,19 +7,107 @@ otherwise.  The kernel (``csrc/dia_spmv.cu``) replaces the JAX package's
 ``ops/pallas_spmv.py::dia_spmv_pallas``; its source says what bounds it and
 how it is laid out.
 
-The wrapper takes the plain version for CPU tensors only.  A CUDA tensor is
-launched through the kernel, or the wrapper raises: there is no fallback.
+The kernel reads only the live segments of the diagonals: a live plan
+(``live_plan``) holds one 64-bit word per chunk of ``chunk`` rows, with bit d
+set where ``data[d]`` holds a non-zero in that chunk.  ``ops/sparse.py::DIA``
+builds its plan once, on its first product on the card, and keeps it.  Two
+designs of one kernel, each counting its own launches:
+
+* live (``dia_spmv_live_cuda``): with a plan; a diagonal that is exactly 0
+  over a chunk is not read there;
+* dense (``dia_spmv_dense_cuda``): without one, every diagonal over every
+  row, as the first design of this kernel read them.
+
+``DIA @ x`` launches the live design only where its plan skips at least
+``LIVE_MIN_SKIP`` of the coefficients (``LivePlan.pays``), and the dense one
+elsewhere: the live design reads a chunk's word before its coefficients,
+which costs more than a plan that skips little saves.
+
+For finite x the two give the same bits (up to the sign of a zero).  An Inf
+or NaN of x that only skipped zero coefficients read does not reach y in the
+live design, as in a CSR product; the dense design and the plain twin
+multiply every diagonal, so there it spreads.
+
+``dia_launch`` resolves an operator's design and arguments once, and
+``ops/sparse.py::DIA`` keeps them, so a product costs the host the check of
+x and one C call (``launch``).  The wrapper takes the plain version for CPU
+tensors only.  A CUDA tensor is launched through the kernel, or the wrapper
+raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 MAX_DIAGS = 64  # DIA_MAX_DIAGS in csrc/dia_spmv.cu; from_scipy caps ndiag here
+# rows of a chunk of the live plan, measured on an H100 at the swe M=512
+# operator (chip_smoke.py): at least a warp's rows, 32 x (16 / itemsize)
+LIVE_CHUNK = 64
+# the least share of the coefficients a plan must skip for the live design to
+# run: at heat M=1024's A, live in all but 0.2% of its segments, the live
+# design took 0.0290 ms and the dense one 0.0271-0.0272 ms on an H100
+# (chip_smoke.py, L2 flushed), 7% more for the plan's word; at swe M=512,
+# which skips 69%, it took 0.0227 ms and the dense one 0.0505-0.0508 ms
+LIVE_MIN_SKIP = 0.1
+
+
+class LivePlan(NamedTuple):
+    """The live diagonals of a DIA: ``words[c]`` has bit d set where
+    ``data[d, c*chunk : (c+1)*chunk]`` holds a non-zero (int64, one word per
+    chunk, on the data's device); ``chunk`` is a power of two; ``share`` is
+    the share of the ndiag x n coefficients that lie in live segments."""
+
+    words: torch.Tensor
+    chunk: int
+    share: float
+
+    @property
+    def pays(self) -> bool:
+        """The plan skips at least ``LIVE_MIN_SKIP`` of the coefficients:
+        a product launches the live design with it, else the dense one."""
+        return self.share <= 1.0 - LIVE_MIN_SKIP
+
+
+def warp_rows(dtype: torch.dtype) -> int:
+    """Rows a warp of the kernel takes: 32 threads of 16 bytes each."""
+    return 32 * 16 // (8 if dtype == torch.float64 else 4)
+
+
+def live_chunk(dtype: torch.dtype) -> int:
+    """The chunk of the live plan for data of ``dtype``: ``LIVE_CHUNK``, or
+    a warp's rows where those are more."""
+    return max(LIVE_CHUNK, warp_rows(dtype))
+
+
+def live_plan(data: torch.Tensor, chunk: int) -> LivePlan:
+    """The live plan of ``data`` (ndiag, n) for chunks of ``chunk`` rows, the
+    last one ragged: one reduction of ``data != 0`` on the data's device,
+    then one read of the live share on the host, which waits for the
+    reduction (once per plan, never per launch).  Bit 63 is the sign bit of
+    the int64 word; the bits are distinct, so their sum is their union."""
+    if chunk < 1 or chunk & (chunk - 1):
+        raise ValueError(f"chunk {chunk} is not a power of two")
+    ndiag, n = data.shape
+    if ndiag > MAX_DIAGS:
+        raise ValueError(f"{ndiag} diagonals (at most {MAX_DIAGS})")
+    nchunks = -(-n // chunk)
+    nz = data != 0
+    if nchunks * chunk != n:
+        nz = torch.cat([nz, nz.new_zeros(ndiag, nchunks * chunk - n)], dim=1)
+    live = nz.reshape(ndiag, nchunks, chunk).any(dim=2)
+    bits = torch.ones((), dtype=torch.int64, device=data.device) << torch.arange(
+        ndiag, dtype=torch.int64, device=data.device)
+    words = (live.to(torch.int64) * bits[:, None]).sum(dim=0)
+    rows = torch.full((nchunks,), chunk, dtype=torch.int64, device=data.device)
+    if nchunks:
+        rows[-1] = n - (nchunks - 1) * chunk
+    share = float((live.to(torch.int64) * rows).sum()) / max(ndiag * n, 1)
+    return LivePlan(words, chunk, share)
 
 
 def shift(x: torch.Tensor, off: int, wrap: bool) -> torch.Tensor:
@@ -70,8 +158,23 @@ def _check(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor) -> None:
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("DIA kernel needs contiguous data and x")
     n = x.shape[0]
-    if any(abs(int(o)) >= n for o in offsets):
+    if offsets and (max(offsets) >= n or min(offsets) <= -n):
         raise ValueError(f"offsets {tuple(offsets)} must lie in (-{n}, {n})")
+
+
+def _check_plan(live: LivePlan, x: torch.Tensor) -> None:
+    words, chunk = live.words, live.chunk
+    n = x.shape[0]
+    if (words.device != x.device or words.dtype != torch.int64
+            or words.dim() != 1 or not words.is_contiguous()):
+        raise ValueError(f"live plan of {words.dtype} {tuple(words.shape)} on "
+                         f"{words.device}; x on {x.device}")
+    if chunk & (chunk - 1) or chunk % warp_rows(x.dtype):
+        raise ValueError(f"live chunk {chunk} is not a power of two holding "
+                         f"whole warps of {warp_rows(x.dtype)} rows")
+    if words.shape[0] != -(-n // chunk):
+        raise ValueError(f"live plan of {words.shape[0]} chunks of {chunk} "
+                         f"for n = {n}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,43 +187,114 @@ def _entry(dtype: torch.dtype):
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def dia_spmv_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
-                  x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on PyTorch's current stream; does not synchronise."""
+@dataclasses.dataclass(frozen=True)
+class DiaLaunch:
+    """A DIA's launches of the kernel, resolved once: the design (live with
+    a plan, dense without), the operator as the entry point takes it
+    (``args``, which hold the addresses of ``data`` and the plan's words;
+    ``keep`` keeps them alive) and the x it takes.  ``ops/sparse.py::DIA``
+    keeps its own, so a product costs the host the check of x and one C
+    call."""
+
+    design: str  # "live" or "dense"
+    n: int
+    dtype: torch.dtype
+    device: torch.device
+    data_ptr: int
+    args: tuple
+    keep: tuple
+
+    def takes(self, x: torch.Tensor) -> bool:
+        return x.dtype == self.dtype and x.device == self.device
+
+
+def dia_launch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
+               x: torch.Tensor, live: Optional[LivePlan] = None) -> DiaLaunch:
+    """Check the operator (and the plan) against x, a CUDA vector, and
+    resolve its launch: the live design with ``live``, the dense one
+    without."""
     if x.device.type != "cuda":
-        raise ValueError(f"dia_spmv_cuda needs CUDA tensors, got {x.device}")
+        raise ValueError(f"the DIA kernel needs CUDA tensors, got {x.device}")
     _check(data, offsets, x)
-    n = x.shape[0]
+    words, shift_, keep = None, 0, (data,)
+    if live is not None:
+        _check_plan(live, x)
+        words, shift_ = live.words.data_ptr(), live.chunk.bit_length() - 1
+        keep += (live.words,)
+    ndiag = max(len(offsets), 1)
+    args = (x.shape[0], len(offsets),
+            (ctypes.c_longlong * ndiag)(*map(int, offsets)), int(bool(wrap)),
+            words, shift_, x.device.index or 0)
+    return DiaLaunch("dense" if live is None else "live", x.shape[0], x.dtype,
+                     x.device, data.data_ptr(), args, keep)
+
+
+def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel as ``rec`` resolved it, on PyTorch's current
+    stream; does not synchronise.  The launch counts in its design's counter
+    and in ``dia_spmv_cuda``'s."""
+    if (not rec.takes(x) or x.dim() != 1 or x.shape[0] != rec.n
+            or not x.is_contiguous()):
+        raise ValueError(f"the launch takes a contiguous {rec.dtype} vector "
+                         f"of {rec.n} on {rec.device}; got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
     y = torch.empty_like(x)
-    if n == 0:
-        return y
-    fn = _entry(x.dtype)
-    offs = (ctypes.c_longlong * max(len(offsets), 1))(*[int(o) for o in offsets])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n, len(offsets),
-             offs, int(bool(wrap)), x.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"dia_spmv kernel launch failed: cudaError {err}")
+    if rec.n:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry(rec.dtype)(rec.data_ptr, x.data_ptr(), y.data_ptr(),
+                                *rec.args, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"dia_spmv kernel launch failed ({rec.design}): cudaError {err}")
+    counter = (dia_spmv_live_cuda if rec.design == "live"
+               else dia_spmv_dense_cuda)
+    counter.launches += 1
     dia_spmv_cuda.launches += 1
     return y
 
 
-dia_spmv_cuda.launches = 0  # kernel launches; reset it to count a run
+def dia_spmv_live_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
+                       live: LivePlan, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel with a live plan on PyTorch's current stream; does
+    not synchronise."""
+    return launch(dia_launch(data, offsets, wrap, x, live), x)
+
+
+def dia_spmv_dense_cuda(data: torch.Tensor, offsets: Sequence[int],
+                        wrap: bool, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel with every diagonal live on PyTorch's current
+    stream; does not synchronise."""
+    return launch(dia_launch(data, offsets, wrap, x), x)
+
+
+def dia_spmv_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
+                  x: torch.Tensor,
+                  live: Optional[LivePlan] = None) -> torch.Tensor:
+    """Launch the kernel: the live design with a plan, the dense one
+    without."""
+    return launch(dia_launch(data, offsets, wrap, x, live), x)
+
+
+# kernel launches of each design, and of either; reset them to count a run
+dia_spmv_live_cuda.launches = dia_spmv_dense_cuda.launches = 0
+dia_spmv_cuda.launches = 0
 
 
 def dia_spmv(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
-             x: torch.Tensor) -> torch.Tensor:
-    """The wrapper: CUDA tensors go through the kernel, CPU tensors through
-    the plain version."""
+             x: torch.Tensor, live: Optional[LivePlan] = None) -> torch.Tensor:
+    """The wrapper: CUDA tensors go through the kernel (with the live plan
+    where one is given), CPU tensors through the plain version, which reads
+    every diagonal."""
     if data.device != x.device:
         raise ValueError(f"data on {data.device} but x on {x.device}")
     if x.device.type == "cuda":
-        return dia_spmv_cuda(data, offsets, wrap, x)
+        return dia_spmv_cuda(data, offsets, wrap, x, live)
     if x.device.type == "cpu":
         return dia_spmv_torch(data, offsets, wrap, x)
     raise ValueError(f"no DIA SpMV for device {x.device}")

@@ -44,7 +44,7 @@ from typing import Optional
 import torch
 
 from .dia_spmv import dia_spmv_torch
-from .stencil_spmv import stencil_spmv_torch
+from .stencil_spmv import in_box, split_offsets, stencil_spmv_torch  # noqa: F401
 
 MAX_DIAGS = 64  # POLY_MAX_DIAGS in csrc/poly_apply.cu
 MAX_DEGREE = 64  # POLY_MAX_DEGREE
@@ -163,18 +163,6 @@ class TilePlan:
         return (ctypes.c_int * 2)(self.tile_r, self.tile_c)
 
 
-def split_offsets(offsets, grid_c: int) -> tuple:
-    """Each flat offset as ``(dr, dc)``, ``offset = dr * grid_c + dc`` with
-    ``-grid_c/2 <= dc < grid_c/2``: the rows and columns of the (R, C) grid
-    that it shifts by (as ``grid_op`` in ``csrc/poly_tiled.cu`` splits it)."""
-    half = grid_c // 2
-    out = []
-    for off in offsets:
-        dr, rem = divmod(int(off) + half, grid_c)
-        out.append((dr, rem - half))
-    return tuple(out)
-
-
 def sweeps(kind: str, degree: int) -> int:
     """The sweeps of an apply that read a shifted vector: p for Chebyshev
     (its first reads x = v / theta), p - 1 for Neumann."""
@@ -192,9 +180,7 @@ def tile_candidates(n: int, grid_c: int, offsets: tuple, n_sweeps: int,
     if grid_c < 2 or n % grid_c or n // grid_c < 3 or n_sweeps < 0:
         return []
     R, C = n // grid_c, grid_c
-    if (any(max(abs(dr), abs(dc)) > 1 for dr, dc in split_offsets(offsets, C))
-            or any(a >= b for a, b in zip(offsets, offsets[1:]))
-            or n_sweeps > C):
+    if not in_box(offsets, C) or n_sweeps > C:
         return []
     warps = TILE_THREADS // 32
     out = []

@@ -12,14 +12,27 @@ shaped ``(ndiag, C)``, and on the first and last grid columns, shaped
 The kernel (``csrc/stencil_spmv.cu``) replaces the JAX package's
 ``ops/pallas_spmv.py::stencil_spmv_pallas`` and folds in the strip pass
 that follows it there (``ops/stencil.py::_apply_strips``); its source says
-what bounds it and how it is laid out.  The wrapper takes the plain version
-for CPU tensors only.  A CUDA tensor is launched through the kernel, or the
-wrapper raises: there is no fallback.
+what bounds it and how it is laid out.  It has two designs, picked from the
+shapes alone before the launch (``stencil_plan``), each counting its own
+launches (``stencil_spmv_cuda.launches`` counts both):
+
+* tiled (``stencil_spmv_tiled_cuda``): a stencil with boundary strips whose
+  ascending offsets stay within one grid row and one grid column (heat's
+  seven points), on 2-D tiles of the (R, C) grid;
+* flat (``stencil_spmv_flat_cuda``): every other stencil, one thread per
+  flat row.
+
+The two give the same bits.  ``stencil_launch`` resolves a stencil's
+design and arguments once, and ``ops/stencil.py::Stencil`` keeps them, so a
+product costs the host one C call (``launch``).  The wrapper takes the plain
+version for CPU tensors only.  A CUDA tensor is launched through the kernel, or the wrapper
+raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Sequence, Tuple
 
@@ -29,6 +42,14 @@ import torch.nn.functional as F
 from .dia_spmv import shift
 
 MAX_DIAGS = 64  # STENCIL_MAX_DIAGS in csrc/stencil_spmv.cu
+# The tiled design's tile: TX columns by TY x RUN rows of interior grid
+# points, a block of TX x TY threads, each down a run of RUN rows, and a
+# buffer of (TY RUN + 2) (TX + 2) values in shared memory (at most 48 KB in
+# f64).  TILE is the fastest of TILES at heat M=1024 on an H100
+# (chip_smoke.py times them all); every tile gives the same bits.
+TILES = tuple((tx, ty, run) for tx in (32, 64, 128)
+              for ty in (128 // tx, 256 // tx) for run in (4, 8, 16))
+TILE = (32, 4, 4)
 
 Strips = Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -90,6 +111,64 @@ def stencil_spmv_torch(const: Sequence[float], offsets: Sequence[int],
     return y
 
 
+def split_offsets(offsets, grid_c: int) -> tuple:
+    """Each flat offset as ``(dr, dc)``, ``offset = dr * grid_c + dc`` with
+    ``-grid_c/2 <= dc < grid_c/2``: the rows and columns of the (R, C) grid
+    that it shifts by (as ``box_cell`` in ``csrc/stencil_row.cuh`` splits
+    it)."""
+    half = grid_c // 2
+    out = []
+    for off in offsets:
+        dr, rem = divmod(int(off) + half, grid_c)
+        out.append((dr, rem - half))
+    return tuple(out)
+
+
+def in_box(offsets, grid_c: int) -> bool:
+    """The offsets, in ascending order, each within the 3 x 3 box of one
+    grid row and one grid column."""
+    return (all(max(abs(dr), abs(dc)) <= 1
+                for dr, dc in split_offsets(offsets, grid_c))
+            and all(a < b for a, b in zip(offsets, offsets[1:])))
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilTile:
+    """A tile of the tiled design: ``tx`` interior columns by ``ty * run``
+    interior rows, a block of ``tx`` x ``ty`` threads."""
+
+    tx: int
+    ty: int
+    run: int
+
+    @functools.cached_property
+    def c_args(self):
+        """The plan as the kernel's entry point takes it."""
+        return (ctypes.c_int * 3)(self.tx, self.ty, self.run)
+
+
+def stencil_tiles(n: int, grid_c: int, offsets: tuple, wrap: bool) -> list:
+    """Every tile of ``TILES`` for the tiled design, which takes a
+    non-wrapping stencil with strips on a grid of at least 3 x 3 whose
+    ascending offsets lie in the 3 x 3 box (at most 9 of them); none
+    otherwise."""
+    if (wrap or grid_c < 3 or n % grid_c or n // grid_c < 3
+            or not 1 <= len(offsets) <= 9 or not in_box(offsets, grid_c)):
+        return []
+    return [StencilTile(*t) for t in TILES]
+
+
+@functools.lru_cache(maxsize=256)
+def stencil_plan(n: int, grid_c: int, offsets: tuple,
+                 wrap: bool) -> Optional[StencilTile]:
+    """The design of a product, from shapes alone: the tile ``TILE`` where
+    the tiled design takes the stencil (``grid_c`` 0 means no strips), else
+    None for the flat design."""
+    if not grid_c or not stencil_tiles(n, grid_c, offsets, wrap):
+        return None
+    return StencilTile(*TILE)
+
+
 def _check(const, offsets, wrap, grid_c, strips, x) -> None:
     if x.dtype not in (torch.float64, torch.float32):
         raise TypeError(f"stencil kernel takes f64 or f32; got x {x.dtype}")
@@ -121,47 +200,138 @@ def _check(const, offsets, wrap, grid_c, strips, x) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    """The C entry point for ``dtype``, built and loaded on first use."""
+def _entry(design: str, dtype: torch.dtype):
+    """The C entry point of ``design`` for ``dtype``, built and loaded on
+    first use."""
     from .build import load
 
+    tag = "f64" if dtype == torch.float64 else "f32"
     lib = load("stencil_spmv.cu")
-    fn = lib.stencil_spmv_f64 if dtype == torch.float64 else lib.stencil_spmv_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-                   ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+    head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.POINTER(ctypes.c_double)]
+    strips = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p]
+    if design == "flat":
+        fn = getattr(lib, f"stencil_spmv_{tag}")
+        fn.argtypes = head + [ctypes.c_int] + strips + [ctypes.c_int,
+                                                         ctypes.c_void_p]
+    else:
+        fn = getattr(lib, f"stencil_tiled_{tag}")
+        fn.argtypes = head + strips + [ctypes.POINTER(ctypes.c_int),
+                                       ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilLaunch:
+    """A stencil's launches of the kernel, resolved once: the design (and the
+    tile of the tiled one), the operator as the design's entry point takes
+    it (``args``, which hold the strips' addresses; ``strips`` keeps them
+    alive), and the x it takes.  ``ops/stencil.py::Stencil`` keeps its own,
+    so a product costs the host one C call and the check of x."""
+
+    design: str  # "tiled" or "flat"
+    tile: Optional[StencilTile]
+    n: int
+    dtype: torch.dtype
+    device: torch.device
+    args: tuple
+    strips: Strips
+
+    def takes(self, x: torch.Tensor) -> bool:
+        return x.dtype == self.dtype and x.device == self.device
+
+
+def stencil_launch(const: Sequence[float], offsets: Sequence[int],
+                   wrap: bool, grid_c: int, strips: Strips, x: torch.Tensor,
+                   design: Optional[str] = None,
+                   tile: Optional[StencilTile] = None) -> StencilLaunch:
+    """Check the stencil against x (a CUDA vector) and resolve its launch: in
+    ``design``, by default the one ``stencil_plan`` picks from the shapes;
+    the tiled design with ``tile``, by default the plan's."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the stencil kernel needs CUDA tensors, got "
+                         f"{x.device}")
+    _check(const, offsets, wrap, grid_c, strips, x)
+    n, offsets = x.shape[0], tuple(int(o) for o in offsets)
+    plan = stencil_plan(n, int(grid_c), offsets, bool(wrap))
+    design = design or ("flat" if plan is None else "tiled")
+    if design == "tiled":
+        if plan is None:
+            raise ValueError(f"the tiled design does not take offsets "
+                             f"{offsets} on grid_c = {grid_c}, wrap = {wrap}")
+        tile = tile or plan
+    elif design == "flat":
+        tile = None
+    else:
+        raise ValueError(f"no stencil design {design!r}")
+    ndiag = max(len(offsets), 1)
+    operator = (n, len(offsets), (ctypes.c_longlong * ndiag)(*offsets),
+                (ctypes.c_double * ndiag)(*map(float, const)))
+    ptrs = tuple(s.data_ptr() for s in strips) if grid_c else (None,) * 4
+    if design == "flat":
+        args = operator + (int(bool(wrap)), int(grid_c)) + ptrs
+    else:
+        args = operator + (int(grid_c),) + ptrs + (tile.c_args,)
+    return StencilLaunch(design, tile, n, x.dtype, x.device, args, strips)
+
+
+def launch(rec: StencilLaunch, x: torch.Tensor) -> torch.Tensor:
+    """Launch the kernel as ``rec`` resolved it, on PyTorch's current
+    stream; does not synchronise.  The launch counts in its design's counter
+    and in ``stencil_spmv_cuda``'s."""
+    if (not rec.takes(x) or x.dim() != 1 or x.shape[0] != rec.n
+            or not x.is_contiguous()):
+        raise ValueError(f"the launch takes a contiguous {rec.dtype} vector "
+                         f"of {rec.n} on {rec.device}; got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    y = torch.empty_like(x)
+    if rec.n:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry(rec.design, rec.dtype)(
+            x.data_ptr(), y.data_ptr(), *rec.args, rec.device.index or 0,
+            stream)
+        if err != 0:
+            raise RuntimeError(f"stencil_spmv kernel launch failed "
+                               f"({rec.design}): cudaError {err}")
+    counter = (stencil_spmv_tiled_cuda if rec.design == "tiled"
+               else stencil_spmv_flat_cuda)
+    counter.launches += 1
+    stencil_spmv_cuda.launches += 1
+    return y
+
+
+def stencil_spmv_flat_cuda(const: Sequence[float], offsets: Sequence[int],
+                           wrap: bool, grid_c: int, strips: Strips,
+                           x: torch.Tensor) -> torch.Tensor:
+    """Launch the flat design on PyTorch's current stream; does not
+    synchronise."""
+    return launch(stencil_launch(const, offsets, wrap, grid_c, strips, x,
+                                 "flat"), x)
+
+
+def stencil_spmv_tiled_cuda(const: Sequence[float], offsets: Sequence[int],
+                            grid_c: int, strips: Strips, plan: StencilTile,
+                            x: torch.Tensor) -> torch.Tensor:
+    """Launch the tiled design with the tile ``plan`` on PyTorch's current
+    stream; does not synchronise."""
+    return launch(stencil_launch(const, offsets, False, grid_c, strips, x,
+                                 "tiled", plan), x)
 
 
 def stencil_spmv_cuda(const: Sequence[float], offsets: Sequence[int],
                       wrap: bool, grid_c: int, strips: Strips,
                       x: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on PyTorch's current stream; does not synchronise."""
-    if x.device.type != "cuda":
-        raise ValueError(f"stencil_spmv_cuda needs CUDA tensors, got {x.device}")
-    _check(const, offsets, wrap, grid_c, strips, x)
-    n, ndiag = x.shape[0], len(offsets)
-    y = torch.empty_like(x)
-    if n == 0:
-        return y
-    fn = _entry(x.dtype)
-    offs = (ctypes.c_longlong * max(ndiag, 1))(*[int(o) for o in offsets])
-    cs = (ctypes.c_double * max(ndiag, 1))(*[float(c) for c in const])
-    ptrs = [s.data_ptr() for s in strips] if grid_c else [None] * 4
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), y.data_ptr(), n, ndiag, offs, cs, int(bool(wrap)),
-             int(grid_c), *ptrs, x.device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError(f"stencil_spmv kernel launch failed: cudaError {err}")
-    stencil_spmv_cuda.launches += 1
-    return y
+    """Launch the kernel in the design ``stencil_plan`` picks from the
+    shapes."""
+    return launch(stencil_launch(const, offsets, wrap, grid_c, strips, x), x)
 
 
-stencil_spmv_cuda.launches = 0  # kernel launches; reset it to count a run
+# kernel launches of each design, and of either; reset them to count a run
+stencil_spmv_flat_cuda.launches = stencil_spmv_tiled_cuda.launches = 0
+stencil_spmv_cuda.launches = 0
 
 
 def stencil_spmv(const: Sequence[float], offsets: Sequence[int], wrap: bool,

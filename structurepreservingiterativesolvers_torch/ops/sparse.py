@@ -3,9 +3,10 @@
 ``DIA`` stores a matrix by diagonals, optionally periodic (wrapping).  The
 FEM operators on structured periodic meshes (lkdv, swe) have a small fixed
 set of diagonals, so ``A @ x`` is one DIA SpMV: on a CUDA tensor the
-hand-written kernel (``kernels/dia_spmv.py``), on a CPU tensor its plain
-twin.  ``A @ X`` for a tall matrix stays plain PyTorch, as it stays outside
-any Pallas kernel in the JAX package.
+hand-written kernel (``kernels/dia_spmv.py``), with the operator's live
+plan where it pays, on a CPU tensor its plain twin.  ``A @ X`` for a tall
+matrix stays plain PyTorch, as it stays outside any Pallas kernel in the JAX
+package.
 
 Conversion from scipy runs on the host and copies the wrap auto-detection
 of the JAX package exactly (``ops/sparse.py:354-425`` there).  Where that
@@ -22,7 +23,16 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DTYPE
-from ..kernels.dia_spmv import dia_spmv as _dia_spmv, shift as _shift
+from ..kernels.dia_spmv import (
+    DiaLaunch,
+    LivePlan,
+    dia_launch,
+    dia_spmv as _dia_spmv,
+    launch,
+    live_chunk,
+    live_plan,
+    shift as _shift,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,12 +42,22 @@ class DIA:
     ``data[d, i]`` holds ``A[i, i + offsets[d]]`` (row-aligned).  When
     ``wrap`` is true the column index is taken mod n (periodic meshes);
     otherwise out-of-range positions are structural zeros.
+
+    The operator's live plan (``live``) and the kernel's launch, in the
+    design the plan picks, are built on its first product on the card and
+    kept here, so they belong to one ``data`` tensor: no code of the port
+    writes ``data`` in place, and a DIA with new data (``astype``,
+    ``dataclasses.replace``) starts without them.
     """
 
     data: torch.Tensor  # (ndiag, n)
     offsets: Tuple[int, ...]
     shape: Tuple[int, int]
     wrap: bool
+    _plan: Optional[LivePlan] = dataclasses.field(default=None, init=False,
+                                                  repr=False, compare=False)
+    _launch: Optional[DiaLaunch] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -49,6 +69,14 @@ class DIA:
 
     def astype(self, dtype) -> "DIA":
         return dataclasses.replace(self, data=self.data.to(dtype))
+
+    def live(self) -> LivePlan:
+        """The live plan of the DIA kernel, built on the data's device on the
+        first call and kept."""
+        if self._plan is None:
+            object.__setattr__(self, "_plan",
+                               live_plan(self.data, live_chunk(self.dtype)))
+        return self._plan
 
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
         if other.dim() == 1:
@@ -71,8 +99,20 @@ class DIA:
 
 
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x``: the DIA kernel on CUDA tensors, its plain twin on CPU ones."""
-    return _dia_spmv(A.data, A.offsets, A.wrap, x)
+    """``A @ x``: on CUDA tensors the DIA kernel, with A's live plan where
+    the plan pays (``LivePlan.pays``; an Inf or NaN of x that only skipped
+    zero segments read does not reach y there) and in the dense design
+    elsewhere, through the launch A keeps (resolved again for an x of
+    another dtype or device); on CPU tensors its plain twin."""
+    if x.device.type != "cuda":
+        return _dia_spmv(A.data, A.offsets, A.wrap, x)
+    rec = A._launch
+    if rec is None or not rec.takes(x):
+        plan = A.live()
+        rec = dia_launch(A.data, A.offsets, A.wrap, x,
+                         plan if plan.pays else None)
+        object.__setattr__(A, "_launch", rec)
+    return launch(rec, x)
 
 
 def dia_spmm(A: DIA, X: torch.Tensor) -> torch.Tensor:

@@ -25,7 +25,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.stencil_spmv import stencil_spmv as _stencil_spmv
+from ..kernels.stencil_spmv import (
+    StencilLaunch,
+    launch,
+    stencil_launch,
+    stencil_spmv as _stencil_spmv,
+)
 from .sparse import DIA, dia_spmm
 
 
@@ -34,7 +39,10 @@ class Stencil:
     """``A = C + E``: per-diagonal constants ``const`` (host floats, which
     the kernel takes by value) plus boundary-strip residuals on the (R, C)
     grid view (``grid_c`` = C; 0 when the matrix is exactly constant and no
-    correction exists).  ``dia`` is the full operator."""
+    correction exists).  ``dia`` is the full operator.  The kernel's launch
+    (``_launch``) is resolved on the first product on the card and kept, as
+    the ``DIA`` keeps its live plan; a stencil with new data starts without
+    one."""
 
     dia: DIA
     const: Tuple[float, ...]  # (ndiag,)
@@ -43,6 +51,8 @@ class Stencil:
     left_vals: Optional[torch.Tensor]  # (ndiag, R) resid on rows r*C
     right_vals: Optional[torch.Tensor]  # (ndiag, R) resid on rows r*C + C-1
     grid_c: int = 0
+    _launch: Optional[StencilLaunch] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     # -- DIA-compatible surface -------------------------------------------
     @property
@@ -182,9 +192,16 @@ def maybe_stencil(A):
 
 
 def stencil_spmv(S: Stencil, x: torch.Tensor) -> torch.Tensor:
-    """``S @ x``: the stencil kernel on CUDA tensors, its plain twin on CPU
-    ones."""
-    return _stencil_spmv(S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
+    """``S @ x``: the stencil kernel on CUDA tensors, through the launch S
+    keeps (resolved again for an x of another dtype or device); its plain
+    twin on CPU ones."""
+    if x.device.type != "cuda":
+        return _stencil_spmv(S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
+    rec = S._launch
+    if rec is None or not rec.takes(x):
+        rec = stencil_launch(S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
+        object.__setattr__(S, "_launch", rec)
+    return launch(rec, x)
 
 
 def stencil_spmm(S: Stencil, X: torch.Tensor) -> torch.Tensor:

@@ -190,11 +190,6 @@ class _LevelMeta(NamedTuple):
     main: int
 
 
-def _mv(data: torch.Tensor, offs, v: torch.Tensor) -> torch.Tensor:
-    """Non-wrapping DIA product (the DIA kernel on a CUDA tensor)."""
-    return DIA(data, tuple(offs), (v.shape[0], v.shape[0]), False) @ v
-
-
 def _shift_last(X: torch.Tensor, off: int) -> torch.Tensor:
     """Row-aligned zero-fill read along the last axis: out[..., i] =
     X[..., i + off]."""
@@ -214,11 +209,13 @@ def _mv_b(data: torch.Tensor, offs, X: torch.Tensor) -> torch.Tensor:
     return Y
 
 
-def _level_setup(mt: _LevelMeta, data: torch.Tensor, box: int,
-                 rho_iters: int):
-    """One level of the setup: the smoother bands, the probed coarse
-    operator, and the level's asymmetry and probe errors (device scalars)."""
+def _level_setup(mt: _LevelMeta, A: DIA, box: int, rho_iters: int):
+    """One level of the setup, on the level's operator A (a non-wrapping DIA,
+    whose products go through the DIA kernel on the card with A's live plan,
+    built once): the smoother bands, the probed coarse operator as a DIA,
+    and the level's asymmetry and probe errors (device scalars)."""
     offs = mt.offsets
+    data = A.data
     nlev = mt.C1 * mt.C2
     p = mt.p
     dt, dev = data.dtype, data.device
@@ -239,11 +236,11 @@ def _level_setup(mt: _LevelMeta, data: torch.Tensor, box: int,
     v = torch.sin(torch.arange(nlev, dtype=dt, device=dev) * 12.9898) + 0.01
     v = v / torch.linalg.norm(v)
     for _ in range(rho_iters - 3):
-        w = dinv * _mv(data, offs, v)
+        w = dinv * (A @ v)
         v = w / torch.linalg.norm(w)
     rho = torch.zeros((), dtype=dt, device=dev)
     for _ in range(3):
-        w = dinv * _mv(data, offs, v)
+        w = dinv * (A @ v)
         nw = torch.linalg.norm(w)
         rho = torch.maximum(rho, nw)
         v = w / nw
@@ -292,16 +289,17 @@ def _level_setup(mt: _LevelMeta, data: torch.Tensor, box: int,
         # the probe of the (i+di, j+dj) neighbour's colour
         sel = ((ii + di) % p) * p + ((jj + dj) % p)
         bands.append(Y[sel, ii, jj].reshape(-1))
-    newdata = torch.stack(bands)
-    coffs = tuple(di * Cc2 + dj for di, dj in mt.coffs2d)
+    coarse = DIA(torch.stack(bands),
+                 tuple(di * Cc2 + dj for di, dj in mt.coffs2d), (nc, nc),
+                 False)
     # a-posteriori radius check: the extracted stencil must act like the
     # composed operator on a generic vector
     wtest = torch.sin(torch.arange(nc, dtype=dt, device=dev) * 7.13) + 0.3
     y_true = apply_RAP(wtest[None, :]).reshape(-1)
-    y_band = _mv(newdata, coffs, wtest)
+    y_band = coarse @ wtest
     probe_err = ((y_true - y_band).abs().max()
                  / torch.clamp(y_true.abs().max(), min=1e-30))
-    return dinv, SP, SR, newdata, sym_err, probe_err
+    return dinv, SP, SR, coarse, sym_err, probe_err
 
 
 def _amg_device(A_dia: DIA, grid: Tuple[int, int], box: int = 3,
@@ -354,15 +352,16 @@ def _amg_device(A_dia: DIA, grid: Tuple[int, int], box: int = 3,
     coarse_offsets = offsets
 
     # --- the levels, then the dense coarsest inverse (device) -------------
-    data = A_dia.data
+    coarse = A_dia
     shipped, sym_errs, probe_errs = [], [], []
     for mt in metas:
-        dinv, SP, SR, newdata, sym_err, probe_err = _level_setup(
-            mt, data, box, rho_iters)
-        shipped.append((data, dinv, SP, SR))
+        fine = coarse
+        dinv, SP, SR, coarse, sym_err, probe_err = _level_setup(
+            mt, fine, box, rho_iters)
+        shipped.append((fine, dinv, SP, SR))
         sym_errs.append(sym_err)
         probe_errs.append(probe_err)
-        data = newdata
+    data = coarse.data
     nC = data.shape[1]
     rows = torch.arange(nC, device=data.device)
     dense = torch.zeros((nC, nC), dtype=data.dtype, device=data.device)
@@ -388,11 +387,11 @@ def _amg_device(A_dia: DIA, grid: Tuple[int, int], box: int = 3,
                 "operator is not grid-local at the assumed radius")
 
     levels: List[_Level] = []
-    for mt, (dat, dinv, SP, SR) in zip(metas, shipped):
+    for mt, (fine, dinv, SP, SR) in zip(metas, shipped):
         offs = mt.offsets
         shape = (mt.C1 * mt.C2,) * 2
         levels.append(_Level(
-            A=DIA(dat, offs, shape, False),
+            A=fine,
             P=BoxProlong(S=DIA(SP, offs, shape, False), C1=mt.C1, C2=mt.C2,
                          b=box, Cc1=mt.Cc1, Cc2=mt.Cc2),
             R=BoxRestrict(S=DIA(SR, offs, shape, False), C1=mt.C1, C2=mt.C2,
@@ -401,7 +400,6 @@ def _amg_device(A_dia: DIA, grid: Tuple[int, int], box: int = 3,
             omega=float(omega),
         ))
     levels.append(_Level(
-        A=DIA(data, coarse_offsets, (nC, nC), False),
-        P=None, R=None, dinv=dinv_c, omega=float(omega),
+        A=coarse, P=None, R=None, dinv=dinv_c, omega=float(omega),
     ))
     return AMG(levels=tuple(levels), coarse_inv=cinv, nu=int(nu))

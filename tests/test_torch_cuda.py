@@ -1,5 +1,6 @@
-"""Tests of the PyTorch port that need an NVIDIA card: the CUDA DIA and
-stencil kernels, the fused Chebyshev and Neumann applies (both designs, and
+"""Tests of the PyTorch port that need an NVIDIA card: the CUDA DIA kernel
+(its live and dense designs) and stencil kernel (its tiled and flat
+designs), the fused Chebyshev and Neumann applies (both designs, and
 the dispatch between them) and the fused CGS2 update against their plain
 twins, and solves on the card (lkdv, heat with
 the structured AMG, swe with the fused orthogonalisation and the skew-normal
@@ -97,6 +98,115 @@ def test_cgmres_on_card_matches_cpu():
         assert ig[key] == ic[key]
     assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-8
     assert ig["deviation"] <= 1e-10
+
+
+def _live_operators(case):
+    """label -> a DIA on the card of one case of the live design: the swe
+    M=512 operator (70% zeros), lkdv degree 3 M=100, every DIA of heat M=64
+    with its AMG hierarchy, a ragged n with zero diagonals and chunks, and
+    64 diagonals."""
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+
+    if case == "swe_M512":
+        from structurepreservingiterativesolvers_torch.models import swe
+
+        return {case: swe.linforms(M=512, device="cuda").A}
+    if case == "lkdv":
+        from structurepreservingiterativesolvers_torch.models import lkdv
+
+        s = lkdv.linforms(M=100, degree=3, device="cuda")
+        return {"lkdv A": s.A, "lkdv Mmat": s.Mmat}
+    if case == "heat_levels":
+        from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+            default_pre_builder,
+        )
+        from structurepreservingiterativesolvers_torch.models import heat
+
+        s = heat.linforms(M=64, device="cuda")
+        ops = {"heat A": s.A.dia, "heat Mmat": s.Mmat, "heat Emat": s.Emat}
+        for i, L in enumerate(default_pre_builder("heat")(s).levels):
+            ops[f"level {i} A"] = L.A
+            if L.P is not None:
+                ops[f"level {i} S_P"], ops[f"level {i} S_R"] = L.P.S, L.R.S
+        return ops
+    g = torch.Generator().manual_seed(5)
+    if case == "ragged":
+        data = torch.randn(5, 1001, generator=g, dtype=torch.float64)
+        data[2] = 0.0
+        data[1, 130:170] = 0.0
+        data[3, 64:256] = 0.0
+        return {case: DIA(data.cuda(), (-3, -1, 0, 1, 3), (1001, 1001), False)}
+    data = torch.randn(64, 8192, generator=g, dtype=torch.float64)
+    for d in range(64):
+        data[d, 128 * d:128 * (d + 1)] = 0.0
+    return {case: DIA(data.cuda(), tuple(range(-40, 24)), (8192, 8192), True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["swe_M512", "lkdv", "heat_levels", "ragged",
+                                  "ndiag64"])
+def test_live_dia_matches_plain_and_dense(case, dtype):
+    """The live design with A's plan, built once: within the bound of the
+    plain twin, the dense design's bits, and bit-equal when repeated.
+    ``A @ x`` gives the same bits in the design the plan picks: live where
+    it pays (swe, which skips most segments), dense where it does not
+    (heat, live but at the boundary rows)."""
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+
+    counters = (kd.dia_spmv_live_cuda, kd.dia_spmv_dense_cuda, dia_spmv_cuda)
+    for label, A in _live_operators(case).items():
+        A = A.astype(dtype)
+        x = torch.randn(A.shape[0], generator=torch.Generator().manual_seed(3),
+                        dtype=dtype).cuda()
+        plan = A.live()
+        assert A.live() is plan  # built once
+        if case in ("swe_M512", "heat_levels"):
+            assert plan.pays == (case == "swe_M512"), (label, plan.share)
+        before = [c.launches for c in counters]
+        y = kd.dia_spmv_live_cuda(A.data, A.offsets, A.wrap, plan, x)
+        again = kd.dia_spmv_live_cuda(A.data, A.offsets, A.wrap, plan, x)
+        dense = dia_spmv(A.data, A.offsets, A.wrap, x)
+        product = A @ x
+        torch.cuda.synchronize()
+        assert [c.launches - b for c, b in zip(counters, before)] == (
+            [3, 1, 4] if plan.pays else [2, 2, 4]), label
+        assert A._launch.design == ("live" if plan.pays else "dense")
+        assert torch.equal(product, y), label
+        ref = dia_spmv_torch(A.data, A.offsets, A.wrap, x)
+        rel = float((y - ref).abs().max() / ref.abs().max())
+        assert rel <= RTOL[dtype], (label, rel)
+        assert torch.equal(y, dense) and torch.equal(y, again), label
+
+
+@pytest.mark.cuda
+def test_live_dia_nonfinite_and_refusals():
+    """A NaN of x that only a zero segment reads does not reach y in the
+    live design; the dense design spreads it.  A plan of the wrong shape,
+    device or chunk is refused."""
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+
+    data = torch.ones(3, 512, dtype=torch.float64, device="cuda")
+    data[2, :256] = 0.0  # offset +1 is dead over the first chunks
+    plan = kd.live_plan(data, 128)
+    x = torch.ones(512, dtype=torch.float64, device="cuda")
+    x[10] = float("nan")
+    y = kd.dia_spmv_live_cuda(data, (-1, 0, 1), False, plan, x)
+    dense = kd.dia_spmv_dense_cuda(data, (-1, 0, 1), False, x)
+    torch.cuda.synchronize()
+    assert int(torch.isnan(y).sum()) == 2 and not bool(torch.isnan(y[9]))
+    assert int(torch.isnan(dense).sum()) == 3
+    with pytest.raises(ValueError):  # chunks of fewer rows than a warp's
+        kd.dia_spmv_live_cuda(data, (-1, 0, 1), False,
+                              kd.live_plan(data, 32), x)
+    with pytest.raises(ValueError):  # a plan of another operator
+        kd.dia_spmv_live_cuda(data, (-1, 0, 1), False,
+                              kd.live_plan(data[:, :256], 128), x)
+    with pytest.raises(ValueError):
+        kd.dia_spmv_live_cuda(data, (-1, 0, 1), False,
+                              kd.LivePlan(plan.words.cpu(), 128, 1.0), x)
 
 
 # R, C, offsets, wrap, strips: a 9-point grid stencil with boundary strips
@@ -473,6 +583,87 @@ def test_poly_dispatch_by_shape_on_card(heat_on_card):
                               grew[4] + grew[5])
         assert (tiled, flat, total) == ((1, 0, 1) if design == "tiled"
                                         else (0, 1, 1))
+
+
+@pytest.fixture(scope="module")
+def heat_stencils(heat_on_card):
+    """M -> heat's stencil on the card in f64, for the tiled stencil
+    design: the sizes of ``heat_on_card`` and M=17 (an odd M, which
+    assembles as a stencil in f32)."""
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    out = {M: sys_[0] for M, sys_ in heat_on_card.items()}
+    out[17] = heat.linforms(M=17, device="cuda",
+                            dtype=torch.float32).A.astype(torch.float64)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("M", (16, 17, 64, 256, 1024))
+def test_tiled_stencil_matches_flat_and_plain(heat_stencils, M, dtype):
+    """heat's product runs the tiled design through the dispatch: within the
+    bound of the plain twin, the flat design's bits, and bit-equal when
+    repeated; at M=64 every tile gives the same bits."""
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+
+    S = heat_stencils[M].astype(dtype)
+    x = torch.randn(S.shape[0], generator=torch.Generator().manual_seed(M),
+                    dtype=dtype).cuda()
+    args = (S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
+    assert ks.stencil_plan(S.shape[0], S.grid_c, S.offsets, S.wrap) is not None
+    before = (ks.stencil_spmv_tiled_cuda.launches,
+              ks.stencil_spmv_flat_cuda.launches)
+    y = S @ x
+    rec = S._launch  # resolved on the first product and kept
+    again = S @ x
+    assert S._launch is rec and rec.design == "tiled"
+    flat = ks.stencil_spmv_flat_cuda(*args)
+    torch.cuda.synchronize()
+    assert (ks.stencil_spmv_tiled_cuda.launches,
+            ks.stencil_spmv_flat_cuda.launches) == (before[0] + 2, before[1] + 1)
+    ref = stencil_spmv_torch(*args)
+    assert float((y - ref).abs().max() / ref.abs().max()) <= RTOL[dtype]
+    assert torch.equal(y, flat) and torch.equal(y, again)
+    if M == 64:
+        for tile in ks.stencil_tiles(S.shape[0], S.grid_c, S.offsets, S.wrap):
+            other = ks.stencil_spmv_tiled_cuda(S.const, S.offsets, S.grid_c,
+                                               S.strips, tile, x)
+            torch.cuda.synchronize()
+            assert torch.equal(other, y), tile
+
+
+@pytest.mark.cuda
+def test_stencil_dispatch_by_shape_on_card(heat_stencils):
+    """Strips within the box run tiled; no strips, wrap, or offsets beyond
+    the box run flat.  Each design counts its own launches, and the
+    dispatch counts both."""
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+
+    S = heat_stencils[64]
+    x64 = torch.randn(S.shape[0], dtype=torch.float64, device="cuda")
+    calls = [("tiled", S.const, S.offsets, False, S.grid_c, S.strips, x64)]
+    for R, C, offsets, wrap, strips in (
+            (1, 1000, (-130, -1, 0, 1, 130), True, False),
+            (1, 777, (-256, -3, 0, 3, 256), False, False),
+            (53, 41, (-2 * 41, -42, -1, 0, 1, 42, 2 * 41), False, True)):
+        const, offs, grid_c, st = _stencil_operands(R, C, offsets, wrap,
+                                                    strips, torch.float64)
+        calls.append(("flat", const, offs, wrap, grid_c, st,
+                      torch.randn(R * C, dtype=torch.float64, device="cuda")))
+    counters = (ks.stencil_spmv_tiled_cuda, ks.stencil_spmv_flat_cuda,
+                ks.stencil_spmv_cuda)
+    for design, *args in calls:
+        plan = ks.stencil_plan(args[-1].shape[0], args[3], tuple(args[1]),
+                               args[2])
+        assert (plan is None) == (design == "flat")
+        before = [c.launches for c in counters]
+        y = stencil_spmv(*args)
+        torch.cuda.synchronize()
+        grew = [c.launches - b for c, b in zip(counters, before)]
+        assert grew == ([1, 0, 1] if design == "tiled" else [0, 1, 1])
+        ref = stencil_spmv_torch(*args)
+        assert float((y - ref).abs().max() / ref.abs().max()) <= RTOL[torch.float64]
 
 
 # the fused CGS2 update (kernel #5) against its twin, the pair of products
