@@ -75,11 +75,34 @@ imported.  Phases, each of which raises on a failed check:
     the swe M=512 TimedSolve row (k=20, tol=1e-7) through ``time_cgmres``
     with the default skew-normal Chebyshev pre-builder and the fused
     orthogonalisation, and three steps of ``evolve`` on swe M=512 (T=0.3,
-    so dt = 0.1 as in the row), counting kernels #1 and #5 over each.
+    so dt = 0.1 as in the row), counting kernels #1 and #5 over each;
+13. the seventh slice, lkdvRK at the reference's error-sweep grid (M=400,
+    N=10), held to ``reference/slice7.json``: kernel #1 against its plain
+    twin in f64 and f32 on the (3, 2) row's stage operator (42 wrapped
+    diagonals, n = 9,600), with its live share, the design ``A @ x`` picks
+    and its L2-flushed times beside the bound and cuSPARSE CSR;
+14. each grid row, (3, 2, 1e-3), (4, 3, 1e-5) and (5, 4, 1e-7), through
+    ``time_cgmres`` with the default lkdvRK pre-builder (RAS over 5 blocks
+    with a degree-3 Neumann acceleration, inverses built on the host): the
+    format and width of A, the block shape, the steps, safety and
+    deviation, ``time_pre``, the walls, and the composite's device time per
+    apply beside its byte bound; the (3, 2) row once more with
+    ``ortho="cgs2_fused"``, kernel #5 on the stage system;
+15. one evolution of the error sweep on the card,
+    ``error_sweep.run_single("CGMRES", 3, 2, 1e-3, N=10, M=400)``: its
+    steps and drifts against the record's, its L2 error series against the
+    same evolution by the plain twins on the host's CPU (within max(1e-6,
+    10× the JAX package's own drift of that series under a 1e-15 change of
+    b, in the record)) with its distance from the record printed, and each
+    step's wall;
+16. CGMRES on lkdv M=100, degree 3 with the energy as a
+    ``GeneralConstraint``, whose Taylor models differentiate through kernel
+    #1: it must certify and match the quadratic path.
 
 Every main path checks, by the launch counters, that its DIA products ran
-the design its operators' plans pick (live on swe, dense on heat) and its
-stencil products the tiled one.  The line before
+the design its operators' plans pick (live on swe, dense on heat; on an
+lkdvRK row the design of A's and the mass matrix's plans where they agree,
+else only that kernel #1 ran) and its stencil products the tiled one.  The line before
 the last is the kernel report as JSON; the last line is the device record.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.
@@ -1588,6 +1611,332 @@ def phase_snc_evolve(record):
     check(bool(torch.isfinite(out["sol"]).all()), f"{tag} solution not finite")
     return launches, step_walls
 
+LKDVRK_ROWS = ("lkdvrk_M400_deg3_s2", "lkdvrk_M400_deg4_s3",
+               "lkdvrk_M400_deg5_s4")
+LKDVRK_EVOLVE = "lkdvrk_M400_deg3_s2_evolve"
+
+
+def _dia_designs(*ops):
+    """The DIA kernel's designs on a path whose DIA operators are ``ops``:
+    the one every plan picks, first, or None where the plans disagree."""
+    picks = {op.live().pays for op in ops}
+    if len(picks) > 1:
+        return None
+    return {**DESIGNS, "dia_spmv": ("live", "dense") if picks.pop()
+            else ("dense", "live")}
+
+
+def _check_dia_path(tag, launches, ops):
+    """Kernel #1 ran on the path, each launch in the design the plans of its
+    DIA operators ``ops`` pick where they agree."""
+    designs = _dia_designs(*ops)
+    if designs is None:
+        print(f"{tag} dia_spmv: {launches['dia_spmv']} launches, "
+              f"{launches['dia_spmv_live']} live and "
+              f"{launches['dia_spmv_dense']} dense (the operators' plans "
+              f"pick both)")
+        check(launches["dia_spmv"] > 0, f"{tag} kernel #1 never launched")
+    else:
+        _check_design(tag, launches, "dia_spmv", designs=designs)
+
+
+def phase_lkdvrk_kernel(s):
+    """Kernel #1 on the lkdvRK stage operator of the grid's (3, 2) row at
+    M=400 (42 wrapped diagonals, n = 9,600) against its plain twin in f64
+    and f32, with its live share and the design ``A @ x`` picks; then its
+    times with L2 flushed beside the bound on the stored non-zeros and
+    cuSPARSE CSR.  Returns the largest f64 error and the timing fields."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    A = s.A
+    check(type(A).__name__ == "DIA" and len(A.offsets) == 42 and A.wrap,
+          f"lkdvRK (3,2) A is {type(A).__name__}, not a wrapped DIA of 42 "
+          f"diagonals")
+    err = _check_dia("lkdvrk_M400_deg3_s2_A", A, gen)
+    x = torch.randn(A.shape[0], generator=gen, device=DEVICE,
+                    dtype=torch.float64)
+    return err, _time_dia(A, s.A_csr, x, "lkdvRK (3,2) M=400")
+
+
+def _composite_times(tag, s, pre):
+    """Device times of one apply of the RAS + Neumann composite, of its RAS
+    inner and of its ``A @ z``, back to back (the inverses exceed L2), and
+    the composite's byte bound: the inverses read degree + 1 times."""
+    import torch
+
+    v = torch.randn(s.b.shape[0], device=DEVICE, dtype=torch.float64,
+                    generator=torch.Generator(device=DEVICE).manual_seed(3))
+    nb, bs = pre.inner.idx.shape
+    out = {"ms": _time_ms(lambda: pre(v), reps=20),
+           "ras_ms": _time_ms(lambda: pre.inner(v), reps=20),
+           "spmv_ms": _time_ms(lambda: s.A @ v, reps=50),
+           "inverse_bytes": nb * bs * bs * 8}
+    out["bound_ms"] = 1e3 * (pre.degree + 1) * out["inverse_bytes"] / HBM_BYTES_PER_S
+    out["ras_bound_ms"] = 1e3 * out["inverse_bytes"] / HBM_BYTES_PER_S
+    print(f"{tag} composite apply {out['ms']:.4f} ms against its bound "
+          f"{out['bound_ms']:.4f} ms ({pre.degree + 1} reads of "
+          f"{out['inverse_bytes'] / 1e9:.3f} GB of inverses, "
+          f"{out['bound_ms'] / out['ms']:.1%}); RAS apply {out['ras_ms']:.4f} "
+          f"ms (bound {out['ras_bound_ms']:.4f} ms, "
+          f"{out['ras_bound_ms'] / out['ras_ms']:.1%}); A @ z "
+          f"({type(s.A).__name__}) {out['spmv_ms']:.4f} ms")
+    return out
+
+
+def phase_lkdvrk_rows(record):
+    """The seventh slice's main path: each row of the reference's
+    error-sweep grid at M=400 through ``time_cgmres`` with the default
+    lkdvRK pre-builder (RAS over 5 blocks, Neumann degree 3), held to
+    ``reference/slice7.json``; the composite's device time per apply; and
+    the (3, 2) row once more with the fused orthogonalisation.  Returns,
+    per row, its numbers and the launches over it."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+        time_cgmres,
+    )
+
+    rows = {}
+    for name in LKDVRK_ROWS:
+        rec = record[name]
+        cfg = rec["config"]
+        tag = f"[{name}]"
+        seen = {}
+
+        def pre_builder(system):  # the default, keeping what it was given
+            seen["system"] = system
+            seen["pre"] = default_pre_builder("lkdvrk")(system)
+            return seen["pre"]
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = time_cgmres("lkdvrk", k=cfg["k"], tol=cfg["tol"],
+                          pre_builder=pre_builder, device=DEVICE,
+                          **cfg["params"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        s, pre = seen["system"], seen["pre"]
+        fmt = ({"format": "DIA", "width": len(s.A.offsets)}
+               if type(s.A).__name__ == "DIA"
+               else {"format": "ELL", "width": s.A.row_width})
+        blocks = list(pre.inner.idx.shape)
+        devs = max(out["conservation"][f"cgmres_{nm}"]
+                   for nm in out["invariant_names"])
+        ratio = out["runtime"] / out["time_gmres"]
+        print(f"{tag} n={s.b.shape[0]}, A {fmt['format']} width "
+              f"{fmt['width']} (record {rec['format']} {rec['width']}), RAS "
+              f"blocks {blocks} (record {rec['ras_blocks']}), "
+              f"time_cgmres wall {wall:.3f} s")
+        print(f"{tag} time_pre {out['time_pre']:.4f} s (first build "
+              f"{out['time_pre_first']:.4f} s), gmres: steps "
+              f"{out['gmres_steps']} (record {rec['gmres']['steps']}), wall "
+              f"{out['time_gmres']:.4f} s; cgmres: steps {out['steps']} "
+              f"(record {rec['cgmres']['steps']}), constrained "
+              f"{out['constrained_steps']} (record "
+              f"{rec['cgmres']['constrained_steps']}), safety {out['safety']}"
+              f", runtime {out['runtime']:.4f} s, CGMRES/GMRES {ratio:.3f}; "
+              f"largest invariant deviation {devs:.3e}")
+        print(f"{tag} launches over the row: {launches}")
+        times = _composite_times(tag, s, pre)
+        check(fmt == {"format": rec["format"], "width": rec["width"]},
+              f"{tag} A is {fmt}, the record {rec['format']} {rec['width']}")
+        check(blocks == rec["ras_blocks"],
+              f"{tag} RAS blocks {blocks} vs record {rec['ras_blocks']}")
+        check(out["safety"] is rec["cgmres"]["safety"] is True,
+              f"{tag} safety {out['safety']}")
+        _check_counts(tag + " cgmres", out, rec["cgmres"],
+                      ("steps", "constrained_steps"))
+        check(abs(out["gmres_steps"] - rec["gmres"]["steps"]) <= 1,
+              f"{tag} gmres steps {out['gmres_steps']} vs record "
+              f"{rec['gmres']['steps']}")
+        check(devs <= DEVIATION_MAX, f"{tag} CGMRES deviation {devs:.3e}")
+        # the row's DIA products: A where it is a DIA, and the mass matrix
+        # inside the stage-mapped constraints
+        _check_dia_path(tag, launches, [op for op in (s.A, s.Mmat)
+                                        if type(op).__name__ == "DIA"])
+        rows[name] = {"launches": launches, "time_pre": out["time_pre"],
+                      "time_pre_first": out["time_pre_first"],
+                      "runtime": out["runtime"],
+                      "time_gmres": out["time_gmres"],
+                      "cgmres_over_gmres": ratio, "wall": wall,
+                      "composite": times, **fmt, "ras_blocks": blocks}
+        if name == LKDVRK_ROWS[0]:
+            rows[name]["fused"] = _lkdvrk_fused(tag, s, pre, rec)
+        del seen, s, pre
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _lkdvrk_fused(tag, s, pre, rec):
+    """GMRES and CGMRES on a stage system with the fused orthogonalisation:
+    kernel #5 once per Arnoldi step.  Returns the launches."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+
+    cfg = rec["config"]
+    kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre, ortho="cgs2_fused")
+    _reset_launches()
+    xg, ig = wrappers.gmres_wrapper(s, **kw)
+    xc, ic = wrappers.cgmres_wrapper(s, **kw)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    print(f"{tag} cgs2_fused: gmres steps {ig['steps']}, cgmres steps "
+          f"{ic['steps']} constrained {ic['constrained_steps']} safety "
+          f"{ic['safety']} deviation {ic['deviation']:.3e}; launches "
+          f"{launches}")
+    check(ic["safety"] is True and ic["deviation"] <= DEVIATION_MAX,
+          f"{tag} cgs2_fused CGMRES safety {ic['safety']}, deviation "
+          f"{ic['deviation']:.3e}")
+    _check_counts(tag + " cgs2_fused cgmres", ic, rec["cgmres"],
+                  ("steps", "constrained_steps"))
+    check(abs(ig["steps"] - rec["gmres"]["steps"]) <= 1,
+          f"{tag} cgs2_fused gmres steps {ig['steps']}")
+    check(launches["fused_update_matvec"] == ig["steps"] + ic["steps"],
+          f"{tag} kernel #5 launched {launches['fused_update_matvec']} times "
+          f"over {ig['steps'] + ic['steps']} Arnoldi steps")
+    return launches
+
+
+def phase_lkdvrk_evolve(record):
+    """One evolution of the error sweep on the card:
+    ``error_sweep.run_single("CGMRES", 3, 2, 1e-3, N=10, M=400)``, held to
+    the record's steps and drifts, and its L2 error series to the same
+    evolution by the port's plain twins on this machine's CPU.  Each CGMRES
+    solve stops three steps in at tol=1e-3 and the next step's system is
+    built from its iterate, so a series moves by about 1e-6 of itself under
+    a 1e-15 change of each step's b (the JAX package's ``own_drift`` in the
+    record), and by more under another host's libraries and thread count
+    (PERF.md §6): the card is held to max(1e-6, 10× that drift) from the
+    plain path on its own host, and its distance from the record is
+    printed.
+    Returns the launches and the wall of each step."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import (
+        error_sweep,
+        wrappers,
+    )
+
+    rec = record[LKDVRK_EVOLVE]
+    cfg = rec["config"]
+    (degree, tstages, tol), = cfg["grid"]
+    run = rec["runs"][f"CGMRES_{degree}_{tstages}"]
+    tag = f"[{LKDVRK_EVOLVE}]"
+    solve, starts = wrappers.cgmres_wrapper, []
+    args = dict(N=cfg["N"], M=cfg["M"], k=cfg["k"])
+    tmpdir = ROOT / "build" / "chip_smoke"
+
+    def timed(system, **kw):  # the start of each step's solve
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return solve(system, **kw)
+
+    _reset_launches()
+    wrappers.cgmres_wrapper = timed
+    t0 = time.perf_counter()
+    try:
+        out = error_sweep.run_single("CGMRES", degree, tstages, tol,
+                                     tmpdir=str(tmpdir / "card"),
+                                     device=DEVICE, **args)
+    finally:
+        wrappers.cgmres_wrapper = solve
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = _read_launches()
+    step_walls = [b - a for a, b in zip(starts, starts[1:] + [t_end])]
+    t1 = time.perf_counter()
+    host = error_sweep.run_single("CGMRES", degree, tstages, tol,
+                                  tmpdir=str(tmpdir / "host"), device="cpu",
+                                  **args)
+    host_wall = time.perf_counter() - t1
+
+    def rel(a, b):
+        return max(abs(x - y) for x, y in zip(a, b)) / max(abs(y) for y in b)
+
+    err, ref = [float(e) for e in out["err"]], run["err"]
+    err_host = [float(e) for e in host["err"]]
+    bar = max(1e-6, 10.0 * run["own_drift"])
+    e0 = abs(out["energy"][0])
+    print(f"{tag} wall {t_end - t0:.3f} s, of it assembly and the RAS build "
+          f"{starts[0] - t0:.3f} s and {len(step_walls)} steps of "
+          f"{', '.join(f'{1e3 * w:.3f}' for w in step_walls)} ms; steps "
+          f"{out['steps']} (record {run['steps']}); the same on the host's "
+          f"CPU {host_wall:.3f} s")
+    print(f"{tag} err {err}; max|derr|/max|err|: card against the host's "
+          f"plain path {rel(err, err_host):.3e} (bar {bar:.3e}: the record's "
+          f"own drift {run['own_drift']:.3e}), card against the record "
+          f"{rel(err, ref):.3e}, host against the record "
+          f"{rel(err_host, ref):.3e}; dm {[float(d) for d in out['dm']]}; "
+          f"de/|e0| {[float(d / e0) for d in out['de']]}")
+    print(f"{tag} launches over the evolution: {launches}")
+    check(len(err) == len(ref) == len(err_host)
+          and rel(err, err_host) <= bar,
+          f"{tag} error series off the host's plain path by "
+          f"{rel(err, err_host):.3e} (bar {bar:.3e})")
+    for got, want in zip(out["steps"], run["steps"]):
+        check(abs(got - want) <= 1,
+              f"{tag} steps {out['steps']} vs record {run['steps']}")
+    check(all(d <= 1e-9 for d in out["dm"]), f"{tag} mass drift {out['dm']}")
+    # the energy drift jumps by about 3e-12 |e0| at the second step, where
+    # step_update re-derives the auxiliary fields, in the JAX package too:
+    # held to the record's series within 1e-12 |e0| a step
+    check(all(abs(d - r) <= 1e-12 * i * e0
+              for i, (d, r) in enumerate(zip(out["de"], run["de"]))),
+          f"{tag} energy drift {out['de']} vs record {run['de']}")
+    check(launches["dia_spmv"] > 0, f"{tag} kernel #1 never launched")
+    return launches, step_walls
+
+
+def phase_general():
+    """CGMRES on lkdv M=100, degree 3 (tests/test_cgmres_lkdv.py's hard
+    system) with the energy written as a ``GeneralConstraint`` on the card:
+    its Taylor models differentiate through the DIA kernel.  It must
+    certify and match the quadratic path's deviations.  Returns the
+    launches over the general solve."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.constraints import (
+        GeneralConstraint,
+    )
+    from structurepreservingiterativesolvers_torch.models import lkdv
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+
+    tag = "[lkdv hard general]"
+    s = lkdv.linforms(M=100, degree=3, device=DEVICE)
+    mass, mom, energy_q = s.constraints()
+
+    def energy(x):
+        u, _, w = torch.split(x, s.n0)
+        return (0.5 * torch.dot(w, s.Mmat @ w) - 0.5 * torch.dot(u, s.Mmat @ u)
+                - s.e0)
+
+    kw = dict(k=50, tol=1e-6)
+    xq, iq = cgmres(s.A, s.b, constraints=[mass, mom, energy_q], **kw)
+    _reset_launches()
+    t0 = time.perf_counter()
+    xg, ig = cgmres(s.A, s.b, constraints=[
+        mass, mom, GeneralConstraint(func=energy, name="energy")], **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches()
+    dq, dg = _deviations(s, xq), _deviations(s, xg)
+    gap = max(abs(dg[k] - dq[k]) for k in dq)
+    print(f"{tag} steps {ig['steps']} (quadratic {iq['steps']}), constrained "
+          f"{ig['constrained_steps']}, safety {ig['safety']}, wall {wall:.3f}"
+          f" s; deviations {dg}, quadratic path {dq}, largest gap "
+          f"{gap:.3e}; launches {launches}")
+    check(ig["safety"] is True, f"{tag} safety {ig['safety']}")
+    check(max(abs(d) for d in dg.values()) <= DEVIATION_MAX,
+          f"{tag} deviations {dg}")
+    check(gap <= DEVIATION_MAX, f"{tag} deviations off the quadratic path "
+                                f"by {gap:.3e}")
+    check(launches["dia_spmv"] > 0, f"{tag} kernel #1 never launched")
+    return launches
+
 
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
@@ -1605,11 +1954,16 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
-    from structurepreservingiterativesolvers_torch.models import heat, lkdv, swe
+    from structurepreservingiterativesolvers_torch.models import (
+        heat,
+        lkdv,
+        lkdvrk,
+        swe,
+    )
 
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
                for name in ("slice1.json", "slice2.json", "slice3.json",
-                            "slice4.json")}
+                            "slice4.json", "slice7.json")}
     t_start = time.perf_counter()
     phase_build()
     t0 = time.perf_counter()
@@ -1652,6 +2006,18 @@ def main() -> int:
     torch.cuda.synchronize()
     evolve_launches, _ = phase_snc_evolve(records["slice4.json"])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rk_sys = lkdvrk.linforms(M=400, N=10, degree=3, tstages=2, device=DEVICE)
+    print(f"[lkdvrk M=400 (3,2)] assembly {time.perf_counter() - t0:.2f} s")
+    dia_rk_err, dia_rk = phase_lkdvrk_kernel(rk_sys)
+    del rk_sys
+    torch.cuda.synchronize()
+    rk_rows = phase_lkdvrk_rows(records["slice7.json"])
+    torch.cuda.synchronize()
+    rk_evolve_launches, _ = phase_lkdvrk_evolve(records["slice7.json"])
+    torch.cuda.synchronize()
+    general_launches = phase_general()
+    torch.cuda.synchronize()
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
@@ -1660,6 +2026,10 @@ def main() -> int:
     swe_paths = {f"swe_M{SWE_M}_cgs2_fused": fused_launches,
                  f"swe_M{SWE_M}_snc": snc_launches,
                  f"swe_M{SWE_M}_snc_evolve": evolve_launches}
+    rk_paths = {**{name: row["launches"] for name, row in rk_rows.items()},
+                f"{LKDVRK_ROWS[0]}_cgs2_fused": rk_rows[LKDVRK_ROWS[0]]["fused"],
+                LKDVRK_EVOLVE: rk_evolve_launches,
+                "lkdv_hard_general": general_launches}
 
     def by_path(name, **first):
         """A kernel's launches on each path that ran it."""
@@ -1673,12 +2043,14 @@ def main() -> int:
          "launches_by_path": by_path("dia_spmv", **{
              f"swe_M{SWE_M}": swe_launches,
              f"heat_M{HEAT_M}": launches["dia_spmv"],
-             **{path: n["dia_spmv"] for path, n in swe_paths.items()}}),
+             **{path: n["dia_spmv"] for path, n in swe_paths.items()},
+             **{path: n["dia_spmv"] for path, n in rk_paths.items()}}),
          "launches_by_design": {design: launches[f"dia_spmv_{design}"]
                                 for design in ("live", "dense")},
-         "max_abs_err": max(dia_err, dia_heat_err),
+         "max_abs_err": max(dia_err, dia_heat_err, dia_rk_err),
          "timed_at": f"heat_M{HEAT_M}_A", **dia,
-         "times": {f"swe_M{SWE_M}_A": dia_swe, f"heat_M{HEAT_M}_A": dia}},
+         "times": {f"swe_M{SWE_M}_A": dia_swe, f"heat_M{HEAT_M}_A": dia,
+                   f"{LKDVRK_ROWS[0]}_A": dia_rk}},
         {"name": "stencil_spmv", "route": "cuda",
          "source": src + "stencil_spmv.cu",
          "replaces": f"{tpu}pallas_spmv.py:165",
@@ -1710,8 +2082,10 @@ def main() -> int:
          "source": src + "ortho_fused.cu",
          "replaces": f"{tpu}pallas_ortho.py:67",
          "launches": snc_launches["fused_update_matvec"],
-         "launches_by_path": {path: n["fused_update_matvec"]
-                              for path, n in swe_paths.items()},
+         "launches_by_path": {
+             path: n["fused_update_matvec"]
+             for path, n in {**swe_paths, **rk_paths}.items()
+             if n["fused_update_matvec"]},
          "max_abs_err": ortho_err, "timed_at": head,
          **{key: ortho_times[head][key] for key in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1719,6 +2093,11 @@ def main() -> int:
          "times": {label: {key: t[key] for key in (
              "ms", "chain_ms", "bound_ms", "warm_ms", "warm_chain_ms")}
              for label, t in ortho_times.items()}})
+    print("[lkdvrk] " + json.dumps({name: {
+        key: row[key] for key in ("format", "width", "ras_blocks", "time_pre",
+                                  "time_pre_first", "runtime", "time_gmres",
+                                  "cgmres_over_gmres", "wall", "composite")}
+        for name, row in rk_rows.items()}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,21 +8,30 @@ Runs the JAX package on the CPU in f64 and writes, under
 AMG of the TimedSolve pre-builder), ``slice3.json`` (heat with the
 Chebyshev and Neumann polynomial preconditioners) and ``slice4.json`` (swe
 with the skew-normal Chebyshev preconditioner of the TimedSolve
-pre-builder, and time evolutions): for each solve configuration, GMRES and
+pre-builder, and time evolutions) and ``slice7.json`` (lkdvRK with the RAS +
+Neumann composite of the TimedSolve pre-builder at the reference's M=400
+error-sweep grid and at M=50, its evolutions and error sweep, and lkdv's
+TimedSolve row): for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
 of the returned iterate; with the AMG also its level sizes, with a
 Chebyshev preconditioner also its spectral bounds (and, skew-normal, its
 degree).  For each evolution (``EVOLVES``), ``experiments.evolve`` with
 CGMRES: per step the solver's steps, constrained steps, safety and KKT
-deviation, and the invariant series with their drifts.
+deviation, and the invariant series with their drifts.  For lkdvRK also
+the format of A (DIA with its diagonal count, or ELL with its row width)
+and the RAS block shape, and for each lkdvRK evolution (``SWEEPS``, through
+``experiments.error_sweep``) the per-step L2 errors, solver steps and
+drifts.
 
     python scripts/make_torch_reference.py            # every configuration
     python scripts/make_torch_reference.py swe_M64    # only the named ones
 
 ``swe_M512`` (n = 786,432), ``swe_M512_snc``, ``swe_M512_snc_evolve`` and
 ``heat_M1024`` (n = 1,050,625) take a few minutes each on the CPU,
-``heat_M1024_cheb8`` and ``heat_M1024_neu4`` one to two.
+``heat_M1024_cheb8`` and ``heat_M1024_neu4`` one to two.  The lkdvRK rows
+at M=400 build their RAS inverses on the host (0.29, 1.02 and 2.60 GB in
+f64) and take from one to several minutes each.
 """
 
 from __future__ import annotations
@@ -71,6 +80,20 @@ CONFIGS = {
     "swe_M32_snc": ("swe", dict(M=32), 20, 1e-7, False, False, "snc"),
     "swe_M64_snc": ("swe", dict(M=64), 20, 1e-7, False, False, "snc"),
     "swe_M512_snc": ("swe", dict(M=512), 20, 1e-7, False, False, "snc"),
+    # the seventh slice: lkdv's TimedSolve row (no preconditioner, as
+    # default_pre_builder gives it) and lkdvRK with the RAS + Neumann
+    # composite of default_pre_builder("lkdvrk") at each row of the
+    # reference's error-sweep grid (lkdvRK/ErrorGenerator.py:28-39: M=400,
+    # N=10, k=50, the row's tol) and at M=50, the size of the CPU tests
+    "lkdv_M50_timed": ("lkdv", dict(M=50), 20, 1e-7, False, False, "default"),
+    "lkdvrk_M50_deg3_s2": ("lkdvrk", dict(M=50, N=10, degree=3, tstages=2),
+                           50, 1e-3, False, False, "default"),
+    "lkdvrk_M400_deg3_s2": ("lkdvrk", dict(M=400, N=10, degree=3, tstages=2),
+                            50, 1e-3, False, False, "default"),
+    "lkdvrk_M400_deg4_s3": ("lkdvrk", dict(M=400, N=10, degree=4, tstages=3),
+                            50, 1e-5, False, False, "default"),
+    "lkdvrk_M400_deg5_s4": ("lkdvrk", dict(M=400, N=10, degree=5, tstages=4),
+                            50, 1e-7, False, False, "default"),
 }
 
 # evolutions: name -> (problem, evolve/linforms parameters, k, tol,
@@ -87,10 +110,29 @@ EVOLVES = {
 }
 
 
+# lkdvRK evolutions through the error sweep: name -> the arguments of
+# ``run_sweep`` (one grid row and its solvers).  The first is the (3, 2)
+# row of the reference's grid, preconditioned CGMRES; the second the same
+# at M=50; the third the configuration of
+# tests/test_experiments.py::test_error_sweep_serial.
+SWEEPS = {
+    "lkdvrk_M400_deg3_s2_evolve": dict(grid=[(3, 2, 1e-3)],
+                                       solvers=("CGMRES",), N=10, M=400,
+                                       k=50),
+    "lkdvrk_M50_deg3_s2_evolve": dict(grid=[(3, 2, 1e-3)],
+                                      solvers=("CGMRES",), N=10, M=50, k=50),
+    "lkdvrk_M50_sweep": dict(grid=[(2, 2, 1e-7)], solvers=("Exact", "CGMRES"),
+                             N=3, M=50, k=60),
+}
+
+
 def out_path(name) -> Path:
     """The record file that holds configuration ``name``: by its
     preconditioner (none, the AMG, a polynomial, the skew-normal
-    Chebyshev), and evolutions with the skew-normal slice."""
+    Chebyshev), and evolutions with the skew-normal slice; the seventh
+    slice's entries in their own file."""
+    if name in SWEEPS or CONFIGS.get(name, (None,) * 7)[6] == "default":
+        return REFERENCE / "slice7.json"
     if name in EVOLVES:
         return REFERENCE / "slice4.json"
     pre = CONFIGS[name][6]
@@ -114,10 +156,12 @@ def _jax_cpu():
 def system(name):
     """The JAX package's system of configuration ``name``."""
     _jax_cpu()
-    from structurepreservingiterativesolvers_tpu.models import heat, lkdv, swe
+    from structurepreservingiterativesolvers_tpu.experiments.single_solve import (
+        get_model,
+    )
 
     problem, params = CONFIGS[name][:2]
-    return {"lkdv": lkdv, "swe": swe, "heat": heat}[problem].linforms(**params)
+    return get_model(problem).linforms(**params)
 
 
 def pre_builder(name):
@@ -132,7 +176,7 @@ def pre_builder(name):
         default_pre_builder,
     )
 
-    if pre in ("amg", "snc"):
+    if pre in ("amg", "snc", "default"):
         return default_pre_builder(problem)
     builder, kwargs = pre
     return lambda s: getattr(precond, builder)(s.A, **kwargs)
@@ -191,9 +235,23 @@ def record(name, s=None):
     if pre_spec == "amg":
         out["config"]["pre"] = "amg"
         out["amg_levels"] = [int(L.A.shape[0]) for L in pre.levels]
+    elif pre_spec == "default":
+        out["config"]["pre"] = "default"
+        if problem == "lkdvrk":
+            out.update(operator_format(s.A))
+            out["ras_blocks"] = list(pre.inner.idx.shape)
+            out["neumann_degree"] = int(pre.degree)
     elif pre_spec is not None:
         _pre_fields(out, pre_spec, pre)
     return out
+
+
+def operator_format(A) -> dict:
+    """The device format of an operator: DIA with its diagonal count or
+    ELL with its row width."""
+    if hasattr(A, "offsets"):
+        return {"format": "DIA", "width": len(A.offsets), "wrap": bool(A.wrap)}
+    return {"format": "ELL", "width": int(A.row_width)}
 
 
 def _pre_fields(out, pre_spec, pre):
@@ -251,6 +309,91 @@ def record_evolve(name):
     return rec
 
 
+# the perturbations of b whose effect on an evolution's error series is
+# recorded as its own drift: relative size, and the seeds
+DRIFT_SIZE, DRIFT_SEEDS = 1e-15, (0, 1, 2)
+
+
+def own_drift(run, N, M, k, tol):
+    """How far the JAX package moves one preconditioned evolution's L2 error
+    series when each step's b is perturbed by ``DRIFT_SIZE`` relative:
+    max|Δerr| / max|err| against the unperturbed ``run``, the largest over
+    ``DRIFT_SEEDS``.  A solve that stops a few steps in, at a tolerance far
+    above the rounding, carries such a change into every later step; no
+    port can be held closer to the record than this."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments import wrappers
+    from structurepreservingiterativesolvers_tpu.experiments.evolve import evolve
+    from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_tpu.models import lkdvrk
+
+    params = dict(N=N, M=M, degree=run["degree"], tstages=run["tstages"])
+    pre = default_pre_builder("lkdvrk")(lkdvrk.linforms(T=1.0, **params))
+    solve = {"GMRES": wrappers.gmres_wrapper,
+             "CGMRES": wrappers.cgmres_wrapper}[run["solver"]]
+    err = np.asarray(run["err"])
+    drift = 0.0
+    for seed in DRIFT_SEEDS:
+        rng = np.random.default_rng(seed)
+
+        def perturbed(system, **kw):
+            noise = rng.standard_normal(system.b.shape[0])
+            b = system.b * (1.0 + DRIFT_SIZE * jnp.asarray(noise))
+            return solve(dataclasses.replace(system, b=b), **kw)
+
+        out = evolve("lkdvrk", k=k, tol=tol, solver=perturbed, pre=pre,
+                     compute_error=True, T=1.0, **params)
+        drift = max(drift, float(np.abs(np.asarray(out["err"]) - err).max()
+                                 / np.abs(err).max()))
+    return drift
+
+
+def record_sweep(name):
+    """Run the JAX package's error sweep on ``SWEEPS[name]`` (serial, in a
+    scratch directory); returns its entry of the record: per run the time
+    points, the L2 errors, the solver steps per step and the drifts, and
+    for the iterative solvers the error series' own drift
+    (``own_drift``)."""
+    _jax_cpu()
+    import tempfile
+
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments.error_sweep import (
+        run_sweep,
+    )
+
+    args = SWEEPS[name]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        merged = run_sweep(tmpdir=tmpdir, **args)
+    runs = {}
+    for run in merged:
+        key = f"{run['solver']}_{run['degree']}_{run['tstages']}"
+        runs[key] = {
+            "time": [float(t) for t in run["time"]],
+            "steps": [int(i) for i in run["steps"]],
+            **{key2: [float(v) for v in np.asarray(run[key2])]
+               for key2 in ("err", "dm", "dmo", "de", "mass", "momentum",
+                            "energy")},
+        }
+        if run["solver"] != "Exact":
+            (_, _, tol), = [g for g in args["grid"]
+                            if tuple(g[:2]) == (run["degree"], run["tstages"])]
+            runs[key]["own_drift"] = own_drift(run, args["N"], args["M"],
+                                               args["k"], tol)
+    return {"config": {**args, "grid": [list(g) for g in args["grid"]],
+                       "solvers": list(args["solvers"]),
+                       "drift": {"size": DRIFT_SIZE,
+                                 "seeds": list(DRIFT_SEEDS)}},
+            "runs": runs}
+
+
 def load(name):
     """The record file that holds configuration ``name``, as a dict."""
     return json.loads(out_path(name).read_text())
@@ -259,14 +402,16 @@ def load(name):
 def main(names):
     import jax
 
-    for name in names or [*CONFIGS, *EVOLVES]:
+    for name in names or [*CONFIGS, *EVOLVES, *SWEEPS]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
             "JAX package on the CPU in f64 (jax " + jax.__version__ + "); "
             "written by scripts/make_torch_reference.py"
         )
-        rec[name] = record_evolve(name) if name in EVOLVES else record(name)
+        rec[name] = (record_evolve(name) if name in EVOLVES
+                     else record_sweep(name) if name in SWEEPS
+                     else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(rec, indent=1, sort_keys=True) + "\n")

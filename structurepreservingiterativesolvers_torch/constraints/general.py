@@ -1,0 +1,67 @@
+"""General (callable) constraints: invariants not written as an explicit
+quadratic form.
+
+The port of the JAX package's ``constraints/general.py`` (reference
+lkdvRK/LinearSolver.py:29-79, the dict-form ``{'func': ..., 'jac': ...}``
+callables over Krylov coefficients).  The user supplies one scalar function
+``g(x)`` of the full-space vector, written in torch operations; its
+reduction onto the Krylov coefficients, its gradient and its Hessian come
+from ``torch.func``.  The solver handles each general constraint as a
+quadratic Taylor model about the warm coefficients, built afresh every
+constrained iteration (exact where g is quadratic, as every invariant of
+the reference is), and its safety latch checks the true g at the accepted
+iterate.
+
+A DIA product ``A @ x`` inside g is differentiable: on the card its value
+is the DIA kernel's and its derivatives are products with A and Aᵀ
+(``ops/sparse.py::_DiaProduct``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from ..config import HOST
+from .quadratic import ReducedBuffers
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneralConstraint:
+    """g(x) = 0, ``func`` a scalar function of the full-space vector x."""
+
+    func: Callable
+    name: str = "general"
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.func(x)
+
+
+def taylor_buffers(con: GeneralConstraint, y0: torch.Tensor, Z: torch.Tensor,
+                   x0: torch.Tensor) -> ReducedBuffers:
+    """The quadratic model of the reduced constraint about y0,
+    g̃(y) ≈ t0 + t1·y + yᵀ T2 y.  ``y0`` (k,) lies on the host, the basis
+    ``Z`` (k, n) and ``x0`` on the solve's device; the buffers land on the
+    host, read in one copy."""
+
+    def reduced(y):
+        return con.func(x0 + y @ Z)
+
+    y = y0.to(Z.device, Z.dtype)
+    val = reduced(y)
+    grad = torch.func.grad(reduced)(y)
+    hess = torch.func.hessian(reduced)(y)
+    hy = hess @ y
+    t0 = val - torch.dot(grad, y) + 0.5 * torch.dot(y, hy)
+    k = y.shape[0]
+    host = torch.cat([t0.reshape(1), grad - hy, 0.5 * hess.reshape(-1)]).to(HOST)
+    return ReducedBuffers(t0=host[0], t1=host[1:k + 1],
+                          T2=host[k + 1:].reshape(k, k))
+
+
+def true_value(con: GeneralConstraint, y: torch.Tensor, Z: torch.Tensor,
+               x0: torch.Tensor) -> torch.Tensor:
+    """g at the iterate of the coefficients y (on the host)."""
+    return con.func(x0 + y.to(Z.device, Z.dtype) @ Z)

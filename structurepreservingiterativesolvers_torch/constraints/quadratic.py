@@ -15,6 +15,12 @@ and the reduced constraint is the tiny dense form
 Entering the constrained endgame mid-flight catches up with one SpMM over
 the existing basis.
 
+``M`` may be a sparse or dense matrix, a linear combination of matrices
+(``MatComb``), or a stage-mapped operator (``StageKron``): the Runge–Kutta
+reconstruction ``z1 = z0 + dt Σ b_s X_s`` composed into a quadratic on the
+stacked stage vector (``stage_mapped``; reference lkdvRK/lkdvRK.py:162-189,
+lkdvRK/LinearSolver.py:29-76).
+
 The n-sized work runs where the basis lives; the reduced buffers (a scalar,
 a k-vector and a k×k matrix) live on the host, beside the Hessenberg matrix
 and the KKT solve that consume them.
@@ -51,6 +57,33 @@ class MatComb:
 
 
 @dataclasses.dataclass(frozen=True)
+class StageKron:
+    """Pᵀ M P, where P maps a stacked stage vector X (ns·n0,) to
+    ``dt Σ_s b_s X_s`` (n0,): the linear part of the RK reconstruction
+    z1 = z0 + dt Σ b_s X_s (reference lkdvRK/lkdvRK.py:162-174).  A product
+    takes one inner-space product whatever the stage count, for a vector and
+    for a tall (ns·n0, m) block alike."""
+
+    inner: Any  # operator on the n0 space
+    b: torch.Tensor  # (ns,) RK weights
+    dt: float
+    ns: int
+
+    def __matmul__(self, X):
+        Xs = X.reshape(self.ns, -1, *X.shape[1:])
+        PX = self.dt * torch.tensordot(self.b, Xs, dims=1)
+        MPX = self.inner @ PX
+        bw = self.b.reshape(-1, *([1] * MPX.dim()))
+        return (self.dt * bw * MPX[None]).reshape(X.shape)
+
+    def todense(self):
+        # (PᵀMP)[(s,i),(t,j)] = dt² b_s b_t M[i,j] (stage-major stacking)
+        Md = self.inner.todense()
+        bb = torch.outer(self.b, self.b) * self.dt**2
+        return torch.kron(bb.to(Md.dtype), Md)
+
+
+@dataclasses.dataclass(frozen=True)
 class QuadraticConstraint:
     """g(x) = ½ xᵀ M x + vᵀ x + c.  ``M``/``v`` may be None (zero); ``c`` is
     a 0-dim tensor on the device of x."""
@@ -75,6 +108,21 @@ class QuadraticConstraint:
         if self.M is not None:
             out = out + self.M @ x  # symmetric M
         return out
+
+
+def stage_mapped(inner: QuadraticConstraint, b: torch.Tensor, dt: float,
+                 ns: int, z0: torch.Tensor) -> QuadraticConstraint:
+    """A quadratic constraint on z1-space composed with the affine RK map
+    ``z1 = z0 + P X``: the equivalent quadratic on stage space, in place of
+    the reference's dict-form constraints that re-evaluate ``z1calc`` in
+    every SLSQP call (lkdvRK/LinearSolver.py:29-76)."""
+    Mz0 = inner.M @ z0 if inner.M is not None else torch.zeros_like(z0)
+    v_in = inner.v if inner.v is not None else torch.zeros_like(z0)
+    Pt_w = (dt * torch.outer(b, Mz0 + v_in)).reshape(-1)
+    c = inner.c + torch.dot(v_in, z0) + 0.5 * torch.dot(z0, Mz0)
+    M = (StageKron(inner.M, b, float(dt), int(ns))
+         if inner.M is not None else None)
+    return QuadraticConstraint(M=M, v=Pt_w, c=c, name=inner.name)
 
 
 class ReducedBuffers(NamedTuple):

@@ -7,6 +7,10 @@
     python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 16 32 --device cpu
     python -m structurepreservingiterativesolvers_torch timed --problem swe --sizes 512 --ortho cgs2_fused
     python -m structurepreservingiterativesolvers_torch evolve --problem swe --M 16 --N 5 --tol 1e-6 --k 30 --device cpu
+    python -m structurepreservingiterativesolvers_torch evolve --problem lkdvrk --M 20 --N 10 --tol 1e-8 --device cpu
+    python -m structurepreservingiterativesolvers_torch timed --problem lkdv --sizes 50 100 --device cpu
+    python -m structurepreservingiterativesolvers_torch sweep --M 400 --N 10
+    python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --device cpu
 
 ``--ortho`` picks the Arnoldi orthogonalisation of both solvers: ``cgs2``
 (the default), ``cgs2_fused`` (its middle pair through the fused CGS2
@@ -29,8 +33,10 @@ def main(argv=None):
                        choices=["cgs2", "cgs2_fused", "mgs"],
                        help="Arnoldi orthogonalisation (default cgs2)")
 
+    problems = ["lkdv", "lkdvrk", "swe", "heat"]
+
     p = sub.add_parser("single", help="one-step solver comparison (SingleSolve)")
-    p.add_argument("--problem", default="lkdv", choices=["lkdv", "swe", "heat"])
+    p.add_argument("--problem", default="lkdv", choices=problems)
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--tol", type=float, default=1e-50)
     p.add_argument("--M", type=int, default=50)
@@ -39,7 +45,7 @@ def main(argv=None):
 
     p = sub.add_parser("timed", help="TimedSolve size sweep with the "
                                      "problem's default preconditioner")
-    p.add_argument("--problem", default="heat", choices=["heat", "swe"])
+    p.add_argument("--problem", default="heat", choices=problems)
     p.add_argument("--sizes", type=int, nargs="+", default=None)
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--tol", type=float, default=1e-7)
@@ -48,13 +54,24 @@ def main(argv=None):
 
     p = sub.add_parser("evolve", help="time evolution with drift tracking "
                                       "(CGMRES, unpreconditioned)")
-    p.add_argument("--problem", default="lkdv", choices=["lkdv", "swe", "heat"])
+    p.add_argument("--problem", default="lkdv", choices=problems)
     p.add_argument("--N", type=int, default=100)
     p.add_argument("--M", type=int, default=50)
     p.add_argument("--degree", type=int, default=1)
     p.add_argument("--k", type=int, default=50)
     p.add_argument("--tol", type=float, default=1e-6)
     device_arg(p)
+
+    p = sub.add_parser("sweep", help="lkdvRK convergence-order error sweep "
+                                     "(the reference's grid)")
+    p.add_argument("--parallel", action="store_true",
+                   help="one worker process per run")
+    p.add_argument("--N", type=int, default=10)
+    p.add_argument("--M", type=int, default=400)
+    p.add_argument("--plot", action="store_true",
+                   help="plot the errors (needs matplotlib)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to solve on (default cuda)")
 
     args = parser.parse_args(argv)
 
@@ -82,6 +99,17 @@ def main(argv=None):
         for key in ("dm", "dmo", "de"):
             if key in out:
                 print(f"final {key}: {out[key][-1]:.3e}")
+    elif args.cmd == "sweep":
+        from .error_sweep import error_plot, run_sweep
+
+        merged = run_sweep(parallel=args.parallel, N=args.N, M=args.M,
+                           device=args.device)
+        for run in merged:
+            print(f"{run['solver']} q={run['degree']} s={run['tstages']}: "
+                  f"final err {run['err'][-1]:.6e}, dm {run['dm'][-1]:.3e}, "
+                  f"de {run['de'][-1]:.3e}")
+        if args.plot:
+            error_plot()
 
 
 if __name__ == "__main__":

@@ -6,10 +6,13 @@ has no Evolve for).  Unlike the reference, which reassembles the whole
 system every step, the loop re-seeds b and the invariant targets on the
 system's device (``System.step_update``) and reuses the operators.
 
+lkdvRK (reference lkdvRK/Evolve.py:19-146) warm-starts each stage solve
+from the previous one and can record the L2 error against the exact wave
+per step (``compute_error``).
+
 Left out: ``fused_evolve``, the JAX package's whole evolution as one jitted
 ``lax.scan``, a TPU dispatch workaround whose counterpart here would be a
-CUDA graph; the L2 error series (``compute_error``), which only lkdvRK has;
-and the figure of ``deviation_plotter``.
+CUDA graph; and the figure of ``deviation_plotter``.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def evolve(
     contol: float = 10.0,
     solver=wrappers.cgmres_wrapper,
     pre=None,
-    warm_start: bool = False,
+    warm_start: Optional[bool] = None,
+    compute_error: bool = False,
     checkpoint: Optional[str] = None,
     checkpoint_every: int = 50,
     *,
@@ -51,25 +55,33 @@ def evolve(
 
     ``solver(system, x0=, k=, tol=, pre=)`` solves each step, by default
     CGMRES through its wrapper; ``functools.partial`` passes it options such
-    as ``ortho``.  ``params`` go to the model's ``linforms`` (``T`` among
-    them).  As in the JAX package, each step starts from zero unless
-    ``warm_start`` (the reference zeroes x0 for lkdv and swe,
-    lkdv/Evolve.py:43-45), and ``contol`` is accepted and unused.  Where the
-    solver reports them, ``safety`` and ``constrained_steps`` per step are
-    returned too.
+    as ``ortho``.  ``params`` go to the model's ``linforms`` (``T`` and,
+    for lkdvRK, ``tstages`` among them).  As in the JAX package, each step
+    starts from zero unless ``warm_start``, which is on for lkdvRK only when
+    not given (the reference zeroes x0 for lkdv and swe, lkdv/Evolve.py:43-45,
+    and warm-starts lkdvRK from the previous stage vector, lkdvRK/Evolve.py:37,
+    61; its first step from z0 tiled over the stages); ``contol`` is
+    accepted and unused.  Where the solver reports them, ``safety`` and
+    ``constrained_steps`` per step are returned too, and with
+    ``compute_error`` the L2 error of each step (``err``, lkdvRK only).
 
     ``checkpoint``: an ``.npz`` path; the state is saved every
     ``checkpoint_every`` steps and at the last, and the run resumes from the
     file if it exists."""
     model = get_model(problem)
     system = model.linforms(N=N, M=M, degree=degree, device=device, **params)
-    x = system.z0
+    is_rk = problem.lower() == "lkdvrk"
+    if warm_start is None:
+        warm_start = is_rk
+    x = system.z0.repeat(system.prob.ns) if is_rk else system.z0
     names = [nm for nm, attr in TARGETS.items() if hasattr(system, attr)]
     targets0 = torch.stack([getattr(system, TARGETS[nm])
                             for nm in names]).cpu().tolist()
     series = {nm: [v] for nm, v in zip(names, targets0)}
     time_pts = [0.0]
     steps_hist, safety_hist, constrained_hist = [], [], []
+    compute_error = compute_error and hasattr(system, "compute_error")
+    errs = [0.0]
 
     start_step = 1
     if checkpoint:
@@ -84,6 +96,7 @@ def evolve(
                 if nm in saved_series:
                     series[nm] = list(saved_series[nm])
             time_pts = list(saved_series.get("time", [0.0]))
+            errs = list(saved_series.get("err", errs))
             if start_step > 1:
                 system = system.step_update(x)
             start_step += 1
@@ -102,8 +115,13 @@ def evolve(
         for nm, v in zip(names, values):
             series[nm].append(v)
         time_pts.append(dt_step * i)
+        if compute_error:
+            errs.append(system.compute_error(x, t=dt_step * i))
         if checkpoint and (i % checkpoint_every == 0 or i == N):
-            save_state(checkpoint, i, x, {**series, "time": time_pts})
+            payload = {**series, "time": time_pts}
+            if compute_error:
+                payload["err"] = errs
+            save_state(checkpoint, i, x, payload)
         if i < N:
             system = system.step_update(x)
 
@@ -115,6 +133,8 @@ def evolve(
         arr = np.asarray(series[nm])
         out[DRIFT_KEYS[nm]] = np.abs(arr - arr[0])
         out[nm] = arr
+    if compute_error:
+        out["err"] = np.asarray(errs)
     return out
 
 

@@ -14,14 +14,10 @@ from . import report, wrappers
 
 
 def get_model(name: str):
-    from ..models import heat, lkdv, swe
+    from ..models import heat, lkdv, lkdvrk, swe
 
-    models = {"lkdv": lkdv, "swe": swe, "heat": heat}
-    if name not in models:
-        raise NotImplementedError(
-            f"problem {name!r} is not ported; the port has {sorted(models)}"
-        )
-    return models[name]
+    return {"lkdv": lkdv, "lkdvrk": lkdvrk, "lkdvRK": lkdvrk, "heat": heat,
+            "swe": swe}[name]
 
 
 def single_solve(

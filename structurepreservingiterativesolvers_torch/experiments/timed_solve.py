@@ -31,8 +31,10 @@ def default_pre_builder(problem: str):
     """Preconditioner choice per problem, as the JAX package pairs them:
     heat → structured smoothed-aggregation AMG on the (M+1)×(M+1) vertex
     grid, built on the operator's device; swe → the skew-normal Chebyshev
-    polynomial of its shifted-skew operator A = I/dt − S/2 (a = 1/dt).
-    lkdvRK's RAS + Neumann is not ported yet."""
+    polynomial of its shifted-skew operator A = I/dt − S/2 (a = 1/dt);
+    lkdvRK → RAS over about 5 blocks of elements (halo max(2, eb // 5)
+    elements a side, inverses built on the host) with a degree-3 Neumann
+    acceleration; any other problem (lkdv) → none."""
     if problem == "heat":
         from ..precond.amg import amg
 
@@ -46,8 +48,20 @@ def default_pre_builder(problem: str):
 
         return lambda system: skew_normal_chebyshev(system.A,
                                                     a=1.0 / system.prob.dt)
-    raise NotImplementedError(
-        f"no default preconditioner for {problem!r} in the port yet")
+    if problem.lower() == "lkdvrk":
+        from ..models import lkdvrk
+        from ..precond.chebyshev import neumann_composite
+
+        def build(system):
+            ne = system.n0 // (system.prob.degree + 1)
+            target = max(ne // 5, 2)
+            eb = max(d for d in range(1, target + 1) if ne % d == 0)
+            inner = lkdvrk.element_block_preconditioner(
+                system, elems_per_block=eb, overlap=max(2, eb // 5))
+            return neumann_composite(system.A, inner, degree=3)
+
+        return build
+    return lambda system: None
 
 
 def certified_deviations(system, x) -> dict:

@@ -18,7 +18,16 @@ is a dict:
 * heat: ``A`` (the explicit DIA of the JAX package's Stencil, decomposed
   again here by ``maybe_stencil``), ``Mmat``, ``Lmat``, ``Emat``; ``b``,
   ``z0``, ``Lz0``, ``omega``; ``m0``, ``e0``, ``old_energy``; ``N``, ``M``,
-  ``degree``, ``T``; optionally ``A_csr``.
+  ``degree``, ``T``; optionally ``A_csr``;
+* lkdvrk: ``A_csr``, ``Mmat`` and ``Gmat`` as scipy CSR matrices (the
+  device formats are picked again here by ``from_scipy``, as the JAX package
+  picks them); ``Minv`` as the BSR triple ``(blocks, block_rows,
+  block_cols)``; ``b``, ``z0``, ``omega``; ``m0``, ``mo0``, ``e0``; ``n0``;
+  ``N``, ``M``, ``degree``, ``tstages``, ``space``, ``T``.  A fixture
+  (``models/fixtures.py``) gives ``A_csr``, ``b`` and ``z0``.
+
+An exported block preconditioner is its index blocks ``idx`` (nb, bs), its
+inverses ``inv`` (nb, bs, bs) and, for RAS, its ownership mask ``own``.
 
 An exported AMG hierarchy (``amg_hierarchy``) is the list of its levels,
 each a dict of numpy arrays and sizes: ``A`` (the level operator's
@@ -33,10 +42,11 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_DTYPE
-from .models import heat, lkdv, swe
-from .ops.sparse import DIA
+from .models import heat, lkdv, lkdvrk, swe
+from .ops.sparse import BSR, DIA, from_scipy
 from .ops.stencil import maybe_stencil
 from .precond import amg as _amg
+from .precond.jacobi import RAS, BlockJacobi
 
 
 def dia(data, offsets, wrap, *, device, dtype=DEFAULT_DTYPE) -> DIA:
@@ -106,6 +116,47 @@ def heat_system(arrays: dict, *, device) -> heat.System:
         prob=prob,
         A_csr=a.get("A_csr"),
     )
+
+
+def _index(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+
+def lkdvrk_system(arrays: dict, *, device) -> lkdvrk.System:
+    a = arrays
+    prob = lkdvrk.Problem(N=a["N"], M=a["M"], degree=a["degree"],
+                          tstages=a["tstages"], space=a["space"],
+                          T=float(a["T"]))
+    fem = prob.fem()
+    blocks, rows, cols = a["Minv"]
+    n0 = int(a["n0"])
+    return lkdvrk.System(
+        A=maybe_stencil(from_scipy(a["A_csr"], device=device)),
+        b=_tensor(a["b"], device),
+        z0=_tensor(a["z0"], device),
+        Mmat=from_scipy(a["Mmat"], device=device),
+        Gmat=from_scipy(a["Gmat"], device=device),
+        Minv=BSR(_tensor(blocks, device), _index(rows, device),
+                 _index(cols, device), (n0, n0)),
+        omega=_tensor(a["omega"], device),
+        m0=_tensor(a["m0"], device),
+        mo0=_tensor(a["mo0"], device),
+        e0=_tensor(a["e0"], device),
+        prob=prob,
+        n0=n0,
+        fem=fem,
+        A_csr=a["A_csr"],
+        Mh=fem.mass(),
+    )
+
+
+def block_jacobi_from_arrays(idx, inv, *, device) -> BlockJacobi:
+    return BlockJacobi(idx=_index(idx, device), inv=_tensor(inv, device))
+
+
+def ras_from_arrays(idx, inv, own, *, device) -> RAS:
+    return RAS(idx=_index(idx, device), inv=_tensor(inv, device),
+               own=torch.tensor(np.asarray(own, dtype=bool), device=device))
 
 
 def amg_hierarchy(levels, coarse_inv, nu: int, *, device) -> _amg.AMG:

@@ -1,2 +1,3 @@
-"""Model problems of the port: lkdv (1-D linear KdV), swe (2-D linear
-rotating shallow water) and heat (2-D heat equation)."""
+"""Model problems of the port: lkdv (1-D linear KdV), lkdvrk (the same
+with Gauss–Legendre Runge–Kutta stage systems), swe (2-D linear rotating
+shallow water) and heat (2-D heat equation)."""

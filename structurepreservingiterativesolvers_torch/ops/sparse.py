@@ -1,17 +1,23 @@
-"""Sparse matrices on the device: the DIA format.
+"""Sparse matrices on the device: the DIA, ELL and BSR formats.
 
 ``DIA`` stores a matrix by diagonals, optionally periodic (wrapping).  The
-FEM operators on structured periodic meshes (lkdv, swe) have a small fixed
-set of diagonals, so ``A @ x`` is one DIA SpMV: on a CUDA tensor the
-hand-written kernel (``kernels/dia_spmv.py``), with the operator's live
-plan where it pays, on a CPU tensor its plain twin.  ``A @ X`` for a tall
-matrix stays plain PyTorch, as it stays outside any Pallas kernel in the JAX
-package.
+FEM operators on structured periodic meshes (lkdv, swe, lkdvRK's stage
+systems of degree 3 and 2 stages) have a small fixed set of diagonals, so
+``A @ x`` is one DIA SpMV: on a CUDA tensor the hand-written kernel
+(``kernels/dia_spmv.py``), with the operator's live plan where it pays, on a
+CPU tensor its plain twin.  ``A @ X`` for a tall matrix stays plain PyTorch,
+as it stays outside any Pallas kernel in the JAX package.  Under autograd or
+a ``torch.func`` transform ``A @ x`` is differentiable (``_DiaProduct``):
+the general constraints differentiate through it.
 
-Conversion from scipy runs on the host and copies the wrap auto-detection
-of the JAX package exactly (``ops/sparse.py:354-425`` there).  Where that
-package would pick its padded-row ELL format, this one raises: ELL arrives
-with the AMG slice.
+``ELL`` (fixed-width padded rows, the general fallback) and ``BSR`` (dense
+blocks at block-sparse positions) are plain XLA in the JAX package, a
+gather and a row sum, and a batched block product with a segment sum; here
+they are the same torch ops.
+
+Conversion from scipy runs on the host and copies the JAX package's
+(``ops/sparse.py:354-425`` there): DIA, with its wrap auto-detection, where
+the matrix concentrates on few reasonably full diagonals, ELL otherwise.
 """
 
 from __future__ import annotations
@@ -33,6 +39,11 @@ from ..kernels.dia_spmv import (
     live_plan,
     shift as _shift,
 )
+
+
+def _traced(x: torch.Tensor) -> bool:
+    """x takes part in autograd or in a ``torch.func`` transform."""
+    return x.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +69,8 @@ class DIA:
                                                   repr=False, compare=False)
     _launch: Optional[DiaLaunch] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    _transpose: Optional["DIA"] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -78,8 +91,24 @@ class DIA:
                                live_plan(self.data, live_chunk(self.dtype)))
         return self._plan
 
+    def transpose(self) -> "DIA":
+        """Aᵀ as a DIA on the same device, built on the first call and kept:
+        ``Aᵀ[i, i − off] = A[i − off, i]``, the diagonal of offset ``−off``
+        is that of ``off`` read ``off`` rows back."""
+        if self._transpose is None:
+            order = sorted(range(len(self.offsets)),
+                           key=lambda d: -self.offsets[d])
+            data = torch.stack([_shift(self.data[d], -self.offsets[d],
+                                       self.wrap) for d in order])
+            At = DIA(data, tuple(-self.offsets[d] for d in order), self.shape,
+                     self.wrap)
+            object.__setattr__(self, "_transpose", At)
+        return self._transpose
+
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
         if other.dim() == 1:
+            if _traced(other):
+                return _DiaProduct.apply(other, self)
             return dia_spmv(self, other)
         return dia_spmm(self, other)
 
@@ -113,6 +142,38 @@ def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
                          plan if plan.pays else None)
         object.__setattr__(A, "_launch", rec)
     return launch(rec, x)
+
+
+class _DiaProduct(torch.autograd.Function):
+    """``A @ x`` under autograd or a ``torch.func`` transform (the general
+    constraints' ``grad`` and ``hessian``): the value is ``dia_spmv`` (the
+    kernel on the card), its derivatives are products with A (forward mode)
+    and Aᵀ (reverse mode), and a batch of x (``vmap``) is one tall product,
+    plain PyTorch as every ``A @ X`` is."""
+
+    @staticmethod
+    def forward(x, A):
+        # Aᵀ is built here, below every transform: built inside one (in the
+        # backward), its data would be a transform's wrapper, which has no
+        # storage for the kernel to read
+        A.transpose()
+        return dia_spmv(A, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.A = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.A.transpose() @ grad, None
+
+    @staticmethod
+    def jvp(ctx, x_dot, _):
+        return ctx.A @ x_dot
+
+    @staticmethod
+    def vmap(info, in_dims, x, A):
+        return dia_spmm(A, x.movedim(in_dims[0], 1)), 1
 
 
 def dia_spmm(A: DIA, X: torch.Tensor) -> torch.Tensor:
@@ -153,11 +214,175 @@ def dia_from_scipy(A, wrap: Optional[bool] = None, dtype=None, *,
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    """Padded-row (ELLPACK) sparse matrix, stored transposed as in the JAX
+    package: ``cols[s, i]`` / ``vals[s, i]`` hold slot ``s`` of row ``i``.
+    Every row has ``row_width`` slots; padding points at column 0 with
+    value 0, so no mask is needed."""
+
+    cols: torch.Tensor  # (r, n) int64
+    vals: torch.Tensor  # (r, n)
+    shape: Tuple[int, int]
+
+    @property
+    def row_width(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    def astype(self, dtype) -> "ELL":
+        return dataclasses.replace(self, vals=self.vals.to(dtype))
+
+    def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
+        if other.dim() == 1:
+            return ell_spmv(self, other)
+        return ell_spmm(self, other)
+
+    def todense(self) -> torch.Tensor:
+        out = torch.zeros(self.shape, dtype=self.dtype, device=self.device)
+        rows = torch.arange(self.shape[0], device=self.device).expand_as(self.cols)
+        return out.index_put_((rows, self.cols), self.vals, accumulate=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block-sparse-row matrix: ``blocks[p]`` is the dense (bs × bs) block at
+    block row ``block_rows[p]`` and block column ``block_cols[p]``."""
+
+    blocks: torch.Tensor  # (p, bs, bs)
+    block_rows: torch.Tensor  # (p,) int64
+    block_cols: torch.Tensor  # (p,) int64
+    shape: Tuple[int, int]
+
+    @property
+    def block_size(self) -> int:
+        return self.blocks.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.blocks.device
+
+    def astype(self, dtype) -> "BSR":
+        return dataclasses.replace(self, blocks=self.blocks.to(dtype))
+
+    def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
+        if other.dim() == 1:
+            return bsr_spmv(self, other)
+        return bsr_spmm(self, other)
+
+    def todense(self) -> torch.Tensor:
+        bs = self.block_size
+        nbr, nbc = self.shape[0] // bs, self.shape[1] // bs
+        out = torch.zeros((nbr, nbc, bs, bs), dtype=self.dtype,
+                          device=self.device)
+        out.index_put_((self.block_rows, self.block_cols), self.blocks,
+                       accumulate=True)
+        return out.transpose(1, 2).reshape(self.shape)
+
+
+def ell_spmv(A: ELL, x: torch.Tensor) -> torch.Tensor:
+    """A gather of x at every slot, then the weighted slot sum."""
+    return (A.vals * x[A.cols]).sum(0)
+
+
+def ell_spmm(A: ELL, X: torch.Tensor) -> torch.Tensor:
+    """One slot at a time, as the JAX ``lax.scan`` does, so that no
+    (r, n, m) array is built."""
+    dtype = torch.promote_types(A.dtype, X.dtype)
+    Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dtype, device=X.device)
+    for cols, vals in zip(A.cols, A.vals):
+        Y = Y + vals[:, None] * X[cols]
+    return Y
+
+
+def bsr_spmv(A: BSR, x: torch.Tensor) -> torch.Tensor:
+    return bsr_spmm(A, x[:, None])[:, 0]
+
+
+def bsr_spmm(A: BSR, X: torch.Tensor) -> torch.Tensor:
+    """A batched product of every block with its block of X, summed into
+    the block rows."""
+    bs = A.block_size
+    dtype = torch.promote_types(A.dtype, X.dtype)
+    Xb = X.to(dtype).reshape(A.shape[1] // bs, bs, -1)
+    prods = torch.bmm(A.blocks.to(dtype), Xb[A.block_cols])
+    out = torch.zeros((A.shape[0] // bs, bs, X.shape[1]), dtype=dtype,
+                      device=X.device)
+    return out.index_add_(0, A.block_rows, prods).reshape(A.shape[0], -1)
+
+
+def spmv(A, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for any format of the port, or a dense matrix."""
+    return A @ x
+
+
+def spmm(A, X: torch.Tensor) -> torch.Tensor:
+    """``A @ X`` for a tall X, for any format of the port, or a dense
+    matrix."""
+    if isinstance(A, DIA):
+        return dia_spmm(A, X)
+    if isinstance(A, ELL):
+        return ell_spmm(A, X)
+    if isinstance(A, BSR):
+        return bsr_spmm(A, X)
+    return A @ X
+
+
+def ell_from_scipy(A, dtype=None, *, device) -> ELL:
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    A.sum_duplicates()
+    n, m = A.shape
+    widths = np.diff(A.indptr)
+    r = max(int(widths.max()), 1)
+    cols = np.zeros((r, n), np.int64)
+    vals = np.zeros((r, n), A.dtype)
+    # entry t of the CSR stream lands in slot t − indptr[row] of its row
+    rows_per_nz = np.repeat(np.arange(n), widths)
+    slots = np.arange(A.nnz) - A.indptr[rows_per_nz]
+    cols[slots, rows_per_nz] = A.indices
+    vals[slots, rows_per_nz] = A.data
+    return ELL(torch.as_tensor(cols, device=device),
+               torch.as_tensor(vals, dtype=dtype or DEFAULT_DTYPE,
+                               device=device), (n, m))
+
+
+def bsr_from_scipy(A, block_size: int, dtype=None, *, device) -> BSR:
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    n, m = A.shape
+    bs = block_size
+    if n % bs or m % bs:
+        raise ValueError(f"shape {A.shape} not divisible by block size {bs}")
+    Ab = sp.bsr_matrix(A, blocksize=(bs, bs))
+    Ab.sort_indices()
+    rows = np.repeat(np.arange(n // bs), np.diff(Ab.indptr))
+    return BSR(
+        torch.as_tensor(np.asarray(Ab.data), dtype=dtype or DEFAULT_DTYPE,
+                        device=device),
+        torch.as_tensor(rows, dtype=torch.int64, device=device),
+        torch.as_tensor(Ab.indices, dtype=torch.int64, device=device),
+        (n, m),
+    )
+
+
 def from_scipy(A, dtype=None, max_diags: int = 64, min_fill: float = 0.2, *,
-               device) -> DIA:
+               device):
     """DIA when the matrix concentrates on few (possibly periodic) diagonals
-    that are reasonably full; the JAX package's ELL otherwise, which this
-    slice does not have."""
+    that are reasonably full, else ELL: the JAX package's choice."""
     import scipy.sparse as sp
 
     Ac = sp.coo_matrix(A)
@@ -169,12 +394,10 @@ def from_scipy(A, dtype=None, max_diags: int = 64, min_fill: float = 0.2, *,
         fill = Ac.nnz / (ndiag * n)
         if ndiag <= min(max_diags, max(n // 4, 1)) and fill >= min_fill:
             return dia_from_scipy(A, dtype=dtype, device=device)
-    raise NotImplementedError(
-        "matrix is not diagonally structured; the ELL format is not ported yet"
-    )
+    return ell_from_scipy(A, dtype=dtype, device=device)
 
 
-def to_scipy(A: DIA):
+def to_scipy(A):
     import scipy.sparse as sp
 
     return sp.csr_matrix(A.todense().cpu().numpy())

@@ -26,3 +26,8 @@ def as_preconditioner(pre) -> Callable:
     if hasattr(pre, "__matmul__"):
         return lambda v: pre @ v
     raise ValueError(f"Preconditioner not supported: {type(pre)!r}")
+
+
+def apply_preconditioner(pre, v):
+    """Apply any accepted preconditioner spelling to a vector."""
+    return as_preconditioner(pre)(v)

@@ -12,6 +12,9 @@ GMRES, and it replaces the reference's ILU/AMG triangular machinery
 * ``neumann(A, degree, omega)``: the truncated Neumann series of the
   Jacobi-scaled system.
 * ``power_bounds(A)``: a spectral-interval estimate of D⁻¹A.
+* ``neumann_composite(A, inner, degree)``: the Neumann acceleration
+  Σ_{i≤degree} (I − B A)^i B of an inner preconditioner B (RAS on lkdvRK),
+  a chain of ``A @ z`` products and inner applies, never kernel #4.
 * ``skew_normal_chebyshev(A, a)``: the polynomial approximate inverse of a
   shifted-skew operator A = aI − K (the swe midpoint step), a chain of
   2·degree + 1 products ``A @ v`` (on the card through the DIA kernel).
@@ -27,7 +30,6 @@ twin, the same recurrence.
 Left out: the JAX builders' TPU tiling knobs (``block_rows``,
 ``interpret``, the pre-gathered ``datawin``/``dinvwin`` windows and the
 VMEM fit of ``_fuse_block_rows``), which the card's kernels do not need.
-``NeumannComposite`` arrives with the lkdvRK slice.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..kernels.poly_apply import (
     neumann_apply,
     neumann_recurrence,
 )
+from .base import apply_preconditioner
 from .jacobi import diagonal
 
 
@@ -93,6 +96,37 @@ class Neumann:
 
     def solve(self, v: torch.Tensor) -> torch.Tensor:
         return self(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeumannComposite:
+    """Neumann acceleration of an inner preconditioner B:
+
+        M⁻¹ = Σ_{i≤degree} (I − B A)^i B
+
+    each degree one ``A @ z`` and one inner apply (JAX
+    ``precond/chebyshev.py:120-149``).  With a RAS inner it reaches the
+    iteration counts of the reference's SuperLU ILU on the lkdvRK stage
+    systems (docs/ILU_PARITY.md)."""
+
+    A: object
+    inner: object
+    degree: int
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        z = apply_preconditioner(self.inner, v)
+        acc = z
+        for _ in range(self.degree):
+            z = z - apply_preconditioner(self.inner, self.A @ z)
+            acc = acc + z
+        return acc
+
+    def solve(self, v: torch.Tensor) -> torch.Tensor:
+        return self(v)
+
+
+def neumann_composite(A, inner, degree: int = 2) -> NeumannComposite:
+    return NeumannComposite(A=A, inner=inner, degree=int(degree))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,19 +1,25 @@
-"""Point-Jacobi preconditioner.
+"""Point- and block-Jacobi preconditioners.
 
-The port of the JAX package's ``precond/jacobi.py`` (``diagonal``, ``Jacobi``
-and ``jacobi``).  ``diagonal`` also feeds the Neumann series and the bound
-estimate of ``chebyshev.py``.  ``BlockJacobi``, ``RAS`` and the diagonal of
-an ELL operator arrive with the lkdvRK slice: the port has no ELL format, so
-any operator that is neither a DIA, a ``Stencil`` nor a dense tensor raises
+The port of the JAX package's ``precond/jacobi.py``: ``diagonal``,
+``Jacobi`` and ``jacobi``; and the stand-ins for the reference's SuperLU ILU
+(lkdvRK/Evolve.py:51-52), ``BlockJacobi`` and restricted additive Schwarz
+(``RAS``), whose dense block inverses are built on the host with numpy and
+applied on the device as a gather, one batched product (``torch.bmm``) and a
+scatter.  ``diagonal`` also feeds the Neumann series and the bound estimate
+of ``chebyshev.py``; the diagonal of an ELL operator is not ported, so any
+operator that is neither a DIA, a ``Stencil`` nor a dense tensor raises
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
+import numpy as np
 import torch
 
+from ..config import DEFAULT_DTYPE
 from ..ops.sparse import DIA
 from ..ops.stencil import as_dia
 
@@ -29,8 +35,8 @@ def diagonal(A) -> torch.Tensor:
     if isinstance(A, torch.Tensor):
         return torch.diagonal(A)
     raise NotImplementedError(
-        f"no diagonal of a {type(A).__name__} in the port: the ELL format "
-        f"arrives with the lkdvRK slice")
+        f"no diagonal of a {type(A).__name__} in the port: the diagonal of "
+        f"an ELL operator is not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +56,87 @@ def jacobi(A) -> Jacobi:
     d = diagonal(A)
     safe = torch.where(d == 0, 1.0, d)
     return Jacobi(dinv=torch.where(d == 0, 1.0, 1.0 / safe))
+
+
+def _block_solve(inv: torch.Tensor, idx: torch.Tensor,
+                 v: torch.Tensor) -> torch.Tensor:
+    """inv_p @ v[idx_p] for every block p, as one batched product."""
+    return torch.bmm(inv, v[idx].unsqueeze(-1)).squeeze(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockJacobi:
+    """Dense-inverse block Jacobi: y[idx_p] = inv_p @ v[idx_p].  Every dof
+    belongs to exactly one block, and the blocks have one size."""
+
+    idx: torch.Tensor  # (nb, bs) int64
+    inv: torch.Tensor  # (nb, bs, bs)
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros_like(v)
+        out[self.idx.reshape(-1)] = _block_solve(self.inv, self.idx,
+                                                 v).reshape(-1)
+        return out
+
+    def solve(self, v: torch.Tensor) -> torch.Tensor:
+        return self(v)
+
+
+@dataclasses.dataclass(frozen=True)
+class RAS:
+    """Restricted additive Schwarz: overlapping dense block solves, each dof
+    taking its value only from the block that owns it.  The scatter parks
+    the non-owned rows in a spare slot past the end, as the JAX package does
+    (``precond/jacobi.py:126-131`` there)."""
+
+    idx: torch.Tensor  # (nb, bs) int64, overlapping blocks
+    inv: torch.Tensor  # (nb, bs, bs)
+    own: torch.Tensor  # (nb, bs) bool, the owned positions
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        n = v.shape[0]
+        solved = torch.where(self.own, _block_solve(self.inv, self.idx, v), 0.0)
+        out = v.new_zeros(n + 1)
+        out[torch.where(self.own, self.idx, n).reshape(-1)] = solved.reshape(-1)
+        return out[:-1]
+
+    def solve(self, v: torch.Tensor) -> torch.Tensor:
+        return self(v)
+
+
+def _inverses(A_csr, blocks: Sequence[np.ndarray], dtype, device):
+    """The stacked dense inverses of A's diagonal blocks (host numpy), and
+    the block indices, on ``device``."""
+    import scipy.sparse as sp
+
+    A_csr = sp.csr_matrix(A_csr)
+    blocks = [np.asarray(b) for b in blocks]
+    if any(len(b) != len(blocks[0]) for b in blocks):
+        raise ValueError("blocks must have uniform size")
+    inv = np.stack([np.linalg.inv(A_csr[b][:, b].toarray()) for b in blocks])
+    return (torch.as_tensor(np.stack(blocks), dtype=torch.int64, device=device),
+            torch.as_tensor(inv, dtype=dtype or DEFAULT_DTYPE, device=device))
+
+
+def block_jacobi(A_csr, blocks: Sequence[np.ndarray], dtype=None, *,
+                 device) -> BlockJacobi:
+    """Block Jacobi from a host CSR and equal-size index blocks."""
+    idx, inv = _inverses(A_csr, blocks, dtype, device)
+    return BlockJacobi(idx=idx, inv=inv)
+
+
+def contiguous_blocks(n: int, bs: int) -> list:
+    """Partition [0, n) into contiguous blocks of size bs."""
+    if n % bs:
+        raise ValueError(f"n={n} not divisible by block size {bs}")
+    return list(np.arange(n).reshape(n // bs, bs))
+
+
+def ras(A_csr, blocks: Sequence[np.ndarray], owned: Sequence[np.ndarray],
+        dtype=None, *, device) -> RAS:
+    """Restricted additive Schwarz from overlapping index blocks and their
+    ownership masks (one per block, of its length)."""
+    idx, inv = _inverses(A_csr, blocks, dtype, device)
+    own = torch.as_tensor(np.stack([np.asarray(o, dtype=bool) for o in owned]),
+                          device=device)
+    return RAS(idx=idx, inv=inv, own=own)

@@ -21,6 +21,13 @@ k-sized work (Givens QR, reduced constraints, KKT) on the host.
 ``cgmres_p`` is the prototypical variant enforcing constraints cumulatively
 (iteration j enforces the first j constraints, reference solvers.py:328-445).
 
+A constraint is quadratic (``QuadraticConstraint``), reduced incrementally,
+or general (``GeneralConstraint``, a callable), which gets a fresh
+``torch.func`` Taylor model about the warm coefficients at every
+constrained iteration; the safety latch then checks the true g at the
+accepted coefficients (JAX ``solvers/cgmres.py:157-158``, ``:288-293``,
+``:410``).
+
 Solvers take f64 storage only; the JAX package's f32 storage path
 (mixed-precision reduction, double-f32 arithmetic, invariant snap) is not
 ported.
@@ -30,12 +37,13 @@ from __future__ import annotations
 
 import time
 import warnings
-from typing import Sequence
+from typing import Sequence, Union
 
 import numpy as np
 import torch
 
 from ..config import CTOL, require_f64
+from ..constraints.general import GeneralConstraint, taylor_buffers, true_value
 from ..constraints.quadratic import (
     QuadraticConstraint,
     catchup_buffers,
@@ -56,6 +64,8 @@ from .gmres import as_operand, warn_breakdown
 from .kkt import constrained_lsq
 
 _SAFETY_NONE, _SAFETY_OK, _SAFETY_BAD = 0, 1, 2
+
+Constraint = Union[QuadraticConstraint, GeneralConstraint]
 
 
 # a dual-start candidate whose roundoff scale exceeds the fallback's by this
@@ -104,6 +114,9 @@ class _Solve:
         self.tol, self.contol, self.ctol = float(tol), float(contol), float(ctol)
         self.cons = tuple(cons)
         self.m = len(self.cons)
+        self.general = tuple(isinstance(c, GeneralConstraint) for c in cons)
+        # the quadratic constraints, whose reduction the solve keeps
+        self.quad = tuple(c for c, g in zip(cons, self.general) if not g)
         self.prefunc = as_preconditioner(pre)
         self.history, self.prototypical, self.ortho = history, prototypical, ortho
         self.x0_zero = x0 is None
@@ -125,6 +138,12 @@ class _Solve:
                     else torch.ones(m, dtype=torch.bool)).to(dt)
         kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(dt).eps)
         beta, H = self.beta, st.H
+        # the kept reductions of the quadratic constraints, and a Taylor
+        # model about the warm coefficients for each general one
+        quad = iter(bufs)
+        bufs = tuple(
+            taylor_buffers(c, yk, st.Z, self.x0) if g else next(quad)
+            for c, g in zip(self.cons, self.general))
         # multipliers and the KKT inverse are carried across gated
         # iterations; prototypical mode re-factors because its enforced set
         # changes every iteration
@@ -172,6 +191,12 @@ class _Solve:
             # the roundoff scale must describe the KEPT point
             deviation, scale = dev_fb, scale_fb
         y = y_unc if (bad or far) else kkt.y
+        # the Taylor model is exact for a quadratic g; a general g is checked
+        # at the accepted coefficients
+        for c, g, on in zip(self.cons, self.general, con_mask.tolist()):
+            if g and on:
+                deviation = max(deviation,
+                                abs(float(true_value(c, y, st.Z, self.x0))))
         # NaN fallback leaves the latch untouched; success sets it; a
         # deviation above the tolerance trips it.  The tolerance is floored
         # at the evaluation-roundoff scale of the constraint
@@ -191,7 +216,7 @@ class _Solve:
         self.beta = beta = float(torch.linalg.norm(r0))
         st = init_state(r0, beta, k)
         bufs = tuple(init_buffers(c, x0, k, x0_zero=self.x0_zero)
-                     for c in self.cons)
+                     for c in self.quad)
         res = np.full(k, np.inf)
         xs = None
         if self.history:
@@ -224,7 +249,7 @@ class _Solve:
             # below only folds in fresh columns
             bufs = tuple(catchup_buffers(c, bf, st.Z, x0, j1,
                                          x0_zero=self.x0_zero)
-                         for c, bf in zip(self.cons, bufs))
+                         for c, bf in zip(self.quad, bufs))
             if timing:
                 _sync(dev)
                 t_build = time.perf_counter()
@@ -249,7 +274,7 @@ class _Solve:
             if gate:
                 bufs = tuple(update_buffers(c, bf, st.Z, x0, j,
                                             x0_zero=self.x0_zero)
-                             for c, bf in zip(self.cons, bufs))
+                             for c, bf in zip(self.quad, bufs))
                 (y, safety, dev_j, kit, fb, lamc, Kinvc,
                  haveK) = self._constrained(st, j, yk, y_unc, bufs, safety,
                                             lamc, Kinvc, haveK)
@@ -328,12 +353,6 @@ def _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history, timing,
          prototypical, ortho="cgs2"):
     require_f64(b)
     x0 = as_operand(x0, b)
-    for c in constraints:
-        if not isinstance(c, QuadraticConstraint):
-            raise NotImplementedError(
-                f"constraint {getattr(c, 'name', c)!r}: only quadratic "
-                "constraints are ported; general (callable) ones are not"
-            )
     if timing and prototypical:
         raise NotImplementedError("timing is measured for cgmres only")
     solve = _Solve(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
@@ -348,7 +367,7 @@ def cgmres(
     k: int = 30,
     tol: float = 1e-8,
     contol: float = 10.0,
-    constraints: Sequence[QuadraticConstraint] = (),
+    constraints: Sequence[Constraint] = (),
     pre=None,
     ctol: float = CTOL,
     history: bool = False,
@@ -372,7 +391,7 @@ def cgmres_p(
     b: torch.Tensor,
     x0=None,
     k: int = 20,
-    constraints: Sequence[QuadraticConstraint] = (),
+    constraints: Sequence[Constraint] = (),
     pre=None,
     ctol: float = CTOL,
     history: bool = False,

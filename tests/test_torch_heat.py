@@ -68,8 +68,16 @@ def test_assembly_matches_jax():
 
 
 def test_degree_two_needs_ell():
-    with pytest.raises(NotImplementedError):
-        theat.linforms(M=4, degree=2, device="cpu")
+    """Degree 2 assembles into matrices that both packages store as ELL;
+    the port's equal the JAX package's."""
+    js = jheat.linforms(M=4, degree=2)
+    ts = theat.linforms(M=4, degree=2, device="cpu")
+    for name in ("A", "Mmat", "Lmat", "Emat"):
+        Aj, At = getattr(js, name), getattr(ts, name)
+        assert type(Aj).__name__ == type(At).__name__ == "ELL"
+        np.testing.assert_array_equal(At.cols.numpy(), np.asarray(Aj.cols))
+        np.testing.assert_array_equal(At.vals.numpy(), np.asarray(Aj.vals))
+    np.testing.assert_array_equal(ts.b.numpy(), np.asarray(js.b))
 
 
 def _solve(pkg, solver, s, pre, b=None):

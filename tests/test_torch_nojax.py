@@ -2,14 +2,14 @@
 has no JAX.  A subprocess that blocks ``import jax`` and the JAX package
 imports the port, runs lkdv CGMRES, the SingleSolve command line, the heat
 and swe TimedSolve command lines and the swe Evolve command line (with the
-fused orthogonalisation's plain twin) on the CPU."""
+fused orthogonalisation's plain twin) on the CPU, and imports the lkdvRK
+modules."""
 
 import re
 import subprocess
 import sys
 from pathlib import Path
 
-import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -37,6 +37,9 @@ main(["evolve", "--problem", "swe", "--M", "16", "--N", "2", "--k", "30",
       "--tol", "1e-8", "--device", "cpu", "--ortho", "cgs2_fused"])
 from structurepreservingiterativesolvers_torch.solvers import cg
 from structurepreservingiterativesolvers_torch.utils import checkpoint
+from structurepreservingiterativesolvers_torch.experiments import error_sweep
+from structurepreservingiterativesolvers_torch.models import fixtures, lkdvrk
+from structurepreservingiterativesolvers_torch import interop
 assert not any(m.split(".")[0] in ("jax", "structurepreservingiterativesolvers_tpu")
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -79,13 +82,65 @@ def test_port_sources_never_import_jax():
 
 
 def test_general_constraints_not_ported():
+    """The parity test of tests/test_cgmres_lkdv.py::
+    test_general_constraint_matches_quadratic (the name is kept from when
+    the port refused general constraints): the energy written as a
+    ``GeneralConstraint`` callable certifies (``safety=True``), its
+    invariant deviations and iterate match the quadratic path's, and its
+    ``taylor_buffers`` match the JAX package's."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_torch.constraints import (
+        GeneralConstraint,
+        taylor_buffers,
+    )
     from structurepreservingiterativesolvers_torch.models import lkdv
     from structurepreservingiterativesolvers_torch.solvers import cgmres
+    from structurepreservingiterativesolvers_tpu.constraints import general as jgen
+    from structurepreservingiterativesolvers_tpu.models import lkdv as jlkdv
 
-    s = lkdv.linforms(M=20, degree=1, device="cpu")
+    s = lkdv.linforms(degree=3, M=100, N=100, device="cpu")  # the hard system
+    mass, mom, energy_q = s.constraints()
 
-    def energy(x):  # a callable constraint, as the JAX package's
-        return torch.dot(x, x)  # GeneralConstraint wraps
+    def energy(x):
+        u, _, w = torch.split(x, s.n0)
+        return (0.5 * torch.dot(w, s.Mmat @ w) - 0.5 * torch.dot(u, s.Mmat @ u)
+                - s.e0)
 
-    with pytest.raises(NotImplementedError):
-        cgmres(s.A, s.b, k=5, constraints=[energy])
+    gen = GeneralConstraint(func=energy, name="energy")
+    xq, iq = cgmres(s.A, s.b, k=50, tol=1e-6, constraints=[mass, mom, energy_q])
+    xg, ig = cgmres(s.A, s.b, k=50, tol=1e-6, constraints=[mass, mom, gen])
+    assert ig["safety"] is True and iq["safety"] is True
+
+    def devs(x):
+        inv = s.compute_invariants(x)
+        return np.array([float(inv[k] - t) for k, t in
+                         (("mass", s.m0), ("momentum", s.mo0),
+                          ("energy", s.e0))])
+
+    dq, dg = devs(xq), devs(xg)
+    assert np.abs(dg).max() < 1e-9
+    assert np.abs(dg - dq).max() <= 1e-10
+    np.testing.assert_allclose(xg.numpy(), xq.numpy(), rtol=1e-6, atol=1e-10)
+
+    # the Taylor model about seeded coefficients, in both packages
+    js = jlkdv.linforms(degree=3, M=100, N=100)
+
+    def jenergy(x):
+        u, _, w = jnp.split(x, 3)
+        return (0.5 * jnp.dot(w, js.Mmat @ w) - 0.5 * jnp.dot(u, js.Mmat @ u)
+                - js.e0)
+
+    rng = np.random.default_rng(4)
+    Z = rng.standard_normal((6, s.b.shape[0]))
+    x0, y0 = rng.standard_normal(s.b.shape[0]), rng.standard_normal(6)
+    bt = taylor_buffers(gen, torch.as_tensor(y0), torch.as_tensor(Z),
+                        torch.as_tensor(x0))
+    jcon = jgen.GeneralConstraint(func=jenergy)
+    bj = jax.jit(lambda y, Z, x: jgen.taylor_buffers(jcon, y, Z, x))(
+        jnp.asarray(y0), jnp.asarray(Z), jnp.asarray(x0))
+    for a, b in zip(bt, bj):
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= 1e-10 * max(np.abs(b).max(), 1.0)

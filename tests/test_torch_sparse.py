@@ -130,12 +130,13 @@ def test_from_scipy_matches_jax_on_models():
 
 
 def test_from_scipy_refuses_ell():
-    """Where the JAX package would pick ELL, the port raises until the AMG
-    slice brings ELL."""
+    """Where the JAX package picks ELL, the port picks ELL too, with the
+    same slots."""
     A = sp.random(200, 200, density=0.05, random_state=0, format="csr")
-    assert isinstance(jsp.from_scipy(A), jsp.ELL)
-    with pytest.raises(NotImplementedError):
-        tsp.from_scipy(A, device="cpu")
+    Aj, At = jsp.from_scipy(A), tsp.from_scipy(A, device="cpu")
+    assert isinstance(Aj, jsp.ELL) and isinstance(At, tsp.ELL)
+    np.testing.assert_array_equal(At.cols.numpy(), np.asarray(Aj.cols))
+    np.testing.assert_array_equal(At.vals.numpy(), np.asarray(Aj.vals))
 
 
 def test_wrapper_dispatch_on_cpu():

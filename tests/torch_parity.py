@@ -66,6 +66,20 @@ def export_heat(s) -> dict:
     }
 
 
+def export_lkdvrk(s) -> dict:
+    p = s.prob
+    return {
+        "A_csr": s.A_csr, "Mmat": s.Mh, "Gmat": s.fem.gfunc(),
+        "Minv": (np.asarray(s.Minv.blocks), s.Minv.block_rows,
+                 s.Minv.block_cols),
+        "b": np.asarray(s.b), "z0": np.asarray(s.z0),
+        "omega": np.asarray(s.omega), "m0": float(s.m0),
+        "mo0": float(s.mo0), "e0": float(s.e0), "n0": s.n0, "N": p.N,
+        "M": p.M, "degree": p.degree, "tstages": p.tstages, "space": p.space,
+        "T": p.T,
+    }
+
+
 def export_amg(pre) -> dict:
     """A JAX AMG hierarchy as the arguments of ``interop.amg_hierarchy``."""
     levels = []
@@ -82,7 +96,10 @@ def export_amg(pre) -> dict:
 
 
 def to_port(jax_system):
-    """The port's twin of a JAX lkdv, swe or heat system, on the CPU."""
+    """The port's twin of a JAX lkdv, lkdvrk, swe or heat system, on the
+    CPU."""
+    if hasattr(jax_system, "Minv"):
+        return interop.lkdvrk_system(export_lkdvrk(jax_system), device="cpu")
     if hasattr(jax_system, "Lmat"):
         return interop.heat_system(export_heat(jax_system), device="cpu")
     if hasattr(jax_system, "Mmat"):
@@ -167,3 +184,64 @@ def check_record(new, rec):
         for key, val in r["invariants"].items():
             assert math.isclose(n["invariants"][key], val, rel_tol=1e-12,
                                 abs_tol=1e-14), (solver, key)
+
+
+def slice7() -> dict:
+    """The JAX record of the lkdvRK slice (``reference/slice7.json``)."""
+    import json
+
+    return json.loads((ROOT / "structurepreservingiterativesolvers_torch"
+                       / "reference" / "slice7.json").read_text())
+
+
+def operator_format(A) -> dict:
+    """DIA with its diagonal count, or ELL with its row width."""
+    if hasattr(A, "offsets"):
+        return {"format": "DIA", "width": len(A.offsets)}
+    return {"format": "ELL", "width": A.row_width}
+
+
+def check_lkdvrk_row(name):
+    """``time_cgmres`` with the default lkdvRK pre-builder against the
+    record's entry ``name``."""
+    from structurepreservingiterativesolvers_torch.experiments import (
+        timed_solve as tts,
+    )
+
+    rec = slice7()[name]
+    cfg = rec["config"]
+    seen = {}
+
+    def builder(system):
+        pre = tts.default_pre_builder("lkdvrk")(system)
+        seen.update(operator_format(system.A),
+                    ras_blocks=list(pre.inner.idx.shape))
+        return pre
+
+    out = tts.time_cgmres("lkdvrk", k=cfg["k"], tol=cfg["tol"],
+                          pre_builder=builder, device="cpu", **cfg["params"])
+    assert seen == {"format": rec["format"], "width": rec["width"],
+                    "ras_blocks": rec["ras_blocks"]}
+    assert abs(out["gmres_steps"] - rec["gmres"]["steps"]) <= 1
+    assert abs(out["steps"] - rec["cgmres"]["steps"]) <= 1
+    assert abs(out["constrained_steps"]
+               - rec["cgmres"]["constrained_steps"]) <= 1
+    assert out["safety"] is rec["cgmres"]["safety"] is True
+    assert max(out["conservation"][f"cgmres_{nm}"]
+               for nm in out["invariant_names"]) <= 1e-10
+
+
+def check_lkdvrk_runs(merged, name, floor=1e-8):
+    """An error sweep's runs against the record's entry ``name``: the
+    errors of every run within max(``floor``, 10× the record's own drift
+    of that run's series under a 1e-15 change of b), relative; the steps
+    within one, the mass drift at most 1e-9."""
+    runs = slice7()[name]["runs"]
+    assert len(merged) == len(runs)
+    for run in merged:
+        rec = runs[f"{run['solver']}_{run['degree']}_{run['tstages']}"]
+        np.testing.assert_allclose(run["time"], rec["time"], rtol=1e-15)
+        close(run["err"], rec["err"],
+              max(floor, 10.0 * rec.get("own_drift", 0.0)))
+        assert all(abs(a - b) <= 1 for a, b in zip(run["steps"], rec["steps"]))
+        assert max(run["dm"]) <= 1e-9
