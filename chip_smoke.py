@@ -99,6 +99,22 @@ imported.  Phases, each of which raises on a failed check:
     ``GeneralConstraint``, whose Taylor models differentiate through kernel
     #1: it must certify and match the quadratic path.
 
+17. (after phase 11) the eighth slice's device core, ``cgmres(loop="while")``,
+    on the first slice's swe M=512 row with ``cgs2`` and ``cgs2_fused``:
+    each step a CUDA graph, captured on first use and replayed; held to
+    ``reference/slice1.json`` (steps within one, safety, KKT deviation, true
+    residual), to the host loop on the card (x within 1e-10) and to the
+    eager device core on the card (within 1e-13); kernels #1 and #5 inside
+    the replays by the counters (launches per capture times replays) and by
+    the profiler's kernel names; the median wall of 5 solves of each loop,
+    ``time_capture``, device busy and idle share;
+18. (after phase 12) ``fused_evolve`` on the swe M=512 Evolve row: started
+    from zero against ``swe_M512_snc_evolve`` and warm-started against the
+    JAX ``fused_evolve`` record ``swe_M512_snc_fused``
+    (``reference/slice8.json``), with each step's wall beside the host-loop
+    evolution's, ``time_capture`` and the idle share of a profiled
+    evolution.
+
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
 lkdvRK row the design of A's and the mass matrix's plans where they agree,
@@ -1611,6 +1627,269 @@ def phase_snc_evolve(record):
     check(bool(torch.isfinite(out["sol"]).all()), f"{tag} solution not finite")
     return launches, step_walls
 
+# the eighth slice: solves timed per path, and the profiler ranges of the
+# graph runner (host spans, not device work)
+GRAPH_SOLVES = 5
+
+
+def _is_span(name):
+    return (name.startswith("replay ") or name == "flag read"
+            or name.startswith("fused_evolve"))
+
+
+def _window_busy(prof, name):
+    """The wall (ms) of the host span ``name`` in a profile, the device busy
+    time (ms) of the kernels and copies that ran inside it, and their
+    names."""
+    import torch
+
+    events = prof.events()
+    win, = [e.time_range for e in events
+            if e.name == name and e.device_type == torch.autograd.DeviceType.CPU]
+    inside = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not _is_span(e.name)
+              and win.start <= e.time_range.start < win.end]
+    busy = sum(e.time_range.elapsed_us() for e in inside)
+    return win.elapsed_us() / 1e3, busy / 1e3, {e.name for e in inside}
+
+
+def _profiled(fn):
+    """One call of ``fn`` under ``torch.profiler``: its wall (s), the device
+    busy time (ms, the kernels' and copies' own time), the idle share of the
+    wall, and the names of the device's kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not _is_span(e.key)]
+    busy_us = sum(e.self_device_time_total for e in events)
+    return (wall, busy_us / 1e3, 1.0 - busy_us / 1e6 / wall,
+            {e.key for e in events}, prof)
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_graph_core(s, record):
+    """The device core at full width: swe M=512, unpreconditioned, k=60,
+    tol=1e-9, through ``cgmres(loop="while")`` with ``cgs2`` and with
+    ``cgs2_fused``, held to ``reference/slice1.json`` and to the host loop
+    on the card; the eager device core on the card against the replays;
+    walls, ``time_capture``, device busy and idle share of both loops, and
+    the kernels inside the replays (counters and profiler).  Returns the
+    launches of one graph solve per ortho."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.solvers.graphs import (
+        GraphRunner,
+    )
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    rec = record["swe_M512"]["cgmres"]
+    cons = s.constraints()
+    kw = dict(k=SWE_K, tol=SWE_TOL, constraints=cons)
+    paths = {}
+    for ortho in ("cgs2", "cgs2_fused"):
+        tag = f"[swe_M{SWE_M}_graph_core {ortho}]"
+
+        def host():
+            return cg.cgmres(s.A, s.b, ortho=ortho, **kw)
+
+        def graphs(timing=False):
+            return cg.cgmres(s.A, s.b, ortho=ortho, loop="while",
+                             timing=timing, **kw)
+
+        def timed(fn):
+            walls = []
+            for _ in range(GRAPH_SOLVES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            return out, walls
+
+        host()
+        (xh, ih), host_walls = timed(host)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xg, ig = graphs(timing=True)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t = ig["timings"]
+        core = next(iter(cg._CORES.values()))
+        _, graph_walls = timed(graphs)
+        _reset_launches()
+        x2, i2 = graphs()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        eager = cg.DeviceCore(s.A, None, SWE_K, cons, like=s.b, tol=SWE_TOL,
+                              ortho=ortho, x0_zero=True,
+                              runner=GraphRunner(DEVICE, capture=False))
+        eager.load(s.b, None, cons)
+        eager.solve()
+        xe = eager.result().x
+        del eager
+        hp = _profiled(host)
+        gp = _profiled(graphs)
+        res = float(torch.linalg.norm(s.b - s.A @ xg))
+        med = sorted(graph_walls)[GRAPH_SOLVES // 2]
+        hmed = sorted(host_walls)[GRAPH_SOLVES // 2]
+        print(f"{tag} graphs: steps {ig['steps']} (record {rec['steps']}), "
+              f"constrained {ig['constrained_steps']} (record "
+              f"{rec['constrained_steps']}), safety {ig['safety']}, KKT "
+              f"deviation {ig['deviation']:.3e}, kkt iterations "
+              f"{ig['kkt_iters']}, true residual {res:.4e}; host loop: steps "
+              f"{ih['steps']}, constrained {ih['constrained_steps']}")
+        print(f"{tag} wall, median of {GRAPH_SOLVES}: host loop "
+              f"{1e3 * hmed:.3f} ms ({', '.join(f'{1e3 * w:.3f}' for w in host_walls)}), "
+              f"graphs {1e3 * med:.3f} ms ({', '.join(f'{1e3 * w:.3f}' for w in graph_walls)}); "
+              f"first graph solve {1e3 * first:.1f} ms, of it capture "
+              f"{1e3 * t['time_capture']:.1f} ms ({core.runner.captures} "
+              f"graphs); phase 1 {1e3 * t['iter_time_unconstrained']:.3f} "
+              f"ms/iteration over {t['phase1_steps_measured']}, catch-up "
+              f"{1e3 * t['constraint_building']:.3f} ms, endgame "
+              f"{1e3 * t['iter_time_constrained']:.3f} ms/constrained step")
+        print(f"{tag} profiled: host loop wall {1e3 * hp[0]:.3f} ms, busy "
+              f"{hp[1]:.3f} ms, idle {hp[2]:.3f}; graphs wall "
+              f"{1e3 * gp[0]:.3f} ms, busy {gp[1]:.3f} ms, idle {gp[2]:.3f}; "
+              f"busy over the unprofiled median wall: host loop "
+              f"{1.0 - hp[1] / 1e3 / hmed:.3f} idle, graphs "
+              f"{1.0 - gp[1] / 1e3 / med:.3f} idle")
+        print(f"{tag} x against the host loop {_rel(xg, xh):.3e}, eager "
+              f"device core against the replays {_rel(xg, xe):.3e} (bit-equal "
+              f"{bool(torch.equal(xg, xe))}), a second replayed solve "
+              f"bit-equal {bool(torch.equal(xg, x2))}")
+        print(f"{tag} launches over one graph solve: {launches}; per replay "
+              f"by graph: {core.runner.launches()}")
+        kernels = sorted(name for name in gp[3]
+                         if "dia_spmv" in name or "fused_update_matvec" in name)
+        print(f"{tag} kernels the profiler saw in the replays: {kernels}")
+        for info in (ig, i2):
+            check(info["safety"] is True, f"{tag} safety {info['safety']}")
+            for key in ("steps", "constrained_steps"):
+                check(_within_one(info, rec, key),
+                      f"{tag} {key} {info[key]} vs record {rec[key]}")
+            check(info["deviation"] <= DEVIATION_MAX,
+                  f"{tag} KKT deviation {info['deviation']:.3e}")
+        check(math.isfinite(res) and res < SWE_TOL,
+              f"{tag} true residual {res:.3e}")
+        check(_rel(xg, xh) <= 1e-10, f"{tag} x {_rel(xg, xh):.3e} from the "
+                                     f"host loop")
+        check(_rel(xg, xe) <= 1e-13, f"{tag} replays {_rel(xg, xe):.3e} from "
+                                     f"the eager device core")
+        _check_design(tag, launches, "dia_spmv")
+        check(any("dia_spmv" in name for name in kernels),
+              f"{tag} the profiler saw no DIA kernel in the replays")
+        if ortho == "cgs2_fused":
+            check(launches["fused_update_matvec"] == i2["steps"],
+                  f"{tag} kernel #5 launched {launches['fused_update_matvec']} "
+                  f"times over {i2['steps']} Arnoldi steps")
+            check(any("fused_update_matvec" in name for name in kernels),
+                  f"{tag} the profiler saw no kernel #5 in the replays")
+        paths[ortho] = launches
+    cg.clear_core_cache()
+    return paths
+
+
+def phase_fused_evolve(record4, record8, host_walls):
+    """The swe M=512 Evolve row (skew-normal Chebyshev, ``cgs2_fused``)
+    through ``fused_evolve``: from zero each step against
+    ``swe_M512_snc_evolve``, and warm-started (the default) against
+    ``swe_M512_snc_fused``; step walls beside the host loop's
+    (``phase_snc_evolve``), ``time_capture`` and the idle share of one
+    profiled evolution.  Returns the launches of each."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.models import swe
+
+    params = dict(M=SWE_M, N=EVOLVE_N, T=EVOLVE_T)
+    pre = default_pre_builder("swe")(swe.linforms(device=DEVICE, **params))
+
+    def run(warm):
+        return fused_evolve("swe", k=SNC_K, tol=SNC_TOL, pre=pre,
+                            warm_start=warm, ortho="cgs2_fused",
+                            device=DEVICE, **params)
+
+    paths = {}
+    for warm, name, rec in (
+            (False, f"swe_M{SWE_M}_snc_evolve", record4[f"swe_M{SWE_M}_snc_evolve"]),
+            (True, f"swe_M{SWE_M}_snc_fused", record8[f"swe_M{SWE_M}_snc_fused"])):
+        tag = f"[fused_evolve {name}]"
+        _reset_launches()
+        out = run(warm)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        t = out["timings"]
+        e0 = abs(rec["series"]["energy"][0])
+        print(f"{tag} warm_start={warm}: steps {list(map(int, out['steps']))} "
+              f"(record {rec['steps']}), safety "
+              f"{list(map(int, out['safety']))}; drift dm "
+              f"{[float(d) for d in out['dm']]}, de/|e0| "
+              f"{[float(d / e0) for d in out['de']]}")
+        print(f"{tag} step walls {', '.join(f'{1e3 * w:.3f}' for w in t['step_wall'])} "
+              f"ms, of them capture "
+              f"{', '.join(f'{1e3 * c:.3f}' for c in t['step_capture'])} ms "
+              f"(time_capture {t['time_capture']:.3f} s); host-loop evolve "
+              f"(phase_snc_evolve) {', '.join(f'{1e3 * w:.3f}' for w in host_walls)} ms")
+        print(f"{tag} launches over the evolution: {launches}; per replay by "
+              f"graph: {t['launches_per_replay']}")
+        check(len(out["steps"]) == EVOLVE_N, f"{tag} ran {len(out['steps'])} steps")
+        for got, want in zip(out["steps"], rec["steps"]):
+            check(abs(int(got) - want) <= 1,
+                  f"{tag} steps {out['steps']} vs record {rec['steps']}")
+        check(all(int(sf) == 1 for sf in out["safety"]), f"{tag} safety "
+                                                         f"{out['safety']}")
+        check(all(d < 1e-9 for d in out["dm"]), f"{tag} mass drift {out['dm']}")
+        check(all(d / e0 < 1e-13 for d in out["de"]),
+              f"{tag} energy drift {out['de']}")
+        check(bool(torch.isfinite(out["sol"]).all()), f"{tag} solution not finite")
+        # the counters count replays only (the core's and the evolution's
+        # warm-ups put theirs back): each graph's launches times its replays
+        replayed = {nm: t["launches"].get(nm, 0) for nm in launches}
+        check(launches == replayed, f"{tag} launches {launches} are not the "
+                                    f"replays' {replayed}")
+        check(launches["dia_spmv"] > 0 and launches["fused_update_matvec"] > 0,
+              f"{tag} did not go through kernels #1 and #5: {launches}")
+        _check_design(tag, launches, "dia_spmv")
+        paths[f"swe_M{SWE_M}_snc_fused_evolve" + ("" if warm else "_cold")] = \
+            launches
+    box = {}
+    prof = _profiled(lambda: box.setdefault("out", run(True)))[4]
+    wall, busy, names = _window_busy(prof, "fused_evolve steps")
+    cap = 1e3 * box["out"]["timings"]["time_capture"]
+    kernels = sorted(nm for nm in names
+                     if "dia_spmv" in nm or "fused_update_matvec" in nm)
+    print(f"[fused_evolve profiled] warm evolution, its {EVOLVE_N} steps and "
+          f"the fetch: wall {wall:.3f} ms, of it capture {cap:.3f} ms; device "
+          f"busy {busy:.3f} ms; idle share of the wall less capture "
+          f"{1.0 - busy / (wall - cap):.3f}; kernels #1 and #5 in the "
+          f"replays: {kernels}")
+    for want in ("dia_spmv", "fused_update_matvec"):
+        check(any(want in nm for nm in kernels),
+              f"[fused_evolve profiled] the profiler saw no {want} kernel in "
+              f"the replays")
+    return paths
+
+
 LKDVRK_ROWS = ("lkdvrk_M400_deg3_s2", "lkdvrk_M400_deg4_s3",
                "lkdvrk_M400_deg5_s4")
 LKDVRK_EVOLVE = "lkdvrk_M400_deg3_s2_evolve"
@@ -1963,7 +2242,7 @@ def main() -> int:
 
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
                for name in ("slice1.json", "slice2.json", "slice3.json",
-                            "slice4.json", "slice7.json")}
+                            "slice4.json", "slice7.json", "slice8.json")}
     t_start = time.perf_counter()
     phase_build()
     t0 = time.perf_counter()
@@ -1982,6 +2261,8 @@ def main() -> int:
     ortho_times = phase_ortho_timing()
     torch.cuda.synchronize()
     fused_launches = phase_swe_fused(swe_sys, records["slice1.json"])
+    torch.cuda.synchronize()
+    graph_launches = phase_graph_core(swe_sys, records["slice1.json"])
     torch.cuda.synchronize()
     del swe_sys
     heat_sys, pre, launches = phase_heat(records["slice2.json"])
@@ -2004,7 +2285,10 @@ def main() -> int:
     torch.cuda.synchronize()
     snc_launches, _ = phase_snc_row(records["slice4.json"])
     torch.cuda.synchronize()
-    evolve_launches, _ = phase_snc_evolve(records["slice4.json"])
+    evolve_launches, evolve_walls = phase_snc_evolve(records["slice4.json"])
+    torch.cuda.synchronize()
+    fused_evolve_launches = phase_fused_evolve(
+        records["slice4.json"], records["slice8.json"], evolve_walls)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rk_sys = lkdvrk.linforms(M=400, N=10, degree=3, tstages=2, device=DEVICE)
@@ -2024,8 +2308,12 @@ def main() -> int:
     src = "structurepreservingiterativesolvers_torch/csrc/"
     cheb_row, neu_row = (f"heat_M{HEAT_M}_{short}" for short in ("cheb8", "neu4"))
     swe_paths = {f"swe_M{SWE_M}_cgs2_fused": fused_launches,
+                 f"swe_M{SWE_M}_graph_core": graph_launches["cgs2"],
+                 f"swe_M{SWE_M}_graph_core_cgs2_fused":
+                     graph_launches["cgs2_fused"],
                  f"swe_M{SWE_M}_snc": snc_launches,
-                 f"swe_M{SWE_M}_snc_evolve": evolve_launches}
+                 f"swe_M{SWE_M}_snc_evolve": evolve_launches,
+                 **fused_evolve_launches}
     rk_paths = {**{name: row["launches"] for name, row in rk_rows.items()},
                 f"{LKDVRK_ROWS[0]}_cgs2_fused": rk_rows[LKDVRK_ROWS[0]]["fused"],
                 LKDVRK_EVOLVE: rk_evolve_launches,

@@ -11,7 +11,8 @@ with the skew-normal Chebyshev preconditioner of the TimedSolve
 pre-builder, and time evolutions) and ``slice7.json`` (lkdvRK with the RAS +
 Neumann composite of the TimedSolve pre-builder at the reference's M=400
 error-sweep grid and at M=50, its evolutions and error sweep, and lkdv's
-TimedSolve row): for each solve configuration, GMRES and
+TimedSolve row) and ``slice8.json`` (the JAX package's ``fused_evolve``):
+for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
 of the returned iterate; with the AMG also its level sizes, with a
@@ -22,7 +23,9 @@ deviation, and the invariant series with their drifts.  For lkdvRK also
 the format of A (DIA with its diagonal count, or ELL with its row width)
 and the RAS block shape, and for each lkdvRK evolution (``SWEEPS``, through
 ``experiments.error_sweep``) the per-step L2 errors, solver steps and
-drifts.
+drifts.  For each ``fused_evolve`` (``FUSED``) per step the solver's steps
+and latch, the invariant series and their drifts, and the max-norm of the
+last solution.
 
     python scripts/make_torch_reference.py            # every configuration
     python scripts/make_torch_reference.py swe_M64    # only the named ones
@@ -110,6 +113,20 @@ EVOLVES = {
 }
 
 
+# the JAX package's fused_evolve (its whole evolution as one lax.scan over
+# the CGMRES core, warm-started by default): name -> (problem,
+# fused_evolve/linforms parameters, k, tol, preconditioner built on the
+# evolution's first system).  swe M=512 is swe_M512_snc_evolve's row; swe
+# M=16 and lkdv M=50 are the configurations of
+# tests/test_experiments.py::test_fused_evolve_swe and
+# ::test_fused_evolve_matches_host_loop.
+FUSED = {
+    "swe_M512_snc_fused": ("swe", dict(M=512, N=3, T=0.3), 20, 1e-7, "snc"),
+    "swe_M16_fused": ("swe", dict(M=16, N=5, T=1.0), 20, 1e-7, None),
+    "lkdv_M50_fused": ("lkdv", dict(M=50, N=10, degree=2), 30, 1e-6, None),
+}
+
+
 # lkdvRK evolutions through the error sweep: name -> the arguments of
 # ``run_sweep`` (one grid row and its solvers).  The first is the (3, 2)
 # row of the reference's grid, preconditioned CGMRES; the second the same
@@ -131,6 +148,8 @@ def out_path(name) -> Path:
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in FUSED:
+        return REFERENCE / "slice8.json"
     if name in SWEEPS or CONFIGS.get(name, (None,) * 7)[6] == "default":
         return REFERENCE / "slice7.json"
     if name in EVOLVES:
@@ -167,7 +186,8 @@ def system(name):
 def pre_builder(name):
     """The JAX package's preconditioner builder of configuration or
     evolution ``name`` (a function of the system), or None."""
-    problem, pre = ((EVOLVES[name][0], EVOLVES[name][4]) if name in EVOLVES
+    spec = EVOLVES.get(name) or FUSED.get(name)
+    problem, pre = ((spec[0], spec[4]) if spec is not None
                     else (CONFIGS[name][0], CONFIGS[name][6]))
     if pre is None:
         return None
@@ -309,6 +329,42 @@ def record_evolve(name):
     return rec
 
 
+def record_fused(name):
+    """Run the JAX package's ``fused_evolve`` (CGMRES, warm-started) on
+    ``FUSED[name]``; returns its entry of the record: per step the solver's
+    steps and latch, the invariant series and their drifts, and the
+    max-norm of the last solution."""
+    _jax_cpu()
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments.evolve import (
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_tpu.models import lkdv, swe
+
+    problem, params, k, tol, pre_spec = FUSED[name]
+    s = {"lkdv": lkdv, "swe": swe}[problem].linforms(**params)
+    build = pre_builder(name)
+    pre = None if build is None else build(s)
+    out = fused_evolve(problem, k=k, tol=tol, pre=pre, **params)
+    rec = {
+        "config": {"problem": problem, "params": params, "k": k, "tol": tol,
+                   "solver": "fused_evolve", "warm_start": True},
+        "n": int(s.b.shape[0]),
+        "time": [float(t) for t in out["time"]],
+        "steps": [int(i) for i in out["steps"]],
+        "safety": [int(i) for i in out["safety"]],
+        "series": {key: [float(v) for v in np.asarray(out[key])]
+                   for key in ("mass", "momentum", "energy") if key in out},
+        "drift": {key: [float(v) for v in np.asarray(out[key])]
+                  for key in ("dm", "dmo", "de") if key in out},
+        "sol_max": float(np.abs(np.asarray(out["sol"])).max()),
+    }
+    if pre_spec is not None:
+        _pre_fields(rec, pre_spec, pre)
+    return rec
+
+
 # the perturbations of b whose effect on an evolution's error series is
 # recorded as its own drift: relative size, and the seeds
 DRIFT_SIZE, DRIFT_SEEDS = 1e-15, (0, 1, 2)
@@ -402,7 +458,7 @@ def load(name):
 def main(names):
     import jax
 
-    for name in names or [*CONFIGS, *EVOLVES, *SWEEPS]:
+    for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
@@ -410,6 +466,7 @@ def main(names):
             "written by scripts/make_torch_reference.py"
         )
         rec[name] = (record_evolve(name) if name in EVOLVES
+                     else record_fused(name) if name in FUSED
                      else record_sweep(name) if name in SWEEPS
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)

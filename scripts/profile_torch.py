@@ -14,9 +14,13 @@ pass, on the slice's configurations:
 
 ``--ortho cgs2_fused`` runs the Arnoldi orthogonalisation's middle pair
 through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
+``--loop while`` runs CGMRES on the device core, each step a CUDA graph
+(captured in the warm-up pass), in place of the host loop; then replays
+one graph of each kind alone under the profiler (after the solve, so every
+write is masked) and prints its device operations and device time.
 
     python scripts/profile_torch.py --problem heat [--pre amg|cheb8|neu4] [--M 1024] [--out build/profile]
-    python scripts/profile_torch.py --problem swe [--pre none|snc] [--ortho cgs2|cgs2_fused]
+    python scripts/profile_torch.py --problem swe [--pre none|snc] [--ortho cgs2|cgs2_fused] [--loop host|while]
 
 Prints the busiest device kernels, the device-busy time against the wall
 time of each solve (the device's idle share), the device time by kind
@@ -81,6 +85,32 @@ def _event_ms(fn, reps=100):
     return start.elapsed_time(end) / reps
 
 
+def _graph_ops(torch, profile, ProfilerActivity):
+    """Device operations (kernels, copies, fills) and device time of one
+    replay of the cached device core's graphs, the first and the last
+    captured of each kind, replayed alone after the solve."""
+    import importlib
+
+    cgmres = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    core = next(iter(cgmres._CORES.values()))
+    by_kind = {}
+    for key in core.runner.graphs:  # in the order of capture
+        by_kind.setdefault(key if isinstance(key, str) else key[0], []).append(key)
+    print("\n== one replay of each graph alone: device operations, device ms")
+    for kind, keys in sorted(by_kind.items()):
+        for key in dict.fromkeys((keys[0], keys[-1])):
+            graph = core.runner.graphs[key][0]
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            ops = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            us = sum(e.time_range.elapsed_us() for e in ops)
+            print(f"   {key}: {len(ops)} operations, {us / 1e3:.3f} ms")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", choices=sorted(CONFIGS), default="heat")
@@ -89,6 +119,8 @@ def main():
                     help="the preconditioner (default: none for swe, the "
                          "AMG for heat)")
     ap.add_argument("--ortho", choices=["cgs2", "cgs2_fused"], default="cgs2")
+    ap.add_argument("--loop", choices=["host", "while"], default="host",
+                    help="CGMRES's loop: the host loop or the device core")
     ap.add_argument("--M", type=int, default=None)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
@@ -134,7 +166,7 @@ def main():
     kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre, ortho=args.ortho)
     solves = {
         "gmres": lambda: wrappers.gmres_wrapper(s, **kw),
-        "cgmres": lambda: wrappers.cgmres_wrapper(s, **kw),
+        "cgmres": lambda: wrappers.cgmres_wrapper(s, loop=args.loop, **kw),
     }
     for fn in solves.values():  # warm-up
         fn()
@@ -148,11 +180,15 @@ def main():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = prof.key_averages()
+        # the ranges of the preconditioner and of the graph runner (its
+        # replays and flag reads) are host spans, not device work
         kernels = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.key != span]
+                   and e.key != span and not e.key.startswith("replay ")
+                   and e.key != "flag read"]
         busy_us = sum(e.self_device_time_total for e in kernels)
-        label = f"{args.problem} --pre {args.pre} --ortho {args.ortho}"
+        label = (f"{args.problem} --pre {args.pre} --ortho {args.ortho}"
+                 f" --loop {args.loop}")
         print(f"\n== {label} {name} M={M}: steps {info['steps']}, wall "
               f"{wall * 1e3:.3f} ms (profiled), device busy {busy_us / 1e3:.3f} "
               f"ms -> idle share {1 - busy_us / 1e6 / wall:.3f}")
@@ -171,9 +207,13 @@ def main():
         print(events.table(sort_by="self_device_time_total", row_limit=15,
                            max_name_column_width=60))
         tag = (f"_{args.pre}" if apply else "") + (
-            "_fused" if args.ortho == "cgs2_fused" else "")
+            "_fused" if args.ortho == "cgs2_fused" else "") + (
+            "_graphs" if args.loop == "while" else "")
         prof.export_chrome_trace(
             str(out / f"trace_{args.problem}{M}{tag}_{name}.json"))
+
+    if args.loop == "while":
+        _graph_ops(torch, profile, ProfilerActivity)
 
     x = torch.randn(s.b.shape[0], dtype=s.b.dtype, device="cuda")
     print(f"\n== alone, CUDA events, operands warm in L2: A @ x "

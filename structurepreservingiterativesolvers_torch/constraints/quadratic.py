@@ -21,9 +21,12 @@ reconstruction ``z1 = z0 + dt Σ b_s X_s`` composed into a quadratic on the
 stacked stage vector (``stage_mapped``; reference lkdvRK/lkdvRK.py:162-189,
 lkdvRK/LinearSolver.py:29-76).
 
-The n-sized work runs where the basis lives; the reduced buffers (a scalar,
-a k-vector and a k×k matrix) live on the host, beside the Hessenberg matrix
-and the KKT solve that consume them.
+The n-sized work runs where the basis lives.  For the host loop the reduced
+buffers (a scalar, a k-vector and a k×k matrix) live on the host, beside the
+Hessenberg matrix and the KKT solve that consume them; for the device core
+(``solvers/cgmres.py::DeviceCore``) they live on the basis' device and are
+updated in place under a mask (``fold_column``, ``catch_up``), as the JAX
+package keeps them.
 """
 
 from __future__ import annotations
@@ -100,6 +103,18 @@ class QuadraticConstraint:
         if self.M is not None:
             out = out + 0.5 * torch.dot(x, self.M @ x)
         return out
+
+    def value_and_scale(self, x: torch.Tensor):
+        """g(x) and its roundoff scale, the sum of the magnitudes of its
+        three terms: near a point where g vanishes the value is a
+        cancellation and cannot be certified below O(eps)·scale."""
+        terms = [self.c.to(x.dtype)]
+        if self.v is not None:
+            terms.append(torch.dot(self.v, x))
+        if self.M is not None:
+            terms.append(0.5 * torch.dot(x, self.M @ x))
+        terms = torch.stack(terms)
+        return terms.sum(), terms.abs().sum()
 
     def grad(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.zeros_like(x)
@@ -195,6 +210,56 @@ def catchup_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
         T2[:jmax, :jmax] = (0.5 * (Zc @ U)).to(HOST)
     t1[:jmax] = t1_dev.to(HOST)
     return ReducedBuffers(t0=buf.t0, t1=t1, T2=T2)
+
+
+# --- the device core's buffers: on the basis' device, written in place ----
+
+
+def device_buffers(k: int, like: torch.Tensor) -> ReducedBuffers:
+    """Zeroed reduced buffers on the device and in the dtype of ``like``."""
+    def z(*shape):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+    return ReducedBuffers(t0=z(), t1=z(k), T2=z(k, k))
+
+
+def fold_column(con: QuadraticConstraint, buf: ReducedBuffers,
+                Z: torch.Tensor, x0: torch.Tensor, j: int, live: torch.Tensor,
+                x0_zero: bool = False) -> None:
+    """``update_buffers`` in place on the device, where ``live``: the new
+    basis vector Z[j] folded into t1[j] and row and column j of T2."""
+    zj = Z[j]
+    t1j = torch.zeros((), dtype=Z.dtype, device=Z.device)
+    if con.v is not None:
+        t1j = t1j + torch.dot(con.v, zj)
+    if con.M is not None:
+        u = con.M @ zj
+        if not x0_zero:
+            t1j = t1j + torch.dot(u, x0)
+        w = 0.5 * (Z[: j + 1] @ u)
+        buf.T2[j, : j + 1] = torch.where(live, w, buf.T2[j, : j + 1])
+        buf.T2[: j + 1, j] = torch.where(live, w, buf.T2[: j + 1, j])
+    buf.t1[j] = torch.where(live, t1j, buf.t1[j])
+
+
+def catch_up(con: QuadraticConstraint, buf: ReducedBuffers, Z: torch.Tensor,
+             x0: torch.Tensor, jmax: int, live: torch.Tensor,
+             x0_zero: bool = False) -> None:
+    """``catchup_buffers`` in place on the device, where ``live``: the
+    reduction over the first ``jmax`` basis vectors in one batched pass.
+    Only the leading ``jmax`` entries are written; the endgame reads no
+    further than the columns folded in since."""
+    Zc = Z[:jmax]
+    t1 = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
+    if con.v is not None:
+        t1 = t1 + Zc @ con.v
+    if con.M is not None:
+        U = con.M @ Zc.T  # (n, jmax)
+        if not x0_zero:
+            t1 = t1 + U.T @ x0
+        T2 = 0.5 * (Zc @ U)
+        buf.T2[:jmax, :jmax] = torch.where(live, T2, buf.T2[:jmax, :jmax])
+    buf.t1[:jmax] = torch.where(live, t1, buf.t1[:jmax])
 
 
 # The reduced forms below take y of shape (k,) or a batch (T, k).  T2 from a

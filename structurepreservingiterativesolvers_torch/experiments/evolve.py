@@ -10,18 +10,24 @@ lkdvRK (reference lkdvRK/Evolve.py:19-146) warm-starts each stage solve
 from the previous one and can record the L2 error against the exact wave
 per step (``compute_error``).
 
-Left out: ``fused_evolve``, the JAX package's whole evolution as one jitted
-``lax.scan``, a TPU dispatch workaround whose counterpart here would be a
-CUDA graph; and the figure of ``deviation_plotter``.
+``fused_evolve`` is the JAX package's whole evolution as one program (a
+jitted ``lax.scan`` over its CGMRES core there): here the device core
+(``solvers/cgmres.py::DeviceCore``) with a prologue and an epilogue step,
+captured as CUDA graphs once and replayed every time step on the card.
+
+Left out: the figure of ``deviation_plotter``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..config import CTOL
+from ..utils.profiling import span
 from . import wrappers
 from .single_solve import get_model
 
@@ -135,6 +141,114 @@ def evolve(
         out[nm] = arr
     if compute_error:
         out["err"] = np.asarray(errs)
+    return out
+
+
+def fused_evolve(
+    problem: str = "lkdv",
+    N: int = 100,
+    M: int = 50,
+    degree: int = 1,
+    k: int = 30,
+    tol: float = 1e-6,
+    contol: float = 10.0,
+    ctol: float = CTOL,
+    pre=None,
+    warm_start: bool = True,
+    mesh=None,
+    loop: str = "while",
+    *,
+    device,
+    ortho: str = "cgs2",
+    **params,
+):
+    """The whole time evolution on ``device`` as replays of one device core
+    (the JAX package's ``fused_evolve``, ``evolve.py:140-254`` there): each
+    step re-seeds the system on the device (``System.step_update`` of the
+    previous solution), solves it with CGMRES from the previous solution
+    (``warm_start``) or from zero, and records the solver's steps, its
+    latch and the invariants of the solution in device buffers; the host
+    fetches them once, at the end.
+
+    The step's prologue (``step_update`` and the copy of b, x0 and the
+    targets into the core's static buffers) and epilogue (the invariants
+    and the records) are steps of the core's graph runner: on the card each
+    is captured once, as the core's steps are, and replayed every step.
+
+    Returns, as the JAX package does, ``time`` (the N step times), ``steps``
+    and ``safety`` (0 untouched, 1 certified, 2 tripped) per step, ``sol``
+    (the last solution, on ``device``), and per invariant its series and
+    its drift from the initial value (``dm``, ``dmo``, ``de``); and
+    ``timings``: each step's wall (``step_wall``, from one step's start to
+    the next's, the last to the fetch) and the seconds of it spent
+    capturing (``step_capture``, in all ``time_capture``), and the kernel
+    launches per replay of each kind of graph (``launches_per_replay``) and
+    of all replays (``launches``).  The steps and the fetch run
+    inside the span ``fused_evolve steps``.  ``ortho``
+    is the Arnoldi orthogonalisation (``arnoldi_step``); the JAX package
+    runs ``cgs2`` there.  ``mesh`` (a sharded evolution) and
+    ``loop="fori"`` are not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sharded evolution (mesh=) waits for the port of parallel/ "
+            "(ROADMAP.md, Queue 1, item 6)")
+    if loop != "while":
+        raise NotImplementedError(
+            f"loop={loop!r}: only 'while' is ported ('fori' is a TPU "
+            "workaround, not ported on purpose)")
+    if problem.lower() not in ("lkdv", "swe"):
+        raise NotImplementedError(
+            f"fused_evolve runs lkdv and swe; {problem!r} is not in this "
+            "slice (ROADMAP.md, Queue 1)")
+    from ..solvers.cgmres import DeviceCore
+
+    sys0 = get_model(problem).linforms(N=N, M=M, degree=degree, device=device,
+                                       **params)
+    core = DeviceCore(sys0.A, pre, k, sys0.constraints(), like=sys0.b,
+                      tol=tol, contol=contol, ctol=ctol, ortho=ortho)
+    runner = core.runner
+    names = [nm for nm, attr in TARGETS.items() if hasattr(sys0, attr)]
+    z = sys0.z0.clone()
+    row = torch.zeros(1, dtype=torch.long, device=z.device)
+    inv = torch.zeros((N, len(names)), dtype=z.dtype, device=z.device)
+    counts = torch.zeros((N, 2), dtype=torch.long, device=z.device)
+
+    def prologue():
+        s = sys0.step_update(z)
+        core.load(s.b, z if warm_start else torch.zeros_like(z),
+                  s.constraints())
+
+    def epilogue():
+        values = sys0.compute_invariants(core.x)
+        inv.index_copy_(0, row, torch.stack([values[nm] for nm in names])[None])
+        counts.index_copy_(0, row, torch.stack([core.steps, core.safety])[None])
+        z.copy_(core.x)
+        row.add_(1)
+
+    runner.warmup(lambda: (sys0.step_update(z), sys0.compute_invariants(z)))
+    starts, captured = [], []
+    with span("fused_evolve steps", z.device):
+        for _ in range(N):
+            starts.append(time.perf_counter())
+            captured.append(runner.time_capture)
+            runner.run("prologue", prologue)
+            core.solve()
+            runner.run("epilogue", epilogue)
+        # one fetch at the end
+        series, counts = inv.cpu().numpy(), counts.cpu().numpy()
+    starts.append(time.perf_counter())
+    captured.append(runner.time_capture)
+    targets = torch.stack([getattr(sys0, TARGETS[nm]) for nm in names]).tolist()
+    out = {"time": np.linspace(0.0, float(sys0.prob.T), N + 1)[1:],
+           "steps": counts[:, 0], "safety": counts[:, 1], "sol": z,
+           "timings": {
+               "step_wall": np.diff(starts), "time_capture": runner.time_capture,
+               "step_capture": np.diff(captured),
+               "launches_per_replay": runner.launches(),
+               "launches": runner.replayed_launches()}}
+    for i, (nm, target) in enumerate(zip(names, targets)):
+        out[DRIFT_KEYS[nm]] = np.abs(series[:, i] - target)
+        out[nm] = series[:, i]
     return out
 
 

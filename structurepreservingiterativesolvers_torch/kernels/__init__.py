@@ -10,3 +10,24 @@ read of the Krylov basis (``csrc/ortho_fused.cu``).  Importing this package buil
 nothing; a kernel is compiled from ``csrc/`` the first time a CUDA tensor
 reaches its wrapper.
 """
+
+
+def launch_counters() -> dict:
+    """Every kernel's launch counter, by name: each wrapper that launches on
+    the card adds one to its ``launches`` (a design's wrapper and its
+    kernel's both); ``<name>_<design>`` for the designs of kernels #1-#4."""
+    from . import dia_spmv, ortho, poly_apply, stencil_spmv
+
+    return {"dia_spmv": dia_spmv.dia_spmv_cuda,
+            "dia_spmv_live": dia_spmv.dia_spmv_live_cuda,
+            "dia_spmv_dense": dia_spmv.dia_spmv_dense_cuda,
+            "stencil_spmv": stencil_spmv.stencil_spmv_cuda,
+            "stencil_spmv_tiled": stencil_spmv.stencil_spmv_tiled_cuda,
+            "stencil_spmv_flat": stencil_spmv.stencil_spmv_flat_cuda,
+            "cheb_apply": poly_apply.cheb_apply_cuda,
+            "cheb_apply_tiled": poly_apply.cheb_apply_tiled_cuda,
+            "cheb_apply_flat": poly_apply.cheb_apply_flat_cuda,
+            "neumann_apply": poly_apply.neumann_apply_cuda,
+            "neumann_apply_tiled": poly_apply.neumann_apply_tiled_cuda,
+            "neumann_apply_flat": poly_apply.neumann_apply_flat_cuda,
+            "fused_update_matvec": ortho.fused_update_matvec_cuda}

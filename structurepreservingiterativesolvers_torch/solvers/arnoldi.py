@@ -6,7 +6,7 @@ iteration index is a host integer, so every n-sized operation reads only
 the active prefix of the basis: rows beyond it are zero in the JAX package
 and contribute nothing there either.
 
-Two kinds of state, on two devices:
+The host loop's state (``ArnoldiState``) lives on two devices:
 
 * the n-sized basis ``Q`` and preconditioned vectors ``Z`` live with the
   operands (the card, in production);
@@ -15,6 +15,12 @@ Two kinds of state, on two devices:
   estimate on the host anyway, and a rotation is a handful of scalar
   operations: on the host they cost nanoseconds, on the card one launch
   each.
+
+The device core's state (``DeviceArnoldi``, the JAX package's fixed-shape
+``ArnoldiState``) lives on the operands' device whole, so that a step reads
+nothing on the host and can be captured in a CUDA graph
+(``solvers/graphs.py``).  Its steps write every entry under a mask
+``live``: a step taken after the solve is done changes nothing.
 """
 
 from __future__ import annotations
@@ -197,3 +203,100 @@ def lsq_residual_estimate(st: ArnoldiState, j: int) -> float:
 def iterate(st: ArnoldiState, y: torch.Tensor, j: int, x0: torch.Tensor) -> torch.Tensor:
     """x = x0 + Σ_{i≤j} y_i z_i, on the basis' device."""
     return y[: j + 1].to(st.Z.device) @ st.Z[: j + 1] + x0
+
+
+# --- the fixed-shape state on the operands' device ---------------------------
+
+
+class DeviceArnoldi(NamedTuple):
+    """The JAX package's ``ArnoldiState`` (``arnoldi.py:16-57`` there), all
+    on the operands' device, with ``G``, the product of the Givens
+    rotations so far, (k+1, k+1), the identity beyond the active rows, in
+    place of its R, cs and sn, which nothing here reads: ``G @ H[:, :j+1]``
+    is R and ``G @ (β e1) = g``."""
+
+    Q: torch.Tensor
+    Z: torch.Tensor
+    H: torch.Tensor
+    Rinv: torch.Tensor
+    g: torch.Tensor
+    G: torch.Tensor
+
+
+def device_state(n: int, k: int, dtype, device) -> DeviceArnoldi:
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return DeviceArnoldi(Q=z(k + 1, n), Z=z(k, n), H=z(k + 1, k),
+                         Rinv=z(k, k), g=z(k + 1), G=z(k + 1, k + 1))
+
+
+def start(st: DeviceArnoldi, r0: torch.Tensor, beta: torch.Tensor) -> None:
+    """Reset the state for a solve from the residual r0, ‖r0‖ = beta (a
+    device scalar): the first basis row and β e1; the k-sized factors are
+    cleared (the n-sized rows beyond the first are written before they are
+    read)."""
+    st.Q[0] = r0 / torch.where(beta == 0, 1.0, beta)
+    for t in (st.H, st.Rinv, st.g):
+        t.zero_()
+    st.g[0] = beta
+    st.G.copy_(torch.eye(st.G.shape[0], dtype=st.G.dtype, device=st.G.device))
+
+
+def arnoldi_step_masked(A, prefunc, st: DeviceArnoldi, j: int, ortho: str,
+                        live: torch.Tensor) -> torch.Tensor:
+    """``arnoldi_step`` on the device state, with no host read: returns
+    h[j+1, j] as a device scalar.  Where ``live`` is false nothing is
+    written."""
+    if ortho not in ORTHO:
+        raise ValueError(f"unknown ortho {ortho!r}; use one of {ORTHO}")
+    z = prefunc(st.Q[j])
+    w = A @ z
+    if ortho == "mgs":
+        w, h = _mgs(st.Q, w, j)
+    else:
+        w, h = _cgs2(st.Q, w, j, fused=ortho == "cgs2_fused")
+    hlast = torch.linalg.norm(w)
+    k1 = st.H.shape[0]
+    hcol = torch.cat([h, hlast.reshape(1), h.new_zeros(k1 - j - 2)])
+    qnext = torch.where(hlast > 0, w / torch.where(hlast == 0, 1.0, hlast), 0.0)
+    st.Q[j + 1] = torch.where(live, qnext, st.Q[j + 1])
+    st.Z[j] = torch.where(live, z, st.Z[j])
+    st.H[:, j] = torch.where(live, hcol, st.H[:, j])
+    givens_update_masked(st, hcol, j, live)
+    return hlast
+
+
+def givens_update_masked(st: DeviceArnoldi, hcol: torch.Tensor, j: int,
+                         live: torch.Tensor) -> None:
+    """Fold column j of H into the running QR factorisation, as the JAX
+    package's ``_givens_update`` (``arnoldi.py:140-177`` there) with its
+    incremental R⁻¹, on the device: the j earlier rotations act on the
+    column as one product with their running product ``G`` (the JAX package
+    applies them one by one, 2j dependent operations); then the new
+    rotation, which updates rows j and j+1 of ``G``."""
+    k = st.Rinv.shape[0]
+    rot = st.G[: j + 1, : j + 1] @ hcol[: j + 1]
+    a, b = rot[j], hcol[j + 1]
+    denom = torch.sqrt(a * a + b * b)
+    safe = torch.where(denom == 0, 1.0, denom)
+    c = torch.where(denom == 0, 1.0, a / safe)
+    s = torch.where(denom == 0, 0.0, b / safe)
+    gj = st.g[j]
+    g_j, g_j1 = c * gj, -s * gj
+    rjj = torch.where(denom == 0, torch.finfo(st.Rinv.dtype).tiny, denom)
+    rest = hcol.new_zeros(k - j - 1)
+    newcol = torch.cat([-(st.Rinv[:j, :j] @ rot[:j]) / rjj,
+                        (1.0 / rjj).reshape(1), rest])
+    Gj, Gj1 = c * st.G[j] + s * st.G[j + 1], -s * st.G[j] + c * st.G[j + 1]
+    st.g[j] = torch.where(live, g_j, gj)
+    st.g[j + 1] = torch.where(live, g_j1, st.g[j + 1])
+    st.Rinv[:, j] = torch.where(live, newcol, st.Rinv[:, j])
+    st.G[j] = torch.where(live, Gj, st.G[j])
+    st.G[j + 1] = torch.where(live, Gj1, st.G[j + 1])
+
+
+def lsq_coeffs_device(st: DeviceArnoldi, j: int) -> torch.Tensor:
+    """``lsq_coeffs`` on the device: one product with the active columns of
+    R⁻¹, (k,) with y[j+1:] = 0 (rows of R⁻¹ below its diagonal are zero)."""
+    return st.Rinv[:, : j + 1] @ st.g[: j + 1]

@@ -12,11 +12,23 @@ returns NaN falls back to the unconstrained coefficients for that
 iteration, as the reference falls back to unconstrained SLSQP
 (solvers.py:271-278).
 
-The JAX package's ``lax.while_loop``s are host loops here.  Each step reads
-its residual (and, in the endgame, the KKT's scalars) on the host: one
-synchronisation per read.  The n-sized work — SpMV, orthogonalisation,
-iterate assembly, constraint reduction — runs on the operands' device; the
-k-sized work (Givens QR, reduced constraints, KKT) on the host.
+Two loops drive the solve (``cgmres(..., loop=...)``):
+
+* ``"host"`` (the default): the JAX package's ``lax.while_loop``s are host
+  loops.  Each step reads its residual (and, in the endgame, the KKT's
+  scalars) on the host: one synchronisation per read.  The n-sized work —
+  SpMV, orthogonalisation, iterate assembly, constraint reduction — runs on
+  the operands' device; the k-sized work (Givens QR, reduced constraints,
+  KKT) on the host.
+* ``"while"``: the device core (``DeviceCore``), the counterpart of the JAX
+  package's ``_build_core`` (``cgmres.py:147`` there).  All state, the
+  k-sized too, lives in fixed-shape tensors on the operands' device; each
+  step is a function of static shapes with no host read, captured as a
+  CUDA graph on the card and replayed (``solvers/graphs.py``), run eagerly
+  on the CPU.  The host loop over the steps replays one graph and reads
+  two flags (the next step's gate and ``done``) per step; a gated step
+  replays the endgame's graphs, one Newton iteration each, with a flag read
+  after each.  Quadratic constraints only.
 
 ``cgmres_p`` is the prototypical variant enforcing constraints cumulatively
 (iteration j enforces the first j constraints, reference solvers.py:328-445).
@@ -35,9 +47,11 @@ ported.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import time
 import warnings
-from typing import Sequence, Union
+from typing import NamedTuple, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,7 +60,10 @@ from ..config import CTOL, require_f64
 from ..constraints.general import GeneralConstraint, taylor_buffers, true_value
 from ..constraints.quadratic import (
     QuadraticConstraint,
+    catch_up,
     catchup_buffers,
+    device_buffers,
+    fold_column,
     init_buffers,
     reduced_scale,
     reduced_value,
@@ -55,13 +72,27 @@ from ..constraints.quadratic import (
 from ..precond.base import as_preconditioner
 from .arnoldi import (
     arnoldi_step,
+    arnoldi_step_masked,
+    device_state,
     init_state,
     iterate,
     lsq_coeffs,
+    lsq_coeffs_device,
     lsq_residual_estimate,
+    start,
 )
 from .gmres import as_operand, warn_breakdown
-from .kkt import constrained_lsq
+from .graphs import GraphRunner
+from .kkt import (
+    constrained_lsq,
+    kkt_model,
+    kkt_refactor,
+    kkt_scale,
+    kkt_start,
+    kkt_step,
+    kkt_values,
+    kkt_work,
+)
 
 _SAFETY_NONE, _SAFETY_OK, _SAFETY_BAD = 0, 1, 2
 
@@ -316,45 +347,524 @@ class _Solve:
         return x, info
 
     def _info(self, steps, ncon, safety, dev_j, brk, kkt_it, nfb, res, xs):
-        # host-side warnings mirroring the reference's UX
-        # (solvers.py:104-106, 267-273)
-        if brk:
-            warn_breakdown()
-        if nfb > 0:
-            warnings.warn(
-                f"Constrained solve failed on {nfb} iteration(s), defaulted "
-                "to standard solve. Problem likely overconstrained, a smaller "
-                "solver tolerance may be required."
-            )
-        if safety == _SAFETY_BAD and not self.prototypical:
-            warnings.warn(
-                f"Constrained solve failed to preserve constraints (deviation "
-                f"{dev_j:.3e}); problem likely overconstrained — a smaller "
-                "solver tolerance may be required.",
-                RuntimeWarning,
-            )
-        info = {
-            "name": "geosolve" if self.prototypical else "cgmres",
-            "res": res[:steps],
-            "steps": steps,
-            "constrained_steps": ncon,
-            "safety": {0: None, 1: True, 2: False}[safety],
-            "deviation": float(dev_j),
-            "breakdown": brk,
-            "kkt_iters": kkt_it,
-            "fallbacks": nfb,
-        }
+        info = _info(self.prototypical, steps, ncon, safety, dev_j, brk,
+                     kkt_it, nfb, res)
         if self.history:
             info["x"] = xs[: steps + 1]
         return info
 
 
+def _info(prototypical, steps, ncon, safety, dev_j, brk, kkt_it, nfb, res):
+    """The info dict of a solve, and the host-side warnings mirroring the
+    reference's UX (solvers.py:104-106, 267-273)."""
+    if brk:
+        warn_breakdown()
+    if nfb > 0:
+        warnings.warn(
+            f"Constrained solve failed on {nfb} iteration(s), defaulted "
+            "to standard solve. Problem likely overconstrained, a smaller "
+            "solver tolerance may be required."
+        )
+    if safety == _SAFETY_BAD and not prototypical:
+        warnings.warn(
+            f"Constrained solve failed to preserve constraints (deviation "
+            f"{dev_j:.3e}); problem likely overconstrained — a smaller "
+            "solver tolerance may be required.",
+            RuntimeWarning,
+        )
+    return {
+        "name": "geosolve" if prototypical else "cgmres",
+        "res": res[:steps],
+        "steps": steps,
+        "constrained_steps": ncon,
+        "safety": {0: None, 1: True, 2: False}[safety],
+        "deviation": float(dev_j),
+        "breakdown": brk,
+        "kkt_iters": kkt_it,
+        "fallbacks": nfb,
+    }
+
+
+# --- the device core -----------------------------------------------------------
+
+
+class CgmresResult(NamedTuple):
+    """The device core's result, as device tensors (the JAX package's
+    ``CgmresResult`` without ``xs``)."""
+
+    x: torch.Tensor
+    res: torch.Tensor
+    steps: torch.Tensor
+    constrained_steps: torch.Tensor
+    safety: torch.Tensor
+    deviation: torch.Tensor
+    breakdown: torch.Tensor
+    kkt_iters: torch.Tensor
+    fallbacks: torch.Tensor
+
+
+class DeviceCore:
+    """CGMRES as fixed-shape steps on the operands' device: the counterpart
+    of the JAX package's ``_build_core`` (``cgmres.py:147-470`` there, its
+    ``loop="while"`` form with the true residual each step), for quadratic
+    constraints.
+
+    Everything a solve reads or writes is a tensor allocated here, on the
+    device of ``like`` (its *static buffers*): the inputs ``b``, ``x0`` and
+    each constraint's ``c`` and ``v`` (``load`` copies them in), the Arnoldi
+    state, the reduced constraints, the KKT's carried multipliers and
+    inverse, the latch and the counts.  Each step below is a Python
+    function of a static Arnoldi index j that reads and writes only those,
+    with no host read, every write masked by ``~done``; ``runner`` runs it
+    (captured and replayed on the card, eagerly on the CPU).  ``solve``
+    drives the steps from the flags they write:
+
+    * ``init``: r0, β, the state and the buffers' t0; the gate of step 0;
+    * ``arnoldi`` j: the Arnoldi step and the LSQ coefficients;
+    * ``advance`` j (gate shut): the iterate from the LSQ coefficients, its
+      true residual, ``done``, the next gate;
+    * gate open: once, ``catchup`` over the basis so far (the JAX package's
+      catch-up after its phase 1), then ``kkt_start`` j (column j folded
+      into the buffers; the dual start, warm and fresh, as a batch of two),
+      ``kkt_step`` j while a start goes on, ``kkt_refactor`` j where one
+      asks, and ``kkt_finish`` j: the choice between the starts (the port's
+      dual-start merit, ``_take_fresh``), the far-branch rejection, the
+      latch, and the iterate as in ``advance``.
+
+    The dual-start merit keeps the port's repair (``_take_fresh``,
+    ``DIVERGED_SCALE``): both candidates are judged against the floor of
+    the fallback point.
+
+    Two repairs of a warm start (x0 ≠ 0) are the core's own, not the JAX
+    package's nor the host loop's: the floor takes the roundoff scale of
+    each constraint's value at x0 (``value_and_scale``; |t0| is a
+    cancellation there), and ``kkt_start`` pins a linear constraint that
+    every iterate satisfies (swe's mass, whose Krylov vectors carry none),
+    so the KKT matrix stays regular.  From x0 = 0 neither changes a bit."""
+
+    def __init__(self, A, pre, k: int, constraints, *, like: torch.Tensor,
+                 tol: float, contol: float = 10.0, ctol: float = CTOL,
+                 ortho: str = "cgs2", x0_zero: bool = False,
+                 runner: GraphRunner = None):
+        cons = _quadratic(constraints)
+        require_f64(like)
+        self.A, self.pre, self.prefunc = A, pre, as_preconditioner(pre)
+        self.k, self.m = int(k), len(cons)
+        self.tol, self.contol, self.ctol = float(tol), float(contol), float(ctol)
+        self.ortho, self.x0_zero = ortho, bool(x0_zero)
+        self.runner = GraphRunner(like.device) if runner is None else runner
+        n, dt, k, m = like.shape[0], like.dtype, self.k, self.m
+        self.kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(dt).eps)
+
+        def z(*shape, dtype=dt):
+            return torch.zeros(shape, dtype=dtype, device=like.device)
+
+        self.b, self.x0 = z(n), z(n)
+        self.cons = tuple(
+            QuadraticConstraint(M=c.M, v=None if c.v is None else z(n), c=z(),
+                                name=c.name) for c in cons)
+        self.st = device_state(n, k, dt, like.device)
+        self.bufs = tuple(device_buffers(k, like) for _ in cons)
+        self.x, self.yk, self.y_unc, self.res = z(n), z(k), z(k), z(k)
+        self.beta, self.r_prev, self.dev = z(), z(), z()
+        (self.safety, self.steps, self.ncon, self.kkt_it,
+         self.nfb) = (z(dtype=torch.long) for _ in range(5))
+        (self.done, self.brk, self.brk_now,
+         self.haveK) = (z(dtype=torch.bool) for _ in range(4))
+        # the roundoff scale of each constraint's value at x0
+        self.lamc, self.Kinvc, self.s0 = z(m), z(m + k, m + k), z(m)
+        # [the gate of the next step, done]; [a KKT start goes on, a start
+        # asks for a re-factorisation]
+        self.flags, self.kflags = z(2, dtype=torch.long), z(2, dtype=torch.long)
+        self.work = kkt_work(2, k, m, like) if m else None
+        self.linear = torch.tensor([c.M is None for c in cons],
+                                   dtype=torch.bool, device=like.device)
+        self.runner.warmup(self._first_use)
+
+    def _first_use(self):
+        """What the steps do the first time they meet the card, on scratch
+        tensors: the kernel builds and loads, each DIA's live plan and
+        resolved launch, the cuBLAS handles on the capture stream, and the
+        fused CGS2 kernel's per-m attribute and occupancy."""
+        v = torch.ones_like(self.b)
+        self.A @ self.prefunc(v)
+        for c in self.cons:
+            if c.M is not None:
+                c.M @ v
+                c.M @ torch.ones((v.shape[0], 2), dtype=v.dtype, device=v.device)
+        basis = torch.ones((2, v.shape[0]), dtype=v.dtype, device=v.device)
+        torch.linalg.norm((basis @ v) @ basis)
+        if self.ortho == "cgs2_fused":
+            from ..kernels.ortho import fused_update_matvec
+
+            Q = torch.ones((self.k + 1, 256), dtype=v.dtype, device=v.device)
+            for rows in range(1, self.k + 2):
+                fused_update_matvec(Q[:rows], Q[0], Q[:rows, 0].contiguous())
+
+    # --- inputs and results -----------------------------------------------------
+
+    def load(self, b: torch.Tensor, x0, constraints) -> None:
+        """Copy a solve's inputs into the static buffers: b, x0 (None: zero,
+        as the core was built for), each constraint's c and v.  The
+        constraints must have the core's operators M."""
+        cons = tuple(constraints)
+        if len(cons) != self.m or any(
+                _key(c.M) != _key(mine.M) or (c.v is None) != (mine.v is None)
+                for c, mine in zip(cons, self.cons)):
+            raise ValueError("these constraints are not the ones the core "
+                             "was built for")
+        if (x0 is None) != self.x0_zero:
+            raise ValueError("x0 given to a core built for x0=None, or the "
+                             "other way round")
+        self.b.copy_(b)
+        if x0 is not None:
+            self.x0.copy_(x0)
+        for c, mine in zip(cons, self.cons):
+            mine.c.copy_(c.c)
+            if mine.v is not None:
+                mine.v.copy_(c.v)
+
+    def result(self) -> CgmresResult:
+        """Copies of the last solve's results (the static buffers are
+        overwritten by the next solve)."""
+        return CgmresResult(
+            x=self.x.clone(), res=self.res.clone(), steps=self.steps.clone(),
+            constrained_steps=self.ncon.clone(), safety=self.safety.clone(),
+            deviation=self.dev.clone(), breakdown=self.brk.clone(),
+            kkt_iters=self.kkt_it.clone(), fallbacks=self.nfb.clone())
+
+    # --- the host loop -------------------------------------------------------
+
+    def solve(self) -> dict:
+        """Run one solve on the loaded inputs; returns the host's timings:
+        ``runtime`` (wall, captures left out), ``time_capture``, the phase-1
+        steps and wall, the catch-up's and the endgame's walls.  The
+        results stay in the static buffers (``result``)."""
+        R, k = self.runner, self.k
+        cap0 = R.time_capture
+        t_start = time.perf_counter()
+        R.run("init", self._init)
+        gate, done = R.read(self.flags)
+        j, j1, gated = 0, None, 0
+        t_phase1 = t_build = None
+        cap_phase1 = cap_build = 0.0
+        while j < k and not done:
+            if gate and j1 is None:
+                # the end of phase 1: the catch-up over the basis so far, and
+                # a read that waits for it, so the host clock times it
+                j1, t_phase1 = j, time.perf_counter()
+                cap_phase1 = R.time_capture - cap0
+                if j1 > 0 and self.m:
+                    R.run(("catchup", j1), functools.partial(self._catchup, j1))
+                R.read(self.flags)
+                t_build = time.perf_counter()
+                cap_build = R.time_capture - cap0
+            R.run(("arnoldi", j), functools.partial(self._arnoldi, j))
+            if gate:
+                self._endgame(j)
+                gated += 1
+            else:
+                R.run(("advance", j), functools.partial(self._advance, j))
+            gate, done = R.read(self.flags)
+            j += 1
+        t_end = time.perf_counter()
+        cap = R.time_capture - cap0
+        if j1 is None:
+            j1, t_phase1, t_build, cap_phase1, cap_build = j, t_end, t_end, cap, cap
+        return {
+            "runtime": t_end - t_start - cap,
+            "time_capture": cap,
+            "phase1_steps_measured": j1,
+            "phase1": t_phase1 - t_start - cap_phase1,
+            "constraint_building": t_build - t_phase1 - (cap_build - cap_phase1),
+            "endgame": t_end - t_build - (cap - cap_build),
+            "gated_steps": gated,
+        }
+
+    def _endgame(self, j: int) -> None:
+        R = self.runner
+        if self.m == 0:
+            R.run(("finish0", j), functools.partial(self._finish0, j))
+            return
+        R.run(("kkt_start", j), functools.partial(self._kkt_start, j))
+        more, _ = R.read(self.kflags)
+        while more:
+            R.run(("kkt_step", j), functools.partial(self._kkt_step, j))
+            more, refact = R.read(self.kflags)
+            if refact:
+                R.run(("kkt_refactor", j),
+                      functools.partial(self._kkt_refactor, j))
+        R.run(("kkt_finish", j), functools.partial(self._kkt_finish, j))
+
+    # --- the steps -------------------------------------------------------------
+
+    def _set_flags(self, j_next: int) -> None:
+        """[the gate of step j_next, done]: the reference's gate
+        (solvers.py:230) is shut while the residual is above contol·tol, the
+        step is not the last and the latch is untouched."""
+        if j_next < self.k - 1:
+            gate = ~((self.r_prev > self.contol * self.tol)
+                     & (self.safety == _SAFETY_NONE))
+        else:
+            gate = torch.ones_like(self.done)
+        self.flags.copy_(torch.stack([gate, self.done]).long())
+
+    def _init(self) -> None:
+        r0 = self.b - self.A @ self.x0
+        beta = torch.linalg.norm(r0)
+        start(self.st, r0, beta)
+        self.beta.copy_(beta)
+        self.r_prev.copy_(beta)
+        self.x.copy_(self.x0)
+        self.res.fill_(float("inf"))
+        self.dev.fill_(float("inf"))
+        for t in (self.yk, self.safety, self.steps, self.ncon, self.kkt_it,
+                  self.nfb, self.done, self.brk, self.brk_now, self.haveK,
+                  self.lamc):
+            t.zero_()
+        self.Kinvc.copy_(torch.eye(self.Kinvc.shape[0], dtype=self.Kinvc.dtype,
+                                   device=self.Kinvc.device))
+        for i, (con, buf) in enumerate(zip(self.cons, self.bufs)):
+            if self.x0_zero:
+                buf.t0.copy_(con.c)
+                self.s0[i] = con.c.abs()
+            else:
+                t0, self.s0[i] = con.value_and_scale(self.x0)
+                buf.t0.copy_(t0)
+            buf.t1.zero_()
+            buf.T2.zero_()
+        self._set_flags(0)
+
+    def _arnoldi(self, j: int) -> None:
+        live = ~self.done
+        hlast = arnoldi_step_masked(self.A, self.prefunc, self.st, j,
+                                    self.ortho, live)
+        self.brk_now.copy_(live & (hlast == 0))
+        self.y_unc.copy_(lsq_coeffs_device(self.st, j))
+
+    def _finish(self, j: int, y: torch.Tensor, gated: bool) -> None:
+        """The iterate from the coefficients y, its true residual, the
+        counts, ``done`` and the next step's flags."""
+        live = ~self.done
+        x = y[: j + 1] @ self.st.Z[: j + 1] + self.x0
+        r = torch.linalg.norm(self.A @ x - self.b)
+        self.x.copy_(torch.where(live, x, self.x))
+        self.res[j] = torch.where(live, r, self.res[j])
+        self.r_prev.copy_(torch.where(live, r, self.r_prev))
+        self.yk.copy_(torch.where(live, y, self.yk))
+        done = ((r < self.tol) & (self.safety == _SAFETY_OK)) | self.brk_now
+        self.brk.copy_(self.brk | self.brk_now)
+        self.steps.add_(live.long())
+        if gated:
+            self.ncon.add_(live.long())
+        self.done.copy_(self.done | (live & done))
+        self._set_flags(j + 1)
+
+    def _advance(self, j: int) -> None:
+        live = ~self.done
+        self.dev.copy_(torch.where(live, float("inf"), self.dev))
+        self._finish(j, self.y_unc, gated=False)
+
+    def _finish0(self, j: int) -> None:
+        """A gated step without constraints: the constrained solve is the
+        LSQ and the latch is vacuously satisfied."""
+        live = ~self.done
+        self.safety.copy_(torch.where(live, _SAFETY_OK, self.safety))
+        self.dev.copy_(torch.where(live, 0.0, self.dev))
+        self._finish(j, self.y_unc, gated=True)
+
+    def _catchup(self, j1: int) -> None:
+        live = ~self.done
+        for con, buf in zip(self.cons, self.bufs):
+            catch_up(con, buf, self.st.Z, self.x0, j1, live, self.x0_zero)
+
+    def _model(self, j: int):
+        return kkt_model(self.st.H, self.beta, self.bufs, j + 1, self.s0)
+
+    def _set_kflags(self) -> None:
+        self.kflags.copy_(torch.stack([self.work.cond.any(),
+                                       self.work.refact.any()]).long())
+
+    def _kkt_start(self, j: int) -> None:
+        live = ~self.done
+        for con, buf in zip(self.cons, self.bufs):
+            fold_column(con, buf, self.st.Z, self.x0, j, live, self.x0_zero)
+        ka, na = j + 1, self.m + j + 1
+        y0 = torch.stack([self.yk[:ka], self.y_unc[:ka]])
+        have = torch.stack([self.haveK, torch.zeros_like(self.haveK)])
+        kkt_start(self._model(j), self.work, y0, have, self.lamc,
+                  self.Kinvc[:na, :na], self.kkt_tol, self.linear)
+        self._set_kflags()
+
+    def _kkt_step(self, j: int) -> None:
+        kkt_step(self._model(j), self.work, self.kkt_tol)
+        self._set_kflags()
+
+    def _kkt_refactor(self, j: int) -> None:
+        kkt_refactor(self._model(j), self.work)
+
+    def _kkt_finish(self, j: int) -> None:
+        live = ~self.done
+        mod, w, dt = self._model(j), self.work, self.b.dtype
+        ka, na, k = j + 1, self.m + j + 1, self.k
+        eps, tiny = torch.finfo(dt).eps, torch.finfo(dt).tiny
+        Y, y_unc, beta = w.y[:, :ka], self.y_unc[:ka], self.beta
+        dev_c = kkt_values(mod, Y)[0].abs().amax(-1)
+        scale_c = kkt_scale(mod, Y)
+        # the roundoff scale and deviation at the fallback (unconstrained)
+        # coefficients: the dual start's one floor, and the kept point's
+        # numbers if the far branch rejects the constrained one
+        dev_fb = kkt_values(mod, y_unc)[0].abs().amax(-1)
+        scale_fb = kkt_scale(mod, y_unc)
+        be1 = torch.cat([beta.reshape(1), Y.new_zeros(ka)])
+        resid = torch.linalg.norm(be1 - Y @ self.st.H[: ka + 1, :ka].T, dim=-1)
+        # the dual start's choice (``_take_fresh``): feasible first, then the
+        # smaller Hessenberg residual, against one floor; never a NaN
+        nan = torch.isnan(Y).any(-1)
+        floor_fb = torch.clamp(32.0 * eps * scale_fb, min=self.ctol)
+        cap = DIVERGED_SCALE * torch.clamp(scale_fb, min=tiny)
+        feas = ~nan & (dev_c <= floor_fb) & (scale_c < cap)
+        rr = torch.where(nan, float("inf"), resid)
+        take = torch.where(feas[0] != feas[1], feas[1], rr[1] < rr[0]) & ~nan[1]
+        pick = take.long().reshape(1)
+
+        def chosen(t):
+            return t.index_select(0, pick)[0]
+
+        y_kkt, bad, res_kkt = chosen(Y), chosen(nan), chosen(resid)
+        # far-branch rejection (reference solvers.py:256-284): a constrained
+        # point whose residual exceeds the initial one keeps the LSQ
+        # coefficients and the fallback's numbers, and trips the latch
+        res_unc = self.st.g[j + 1].abs()
+        far = ~bad & (res_kkt > 0.5 * beta) & (res_kkt > 1e3 * res_unc)
+        deviation = torch.where(far, dev_fb, chosen(dev_c))
+        scale = torch.where(far, scale_fb, chosen(scale_c))
+        y = torch.cat([torch.where(bad | far, y_unc, y_kkt),
+                       Y.new_zeros(k - ka)])
+        floor = torch.clamp(32.0 * eps * scale, min=self.ctol)
+        safety = torch.where(bad, self.safety, torch.where(
+            deviation > floor, _SAFETY_BAD, _SAFETY_OK))
+        self.safety.copy_(torch.where(live, safety, self.safety))
+        self.dev.copy_(torch.where(live, deviation, self.dev))
+        self.kkt_it.add_(torch.where(live, chosen(w.it), 0))
+        self.nfb.add_((live & bad).long())
+        self.lamc.copy_(torch.where(live, chosen(w.lam), self.lamc))
+        self.Kinvc[:na, :na] = torch.where(live, chosen(w.Kinv[:, :na, :na]),
+                                           self.Kinvc[:na, :na])
+        self.haveK.copy_(torch.where(live, ~bad & ~far, self.haveK))
+        self._finish(j, y, gated=True)
+
+
+def _quadratic(constraints) -> tuple:
+    cons = tuple(constraints)
+    if any(isinstance(c, GeneralConstraint) for c in cons):
+        raise NotImplementedError(
+            "the device core takes quadratic constraints; a general "
+            "constraint runs in the host loop (loop='host')")
+    return cons
+
+
+def _key(obj):
+    """A key of an operator (or preconditioner) for the cache of device
+    cores: a tensor by its storage, shape, strides, dtype and device; a
+    dataclass by its type and compared fields; a tuple or list by its items;
+    a number, string or None by itself; anything else by its identity.  A
+    cached core keeps the objects of its key alive, so a storage address
+    stays theirs while it is cached."""
+    if isinstance(obj, torch.Tensor):
+        return ("tensor", obj.data_ptr(), tuple(obj.shape), obj.stride(),
+                obj.dtype, str(obj.device))
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return (type(obj), tuple(_key(getattr(obj, f.name))
+                                 for f in dataclasses.fields(obj) if f.compare))
+    if isinstance(obj, (tuple, list)):
+        return tuple(_key(o) for o in obj)
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    return ("id", id(obj))
+
+
+# the device core of the last ``cgmres(loop="while")`` call, with its captured
+# graphs, by what it was built for; a call with another key replaces it
+_CORES: dict = {}
+
+
+def clear_core_cache() -> None:
+    """Drop the cached device core (its buffers and graphs)."""
+    _CORES.clear()
+
+
+def _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho) -> DeviceCore:
+    """The cached device core for these operators and options, built (and
+    cached in place of the last one) if it is not the cached one."""
+    key = (_key(A), _key(pre), int(k), float(tol), float(contol), float(ctol),
+           ortho, x0 is None, tuple(b.shape), b.dtype, str(b.device),
+           tuple((_key(c.M), c.v is None) for c in cons))
+    core = _CORES.get(key)
+    if core is None:
+        _CORES.clear()  # the last core's buffers go before the new ones come
+        core = _CORES[key] = DeviceCore(
+            A, pre, k, cons, like=b, tol=tol, contol=contol, ctol=ctol,
+            ortho=ortho, x0_zero=x0 is None)
+    return core
+
+
+def _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
+                timing, ortho):
+    if history:
+        raise NotImplementedError(
+            "history is recorded by the host loop (loop='host')")
+    cons = _quadratic(constraints)
+    t0 = time.perf_counter()
+    core = _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho)
+    core.load(b, x0, cons)
+    t_setup = time.perf_counter() - t0
+    times = core.solve()
+    out = core.result()
+    # one device-to-host copy for every scalar the info dict needs
+    host = torch.stack([t.double() for t in (
+        out.steps, out.constrained_steps, out.safety, out.deviation,
+        out.breakdown, out.kkt_iters, out.fallbacks)]).tolist()
+    steps, ncon, safety, dev_j, brk, kkt_it, nfb = host
+    steps, ncon = int(steps), int(ncon)
+    info = _info(False, steps, ncon, int(safety), dev_j, bool(brk),
+                 int(kkt_it), int(nfb), out.res.cpu().numpy())
+    if timing:
+        j1 = times["phase1_steps_measured"]
+        info["timings"] = {
+            "constrained_steps": ncon,
+            "unconstrained_steps": max(steps - ncon, 0),
+            "runtime": times["runtime"],
+            "time_capture": times["time_capture"],
+            "time_setup": t_setup,
+            "iter_time_unconstrained": np.nan if j1 == 0
+            else times["phase1"] / j1,
+            "iter_time_constrained": np.nan if ncon == 0
+            else times["endgame"] / ncon,
+            "constraint_building": times["constraint_building"],
+            "phase1_steps_measured": j1,
+            "method": "measured: host clock around the replays of phase 1, "
+                      "the catch-up and the endgame, each ending in a flag "
+                      "read; captures left out (time_capture)",
+        }
+    else:
+        info["timings"] = None
+    return out.x, info
+
+
 def _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history, timing,
-         prototypical, ortho="cgs2"):
+         prototypical, ortho="cgs2", loop="host"):
     require_f64(b)
     x0 = as_operand(x0, b)
     if timing and prototypical:
         raise NotImplementedError("timing is measured for cgmres only")
+    if loop == "while" and not prototypical:
+        return _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol,
+                           history, timing, ortho)
+    if loop != "host":
+        raise ValueError(
+            f"loop={loop!r}: use 'host' or, for cgmres, 'while' (the JAX "
+            "package's 'fori' is not ported)")
     solve = _Solve(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
                    prototypical, ortho)
     return solve.run(bool(timing))
@@ -373,6 +883,7 @@ def cgmres(
     history: bool = False,
     timing: bool = False,
     ortho: str = "cgs2",
+    loop: str = "host",
 ):
     """Constraint-satisfying FGMRES; returns ``(x, info)``.
 
@@ -381,9 +892,18 @@ def cgmres(
     ``timings`` entry when ``timing=True`` — plus ``deviation``, ``safety``,
     ``constrained_steps``, ``kkt_iters`` and ``fallbacks``.  ``ortho`` is
     the Arnoldi orthogonalisation (``arnoldi_step``).
+
+    ``loop``: ``"host"`` (the default) runs the host loop; ``"while"`` the
+    device core (``DeviceCore``; quadratic constraints, no ``history``),
+    captured as CUDA graphs on the card, eager on the CPU.  The last core
+    is kept, on the operators, the preconditioner, ``k``, the tolerances,
+    ``ortho`` and the constraints' operators (``clear_core_cache`` drops
+    it), so a second solve with new b, x0 or targets replays the first
+    one's graphs; its ``timings`` add ``time_capture``, the seconds spent
+    capturing, which ``runtime`` leaves out.
     """
     return _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
-                timing, prototypical=False, ortho=ortho)
+                timing, prototypical=False, ortho=ortho, loop=loop)
 
 
 def cgmres_p(

@@ -16,12 +16,22 @@ Masking: coefficients beyond the active Arnoldi prefix and constraints not
 yet enforced (the prototypical solver enforces them one by one, reference
 ``solvers.py:413``) are pinned via unit diagonal rows, so every solve has
 the same shape.
+
+The device core (``solvers/cgmres.py::DeviceCore``) runs the same
+modified Newton on the card, with no host read inside a step, from the
+functions at the end of this module: the JAX package's ``gj_inverse`` and
+``solve_dense`` (``kkt.py:55-125`` there) and ``constrained_lsq``
+(``:127-293``) cut into a start, one iteration and a re-factorisation, so
+that the host decides between the steps from a flag.  There the active
+prefix is a Python constant, so the problem is set up on the active
+coefficients alone: pinned coefficients have unit rows in the JAX
+package's KKT matrix and do not change its active block.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -179,3 +189,276 @@ def constrained_lsq(
         Kinv=Kinv,
         refacts=refacts,
     )
+
+
+# --- the device form: a start, one iteration and a re-factorisation ----------
+
+
+def gj_inverse(K: torch.Tensor) -> torch.Tensor:
+    """Inverse of each (n, n) matrix of K (..., n, n) by Gauss–Jordan with
+    partial pivoting on [K | I], in tensor operations with no host read: the
+    JAX package's ``gj_inverse`` (``kkt.py:55-125`` there).  The pivot of
+    column c is the largest unused entry of the column; it eliminates the
+    column from every other row, so no back substitution follows.  Ten
+    operations a column."""
+    n = K.shape[-1]
+    eye = torch.eye(n, dtype=K.dtype, device=K.device).expand(K.shape)
+    M = torch.cat([K, eye], dim=-1)
+    batch = K.shape[:-2]
+    used = torch.zeros((*batch, n), dtype=torch.bool, device=K.device)
+    perm = torch.zeros((*batch, n), dtype=torch.long, device=K.device)
+    tiny = torch.finfo(K.dtype).tiny
+    for c in range(n):
+        col = M[..., :, c]
+        piv = torch.where(used, -1.0, col.abs()).argmax(-1, keepdim=True)
+        pivrow = torch.take_along_dim(M, piv[..., None], dim=-2)
+        pivval = pivrow[..., 0, c : c + 1]
+        pivval = torch.where(pivval == 0, tiny, pivval)
+        factors = (col / pivval).scatter(-1, piv, 0.0)
+        M = torch.addcmul(M, factors[..., :, None], pivrow, value=-1.0)
+        used = used.scatter(-1, piv, True)
+        perm[..., c] = piv[..., 0]
+    # row p(c) of the eliminated system is pivval_c (e_c, K⁻¹[c, :])
+    rows = torch.take_along_dim(M, perm[..., None], dim=-2)
+    diag = torch.diagonal(rows[..., :n], dim1=-2, dim2=-1)
+    diag = torch.where(diag == 0, tiny, diag)
+    return rows[..., n:] / diag[..., None]
+
+
+def solve_dense(K: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """K x = rhs for each (n, n) K of a batch by Gauss–Jordan; rhs (..., n)."""
+    return (gj_inverse(K) @ rhs[..., None])[..., 0]
+
+
+class KKTModel(NamedTuple):
+    """The KKT problem of one constrained step on the active coefficients:
+    the objective's Hessian and gradient term and the m reduced constraints
+    stacked, each on the ``ka`` active coefficients, with the roundoff
+    scales s0 of their values at x0."""
+
+    G2: torch.Tensor  # (ka, ka)  2 Hᵀ H
+    bf: torch.Tensor  # (ka,)     2 β H[0, :]
+    t0: torch.Tensor  # (m,)
+    s0: torch.Tensor  # (m,)
+    t1: torch.Tensor  # (m, ka)
+    T2: torch.Tensor  # (m, ka, ka)
+    # (m,) bool: constraints pinned for this step (``kkt_start``), whose
+    # Jacobian rows are zero and multipliers held at zero
+    pin: Optional[torch.Tensor] = None
+
+
+def kkt_model(H: torch.Tensor, beta: torch.Tensor,
+              bufs: Tuple[ReducedBuffers, ...], ka: int,
+              s0: torch.Tensor) -> KKTModel:
+    """The model on the first ``ka`` coefficients; ``s0`` (m,) the roundoff
+    scales of the constraints' values at x0 (``value_and_scale``)."""
+    Ha = H[: ka + 1, :ka]
+    return KKTModel(
+        G2=2.0 * (Ha.T @ Ha), bf=2.0 * beta * Ha[0],
+        t0=torch.stack([b.t0 for b in bufs]),
+        s0=s0,
+        t1=torch.stack([b.t1[:ka] for b in bufs]),
+        T2=torch.stack([b.T2[:ka, :ka] for b in bufs]))
+
+
+def pinned(mod: KKTModel, pin: torch.Tensor) -> KKTModel:
+    """The model with the constraints of ``pin`` taken out of the Newton:
+    their reduced gradients set to zero (they are linear), so their values
+    stay t0 and the KKT matrix gets a one on their multipliers' diagonal."""
+    return mod._replace(t1=torch.where(pin[:, None], 0.0, mod.t1), pin=pin)
+
+
+def kkt_values(mod: KKTModel, y: torch.Tensor):
+    """The constraints' values g (..., m) and Jacobians J (..., m, ka) at
+    the coefficients y (..., ka)."""
+    T2y = torch.einsum("mab,...b->...ma", mod.T2, y)
+    g = mod.t0 + y @ mod.t1.T + (y[..., None, :] * T2y).sum(-1)
+    return g, mod.t1 + 2.0 * T2y
+
+
+def kkt_scale(mod: KKTModel, y: torch.Tensor) -> torch.Tensor:
+    """The largest roundoff scale of the constraints at y (..., ka): the
+    ``reduced_scale`` of each, then the maximum, with the scale s0 of the
+    value at x0 in place of |t0|.  From a warm start t0 = g(x0) is a
+    cancellation (swe's mass, 9e3, to 0.0), and |t0| would put the floor
+    below the roundoff of every evaluation of g."""
+    scales = (mod.s0 + (mod.t1 * y[..., None, :]).abs().sum(-1)
+              + (y[..., None, :, None] * mod.T2 * y[..., None, None, :])
+              .abs().sum((-1, -2)))
+    return scales.amax(-1)
+
+
+def kkt_residual(mod: KKTModel, y: torch.Tensor, lam: torch.Tensor):
+    """The KKT residual [g, ∇f + Jᵀλ] (..., m + ka) at (y, λ), the
+    multipliers first, with g and J."""
+    g, J = kkt_values(mod, y)
+    rL = y @ mod.G2.T - mod.bf + torch.einsum("...mk,...m->...k", J, lam)
+    return torch.cat([g, rL], dim=-1), g, J
+
+
+def kkt_factor(mod: KKTModel, y: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """The inverse of the KKT matrix [[0, J], [Jᵀ, W]] at (y, λ) for each of
+    a batch (..., ka), (..., m), with W = 2HᵀH + Σ 2λ_i T2_i."""
+    _, J = kkt_values(mod, y)
+    W = mod.G2 + torch.einsum("...m,mab->...ab", 2.0 * lam, mod.T2)
+    m = lam.shape[-1]
+    zero = torch.zeros((*lam.shape, m), dtype=W.dtype, device=W.device)
+    if mod.pin is not None:
+        zero = zero + torch.diag_embed(mod.pin.to(W.dtype))
+    K = torch.cat([torch.cat([zero, J], dim=-1),
+                   torch.cat([J.transpose(-1, -2), W], dim=-1)], dim=-2)
+    return gj_inverse(K)
+
+
+class KKTWork(NamedTuple):
+    """The modified Newton's state for a batch of B starts, in buffers of
+    the largest size: coefficients (B, k), multipliers (B, m), the KKT
+    residual (B, m + k) and inverse (B, m + k, m + k), whose leading
+    m + ka entries a step uses, and per start its norm, its entry floor,
+    its counts and its flags; the pins (m,) of the step (``kkt_start``)."""
+
+    y: torch.Tensor
+    lam: torch.Tensor
+    r: torch.Tensor
+    Kinv: torch.Tensor
+    rnorm: torch.Tensor
+    floor0: torch.Tensor
+    it: torch.Tensor
+    refacts: torch.Tensor
+    fresh: torch.Tensor
+    give_up: torch.Tensor
+    cond: torch.Tensor
+    refact: torch.Tensor
+    pin: torch.Tensor
+
+
+def kkt_work(B: int, k: int, m: int, like: torch.Tensor) -> KKTWork:
+    def z(*shape, dtype=like.dtype):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+
+    return KKTWork(y=z(B, k), lam=z(B, m), r=z(B, m + k),
+                   Kinv=z(B, m + k, m + k), rnorm=z(B), floor0=z(B),
+                   it=z(B, dtype=torch.long), refacts=z(B, dtype=torch.long),
+                   fresh=z(B, dtype=torch.bool), give_up=z(B, dtype=torch.bool),
+                   cond=z(B, dtype=torch.bool), refact=z(B, dtype=torch.bool),
+                   pin=z(m, dtype=torch.bool))
+
+
+def _going(mod, work, na, m, kkt_tol, maxiter):
+    """Whether each start iterates on: its residual is above the (relative)
+    threshold or its constraints above the entry floor, within the
+    iteration cap and not given up."""
+    r = work.r[:, :na]
+    thresh = kkt_tol * (1.0 + torch.linalg.norm(mod.bf))
+    return (((work.rnorm > thresh)
+             | (r[:, :m].abs().amax(-1) - work.floor0 > 0))
+            & (work.it < maxiter) & ~work.give_up)
+
+
+def kkt_start(mod: KKTModel, work: KKTWork, y0: torch.Tensor,
+              have: torch.Tensor, lam_ws: torch.Tensor, Kinv_ws: torch.Tensor,
+              kkt_tol: float, linear: torch.Tensor, maxiter: int = 40) -> None:
+    """Set up the modified Newton from the starts y0 (B, ka): the
+    least-squares multiplier estimate, the residual and the factorisation,
+    or, where ``have`` (B,), the warm multipliers ``lam_ws`` (m,) and
+    inverse ``Kinv_ws`` (m + ka, m + ka); as ``constrained_lsq`` begins.
+
+    Then the pins (``work.pin``; not in the JAX package): a ``linear`` (m,)
+    constraint whose value at both starts, summand by summand, lies within
+    the entry floor is satisfied by every iterate near them, and its
+    Jacobian row is zero to roundoff.  (From a warm start swe's Krylov
+    vectors carry no mass: the mass row is 1e-13 of its scale and the KKT
+    matrix singular, so the Newton stalls and the solve runs to k.)  A
+    pinned constraint leaves the Newton (``pinned``); ``kkt_step`` and
+    ``kkt_refactor`` take the model with ``work.pin``, and the caller judges
+    the result on the unpinned values."""
+    B, ka = y0.shape
+    m = mod.t0.shape[0]
+    na = m + ka
+    eps = torch.finfo(y0.dtype).eps
+    work.floor0.copy_(torch.clamp(32.0 * eps * kkt_scale(mod, y0),
+                                  min=10.0 * kkt_tol))
+    reach = mod.t0.abs() + mod.t1.abs() @ y0.abs().amax(0)
+    work.pin.copy_(linear & (reach <= work.floor0.amin()))
+    mod = pinned(mod, work.pin)
+    r_zero, g0, J0 = kkt_residual(mod, y0, y0.new_zeros(B, m))
+    gf0 = r_zero[:, m:]
+    S = J0 @ J0.transpose(-1, -2) + torch.diag(work.pin.to(y0.dtype))
+    lam0 = -solve_dense(S, (J0 @ gf0[..., None])[..., 0])
+    lam0 = torch.where(torch.isfinite(lam0), lam0, 0.0)
+    lam = torch.where(have[:, None], lam_ws, lam0)
+    r = torch.cat([g0, gf0 + torch.einsum("bmk,bm->bk", J0, lam)], dim=-1)
+    Kinv = torch.where(have[:, None, None], Kinv_ws, kkt_factor(mod, y0, lam))
+    work.y[:, :ka] = y0
+    work.lam.copy_(lam)
+    work.r[:, :na] = r
+    work.Kinv[:, :na, :na] = Kinv
+    work.rnorm.copy_(torch.linalg.norm(r, dim=-1))
+    work.it.zero_()
+    work.refacts.copy_(torch.where(have, 0, 1))
+    work.fresh.copy_(~have)
+    work.give_up.zero_()
+    work.refact.zero_()
+    work.cond.copy_(_going(mod, work, na, m, kkt_tol, maxiter))
+
+
+# the backtracking candidates of one iteration, all evaluated at once
+def _alphas(like: torch.Tensor) -> torch.Tensor:
+    return torch.pow(2.0, -torch.arange(14, dtype=like.dtype,
+                                        device=like.device))
+
+
+def kkt_step(mod: KKTModel, work: KKTWork, kkt_tol: float, maxiter: int = 40,
+             max_refacts: int = 4) -> None:
+    """One modified-Newton iteration of each start still going
+    (``work.cond``), as the body of ``constrained_lsq``: the frozen
+    inverse's step, a batched Armijo search over 14 step lengths, and the
+    re-factorisation decision (``work.refact``; ``kkt_refactor`` does it).
+    A start that has stopped is left as it is."""
+    mod = pinned(mod, work.pin)
+    ka = mod.G2.shape[0]
+    m = mod.t0.shape[0]
+    na = m + ka
+    go = work.cond
+    y, lam, r = work.y[:, :ka], work.lam, work.r[:, :na]
+    step = -(work.Kinv[:, :na, :na] @ r[..., None])[..., 0]
+    dlam, dy = step[:, :m], step[:, m:]
+    phi0 = work.rnorm * work.rnorm
+    alphas = _alphas(y)
+    ys = y[:, None, :] + alphas[None, :, None] * dy[:, None, :]
+    ls = lam[:, None, :] + alphas[None, :, None] * dlam[:, None, :]
+    rn = kkt_residual(mod, ys, ls)[0]
+    phin = (rn * rn).sum(-1)
+    ok = phin <= (1.0 - 1e-4 * alphas) * phi0[:, None]
+    # the largest Armijo-acceptable step, else the best decrease
+    idx = torch.where(ok.any(-1), ok.to(torch.uint8).argmax(-1),
+                      phin.argmin(-1))
+    alpha = alphas[idx]
+    phi_acc = torch.take_along_dim(phin, idx[:, None], dim=-1)[:, 0]
+    r_acc = torch.take_along_dim(rn, idx[:, None, None], dim=-2)[:, 0]
+    slow = phi_acc > 0.25 * phi0
+    stalled = phi_acc > 0.995 * phi0
+    give_up = (stalled & work.fresh) | (stalled & (work.refacts >= max_refacts))
+    refact = go & slow & ~give_up & (work.refacts < max_refacts)
+    work.y[:, :ka] = torch.where(go[:, None], y + alpha[:, None] * dy, y)
+    work.lam.copy_(torch.where(go[:, None], lam + alpha[:, None] * dlam, lam))
+    work.r[:, :na] = torch.where(go[:, None], r_acc, r)
+    work.rnorm.copy_(torch.where(go, torch.sqrt(phi_acc), work.rnorm))
+    work.it.add_(go.long())
+    work.refacts.add_(refact.long())
+    work.fresh.copy_(torch.where(go, refact, work.fresh))
+    work.give_up.copy_(torch.where(go, give_up, work.give_up))
+    work.refact.copy_(refact)
+    work.cond.copy_(_going(mod, work, na, m, kkt_tol, maxiter))
+
+
+def kkt_refactor(mod: KKTModel, work: KKTWork) -> None:
+    """Re-factor the KKT matrix at the current point of each start that
+    asked for it (``work.refact``)."""
+    mod = pinned(mod, work.pin)
+    ka = mod.G2.shape[0]
+    na = mod.t0.shape[0] + ka
+    Kinv = work.Kinv[:, :na, :na]
+    work.Kinv[:, :na, :na] = torch.where(
+        work.refact[:, None, None],
+        kkt_factor(mod, work.y[:, :ka], work.lam), Kinv)

@@ -753,3 +753,80 @@ def test_swe_fused_ortho_and_snc_on_card_match_cpu():
         assert ig[key] == ic[key]
     assert ig["safety"] is True and ig["deviation"] <= 1e-10
     assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ortho", ["cgs2", "cgs2_fused"])
+def test_graph_core_on_card(ortho):
+    """The device core on the card: each step a CUDA graph.  Its replays
+    give the bits of the same steps run eagerly on the card, the host loop's
+    iterate to 1e-10, and count the kernels they launch: a solve's DIA and
+    fused CGS2 launches equal the eager core's."""
+    _card()
+    import importlib
+
+    from structurepreservingiterativesolvers_torch.kernels.ortho import (
+        fused_update_matvec_cuda,
+    )
+    from structurepreservingiterativesolvers_torch.models import swe
+    from structurepreservingiterativesolvers_torch.solvers.graphs import (
+        GraphRunner,
+    )
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    s = swe.linforms(M=32, device="cuda")
+    kw = dict(k=60, tol=1e-9, constraints=s.constraints(), ortho=ortho)
+    xh, ih = cg.cgmres(s.A, s.b, **kw)
+    xg, ig = cg.cgmres(s.A, s.b, loop="while", timing=True, **kw)
+    assert ig["timings"]["time_capture"] > 0
+
+    def counts():
+        return dia_spmv_cuda.launches, fused_update_matvec_cuda.launches
+
+    before = counts()
+    x2, i2 = cg.cgmres(s.A, s.b, loop="while", timing=True, **kw)
+    torch.cuda.synchronize()
+    replayed = [a - b for a, b in zip(counts(), before)]
+    assert i2["timings"]["time_capture"] == 0  # nothing captured again
+    core = cg.DeviceCore(s.A, None, 60, s.constraints(), like=s.b, tol=1e-9,
+                         ortho=ortho, x0_zero=True,
+                         runner=GraphRunner("cuda", capture=False))
+    before = counts()
+    core.load(s.b, None, s.constraints())
+    core.solve()
+    torch.cuda.synchronize()
+    eager = [a - b for a, b in zip(counts(), before)]
+    assert replayed == eager and replayed[0] > 0
+    assert (replayed[1] > 0) == (ortho == "cgs2_fused")
+    xe = core.result().x
+    assert float((xg - xe).abs().max() / xe.abs().max()) <= 1e-13
+    assert torch.equal(xg, x2)
+    for key in ("steps", "constrained_steps", "safety"):
+        assert ig[key] == ih[key]
+    assert float((xg - xh).abs().max() / xh.abs().max()) <= 1e-10
+    cg.clear_core_cache()
+
+
+@pytest.mark.cuda
+def test_fused_evolve_on_card_matches_cpu():
+    """``fused_evolve`` replays its graphs every step on the card and gives
+    the CPU's evolution: steps per step within one, every latch certified,
+    the drifts at roundoff; the DIA launches it counts are its replays'
+    (the warm-ups' are not counted)."""
+    _card()
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        fused_evolve,
+    )
+
+    kw = dict(N=4, M=16, k=20, tol=1e-7, T=1.0, warm_start=False)
+    cpu = fused_evolve("swe", device="cpu", **kw)
+    before = dia_spmv_cuda.launches
+    gpu = fused_evolve("swe", device="cuda", **kw)
+    made = dia_spmv_cuda.launches - before
+    assert made == gpu["timings"]["launches"]["dia_spmv"] > 0
+    assert all(abs(int(a) - int(b)) <= 1 for a, b in zip(gpu["steps"], cpu["steps"]))
+    assert all(int(sf) == 1 for sf in gpu["safety"])
+    assert max(gpu["dm"]) < 1e-9 and max(gpu["de"]) / 3e4 < 1e-13
+    assert gpu["timings"]["step_capture"][1:].sum() == 0  # captured once
+    assert gpu["sol"].device.type == "cuda"

@@ -2,8 +2,9 @@
 has no JAX.  A subprocess that blocks ``import jax`` and the JAX package
 imports the port, runs lkdv CGMRES, the SingleSolve command line, the heat
 and swe TimedSolve command lines and the swe Evolve command line (with the
-fused orthogonalisation's plain twin) on the CPU, and imports the lkdvRK
-modules."""
+fused orthogonalisation's plain twin) on the CPU, the device core
+(``cgmres(loop="while")``) and ``fused_evolve`` eagerly on the CPU, and
+imports the lkdvRK modules, the graph runner and the profiling module."""
 
 import re
 import subprocess
@@ -35,8 +36,14 @@ main(["timed", "--problem", "swe", "--sizes", "16", "--device", "cpu",
       "--ortho", "cgs2_fused"])
 main(["evolve", "--problem", "swe", "--M", "16", "--N", "2", "--k", "30",
       "--tol", "1e-8", "--device", "cpu", "--ortho", "cgs2_fused"])
-from structurepreservingiterativesolvers_torch.solvers import cg
-from structurepreservingiterativesolvers_torch.utils import checkpoint
+x2, info2 = cgmres(s.A, s.b, k=30, tol=1e-10, constraints=s.constraints(),
+                   loop="while")
+print("DEVICE", info2["steps"], info2["safety"], float((x2 - x).abs().max()))
+from structurepreservingiterativesolvers_torch.experiments.evolve import fused_evolve
+out = fused_evolve("swe", N=2, M=8, k=20, tol=1e-8, device="cpu")
+print("FUSED", out["safety"].tolist())
+from structurepreservingiterativesolvers_torch.solvers import cg, graphs
+from structurepreservingiterativesolvers_torch.utils import checkpoint, profiling
 from structurepreservingiterativesolvers_torch.experiments import error_sweep
 from structurepreservingiterativesolvers_torch.models import fixtures, lkdvrk
 from structurepreservingiterativesolvers_torch import interop
@@ -53,6 +60,11 @@ def test_port_imports_and_solves_without_jax():
     _, steps, ncon, safety, dev = solve[0].split()
     assert safety == "True" and float(dev) <= 1e-10
     assert int(steps) >= 1 and int(ncon) >= 1
+    # the device core (eager on the CPU) and fused_evolve run without JAX
+    device = [ln for ln in proc.stdout.splitlines() if ln.startswith("DEVICE")]
+    _, steps2, safety2, dx = device[0].split()
+    assert steps2 == steps and safety2 == "True" and float(dx) <= 1e-10
+    assert "FUSED [1, 1]" in proc.stdout
     # SingleSolve prints every invariant deviation of the three solvers;
     # the prototypical CGMRES ones are at roundoff
     cg = re.findall(r"^cgmres \w+ deviation = (\S+)$", proc.stdout, re.M)
