@@ -7,9 +7,10 @@ Run from the root of a checkout, on a machine with one CUDA card, the CUDA
 toolkit (nvcc) and PyTorch built for CUDA; JAX is neither needed nor
 imported.  Phases, each of which raises on a failed check:
 
-1. build the five kernel sources from ``csrc/`` (``dia_spmv.cu``,
+1. build the six kernel sources from ``csrc/`` (``dia_spmv.cu``,
    ``stencil_spmv.cu``, ``poly_apply.cu``, ``poly_tiled.cu``,
-   ``ortho_fused.cu``), one ``nvcc`` for each source, started together;
+   ``ortho_fused.cu``, ``dia_spmm.cu``), one ``nvcc`` for each source,
+   started together;
 2. hold the DIA kernel against its plain PyTorch twin in f64 and f32 on the
    shallow-water operator (M=512, wrapped) and the lkdv degree-3 M=100
    operators (A wrapped, the mass matrix not, ragged n), through each
@@ -113,7 +114,21 @@ imported.  Phases, each of which raises on a failed check:
     JAX ``fused_evolve`` record ``swe_M512_snc_fused``
     (``reference/slice8.json``), with each step's wall beside the host-loop
     evolution's, ``time_capture`` and the idle share of a profiled
-    evolution.
+    evolution;
+19. (last) the ninth slice: the batched DIA kernel (``dia_spmm.cu``)
+    against its plain twin within 1e-12 on swe M=512's A at B = 1, 2, 3,
+    8, 41, on heat M=1024's A (after phase 6) and on lkdvRK (3, 2)'s A
+    (after phase 13) at B = 8, timed beside 8 launches of kernel #1,
+    cuSPARSE SpMM and the plain twin; then ``cgmres_many`` on the two swe
+    M=512 rows of ``reference/slice9.json`` at B = 8, each item held to
+    the JAX package with its targets summed as the port sums them (steps
+    equal), to the record (safety, the residual trace before the first
+    gate opens, x's max-norm and sum, and where the record certifies the
+    KKT deviation and true residual) and to its own
+    ``cgmres(loop="while")`` on the card (steps equal, x within 1e-10);
+    the median wall of 5 batched solves beside the 8 single solves,
+    ``time_capture``, device busy and idle share, and the batched kernel
+    inside the replays by the counters and the profiler.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -152,7 +167,7 @@ HEAT_TOL, HEAT_K, HEAT_M = 1e-7, 20, 1024
 SWE_N, HEAT_N = 3 * SWE_M**2, (HEAT_M + 1) ** 2
 DEVICE = "cuda"
 SOURCES = ("dia_spmv.cu", "stencil_spmv.cu", "poly_apply.cu", "poly_tiled.cu",
-           "ortho_fused.cu")
+           "ortho_fused.cu", "dia_spmm.cu")
 # the third slice: the polynomial pre-builders as a user writes them
 # (degree, and Neumann's default damping), and its record's tolerances
 CHEB_DEGREE, NEU_DEGREE, NEU_OMEGA = 8, 4, 0.8
@@ -913,7 +928,10 @@ def _launch_counters():
             "neumann_apply": pa.neumann_apply_cuda,
             "neumann_apply_tiled": pa.neumann_apply_tiled_cuda,
             "neumann_apply_flat": pa.neumann_apply_flat_cuda,
-            "fused_update_matvec": fused_update_matvec_cuda}
+            "fused_update_matvec": fused_update_matvec_cuda,
+            "dia_spmm": kd.dia_spmm_cuda,
+            "dia_spmm_live": kd.dia_spmm_live_cuda,
+            "dia_spmm_dense": kd.dia_spmm_dense_cuda}
 
 
 # the design every launch of a kernel on a main path must run, and the other
@@ -1143,6 +1161,17 @@ def phase_poly_timing(s):
 def _check_counts(tag, got, rec, keys):
     for key in keys:
         check(_within_one(got, rec, key),
+              f"{tag} {key} {got.get(key)} vs record {rec.get(key)}")
+
+
+def _check_at_most(tag, got, rec, keys):
+    """The counts of a solve that pins a linear constraint the JAX
+    package's KKT keeps (``solvers/kkt.py::pins``): at most the record's,
+    as the device core's are held (lkdvRK's stage-mapped mass is 0 at the
+    start to roundoff, its Krylov vectors carry none, and the JAX package's
+    endgame stalls on the singular KKT matrix for a few steps)."""
+    for key in keys:
+        check(int(got.get(key, 0)) <= int(rec.get(key, 0)),
               f"{tag} {key} {got.get(key)} vs record {rec.get(key)}")
 
 
@@ -1634,7 +1663,7 @@ GRAPH_SOLVES = 5
 
 def _is_span(name):
     return (name.startswith("replay ") or name == "flag read"
-            or name.startswith("fused_evolve"))
+            or name.startswith("fused_evolve") or name == "cgmres_many")
 
 
 def _window_busy(prof, name):
@@ -2026,8 +2055,8 @@ def phase_lkdvrk_rows(record):
               f"{tag} RAS blocks {blocks} vs record {rec['ras_blocks']}")
         check(out["safety"] is rec["cgmres"]["safety"] is True,
               f"{tag} safety {out['safety']}")
-        _check_counts(tag + " cgmres", out, rec["cgmres"],
-                      ("steps", "constrained_steps"))
+        _check_at_most(tag + " cgmres", out, rec["cgmres"],
+                       ("steps", "constrained_steps"))
         check(abs(out["gmres_steps"] - rec["gmres"]["steps"]) <= 1,
               f"{tag} gmres steps {out['gmres_steps']} vs record "
               f"{rec['gmres']['steps']}")
@@ -2070,8 +2099,8 @@ def _lkdvrk_fused(tag, s, pre, rec):
     check(ic["safety"] is True and ic["deviation"] <= DEVIATION_MAX,
           f"{tag} cgs2_fused CGMRES safety {ic['safety']}, deviation "
           f"{ic['deviation']:.3e}")
-    _check_counts(tag + " cgs2_fused cgmres", ic, rec["cgmres"],
-                  ("steps", "constrained_steps"))
+    _check_at_most(tag + " cgs2_fused cgmres", ic, rec["cgmres"],
+                   ("steps", "constrained_steps"))
     check(abs(ig["steps"] - rec["gmres"]["steps"]) <= 1,
           f"{tag} cgs2_fused gmres steps {ig['steps']}")
     check(launches["fused_update_matvec"] == ig["steps"] + ic["steps"],
@@ -2217,6 +2246,352 @@ def phase_general():
     return launches
 
 
+# the ninth slice: the batched DIA kernel against its plain twin (max|dY| /
+# max|Y|; each column sums as kernel #1 does, within 1e-12 in f64), the
+# widths it is held and timed at, and the batched rows of
+# reference/slice9.json
+SPMM_RTOL = {"float64": 1e-12, "float32": 1e-6}
+SPMM_BATCHES = (1, 2, 3, 8, 41)
+BATCH_ROWS = ("swe_M512_B8", "swe_M512_snc_B8")
+# each item's residual trace against the record's up to the record's first
+# open gate (the unconstrained steps, which the endgame's leveling-off near
+# tol does not reach): within 1e-10 relative plus a floor of 1e-12 of the
+# first residual, where a true residual's rounding lies (the port's traces on
+# the H100 are 2e-16 to 3e-13 of it from the record's there); x's max-norm
+# and sum within 1e-10 relative
+TRACE_RTOL, TRACE_FLOOR, X_RTOL = 1e-10, 1e-12, 1e-10
+# the gate's factor: cgmres_many's default, which the record's solves took
+CONTOL = 10.0
+
+
+def _reference_script():
+    """``scripts/make_torch_reference.py`` as a module (no JAX is imported
+    until one of its records is made): the batches' items are defined
+    there once."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_reference", ROOT / "scripts" / "make_torch_reference.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_spmm(label, A, gen, batches, dtypes=("float64", "float32")):
+    """The batched kernel on the DIA ``A`` against its plain twin for each
+    block width in ``batches``, on the (n, B) view of a (B, n) block (read
+    without a copy) and on a contiguous (n, B) block (copied into that
+    layout first), which must give the same bits; its live and dense
+    designs, tiles of 4 and 8 vectors and a second launch bit-equal; and
+    each column against kernel #1's product of it (bit-equal expected: the
+    same sums in the same order).  ``A @ X`` runs the design A's plan picks,
+    and each launch counts in its design.  Returns the largest f64 absolute
+    error."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+
+    max_abs = 0.0
+    for tag in dtypes:
+        dtype = getattr(torch, tag)
+        Ad = A if A.dtype == dtype else A.astype(dtype)
+        plan = Ad.live()
+        for B in batches:
+            X = torch.randn(B, A.shape[0], generator=gen, device=DEVICE,
+                            dtype=dtype).T
+            before = (kd.dia_spmm_cuda.launches, kd.dia_spmm_live_cuda.launches)
+            Y = Ad @ X
+            torch.cuda.synchronize()
+            check(kd.dia_spmm_cuda.launches == before[0] + 1
+                  and kd.dia_spmm_live_cuda.launches == before[1] + plan.pays,
+                  f"SpMM {label} {tag} B={B}: the launch did not count in "
+                  f"its design")
+            live = kd.dia_spmm_live_cuda(Ad.data, Ad.offsets, Ad.wrap, plan, X)
+            dense = kd.dia_spmm_cuda(Ad.data, Ad.offsets, Ad.wrap, X)
+            tile4 = kd.dia_spmm_cuda(Ad.data, Ad.offsets, Ad.wrap, X,
+                                     plan if plan.pays else None, tile=4)
+            copied = Ad @ X.contiguous()
+            again = Ad @ X
+            cols = torch.stack([Ad @ X[:, b].contiguous() for b in range(B)], 1)
+            torch.cuda.synchronize()
+            abs_err, rel = _rel_err(Y, kd.dia_spmm_torch(Ad.data, Ad.offsets,
+                                                         Ad.wrap, X))
+            same = {"live/dense": torch.equal(live, dense),
+                    "tile 4": torch.equal(Y, tile4),
+                    "contiguous X": torch.equal(Y, copied),
+                    "again": torch.equal(Y, again)}
+            print(f"[spmm] {label} n={A.shape[0]} ndiag={len(A.offsets)} "
+                  f"wrap={A.wrap} {tag} B={B}: max|dY|/max|Y| = {rel:.3e} "
+                  f"(bound {SPMM_RTOL[tag]:.0e}), {'live' if plan.pays else 'dense'} "
+                  f"design; bit-equal: " + ", ".join(
+                      f"{k} {v}" for k, v in same.items())
+                  + f"; columns equal kernel #1's {torch.equal(Y, cols)} "
+                  f"(max|d| {float((Y - cols).abs().max()):.3e})")
+            check(math.isfinite(rel) and rel <= SPMM_RTOL[tag],
+                  f"SpMM kernel disagrees with plain on {label} {tag} B={B}: "
+                  f"{rel:.3e}")
+            check(all(same.values()), f"SpMM {label} {tag} B={B}: designs, "
+                                      f"tiles, layouts or repeats differ")
+            check(_rel_err(cols, Y)[1] <= SPMM_RTOL[tag],
+                  f"SpMM {label} {tag} B={B}: columns differ from kernel #1")
+            if tag == "float64":
+                max_abs = max(max_abs, abs_err)
+    return max_abs
+
+
+def _time_spmm(A, A_csr, B, label, gen):
+    """The batched kernel on an (n, B) view of a (B, n) block, with L2
+    flushed: ``A @ X`` (tile 8, the design A's plan picks) and tile 4,
+    beside B launches of kernel #1 on its columns (L2 flushed before the
+    first), cuSPARSE SpMM (``torch.sparse.mm`` of the CSR matrix with a
+    contiguous (n, B) block), the plain twin, and the bound: the stored
+    non-zeros read once, B vectors read and B written."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+
+    n = A.shape[0]
+    X = torch.randn(B, n, generator=gen, device=DEVICE, dtype=torch.float64).T
+    Xc = X.contiguous()
+    cols = [X[:, b].contiguous() for b in range(B)]
+    plan = A.live()
+    Acsr = _csr(A_csr)
+    ref = Acsr @ Xc
+    check(_rel_err(A @ X, ref)[1] <= SPMM_RTOL["float64"],
+          f"SpMM {label} B={B}: the kernel and cuSPARSE differ")
+    nnz = int(torch.count_nonzero(A.data))
+    out = {"B": B, "design": "live" if plan.pays else "dense",
+           "ms": _time_cold_ms(lambda: A @ X),
+           "tile4_ms": _time_cold_ms(lambda: kd.dia_spmm_cuda(
+               A.data, A.offsets, A.wrap, X, plan if plan.pays else None,
+               tile=4)),
+           "spmv_launches_ms": _time_cold_ms(lambda: [A @ c for c in cols]),
+           "library_ms": _time_cold_ms(lambda: torch.sparse.mm(Acsr, Xc)),
+           "plain_ms": _time_cold_ms(lambda: kd.dia_spmm_torch(
+               A.data, A.offsets, A.wrap, X), reps=10)}
+    out["bound_ms"], out["bound_by"] = _bound_ms((nnz + 2 * B * n) * 8,
+                                                 2 * nnz * B)
+    print(f"[spmm] {label} B={B} (n={n}, {nnz / n:.2f} non-zeros a row, f64, "
+          f"L2 flushed): A @ X ({out['design']} design, tile 8) "
+          f"{out['ms']:.4f} ms, tile 4 {out['tile4_ms']:.4f} ms; {B} launches "
+          f"of kernel #1 {out['spmv_launches_ms']:.4f} ms; cuSPARSE SpMM "
+          f"{out['library_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms; bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}; A @ X at "
+          f"{out['bound_ms'] / out['ms']:.1%} of it)")
+    return out
+
+
+def _trace_gap(res, rec_res, gate_at):
+    """The largest |res[j] - rec_res[j]| as a share of the trace bar, over
+    the steps j before the record's gate opens (its first residual at or
+    below ``gate_at``), and the number of those steps."""
+    j1 = next((j for j, r in enumerate(rec_res) if r <= gate_at),
+              len(rec_res))
+    share = max((abs(float(res[j]) - r)
+                 / (TRACE_RTOL * r + TRACE_FLOOR * rec_res[0])
+                 for j, r in enumerate(rec_res[:j1])), default=0.0)
+    return share, j1
+
+
+def _certifies(rec, i, tol):
+    """Item i of a batched record certifies: latch 1, KKT deviation within
+    the bar and true residual below tol."""
+    return (rec["safety"][i] == 1 and rec["deviation"][i] <= DEVIATION_MAX
+            and rec["true_residual"][i] < tol)
+
+
+def phase_batched(record):
+    """The ninth slice at full width: the batched kernel on swe M=512's A
+    at every width of ``SPMM_BATCHES`` (checked and timed), then both rows
+    of ``BATCH_ROWS`` through ``cgmres_many`` (B = 8, each step a CUDA
+    graph), held to ``reference/slice9.json`` and to each item's own
+    ``cgmres(loop="while")`` on the card; the median wall of 5 batched
+    solves beside the 8 single solves, ``time_capture``, device busy and
+    idle share under the profiler, and the batched kernel inside the
+    replays (the counters against each graph's launches times its replays,
+    and the profiler's kernel names inside the solve's span).  Returns the
+    largest f64 error, the times by width, and per row its launches."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.kernels import (
+        launch_counters,
+    )
+    from structurepreservingiterativesolvers_torch.models import swe
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    ref = _reference_script()
+    s = swe.linforms(M=SWE_M, device=DEVICE)
+    A = s.A
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    err = _check_spmm(f"swe M={SWE_M} A", A, gen, SPMM_BATCHES)
+    zero_filled = type(A)(A.data, A.offsets, A.shape, False)
+    err = max(err, _check_spmm(f"swe M={SWE_M} A zero-filled", zero_filled,
+                               gen, (1, 8), ("float64",)))
+    times = {B: _time_spmm(A, s.A_csr, B, f"swe M={SWE_M} A", gen)
+             for B in SPMM_BATCHES}
+    pre_snc = default_pre_builder("swe")(s)
+    rows = {}
+    for name in BATCH_ROWS:
+        tag = f"[{name}]"
+        rec = record[name]
+        _, _, B, k, tol, pre_spec, _ = ref.BATCHED[name]
+        pre = pre_snc if pre_spec == "snc" else None
+        states = torch.as_tensor(ref.batch_states(name, s.z0.cpu().numpy()),
+                                 device=DEVICE)
+        items = [s.step_update(z) for z in states]
+        Bs = torch.stack([t.b for t in items])
+        cons = [t.constraints() for t in items]
+        own = [float(c.c) for c_list in cons for c in c_list]
+        theirs = [tc for targets in rec["targets"] for tc in targets]
+        print(f"{tag} the port's step_update puts the targets "
+              f"{max(abs(a - b) for a, b in zip(own, theirs)):.3e} at most "
+              f"from the record's (the JAX package's sums)")
+
+        def many():
+            return cgmres_many(A, Bs, cons, k=k, tol=tol, contol=CONTOL,
+                               pre=pre)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X, info = many()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        core = next(iter(cg._CORES.values()))
+        runner = core.runner
+        capture = runner.time_capture
+        walls = []
+        for _ in range(GRAPH_SOLVES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            many()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        # the launches of one solve: the counters against each graph's
+        # launches times its replays in that solve
+        names = {id(fn): nm for nm, fn in launch_counters().items()}
+        replayed0 = dict(runner.replayed)
+        _reset_launches()
+        X2, info2 = many()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        expected = {nm: 0 for nm in launches}
+        for key, (_, counts) in runner.graphs.items():
+            for counter, nl in counts:
+                expected[names[id(counter)]] += nl * (
+                    runner.replayed.get(key, 0) - replayed0.get(key, 0))
+        prof = _profiled(many)
+        span_wall, span_busy, span_names = _window_busy(prof[4], "cgmres_many")
+        kernels = sorted(nm for nm in span_names if "dia_sp" in nm)
+        med = sorted(walls)[GRAPH_SOLVES // 2]
+        per_graph = runner.launches()
+        # each item's own single solve on the card (one core, its graphs
+        # captured by the first item's solve and replayed by the others)
+        singles, single_walls = [], []
+        for t, c in zip(items, cons):
+            cg.cgmres(A, t.b, k=k, tol=tol, pre=pre, constraints=c,
+                      loop="while")
+        for t, c in zip(items, cons):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            singles.append(cg.cgmres(A, t.b, k=k, tol=tol, pre=pre,
+                                     constraints=c, loop="while"))
+            torch.cuda.synchronize()
+            single_walls.append(time.perf_counter() - t0)
+        cg.clear_core_cache()
+        true_res = [float(torch.linalg.norm(t.A @ x - t.b))
+                    for t, x in zip(items, X)]
+        x_rel = [_rel(X[i], xs) for i, (xs, _) in enumerate(singles)]
+        print(f"{tag} B={B}, k={k}, tol={tol:g}: steps "
+              f"{list(map(int, info['steps']))} (record {rec['steps']}; single "
+              f"solves {[i1['steps'] for _, i1 in singles]}), safety "
+              f"{list(map(int, info['safety']))} (record {rec['safety']}), KKT "
+              f"deviation {['%.2e' % d for d in info['deviation']]} (record "
+              f"{['%.2e' % d for d in rec['deviation']]}), true residual "
+              f"{['%.2e' % r for r in true_res]} (record "
+              f"{['%.2e' % r for r in rec['true_residual']]})")
+        print(f"{tag} x against each item's single device-core solve: "
+              f"{['%.2e' % r for r in x_rel]}; a second batched solve "
+              f"bit-equal {bool(torch.equal(X, X2))}")
+        print(f"{tag} wall, median of {GRAPH_SOLVES} batched solves "
+              f"{1e3 * med:.3f} ms ({', '.join(f'{1e3 * w:.3f}' for w in walls)}); "
+              f"first (capturing) {1e3 * first:.1f} ms, time_capture "
+              f"{1e3 * capture:.1f} ms ({runner.captures} graphs); the {B} "
+              f"single graph-core solves {1e3 * sum(single_walls):.3f} ms in "
+              f"all ({', '.join(f'{1e3 * w:.3f}' for w in single_walls)})")
+        print(f"{tag} profiled batched solve: wall {1e3 * prof[0]:.3f} ms, "
+              f"busy {prof[1]:.3f} ms, idle {prof[2]:.3f}; inside its span "
+              f"{span_wall:.3f} ms, busy {span_busy:.3f} ms; busy over the "
+              f"unprofiled median wall {1.0 - prof[1] / 1e3 / med:.3f} idle")
+        print(f"{tag} launches over one batched solve: {launches}; each "
+              f"graph's launches times its replays: {expected}; per replay "
+              f"by graph: {per_graph}; DIA kernels the profiler saw in the "
+              f"solve's span: {kernels}")
+        spread = rec["spread"]
+        held = spread["numpy_targets"]["steps"]
+        print(f"{tag} the JAX package's steps: record {rec['steps']}, "
+              + ", ".join(f"{label} {run['steps']}"
+                          for label, run in spread.items())
+              + f"; the port's are held to numpy_targets {held}")
+        traces = [_trace_gap(info["res"][i], rec["res"][i], CONTOL * tol)
+                  for i in range(B)]
+        x_max = X.abs().amax(dim=1).tolist()
+        x_sum = X.sum(dim=1).tolist()
+        x_gap = [max(abs(a - b) / abs(b) for a, b in pair)
+                 for pair in zip(zip(x_max, rec["x_max"]),
+                                 zip(x_sum, rec["x_sum"]))]
+        print(f"{tag} residual traces against the record's before its gate "
+              f"opens (steps {[j1 for _, j1 in traces]}): the largest gap as "
+              f"a share of the bar {['%.2e' % g for g, _ in traces]}; x's "
+              f"max-norm and sum from the record's, relative "
+              f"{['%.2e' % g for g in x_gap]}")
+        for i, (xs, i1) in enumerate(singles):
+            check(int(info["safety"][i]) == rec["safety"][i] == 1,
+                  f"{tag} item {i}: safety {info['safety'][i]}, record "
+                  f"{rec['safety'][i]}")
+            check(int(info["steps"][i]) == i1["steps"],
+                  f"{tag} item {i}: {info['steps'][i]} steps, its single "
+                  f"solve {i1['steps']}")
+            check(x_rel[i] <= 1e-10, f"{tag} item {i}: x {x_rel[i]:.3e} from "
+                                     f"its single solve")
+            # the JAX package given the targets as the port sums them
+            check(int(info["steps"][i]) == held[i],
+                  f"{tag} item {i}: {info['steps'][i]} steps, the JAX "
+                  f"package's with numpy-summed targets {held[i]}")
+            check(traces[i][0] <= 1.0 and traces[i][1] > 0,
+                  f"{tag} item {i}: residual trace off the record's by "
+                  f"{traces[i][0]:.3e} of the bar")
+            check(x_gap[i] <= X_RTOL, f"{tag} item {i}: x's max-norm or sum "
+                                      f"{x_gap[i]:.3e} from the record's")
+            if _certifies(rec, i, tol):
+                check(info["deviation"][i] <= DEVIATION_MAX
+                      and true_res[i] < tol,
+                      f"{tag} item {i}: deviation {info['deviation'][i]:.3e}, "
+                      f"true residual {true_res[i]:.3e}")
+        check(torch.equal(X, X2), f"{tag} a second batched solve differs")
+        check(launches == expected, f"{tag} launches {launches} are not the "
+                                    f"replays' {expected}")
+        check(launches["dia_spmm"] > 0 and launches["dia_spmv"] == 0,
+              f"{tag} the batch's products did not all run the batched "
+              f"kernel: {launches}")
+        check(launches["dia_spmm_live"] == launches["dia_spmm"],
+              f"{tag} the batched kernel ran other than its live design")
+        check(any("dia_spmm" in nm for nm in kernels),
+              f"{tag} the profiler saw no batched kernel in the solve's span")
+        rows[name] = {"launches": launches, "wall_ms": 1e3 * med,
+                      "single_ms": 1e3 * sum(single_walls)}
+    del s, pre_snc
+    return err, times, rows
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -2242,7 +2617,8 @@ def main() -> int:
 
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
                for name in ("slice1.json", "slice2.json", "slice3.json",
-                            "slice4.json", "slice7.json", "slice8.json")}
+                            "slice4.json", "slice7.json", "slice8.json",
+                            "slice9.json")}
     t_start = time.perf_counter()
     phase_build()
     t0 = time.perf_counter()
@@ -2269,6 +2645,10 @@ def main() -> int:
     torch.cuda.synchronize()
     st_err, st, dia_heat_err, dia = phase_heat_kernels(heat_sys, pre)
     torch.cuda.synchronize()
+    gen9 = torch.Generator(device=DEVICE).manual_seed(10)
+    spmm_err = _check_spmm(f"heat M={HEAT_M} A", heat_sys.A.dia, gen9, (8,))
+    spmm_times = {f"heat_M{HEAT_M}_A_B8": _time_spmm(
+        heat_sys.A.dia, heat_sys.A_csr, 8, f"heat M={HEAT_M} A", gen9)}
     small = heat.linforms(M=16, device=DEVICE)
     for name, err in phase_poly_kernels(
             {f"heat M={HEAT_M}": heat_sys.A, "heat M=16": small.A},
@@ -2294,6 +2674,10 @@ def main() -> int:
     rk_sys = lkdvrk.linforms(M=400, N=10, degree=3, tstages=2, device=DEVICE)
     print(f"[lkdvrk M=400 (3,2)] assembly {time.perf_counter() - t0:.2f} s")
     dia_rk_err, dia_rk = phase_lkdvrk_kernel(rk_sys)
+    spmm_err = max(spmm_err, _check_spmm(f"{LKDVRK_ROWS[0]} A", rk_sys.A, gen9,
+                                         (8,)))
+    spmm_times[f"{LKDVRK_ROWS[0]}_A_B8"] = _time_spmm(
+        rk_sys.A, rk_sys.A_csr, 8, f"{LKDVRK_ROWS[0]} A", gen9)
     del rk_sys
     torch.cuda.synchronize()
     rk_rows = phase_lkdvrk_rows(records["slice7.json"])
@@ -2301,6 +2685,9 @@ def main() -> int:
     rk_evolve_launches, _ = phase_lkdvrk_evolve(records["slice7.json"])
     torch.cuda.synchronize()
     general_launches = phase_general()
+    torch.cuda.synchronize()
+    err9, swe_spmm, batch_rows = phase_batched(records["slice9.json"])
+    spmm_err = max(spmm_err, err9)
     torch.cuda.synchronize()
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
@@ -2381,6 +2768,28 @@ def main() -> int:
          "times": {label: {key: t[key] for key in (
              "ms", "chain_ms", "bound_ms", "warm_ms", "warm_chain_ms")}
              for label, t in ortho_times.items()}})
+    head = swe_spmm[8]
+    kernels.append(
+        {"name": "dia_spmm", "route": "cuda", "source": src + "dia_spmm.cu",
+         "replaces": f"{tpu}pallas_spmv.py:91",
+         "replaces_under": "structurepreservingiterativesolvers_tpu/"
+                           "experiments/batched.py:87 (jax.vmap)",
+         "launches": sum(row["launches"]["dia_spmm"]
+                         for row in batch_rows.values()),
+         "launches_by_path": {
+             name: row["launches"]["dia_spmm"]
+             for name, row in batch_rows.items()},
+         "launches_by_design": {
+             design: sum(row["launches"][f"dia_spmm_{design}"]
+                         for row in batch_rows.values())
+             for design in ("live", "dense")},
+         "max_abs_err": spmm_err, "timed_at": f"swe_M{SWE_M}_A_B8",
+         **{key: head[key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "tile4_ms", "spmv_launches_ms", "design")},
+         "times": {**{f"swe_M{SWE_M}_A_B{B}": t for B, t in swe_spmm.items()},
+                   **spmm_times},
+         "walls_ms": batch_rows})
     print("[lkdvrk] " + json.dumps({name: {
         key: row[key] for key in ("format", "width", "ras_blocks", "time_pre",
                                   "time_pre_first", "runtime", "time_gmres",

@@ -11,7 +11,8 @@ with the skew-normal Chebyshev preconditioner of the TimedSolve
 pre-builder, and time evolutions) and ``slice7.json`` (lkdvRK with the RAS +
 Neumann composite of the TimedSolve pre-builder at the reference's M=400
 error-sweep grid and at M=50, its evolutions and error sweep, and lkdv's
-TimedSolve row) and ``slice8.json`` (the JAX package's ``fused_evolve``):
+TimedSolve row), ``slice8.json`` (the JAX package's ``fused_evolve``) and
+``slice9.json`` (the JAX package's batched ``cgmres_many``, ``BATCHED``):
 for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
@@ -143,11 +144,76 @@ SWEEPS = {
 }
 
 
+# the JAX package's batched solve, ``experiments/batched.py::cgmres_many``:
+# name -> (problem, linforms parameters, batch size, k, tol, preconditioner
+# built on the unperturbed system, the items' states).  Item i is the
+# system's ``step_update(z_i)``, with z_i from ``batch_states``.  lkdv M=50
+# is the batch of tests/test_experiments.py::test_vmapped_batched_cgmres,
+# swe M=32 with the skew-normal Chebyshev a batch whose items stop at
+# different steps, both the size of the CPU tests; swe M=512 carries slice
+# 1's row (no preconditioner) and slice 4's TimedSolve row (the skew-normal
+# Chebyshev) at a batch of 8: an ensemble of forecasts from perturbed
+# initial states, stepped together with one operator.
+BATCHED = {
+    "lkdv_M50_B3": ("lkdv", dict(M=50, degree=1), 3, 20, 1e-8, None,
+                    "scaled"),
+    "swe_M32_snc_B4": ("swe", dict(M=32), 4, 20, 1e-7, "snc", "noise"),
+    "swe_M512_B8": ("swe", dict(M=512), 8, 60, 1e-9, None, "smooth"),
+    "swe_M512_snc_B8": ("swe", dict(M=512), 8, 20, 1e-7, "snc", "smooth"),
+}
+
+
+def smooth_field(M: int, z0):
+    """A smooth perturbation of a swe state on the M x M grid: on each of
+    the three fields (u, v, rho), the real part of the lowest 3 x 3 Fourier
+    modes with complex amplitudes drawn N(0, 1) from numpy's generator of
+    seed 0, the whole scaled so that max|p| = max|z0|."""
+    import numpy as np
+
+    amp = np.random.default_rng(0).standard_normal((3, 3, 3, 2))
+    idx = np.arange(M * M)
+    ix, iy = idx // M, idx % M
+    fields = []
+    for f in range(3):
+        p = np.zeros(M * M)
+        for kx in range(3):
+            for ky in range(3):
+                phase = 2.0 * np.pi * (kx * ix + ky * iy) / M
+                a, b = amp[f, kx, ky]
+                p += a * np.cos(phase) - b * np.sin(phase)
+        fields.append(p)
+    p = np.concatenate(fields)
+    z0 = np.asarray(z0, dtype=np.float64)
+    return p * (np.abs(z0).max() / np.abs(p).max())
+
+
+def batch_states(name, z0):
+    """The states z_i (B, n) whose ``step_update`` gives the items of
+    ``BATCHED[name]``, from the system's z0 (numpy, f64): ``scaled``
+    z0·(1 + 0.01 i); ``noise`` z0 + 0.05 i·g with g ~ N(0, 1) of numpy's
+    generator of seed 0; ``smooth`` z0 + 0.02 i·p with p = ``smooth_field``."""
+    import numpy as np
+
+    problem, params, B, _, _, _, kind = BATCHED[name]
+    z0 = np.asarray(z0, dtype=np.float64)
+    i = np.arange(B, dtype=np.float64)[:, None]
+    if kind == "scaled":
+        return z0[None] * (1.0 + 0.01 * i)
+    if kind == "noise":
+        g = np.random.default_rng(0).standard_normal(z0.shape[0])
+        return z0[None] + 0.05 * i * g[None]
+    if kind == "smooth":
+        return z0[None] + 0.02 * i * smooth_field(params["M"], z0)[None]
+    raise ValueError(f"unknown kind of batch {kind!r}")
+
+
 def out_path(name) -> Path:
     """The record file that holds configuration ``name``: by its
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in BATCHED:
+        return REFERENCE / "slice9.json"
     if name in FUSED:
         return REFERENCE / "slice8.json"
     if name in SWEEPS or CONFIGS.get(name, (None,) * 7)[6] == "default":
@@ -450,6 +516,129 @@ def record_sweep(name):
             "runs": runs}
 
 
+def batch_systems(name, s):
+    """The items of ``BATCHED[name]``: the JAX system ``s``'s
+    ``step_update`` of each state of ``batch_states``."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    return [s.step_update(jnp.asarray(z))
+            for z in batch_states(name, np.asarray(s.z0))]
+
+
+def record_batched(name):
+    """Run the JAX package's ``cgmres_many`` on ``BATCHED[name]``; returns
+    its entry of the record: per item the constraints' targets c (as the
+    JAX ``step_update`` sums them), the steps, latch, KKT deviation, the
+    residual trace of the steps taken, the true residual and x's max-norm
+    and sum; the seconds the solve took.  For swe also the JAX package's
+    own spread (``spread``): each item solved by the JAX ``cgmres`` with
+    its targets summed by numpy (the sums a port's ``step_update`` takes in
+    another order: swe's mass and energy targets move by up to 6e-14
+    relative) and with ``ortho="mgs"`` (the same algorithm in another
+    rounding), their steps, latches, deviations and true residuals.  On
+    swe M=512 at tol=1e-9 these change an item's steps by up to 20: the
+    endgame's constrained residual levels off near tol."""
+    _jax_cpu()
+    import time
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_tpu.experiments.single_solve import (
+        get_model,
+    )
+
+    problem, params, B, k, tol, pre_spec, kind = BATCHED[name]
+    s = get_model(problem).linforms(**params)
+    pre = None
+    if pre_spec is not None:
+        from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
+            default_pre_builder,
+        )
+
+        pre = default_pre_builder(problem)(s)
+    items = batch_systems(name, s)
+    t0 = time.perf_counter()
+    X, info = cgmres_many(
+        s.A, jnp.stack([t.b for t in items]),
+        constraints_list=[t.constraints() for t in items], k=k, tol=tol,
+        pre=pre)
+    X = np.asarray(X)
+    steps = [int(v) for v in info["steps"]]
+    safety = [int(v) for v in info["safety"]]
+    deviation = [float(v) for v in info["deviation"]]
+    res = [np.asarray(r)[:st] for r, st in zip(info["res"], steps)]
+    secs = time.perf_counter() - t0
+    true_res = [float(jnp.linalg.norm(t.A @ jnp.asarray(x) - t.b))
+                for t, x in zip(items, X)]
+    out = {
+        "config": {"problem": problem, "params": params, "batch": B, "k": k,
+                   "tol": tol, "items": kind,
+                   "solver": "cgmres_many"},
+        "n": int(s.b.shape[0]),
+        "seconds": secs,
+        "targets": [[float(c.c) for c in t.constraints()] for t in items],
+        "steps": steps,
+        "safety": safety,
+        "deviation": deviation,
+        "res": [[float(v) for v in r] for r in res],
+        "true_residual": true_res,
+        "x_max": [float(np.abs(x).max()) for x in X],
+        "x_sum": [float(x.sum()) for x in X],
+    }
+    if problem == "swe":
+        out["spread"] = _spread(items, batch_states(name, np.asarray(s.z0)),
+                                k, tol, pre)
+    if pre_spec is not None:
+        _pre_fields(out, pre_spec, pre)
+    return out
+
+
+def _spread(items, states, k, tol, pre):
+    """The JAX ``cgmres`` on each item with its targets summed by numpy,
+    and with ``ortho="mgs"``: per run the steps, latch, deviation and true
+    residual of every item."""
+    import dataclasses
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.solvers import cgmres
+
+    def numpy_targets(t, z):
+        cons = []
+        for c in t.constraints():
+            terms = 0.0
+            if c.v is not None:
+                terms += float(np.dot(np.asarray(c.v), z))
+            if c.M is not None:
+                terms += 0.5 * float(np.dot(z, np.asarray(c.M @ jnp.asarray(z))))
+            cons.append(dataclasses.replace(c, c=jnp.asarray(-terms)))
+        return cons
+
+    runs = {}
+    for label in ("numpy_targets", "mgs"):
+        run = {"steps": [], "safety": [], "deviation": [], "true_residual": []}
+        for t, z in zip(items, states):
+            if label == "mgs":
+                cons, kw = t.constraints(), dict(ortho="mgs")
+            else:
+                cons, kw = numpy_targets(t, z), {}
+            x, info = cgmres(t.A, t.b, k=k, tol=tol, pre=pre,
+                             constraints=cons, **kw)
+            run["steps"].append(int(info["steps"]))
+            run["safety"].append({None: 0, True: 1, False: 2}[info["safety"]])
+            run["deviation"].append(float(info["deviation"]))
+            run["true_residual"].append(
+                float(jnp.linalg.norm(t.A @ x - t.b)))
+        runs[label] = run
+    return runs
+
+
 def load(name):
     """The record file that holds configuration ``name``, as a dict."""
     return json.loads(out_path(name).read_text())
@@ -458,7 +647,7 @@ def load(name):
 def main(names):
     import jax
 
-    for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS]:
+    for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
@@ -468,6 +657,7 @@ def main(names):
         rec[name] = (record_evolve(name) if name in EVOLVES
                      else record_fused(name) if name in FUSED
                      else record_sweep(name) if name in SWEEPS
+                     else record_batched(name) if name in BATCHED
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -18,9 +18,17 @@ through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
 (captured in the warm-up pass), in place of the host loop; then replays
 one graph of each kind alone under the profiler (after the solve, so every
 write is masked) and prints its device operations and device time.
+``--batch B`` (swe, ``--loop while``) profiles one ``cgmres_many`` solve
+of B items on the batched device core in place of the GMRES and CGMRES
+pair: item i is ``step_update(z0 + 0.02 i·p)``, p the smooth field of
+``scripts/make_torch_reference.py`` (the rows ``swe_M512_B8`` and, with
+``--pre snc``, ``swe_M512_snc_B8`` at B = 8); it prints the median wall of
+5 unprofiled solves after the capture, and the batched DIA kernel's share
+of device busy beside the graphs' operations.
 
     python scripts/profile_torch.py --problem heat [--pre amg|cheb8|neu4] [--M 1024] [--out build/profile]
     python scripts/profile_torch.py --problem swe [--pre none|snc] [--ortho cgs2|cgs2_fused] [--loop host|while]
+    python scripts/profile_torch.py --problem swe --loop while --batch 8 [--pre snc]
 
 Prints the busiest device kernels, the device-busy time against the wall
 time of each solve (the device's idle share), the device time by kind
@@ -59,6 +67,8 @@ def _kind(name: str) -> str:
         return "stencil kernel, tiled"
     if "dia_spmv_kernel" in name:
         return "DIA kernel"
+    if "dia_spmm_kernel" in name:
+        return "batched DIA kernel"
     if "tiled_kernel" in name:
         return "fused polynomial kernel, tiled"
     if "cheb_kernel" in name or "neumann_kernel" in name:
@@ -111,6 +121,30 @@ def _graph_ops(torch, profile, ProfilerActivity):
             print(f"   {key}: {len(ops)} operations, {us / 1e3:.3f} ms")
 
 
+def _batched(s, B, cfg, pre):
+    """One ``cgmres_many`` solve of B swe items, as a function of no
+    arguments returning ``(X, info)``."""
+    import importlib.util
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_reference", ROOT / "scripts" / "make_torch_reference.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    z0 = s.z0.cpu().numpy()
+    p = torch.as_tensor(ref.smooth_field(s.prob.M, z0), device=s.b.device)
+    items = [s.step_update(s.z0 + 0.02 * i * p) for i in range(B)]
+    Bs = torch.stack([t.b for t in items])
+    cons = [t.constraints() for t in items]
+    return lambda: cgmres_many(s.A, Bs, cons, k=cfg["k"], tol=cfg["tol"],
+                               pre=pre)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--problem", choices=sorted(CONFIGS), default="heat")
@@ -121,12 +155,19 @@ def main():
     ap.add_argument("--ortho", choices=["cgs2", "cgs2_fused"], default="cgs2")
     ap.add_argument("--loop", choices=["host", "while"], default="host",
                     help="CGMRES's loop: the host loop or the device core")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="profile cgmres_many on this many swe items")
     ap.add_argument("--M", type=int, default=None)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
     args.pre = args.pre or PRES[args.problem][0]
     if args.pre not in PRES[args.problem]:
         ap.error(f"--pre {args.pre} is not a preconditioner of {args.problem}")
+    if args.batch is not None and (args.problem != "swe"
+                                   or args.loop != "while"
+                                   or args.ortho != "cgs2"):
+        ap.error("--batch runs swe on the device core: --problem swe "
+                 "--loop while, with --ortho cgs2")
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -168,9 +209,25 @@ def main():
         "gmres": lambda: wrappers.gmres_wrapper(s, **kw),
         "cgmres": lambda: wrappers.cgmres_wrapper(s, loop=args.loop, **kw),
     }
+    if args.batch is not None:
+        solves = {f"cgmres_many_B{args.batch}": _batched(s, args.batch, cfg,
+                                                          apply)}
     for fn in solves.values():  # warm-up
         fn()
     torch.cuda.synchronize()
+    if args.batch is not None:
+        # the unprofiled wall of the batched solve, after its capture
+        (fn,) = solves.values()
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        print(f"\n== {next(iter(solves))}: wall, median of 5 unprofiled "
+              f"solves {sorted(walls)[2]:.3f} ms "
+              f"({', '.join(f'{w:.3f}' for w in walls)})")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     for name, fn in solves.items():
@@ -185,11 +242,13 @@ def main():
         kernels = [e for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and e.key != span and not e.key.startswith("replay ")
-                   and e.key != "flag read"]
+                   and e.key not in ("flag read", "cgmres_many")]
         busy_us = sum(e.self_device_time_total for e in kernels)
         label = (f"{args.problem} --pre {args.pre} --ortho {args.ortho}"
                  f" --loop {args.loop}")
-        print(f"\n== {label} {name} M={M}: steps {info['steps']}, wall "
+        steps = info["steps"]
+        steps = steps if isinstance(steps, int) else list(map(int, steps))
+        print(f"\n== {label} {name} M={M}: steps {steps}, wall "
               f"{wall * 1e3:.3f} ms (profiled), device busy {busy_us / 1e3:.3f} "
               f"ms -> idle share {1 - busy_us / 1e6 / wall:.3f}")
         by_kind = {}

@@ -37,6 +37,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..config import HOST
+from ..ops.rows import basis_mv as rows_mv, dot as rows_dot, rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +161,16 @@ def init_buffers(con: QuadraticConstraint, x0: torch.Tensor, k: int,
     )
 
 
+def value_scale(con: QuadraticConstraint, x0: torch.Tensor,
+                x0_zero: bool = False) -> torch.Tensor:
+    """The roundoff scale of t0 = g(x0) on the host, the sum of its terms'
+    magnitudes (``value_and_scale``): from a warm start t0 is a
+    cancellation (swe's mass, 9e3, to 0.0), and |t0| would put the floor
+    below the roundoff of every evaluation of g; from x0 = 0 it is |c|."""
+    s0 = con.c.abs() if x0_zero else con.value_and_scale(x0)[1]
+    return s0.to(HOST, x0.dtype)
+
+
 def update_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
                    Z: torch.Tensor, x0: torch.Tensor, j: int,
                    x0_zero: bool = False) -> ReducedBuffers:
@@ -213,53 +224,76 @@ def catchup_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
 
 
 # --- the device core's buffers: on the basis' device, written in place ----
+#
+# For a batch of B solves that share the operators M (the device core's batch
+# axis): every buffer has a leading axis of B, and so have each constraint's
+# v (B, n) and c (B,); ``live`` (B,) masks the writes per solve.
 
 
-def device_buffers(k: int, like: torch.Tensor) -> ReducedBuffers:
-    """Zeroed reduced buffers on the device and in the dtype of ``like``."""
+def device_buffers(k: int, like: torch.Tensor, batch: int = 1) -> ReducedBuffers:
+    """Zeroed reduced buffers of ``batch`` solves on the device and in the
+    dtype of ``like``: t0 (B,), t1 (B, k), T2 (B, k, k)."""
     def z(*shape):
-        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+        return torch.zeros((batch, *shape), dtype=like.dtype, device=like.device)
 
     return ReducedBuffers(t0=z(), t1=z(k), T2=z(k, k))
+
+
+def value_and_scale_rows(con: QuadraticConstraint, X: torch.Tensor):
+    """``value_and_scale`` at each row of X (B, n), for a constraint whose
+    v (B, n) and c (B,) are per row: the values and scales, (B,) each."""
+    terms = [con.c.to(X.dtype)]
+    if con.v is not None:
+        terms.append(rows_dot(con.v, X))
+    if con.M is not None:
+        terms.append(0.5 * rows_dot(X, rows(con.M.__matmul__, X)))
+    terms = torch.stack(terms, dim=-1)
+    return terms.sum(-1), terms.abs().sum(-1)
 
 
 def fold_column(con: QuadraticConstraint, buf: ReducedBuffers,
                 Z: torch.Tensor, x0: torch.Tensor, j: int, live: torch.Tensor,
                 x0_zero: bool = False) -> None:
     """``update_buffers`` in place on the device, where ``live``: the new
-    basis vector Z[j] folded into t1[j] and row and column j of T2."""
-    zj = Z[j]
-    t1j = torch.zeros((), dtype=Z.dtype, device=Z.device)
+    basis vectors Z[:, j] (of Z (B, k, n)) folded into t1[:, j] and row and
+    column j of T2; one product with M for the batch."""
+    zj = Z[:, j]
+    t1j = torch.zeros(Z.shape[0], dtype=Z.dtype, device=Z.device)
     if con.v is not None:
-        t1j = t1j + torch.dot(con.v, zj)
+        t1j = t1j + rows_dot(con.v, zj)
     if con.M is not None:
-        u = con.M @ zj
+        u = rows(con.M.__matmul__, zj)
         if not x0_zero:
-            t1j = t1j + torch.dot(u, x0)
-        w = 0.5 * (Z[: j + 1] @ u)
-        buf.T2[j, : j + 1] = torch.where(live, w, buf.T2[j, : j + 1])
-        buf.T2[: j + 1, j] = torch.where(live, w, buf.T2[: j + 1, j])
-    buf.t1[j] = torch.where(live, t1j, buf.t1[j])
+            t1j = t1j + rows_dot(u, x0)
+        w = 0.5 * rows_mv(Z[:, : j + 1], u)
+        lv = live[:, None]
+        buf.T2[:, j, : j + 1] = torch.where(lv, w, buf.T2[:, j, : j + 1])
+        buf.T2[:, : j + 1, j] = torch.where(lv, w, buf.T2[:, : j + 1, j])
+    buf.t1[:, j] = torch.where(live, t1j, buf.t1[:, j])
 
 
 def catch_up(con: QuadraticConstraint, buf: ReducedBuffers, Z: torch.Tensor,
              x0: torch.Tensor, jmax: int, live: torch.Tensor,
              x0_zero: bool = False) -> None:
     """``catchup_buffers`` in place on the device, where ``live``: the
-    reduction over the first ``jmax`` basis vectors in one batched pass.
-    Only the leading ``jmax`` entries are written; the endgame reads no
-    further than the columns folded in since."""
-    Zc = Z[:jmax]
-    t1 = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
-    if con.v is not None:
-        t1 = t1 + Zc @ con.v
-    if con.M is not None:
-        U = con.M @ Zc.T  # (n, jmax)
-        if not x0_zero:
-            t1 = t1 + U.T @ x0
-        T2 = 0.5 * (Zc @ U)
-        buf.T2[:jmax, :jmax] = torch.where(live, T2, buf.T2[:jmax, :jmax])
-    buf.t1[:jmax] = torch.where(live, t1, buf.t1[:jmax])
+    reduction over the first ``jmax`` basis vectors of each solve in one
+    batched pass, one product with M for a solve's ``jmax`` vectors (the
+    (n, jmax) view of its basis rows).  Only the leading ``jmax`` entries
+    are written; the endgame reads no further than the columns folded in
+    since."""
+    for b in range(Z.shape[0]):
+        Zc = Z[b, :jmax]
+        t1 = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
+        if con.v is not None:
+            t1 = t1 + Zc @ con.v[b]
+        if con.M is not None:
+            U = con.M @ Zc.T  # (n, jmax)
+            if not x0_zero:
+                t1 = t1 + U.T @ x0[b]
+            T2 = 0.5 * (Zc @ U)
+            buf.T2[b, :jmax, :jmax] = torch.where(live[b], T2,
+                                                  buf.T2[b, :jmax, :jmax])
+        buf.t1[b, :jmax] = torch.where(live[b], t1, buf.t1[b, :jmax])
 
 
 # The reduced forms below take y of shape (k,) or a batch (T, k).  T2 from a
@@ -280,14 +314,16 @@ def reduced_hess(buf: ReducedBuffers) -> torch.Tensor:
     return 2.0 * buf.T2
 
 
-def reduced_scale(buf: ReducedBuffers, y: torch.Tensor) -> torch.Tensor:
+def reduced_scale(buf: ReducedBuffers, y: torch.Tensor,
+                  s0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Roundoff scale of the reduced constraint evaluation: the sum of the
     magnitudes of its summands.  |g(y)| cannot be certified below
     O(eps)·scale in finite precision — e.g. an O(1e4) energy invariant can
     only be enforced to ~1e-12 absolute in f64.  The safety latch uses this
-    floor."""
+    floor.  ``s0``, the scale of g(x0) (``value_scale``), stands for |t0|
+    where given."""
     return (
-        torch.abs(buf.t0)
+        (torch.abs(buf.t0) if s0 is None else s0)
         + torch.sum(torch.abs(buf.t1 * y))
         + torch.sum(torch.abs(y[:, None] * buf.T2 * y[None, :]))
     )

@@ -54,61 +54,12 @@
 // PyTorch twin multiplies every diagonal.  Index arithmetic is 64-bit and
 // offsets are signed.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dia_row.cuh"
 
-#define DIA_MAX_DIAGS 64
-#define DIA_THREADS 256
 // live diagonals whose loads a warp issues before their multiply-adds:
 // four measured faster than eight on an H100 at both main-path operators
 // (swe M=512, heat M=1024), the registers of eight costing resident warps
 #define DIA_BATCH 4
-
-struct DiaOffsets {
-  long long off[DIA_MAX_DIAGS];
-};
-
-// a 16-byte vector of T, and its RPT lanes
-template <typename T>
-struct Vec16;
-template <>
-struct Vec16<double> {
-  using type = double2;
-  __device__ static void split(const double2& v, double (&a)[2]) {
-    a[0] = v.x;
-    a[1] = v.y;
-  }
-  __device__ static double2 join(const double (&a)[2]) {
-    return make_double2(a[0], a[1]);
-  }
-};
-template <>
-struct Vec16<float> {
-  using type = float4;
-  __device__ static void split(const float4& v, float (&a)[4]) {
-    a[0] = v.x;
-    a[1] = v.y;
-    a[2] = v.z;
-    a[3] = v.w;
-  }
-  __device__ static float4 join(const float (&a)[4]) {
-    return make_float4(a[0], a[1], a[2], a[3]);
-  }
-};
-
-// x at column j of a row of the operator: wrapped mod n, or 0 outside [0, n)
-template <typename T, bool WRAP>
-__device__ __forceinline__ T x_at(const T* __restrict__ x, long long j,
-                                  long long n) {
-  // |off| < n is checked by the caller, so one add or subtract brings a
-  // wrapped column back into range
-  if (WRAP) {
-    if (j < 0) j += n;
-    else if (j >= n) j -= n;
-    return __ldg(x + j);
-  }
-  return (j >= 0 && j < n) ? __ldg(x + j) : T(0);
-}
 
 // VEC: thread t of a warp holds rows w0 + RPT t + k (n % RPT == 0, so all
 // or none of them exist); otherwise rows w0 + t + 32 k

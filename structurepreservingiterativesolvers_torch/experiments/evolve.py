@@ -219,10 +219,13 @@ def fused_evolve(
                   s.constraints())
 
     def epilogue():
-        values = sys0.compute_invariants(core.x)
+        # the core's buffers of its one solve (its batch axis is 1)
+        x = core.x[0]
+        values = sys0.compute_invariants(x)
         inv.index_copy_(0, row, torch.stack([values[nm] for nm in names])[None])
-        counts.index_copy_(0, row, torch.stack([core.steps, core.safety])[None])
-        z.copy_(core.x)
+        counts.index_copy_(0, row,
+                           torch.stack([core.steps[0], core.safety[0]])[None])
+        z.copy_(x)
         row.add_(1)
 
     runner.warmup(lambda: (sys0.step_update(z), sys0.compute_invariants(z)))

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch twins.
 
-``dia_spmv``: the DIA sparse matrix-vector product (``csrc/dia_spmv.cu``).
+``dia_spmv``: the DIA sparse matrix-vector product (``csrc/dia_spmv.cu``),
+and its product with a block of vectors (``csrc/dia_spmm.cu``).
 ``stencil_spmv``: the constant-stencil product with its boundary-strip
 correction (``csrc/stencil_spmv.cu``).
 ``poly_apply``: the fused degree-p Chebyshev and Neumann preconditioner
@@ -15,12 +16,16 @@ reaches its wrapper.
 def launch_counters() -> dict:
     """Every kernel's launch counter, by name: each wrapper that launches on
     the card adds one to its ``launches`` (a design's wrapper and its
-    kernel's both); ``<name>_<design>`` for the designs of kernels #1-#4."""
+    kernel's both); ``<name>_<design>`` for the designs of kernels #1-#4
+    and of the batched #1 (``dia_spmm``)."""
     from . import dia_spmv, ortho, poly_apply, stencil_spmv
 
     return {"dia_spmv": dia_spmv.dia_spmv_cuda,
             "dia_spmv_live": dia_spmv.dia_spmv_live_cuda,
             "dia_spmv_dense": dia_spmv.dia_spmv_dense_cuda,
+            "dia_spmm": dia_spmv.dia_spmm_cuda,
+            "dia_spmm_live": dia_spmv.dia_spmm_live_cuda,
+            "dia_spmm_dense": dia_spmv.dia_spmm_dense_cuda,
             "stencil_spmv": stencil_spmv.stencil_spmv_cuda,
             "stencil_spmv_tiled": stencil_spmv.stencil_spmv_tiled_cuda,
             "stencil_spmv_flat": stencil_spmv.stencil_spmv_flat_cuda,

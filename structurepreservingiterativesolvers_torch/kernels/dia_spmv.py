@@ -33,6 +33,15 @@ multiply every diagonal, so there it spreads.
 x and one C call (``launch``).  The wrapper takes the plain version for CPU
 tensors only.  A CUDA tensor is launched through the kernel, or the wrapper
 raises: there is no fallback.
+
+The product with a block of vectors, ``Y = A X`` for an (n, B) X
+(``dia_spmm``), is a kernel of its own (``csrc/dia_spmm.cu``), the
+counterpart of the JAX package's ``dia_spmv_pallas`` under ``jax.vmap``: it
+reads each coefficient once for a tile of vectors (``spmm_tile``), through the
+same live plan and the same resolved launch (``launch_many``), and counts
+its launches apart (``dia_spmm_cuda``, by design ``dia_spmm_live_cuda`` and
+``dia_spmm_dense_cuda``).  Column b of its product is kernel #1's product of
+column b.  Its plain twin is ``dia_spmm_torch``.
 """
 
 from __future__ import annotations
@@ -54,6 +63,16 @@ LIVE_CHUNK = 64
 # (chip_smoke.py, L2 flushed), 7% more for the plan's word; at swe M=512,
 # which skips 69%, it took 0.0227 ms and the dense one 0.0505-0.0508 ms
 LIVE_MIN_SKIP = 0.1
+
+
+def spmm_tile(nvec: int) -> int:
+    """The vectors the batched kernel keeps in registers at a time for a
+    block of ``nvec``: a tile of 4 up to 4 vectors, else 8.  At the swe
+    M=512 operator on an H100 (chip_smoke.py, L2 flushed) tile 4 took
+    0.0429 / 0.0462 ms at B = 2 / 3 against 0.0464 / 0.0527 for tile 8, and
+    tile 8 0.0953 / 0.4807 ms at B = 8 / 41 against 0.1064 / 0.5508 (105
+    registers a thread in f64)."""
+    return 4 if nvec <= 4 else 8
 
 
 class LivePlan(NamedTuple):
@@ -137,6 +156,17 @@ def dia_spmv_torch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
     return y
 
 
+def dia_spmm_torch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
+                   X: torch.Tensor) -> torch.Tensor:
+    """The plain version of the product with a block X (n, B): one shifted
+    copy of X per diagonal, summed in diagonal order."""
+    dtype = torch.promote_types(data.dtype, X.dtype)
+    Y = torch.zeros((data.shape[1], X.shape[1]), dtype=dtype, device=X.device)
+    for d, off in enumerate(offsets):
+        Y = Y + data[d][:, None] * shift(X, int(off), wrap)
+    return Y
+
+
 def _check(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor) -> None:
     if data.device != x.device:
         raise ValueError(f"data on {data.device} but x on {x.device}")
@@ -193,14 +223,32 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _entry_many(dtype: torch.dtype):
+    """The C entry point of the batched kernel for ``dtype``, built and
+    loaded on first use."""
+    from .build import load
+
+    lib = load("dia_spmm.cu")
+    fn = lib.dia_spmm_f64 if dtype == torch.float64 else lib.dia_spmm_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 @dataclasses.dataclass(frozen=True)
 class DiaLaunch:
     """A DIA's launches of the kernel, resolved once: the design (live with
     a plan, dense without), the operator as the entry point takes it
     (``args``, which hold the addresses of ``data`` and the plan's words;
-    ``keep`` keeps them alive) and the x it takes.  ``ops/sparse.py::DIA``
-    keeps its own, so a product costs the host the check of x and one C
-    call."""
+    ``keep`` keeps them alive) and the x it takes; ``many`` the operator's
+    arguments of the batched kernel.  ``ops/sparse.py::DIA`` keeps its own,
+    so a product costs the host the check of x and one C call."""
 
     design: str  # "live" or "dense"
     n: int
@@ -209,6 +257,7 @@ class DiaLaunch:
     data_ptr: int
     args: tuple
     keep: tuple
+    many: tuple
 
     def takes(self, x: torch.Tensor) -> bool:
         return x.dtype == self.dtype and x.device == self.device
@@ -227,12 +276,12 @@ def dia_launch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
         _check_plan(live, x)
         words, shift_ = live.words.data_ptr(), live.chunk.bit_length() - 1
         keep += (live.words,)
-    ndiag = max(len(offsets), 1)
-    args = (x.shape[0], len(offsets),
-            (ctypes.c_longlong * ndiag)(*map(int, offsets)), int(bool(wrap)),
-            words, shift_, x.device.index or 0)
+    offs = (ctypes.c_longlong * max(len(offsets), 1))(*map(int, offsets))
+    args = (x.shape[0], len(offsets), offs, int(bool(wrap)), words, shift_,
+            x.device.index or 0)
+    many = (len(offsets), offs, int(bool(wrap)), words, shift_)
     return DiaLaunch("dense" if live is None else "live", x.shape[0], x.dtype,
-                     x.device, data.data_ptr(), args, keep)
+                     x.device, data.data_ptr(), args, keep, many)
 
 
 def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
@@ -259,6 +308,41 @@ def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def launch_many(rec: DiaLaunch, X: torch.Tensor, tile: int = None) -> torch.Tensor:
+    """Launch the batched kernel as ``rec`` resolved it on the block X
+    (n, B), on PyTorch's current stream; returns A X as an (n, B) view of a
+    contiguous (B, n) tensor, so that a product of it is read without a
+    copy.  X is read as B rows of length n at the stride ``X.stride(1)``
+    where ``X.stride(0)`` is 1 (the view X.T of a (B, n) block); any other
+    layout is copied into that one first.  ``tile``: the vectors held in
+    registers at a time, 4 or 8 (``spmm_tile`` by default).  The launch
+    counts in its
+    design's counter and in ``dia_spmm_cuda``'s; does not synchronise."""
+    if (not rec.takes(X) or X.dim() != 2 or X.shape[0] != rec.n):
+        raise ValueError(f"the batched launch takes a {rec.dtype} block of "
+                         f"{rec.n} rows on {rec.device}; got {X.dtype} "
+                         f"{tuple(X.shape)} on {X.device}")
+    nvec = X.shape[1]
+    if X.stride(0) != 1 and rec.n > 1:
+        X = X.T.contiguous().T
+    Y = torch.empty((nvec, rec.n), dtype=X.dtype, device=X.device)
+    if nvec == 0:
+        return Y.T
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    err = _entry_many(rec.dtype)(
+        rec.data_ptr, X.data_ptr(), Y.data_ptr(), rec.n, nvec, X.stride(1),
+        rec.n, *rec.many, spmm_tile(nvec) if tile is None else int(tile),
+        rec.args[-1], stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dia_spmm kernel launch failed ({rec.design}): cudaError {err}")
+    counter = (dia_spmm_live_cuda if rec.design == "live"
+               else dia_spmm_dense_cuda)
+    counter.launches += 1
+    dia_spmm_cuda.launches += 1
+    return Y.T
+
+
 def dia_spmv_live_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
                        live: LivePlan, x: torch.Tensor) -> torch.Tensor:
     """Launch the kernel with a live plan on PyTorch's current stream; does
@@ -281,9 +365,43 @@ def dia_spmv_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
     return launch(dia_launch(data, offsets, wrap, x, live), x)
 
 
-# kernel launches of each design, and of either; reset them to count a run
+def _column(X: torch.Tensor) -> torch.Tensor:
+    """A vector like a column of X (n, B), on which a launch is resolved."""
+    if X.dim() != 2:
+        raise ValueError(f"a block of vectors is (n, B), got {tuple(X.shape)}")
+    return X.new_empty(X.shape[0])
+
+
+def dia_spmm_live_cuda(data: torch.Tensor, offsets: Sequence[int],
+                       wrap: bool, live: LivePlan, X: torch.Tensor,
+                       tile: int = None) -> torch.Tensor:
+    """Launch the batched kernel with a live plan on PyTorch's current
+    stream; does not synchronise."""
+    return launch_many(dia_launch(data, offsets, wrap, _column(X), live), X, tile)
+
+
+def dia_spmm_dense_cuda(data: torch.Tensor, offsets: Sequence[int],
+                        wrap: bool, X: torch.Tensor,
+                        tile: int = None) -> torch.Tensor:
+    """Launch the batched kernel with every diagonal live on PyTorch's
+    current stream; does not synchronise."""
+    return launch_many(dia_launch(data, offsets, wrap, _column(X)), X, tile)
+
+
+def dia_spmm_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
+                  X: torch.Tensor, live: Optional[LivePlan] = None,
+                  tile: int = None) -> torch.Tensor:
+    """Launch the batched kernel: the live design with a plan, the dense
+    one without."""
+    return launch_many(dia_launch(data, offsets, wrap, _column(X), live), X, tile)
+
+
+# kernel launches of each design, and of either, for one vector and for a
+# block; reset them to count a run
 dia_spmv_live_cuda.launches = dia_spmv_dense_cuda.launches = 0
 dia_spmv_cuda.launches = 0
+dia_spmm_live_cuda.launches = dia_spmm_dense_cuda.launches = 0
+dia_spmm_cuda.launches = 0
 
 
 def dia_spmv(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
@@ -298,3 +416,4 @@ def dia_spmv(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
     if x.device.type == "cpu":
         return dia_spmv_torch(data, offsets, wrap, x)
     raise ValueError(f"no DIA SpMV for device {x.device}")
+

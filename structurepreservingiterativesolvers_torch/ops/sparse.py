@@ -5,8 +5,10 @@ FEM operators on structured periodic meshes (lkdv, swe, lkdvRK's stage
 systems of degree 3 and 2 stages) have a small fixed set of diagonals, so
 ``A @ x`` is one DIA SpMV: on a CUDA tensor the hand-written kernel
 (``kernels/dia_spmv.py``), with the operator's live plan where it pays, on a
-CPU tensor its plain twin.  ``A @ X`` for a tall matrix stays plain PyTorch,
-as it stays outside any Pallas kernel in the JAX package.  Under autograd or
+CPU tensor its plain twin.  ``A @ X`` for a tall (n, B) X, the JAX package's
+convention, is the batched kernel on the card (the counterpart of the JAX
+package's ``dia_spmv_pallas`` under ``jax.vmap``), through the same plan and
+launch, and its plain twin on the CPU.  Under autograd or
 a ``torch.func`` transform ``A @ x`` is differentiable (``_DiaProduct``):
 the general constraints differentiate through it.
 
@@ -33,8 +35,10 @@ from ..kernels.dia_spmv import (
     DiaLaunch,
     LivePlan,
     dia_launch,
+    dia_spmm_torch,
     dia_spmv as _dia_spmv,
     launch,
+    launch_many,
     live_chunk,
     live_plan,
     shift as _shift,
@@ -106,9 +110,9 @@ class DIA:
         return self._transpose
 
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
+        if _traced(other):
+            return _DiaProduct.apply(other, self)
         if other.dim() == 1:
-            if _traced(other):
-                return _DiaProduct.apply(other, self)
             return dia_spmv(self, other)
         return dia_spmm(self, other)
 
@@ -127,6 +131,20 @@ class DIA:
         return out
 
 
+def _resolved(A: DIA, x: torch.Tensor) -> DiaLaunch:
+    """The launch A keeps for x's dtype and device (resolved again for
+    another): the live design where A's plan pays, the dense one
+    elsewhere."""
+    rec = A._launch
+    if rec is None or not rec.takes(x):
+        plan = A.live()
+        like = x if x.dim() == 1 else x.new_empty(x.shape[0])
+        rec = dia_launch(A.data, A.offsets, A.wrap, like,
+                         plan if plan.pays else None)
+        object.__setattr__(A, "_launch", rec)
+    return rec
+
+
 def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     """``A @ x``: on CUDA tensors the DIA kernel, with A's live plan where
     the plan pays (``LivePlan.pays``; an Inf or NaN of x that only skipped
@@ -135,21 +153,18 @@ def dia_spmv(A: DIA, x: torch.Tensor) -> torch.Tensor:
     another dtype or device); on CPU tensors its plain twin."""
     if x.device.type != "cuda":
         return _dia_spmv(A.data, A.offsets, A.wrap, x)
-    rec = A._launch
-    if rec is None or not rec.takes(x):
-        plan = A.live()
-        rec = dia_launch(A.data, A.offsets, A.wrap, x,
-                         plan if plan.pays else None)
-        object.__setattr__(A, "_launch", rec)
-    return launch(rec, x)
+    return launch(_resolved(A, x), x)
 
 
 class _DiaProduct(torch.autograd.Function):
     """``A @ x`` under autograd or a ``torch.func`` transform (the general
-    constraints' ``grad`` and ``hessian``): the value is ``dia_spmv`` (the
-    kernel on the card), its derivatives are products with A (forward mode)
-    and Aᵀ (reverse mode), and a batch of x (``vmap``) is one tall product,
-    plain PyTorch as every ``A @ X`` is."""
+    constraints' ``grad`` and ``hessian``), for a vector or a block x: the
+    value is ``dia_spmv`` or ``dia_spmm`` (the kernels on the card), its
+    derivatives are products with A (forward mode) and Aᵀ (reverse mode),
+    and a batch of x (``vmap``) is one product with the block, its batch
+    folded into the columns.  A transform's wrapper never reaches a kernel,
+    which reads storage: a product of a tensor that another transform still
+    wraps comes back here, one level down."""
 
     @staticmethod
     def forward(x, A):
@@ -157,7 +172,7 @@ class _DiaProduct(torch.autograd.Function):
         # backward), its data would be a transform's wrapper, which has no
         # storage for the kernel to read
         A.transpose()
-        return dia_spmv(A, x)
+        return dia_spmv(A, x) if x.dim() == 1 else dia_spmm(A, x)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -173,16 +188,18 @@ class _DiaProduct(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, x, A):
-        return dia_spmm(A, x.movedim(in_dims[0], 1)), 1
+        X = x.movedim(in_dims[0], -1)
+        return (A @ X.reshape(X.shape[0], -1)).reshape(X.shape), X.dim() - 1
 
 
 def dia_spmm(A: DIA, X: torch.Tensor) -> torch.Tensor:
-    """``A @ X`` for a tall (n, m) X: one shifted copy per diagonal."""
-    dtype = torch.promote_types(A.dtype, X.dtype)
-    Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dtype, device=X.device)
-    for d, off in enumerate(A.offsets):
-        Y = Y + A.data[d][:, None] * _shift(X, off, A.wrap)
-    return Y
+    """``A @ X`` for a tall (n, B) X: on CUDA tensors the batched kernel
+    through the launch A keeps, its result an (n, B) view of a (B, n)
+    block (read without a copy where X is such a view, ``launch_many``); on
+    CPU tensors its plain twin, one shifted copy per diagonal."""
+    if X.device.type != "cuda":
+        return dia_spmm_torch(A.data, A.offsets, A.wrap, X)
+    return launch_many(_resolved(A, X), X)
 
 
 def dia_from_scipy(A, wrap: Optional[bool] = None, dtype=None, *,

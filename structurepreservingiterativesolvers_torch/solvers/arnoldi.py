@@ -19,8 +19,10 @@ The host loop's state (``ArnoldiState``) lives on two devices:
 The device core's state (``DeviceArnoldi``, the JAX package's fixed-shape
 ``ArnoldiState``) lives on the operands' device whole, so that a step reads
 nothing on the host and can be captured in a CUDA graph
-(``solvers/graphs.py``).  Its steps write every entry under a mask
-``live``: a step taken after the solve is done changes nothing.
+(``solvers/graphs.py``).  It carries a batch of solves on a leading axis
+(the JAX package's state under ``jax.vmap``); its steps write every entry
+under a mask ``live`` per solve: a step taken after a solve is done changes
+nothing of it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..config import HOST
 from ..kernels.ortho import fused_update_matvec
+from ..ops.rows import basis_mv as rows_mv, basis_rmv as rows_rmv, rows
 
 # the orthogonalisations of ``arnoldi_step``; "cgs2_xla" is the JAX
 # package's name of the plain form
@@ -210,93 +213,128 @@ def iterate(st: ArnoldiState, y: torch.Tensor, j: int, x0: torch.Tensor) -> torc
 
 class DeviceArnoldi(NamedTuple):
     """The JAX package's ``ArnoldiState`` (``arnoldi.py:16-57`` there), all
-    on the operands' device, with ``G``, the product of the Givens
-    rotations so far, (k+1, k+1), the identity beyond the active rows, in
-    place of its R, cs and sn, which nothing here reads: ``G @ H[:, :j+1]``
-    is R and ``G @ (β e1) = g``."""
+    on the operands' device, for a batch of B solves (the leading axis of
+    every field: the JAX package's state under ``jax.vmap``), with ``G``,
+    the product of the Givens rotations so far, (B, k+1, k+1), the identity
+    beyond the active rows, in place of its R, cs and sn, which nothing here
+    reads: ``G @ H[:, :j+1]`` is R and ``G @ (β e1) = g``."""
 
-    Q: torch.Tensor
-    Z: torch.Tensor
-    H: torch.Tensor
-    Rinv: torch.Tensor
-    g: torch.Tensor
-    G: torch.Tensor
+    Q: torch.Tensor  # (B, k+1, n)
+    Z: torch.Tensor  # (B, k, n)
+    H: torch.Tensor  # (B, k+1, k)
+    Rinv: torch.Tensor  # (B, k, k)
+    g: torch.Tensor  # (B, k+1)
+    G: torch.Tensor  # (B, k+1, k+1)
 
 
-def device_state(n: int, k: int, dtype, device) -> DeviceArnoldi:
+def device_state(n: int, k: int, dtype, device, batch: int = 1) -> DeviceArnoldi:
     def z(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros((batch, *shape), dtype=dtype, device=device)
 
     return DeviceArnoldi(Q=z(k + 1, n), Z=z(k, n), H=z(k + 1, k),
                          Rinv=z(k, k), g=z(k + 1), G=z(k + 1, k + 1))
 
 
 def start(st: DeviceArnoldi, r0: torch.Tensor, beta: torch.Tensor) -> None:
-    """Reset the state for a solve from the residual r0, ‖r0‖ = beta (a
-    device scalar): the first basis row and β e1; the k-sized factors are
-    cleared (the n-sized rows beyond the first are written before they are
-    read)."""
-    st.Q[0] = r0 / torch.where(beta == 0, 1.0, beta)
+    """Reset the state for the solves from the residuals r0 (B, n),
+    ‖r0‖ = beta (B,): the first basis rows and β e1; the k-sized factors
+    are cleared (the n-sized rows beyond the first are written before they
+    are read)."""
+    st.Q[:, 0] = r0 / torch.where(beta == 0, 1.0, beta)[:, None]
     for t in (st.H, st.Rinv, st.g):
         t.zero_()
-    st.g[0] = beta
-    st.G.copy_(torch.eye(st.G.shape[0], dtype=st.G.dtype, device=st.G.device))
+    st.g[:, 0] = beta
+    st.G.copy_(torch.eye(st.G.shape[-1], dtype=st.G.dtype,
+                         device=st.G.device).expand_as(st.G))
+
+
+def _cgs2_block(Q: torch.Tensor, w: torch.Tensor,
+                j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_cgs2`` for each solve of a batch: Q (B, k+1, n), w (B, n); its
+    four tall products as batched matrix products over the (B, j+1, n)
+    active basis, outside any kernel, as in the JAX package."""
+    Qa = Q[:, : j + 1]
+    h1 = rows_mv(Qa, w)
+    w1 = w - rows_rmv(h1, Qa)
+    h2 = rows_mv(Qa, w1)
+    w2 = w1 - rows_rmv(h2, Qa)
+    return w2, h1 + h2
 
 
 def arnoldi_step_masked(A, prefunc, st: DeviceArnoldi, j: int, ortho: str,
                         live: torch.Tensor) -> torch.Tensor:
-    """``arnoldi_step`` on the device state, with no host read: returns
-    h[j+1, j] as a device scalar.  Where ``live`` is false nothing is
-    written."""
+    """``arnoldi_step`` on the device state of B solves, with no host read:
+    returns h[j+1, j] (B,) on the device.  Where ``live`` (B,) is false
+    nothing of that solve is written.  The preconditioner and A take the
+    (n, B) block of the solves' vectors (``ops/rows.py``); a single solve
+    (B = 1) runs the products of ``arnoldi_step`` on its vector, and only
+    there may ``ortho`` be ``"cgs2_fused"`` (the fused kernel #5 takes one
+    vector) or ``"mgs"``."""
     if ortho not in ORTHO:
         raise ValueError(f"unknown ortho {ortho!r}; use one of {ORTHO}")
-    z = prefunc(st.Q[j])
-    w = A @ z
-    if ortho == "mgs":
-        w, h = _mgs(st.Q, w, j)
+    B = st.Q.shape[0]
+    if B > 1 and ortho not in ("cgs2", "cgs2_xla"):
+        raise NotImplementedError(
+            f"ortho={ortho!r} under a batch: the batched core runs 'cgs2', as "
+            "the JAX package's cgmres_many builds its core")
+    z = rows(prefunc, st.Q[:, j])
+    w = rows(A.__matmul__, z)
+    if B > 1:
+        w, h = _cgs2_block(st.Q, w, j)
+    elif ortho == "mgs":
+        w, h = (t[None] for t in _mgs(st.Q[0], w[0], j))
     else:
-        w, h = _cgs2(st.Q, w, j, fused=ortho == "cgs2_fused")
-    hlast = torch.linalg.norm(w)
-    k1 = st.H.shape[0]
-    hcol = torch.cat([h, hlast.reshape(1), h.new_zeros(k1 - j - 2)])
-    qnext = torch.where(hlast > 0, w / torch.where(hlast == 0, 1.0, hlast), 0.0)
-    st.Q[j + 1] = torch.where(live, qnext, st.Q[j + 1])
-    st.Z[j] = torch.where(live, z, st.Z[j])
-    st.H[:, j] = torch.where(live, hcol, st.H[:, j])
+        w, h = (t[None] for t in _cgs2(st.Q[0], w[0], j,
+                                       fused=ortho == "cgs2_fused"))
+    hlast = torch.linalg.norm(w, dim=-1)
+    k1 = st.H.shape[1]
+    hcol = torch.cat([h, hlast[:, None], h.new_zeros(B, k1 - j - 2)], dim=1)
+    safe = torch.where(hlast == 0, 1.0, hlast)[:, None]
+    qnext = torch.where((hlast > 0)[:, None], w / safe, 0.0)
+    lv = live[:, None]
+    st.Q[:, j + 1] = torch.where(lv, qnext, st.Q[:, j + 1])
+    st.Z[:, j] = torch.where(lv, z, st.Z[:, j])
+    st.H[:, :, j] = torch.where(lv, hcol, st.H[:, :, j])
     givens_update_masked(st, hcol, j, live)
     return hlast
 
 
 def givens_update_masked(st: DeviceArnoldi, hcol: torch.Tensor, j: int,
                          live: torch.Tensor) -> None:
-    """Fold column j of H into the running QR factorisation, as the JAX
-    package's ``_givens_update`` (``arnoldi.py:140-177`` there) with its
-    incremental R⁻¹, on the device: the j earlier rotations act on the
-    column as one product with their running product ``G`` (the JAX package
-    applies them one by one, 2j dependent operations); then the new
-    rotation, which updates rows j and j+1 of ``G``."""
-    k = st.Rinv.shape[0]
-    rot = st.G[: j + 1, : j + 1] @ hcol[: j + 1]
-    a, b = rot[j], hcol[j + 1]
+    """Fold column j of H, hcol (B, k+1), into the running QR
+    factorisations, as the JAX package's ``_givens_update``
+    (``arnoldi.py:140-177`` there) with its incremental R⁻¹, on the device:
+    the j earlier rotations act on the column as one product with their
+    running product ``G`` (the JAX package applies them one by one, 2j
+    dependent operations); then the new rotation, which updates rows j and
+    j+1 of ``G``.  Where ``live`` (B,) is false nothing is written."""
+    B, k = st.Rinv.shape[0], st.Rinv.shape[-1]
+    rot = (st.G[:, : j + 1, : j + 1] @ hcol[:, : j + 1, None])[:, :, 0]
+    a, b = rot[:, j], hcol[:, j + 1]
     denom = torch.sqrt(a * a + b * b)
     safe = torch.where(denom == 0, 1.0, denom)
     c = torch.where(denom == 0, 1.0, a / safe)
     s = torch.where(denom == 0, 0.0, b / safe)
-    gj = st.g[j]
+    gj = st.g[:, j]
     g_j, g_j1 = c * gj, -s * gj
     rjj = torch.where(denom == 0, torch.finfo(st.Rinv.dtype).tiny, denom)
-    rest = hcol.new_zeros(k - j - 1)
-    newcol = torch.cat([-(st.Rinv[:j, :j] @ rot[:j]) / rjj,
-                        (1.0 / rjj).reshape(1), rest])
-    Gj, Gj1 = c * st.G[j] + s * st.G[j + 1], -s * st.G[j] + c * st.G[j + 1]
-    st.g[j] = torch.where(live, g_j, gj)
-    st.g[j + 1] = torch.where(live, g_j1, st.g[j + 1])
-    st.Rinv[:, j] = torch.where(live, newcol, st.Rinv[:, j])
-    st.G[j] = torch.where(live, Gj, st.G[j])
-    st.G[j + 1] = torch.where(live, Gj1, st.G[j + 1])
+    rest = hcol.new_zeros(B, k - j - 1)
+    upper = (st.Rinv[:, :j, :j] @ rot[:, :j, None])[:, :, 0]
+    newcol = torch.cat([-upper / rjj[:, None], (1.0 / rjj)[:, None], rest],
+                       dim=1)
+    c, s = c[:, None], s[:, None]
+    Gj = c * st.G[:, j] + s * st.G[:, j + 1]
+    Gj1 = -s * st.G[:, j] + c * st.G[:, j + 1]
+    lv = live[:, None]
+    st.g[:, j] = torch.where(live, g_j, gj)
+    st.g[:, j + 1] = torch.where(live, g_j1, st.g[:, j + 1])
+    st.Rinv[:, :, j] = torch.where(lv, newcol, st.Rinv[:, :, j])
+    st.G[:, j] = torch.where(lv, Gj, st.G[:, j])
+    st.G[:, j + 1] = torch.where(lv, Gj1, st.G[:, j + 1])
 
 
 def lsq_coeffs_device(st: DeviceArnoldi, j: int) -> torch.Tensor:
     """``lsq_coeffs`` on the device: one product with the active columns of
-    R⁻¹, (k,) with y[j+1:] = 0 (rows of R⁻¹ below its diagonal are zero)."""
-    return st.Rinv[:, : j + 1] @ st.g[: j + 1]
+    R⁻¹, (B, k) with y[:, j+1:] = 0 (rows of R⁻¹ below its diagonal are
+    zero)."""
+    return (st.Rinv[:, :, : j + 1] @ st.g[:, : j + 1, None])[:, :, 0]

@@ -28,7 +28,9 @@ Two loops drive the solve (``cgmres(..., loop=...)``):
   on the CPU.  The host loop over the steps replays one graph and reads
   two flags (the next step's gate and ``done``) per step; a gated step
   replays the endgame's graphs, one Newton iteration each, with a flag read
-  after each.  Quadratic constraints only.
+  after each.  Quadratic constraints only.  The same core carries a batch
+  of solves on a leading axis (``experiments/batched.py::cgmres_many``, the
+  JAX package's vmapped core); a single solve is its batch of one.
 
 ``cgmres_p`` is the prototypical variant enforcing constraints cumulatively
 (iteration j enforces the first j constraints, reference solvers.py:328-445).
@@ -68,7 +70,10 @@ from ..constraints.quadratic import (
     reduced_scale,
     reduced_value,
     update_buffers,
+    value_and_scale_rows,
+    value_scale,
 )
+from ..ops.rows import basis_mv as rows_mv, basis_rmv as rows_rmv, rows
 from ..precond.base import as_preconditioner
 from .arnoldi import (
     arnoldi_step,
@@ -92,6 +97,7 @@ from .kkt import (
     kkt_step,
     kkt_values,
     kkt_work,
+    pins,
 )
 
 _SAFETY_NONE, _SAFETY_OK, _SAFETY_BAD = 0, 1, 2
@@ -148,6 +154,9 @@ class _Solve:
         self.general = tuple(isinstance(c, GeneralConstraint) for c in cons)
         # the quadratic constraints, whose reduction the solve keeps
         self.quad = tuple(c for c, g in zip(cons, self.general) if not g)
+        # the linear ones, which the endgame may pin (``pins``)
+        self.linear = torch.tensor([not g and c.M is None
+                                    for c, g in zip(cons, self.general)])
         self.prefunc = as_preconditioner(pre)
         self.history, self.prototypical, self.ortho = history, prototypical, ortho
         self.x0_zero = x0 is None
@@ -175,13 +184,23 @@ class _Solve:
         bufs = tuple(
             taylor_buffers(c, yk, st.Z, self.x0) if g else next(quad)
             for c, g in zip(self.cons, self.general))
+        # the roundoff scales at x0 of the quadratic constraints (|t0| for
+        # a general one's Taylor model), and the pins of the device core's
+        # kkt_start, from both starts: a linear constraint that every
+        # iterate satisfies leaves the Newton
+        s0 = iter(self.s0)
+        s0 = [None if g else next(s0) for g in self.general]
+        pin = None
+        if not self.prototypical:
+            pin = pins(bufs, s0, self.linear, torch.stack([yk, y_unc]),
+                       con_mask, kkt_tol)
         # multipliers and the KKT inverse are carried across gated
         # iterations; prototypical mode re-factors because its enforced set
         # changes every iteration
         kkt = constrained_lsq(
             H, beta, bufs, yk, active, con_mask, kkt_tol=kkt_tol,
             lam_ws=lamc, Kinv_ws=Kinvc,
-            have_ws=False if self.prototypical else haveK,
+            have_ws=False if self.prototypical else haveK, pin=pin, s0=s0,
         )
         e1 = (torch.arange(k + 1) == 0).to(dt)
 
@@ -196,12 +215,13 @@ class _Solve:
             dev_fb = float(torch.max(torch.stack(
                 [torch.abs(reduced_value(bf, y_unc)) for bf in bufs]) * con_mask))
             scale_fb = float(torch.max(torch.stack(
-                [reduced_scale(bf, y_unc) for bf in bufs]) * con_mask))
+                [reduced_scale(bf, y_unc, s) for bf, s in zip(bufs, s0)])
+                * con_mask))
             # dual-start Newton: the nonconvex constraints have several
             # feasible basins and neither start dominates, so solve from the
             # fresh LSQ start too and keep the better candidate
             kkt_f = constrained_lsq(H, beta, bufs, y_unc, active, con_mask,
-                                    kkt_tol=kkt_tol)
+                                    kkt_tol=kkt_tol, pin=pin, s0=s0)
             if _take_fresh(kkt, kkt_f, residual(kkt), residual(kkt_f),
                            scale_fb, self.ctol, dt):
                 kkt = kkt_f
@@ -248,6 +268,7 @@ class _Solve:
         st = init_state(r0, beta, k)
         bufs = tuple(init_buffers(c, x0, k, x0_zero=self.x0_zero)
                      for c in self.quad)
+        self.s0 = [value_scale(c, x0, x0_zero=self.x0_zero) for c in self.quad]
         res = np.full(k, np.inf)
         xs = None
         if self.history:
@@ -407,40 +428,57 @@ class DeviceCore:
     """CGMRES as fixed-shape steps on the operands' device: the counterpart
     of the JAX package's ``_build_core`` (``cgmres.py:147-470`` there, its
     ``loop="while"`` form with the true residual each step), for quadratic
-    constraints.
+    constraints, for one solve or for a batch of B solves that share A, the
+    preconditioner and the constraints' operators M (the JAX package's core
+    under ``jax.vmap``, ``experiments/batched.py::cgmres_many``).
 
     Everything a solve reads or writes is a tensor allocated here, on the
-    device of ``like`` (its *static buffers*): the inputs ``b``, ``x0`` and
-    each constraint's ``c`` and ``v`` (``load`` copies them in), the Arnoldi
-    state, the reduced constraints, the KKT's carried multipliers and
-    inverse, the latch and the counts.  Each step below is a Python
-    function of a static Arnoldi index j that reads and writes only those,
-    with no host read, every write masked by ``~done``; ``runner`` runs it
-    (captured and replayed on the card, eagerly on the CPU).  ``solve``
-    drives the steps from the flags they write:
+    device of ``like`` (its *static buffers*), with a leading axis of B: the
+    inputs ``b``, ``x0`` and each constraint's ``c`` and ``v`` (``load``
+    copies them in), the Arnoldi state, the reduced constraints, the KKT's
+    carried multipliers and inverse, the latch and the counts.  Each step
+    below is a Python function of a static Arnoldi index j that reads and
+    writes only those, with no host read, every write masked per solve;
+    ``runner`` runs it (captured and replayed on the card, eagerly on the
+    CPU).  ``solve`` drives the steps from the flags they write:
 
-    * ``init``: r0, β, the state and the buffers' t0; the gate of step 0;
+    * ``init``: r0, β, the state and the buffers' t0; the gates of step 0;
     * ``arnoldi`` j: the Arnoldi step and the LSQ coefficients;
-    * ``advance`` j (gate shut): the iterate from the LSQ coefficients, its
-      true residual, ``done``, the next gate;
-    * gate open: once, ``catchup`` over the basis so far (the JAX package's
+    * ``advance`` j, for the solves whose gate is shut: the iterate from the
+      LSQ coefficients, its true residual, ``done``, the next gate;
+    * for the solves whose gate is open: ``catchup`` j for those whose gate
+      opened at j (the reduction over the basis so far, the JAX package's
       catch-up after its phase 1), then ``kkt_start`` j (column j folded
-      into the buffers; the dual start, warm and fresh, as a batch of two),
-      ``kkt_step`` j while a start goes on, ``kkt_refactor`` j where one
-      asks, and ``kkt_finish`` j: the choice between the starts (the port's
-      dual-start merit, ``_take_fresh``), the far-branch rejection, the
-      latch, and the iterate as in ``advance``.
+      into the buffers; the dual start, warm and fresh, as a batch of two
+      starts a solve), ``kkt_step`` j while a start goes on, ``kkt_refactor``
+      j where one asks, and ``kkt_finish`` j: the choice between the starts
+      (the port's dual-start merit, ``_take_fresh``), the far-branch
+      rejection, the latch, and the iterate as in ``advance``.
+
+    The solves of a batch run in lockstep: j is shared, so the active
+    prefix stays a Python constant, and a solve that is done, or whose gate
+    is the other one, is masked out of a step.  So each solve takes the
+    steps its single solve takes (the JAX package's vmapped ``lax.cond``s
+    become these masks, and its ``while_loop`` runs until every solve is
+    done).  The host reads the B gates and the B ``done`` flags once a step
+    (``flags``, [gates, dones]).  The n-sized products take the (n, B)
+    block of the solves' vectors (``ops/rows.py``): ``A @ X`` through the
+    batched kernel #1 on a DIA; a single solve (B = 1) runs them on its
+    vector, as before the batch axis.
+
+    ``like`` is a vector (n,) for a single solve, whose inputs and results
+    have no batch axis, or a block (B, n) for a batch.
 
     The dual-start merit keeps the port's repair (``_take_fresh``,
     ``DIVERGED_SCALE``): both candidates are judged against the floor of
     the fallback point.
 
-    Two repairs of a warm start (x0 ≠ 0) are the core's own, not the JAX
-    package's nor the host loop's: the floor takes the roundoff scale of
-    each constraint's value at x0 (``value_and_scale``; |t0| is a
-    cancellation there), and ``kkt_start`` pins a linear constraint that
-    every iterate satisfies (swe's mass, whose Krylov vectors carry none),
-    so the KKT matrix stays regular.  From x0 = 0 neither changes a bit."""
+    Two repairs of a warm start (x0 ≠ 0) are the port's, not the JAX
+    package's: the floor takes the roundoff scale of each constraint's value
+    at x0 (``value_and_scale``; |t0| is a cancellation there), and
+    ``kkt_start`` pins a linear constraint that every iterate satisfies
+    (swe's mass, whose Krylov vectors carry none), so the KKT matrix stays
+    regular.  From x0 = 0 neither changes a bit."""
 
     def __init__(self, A, pre, k: int, constraints, *, like: torch.Tensor,
                  tol: float, contol: float = 10.0, ctol: float = CTOL,
@@ -448,35 +486,44 @@ class DeviceCore:
                  runner: GraphRunner = None):
         cons = _quadratic(constraints)
         require_f64(like)
+        self.batched = like.dim() == 2
+        B = like.shape[0] if self.batched else 1
+        if B > 1 and ortho not in ("cgs2", "cgs2_xla"):
+            raise NotImplementedError(
+                f"ortho={ortho!r} under a batch: the batched core runs "
+                "'cgs2', as the JAX package's cgmres_many builds its core")
         self.A, self.pre, self.prefunc = A, pre, as_preconditioner(pre)
-        self.k, self.m = int(k), len(cons)
+        self.B, self.k, self.m = B, int(k), len(cons)
         self.tol, self.contol, self.ctol = float(tol), float(contol), float(ctol)
         self.ortho, self.x0_zero = ortho, bool(x0_zero)
         self.runner = GraphRunner(like.device) if runner is None else runner
-        n, dt, k, m = like.shape[0], like.dtype, self.k, self.m
+        n, dt, k, m = like.shape[-1], like.dtype, self.k, self.m
         self.kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(dt).eps)
 
         def z(*shape, dtype=dt):
-            return torch.zeros(shape, dtype=dtype, device=like.device)
+            return torch.zeros((B, *shape), dtype=dtype, device=like.device)
 
         self.b, self.x0 = z(n), z(n)
         self.cons = tuple(
             QuadraticConstraint(M=c.M, v=None if c.v is None else z(n), c=z(),
                                 name=c.name) for c in cons)
-        self.st = device_state(n, k, dt, like.device)
-        self.bufs = tuple(device_buffers(k, like) for _ in cons)
+        self.st = device_state(n, k, dt, like.device, B)
+        self.bufs = tuple(device_buffers(k, like, B) for _ in cons)
         self.x, self.yk, self.y_unc, self.res = z(n), z(k), z(k), z(k)
         self.beta, self.r_prev, self.dev = z(), z(), z()
         (self.safety, self.steps, self.ncon, self.kkt_it,
          self.nfb) = (z(dtype=torch.long) for _ in range(5))
-        (self.done, self.brk, self.brk_now,
-         self.haveK) = (z(dtype=torch.bool) for _ in range(4))
+        # the gate of the running step; whether a solve has entered its
+        # endgame (its catch-up is done)
+        (self.done, self.brk, self.brk_now, self.haveK, self.gate,
+         self.started) = (z(dtype=torch.bool) for _ in range(6))
         # the roundoff scale of each constraint's value at x0
         self.lamc, self.Kinvc, self.s0 = z(m), z(m + k, m + k), z(m)
-        # [the gate of the next step, done]; [a KKT start goes on, a start
-        # asks for a re-factorisation]
-        self.flags, self.kflags = z(2, dtype=torch.long), z(2, dtype=torch.long)
-        self.work = kkt_work(2, k, m, like) if m else None
+        # [the gates of the next step, done], B each; [a KKT start goes on,
+        # a start asks for a re-factorisation], over the batch
+        self.flags = torch.zeros(2 * B, dtype=torch.long, device=like.device)
+        self.kflags = torch.zeros(2, dtype=torch.long, device=like.device)
+        self.work = kkt_work(B, 2, k, m, like) if m else None
         self.linear = torch.tensor([c.M is None for c in cons],
                                    dtype=torch.bool, device=like.device)
         self.runner.warmup(self._first_use)
@@ -486,26 +533,29 @@ class DeviceCore:
         tensors: the kernel builds and loads, each DIA's live plan and
         resolved launch, the cuBLAS handles on the capture stream, and the
         fused CGS2 kernel's per-m attribute and occupancy."""
-        v = torch.ones_like(self.b)
-        self.A @ self.prefunc(v)
+        V = torch.ones_like(self.b)
+        rows(self.A.__matmul__, rows(self.prefunc, V))
         for c in self.cons:
             if c.M is not None:
-                c.M @ v
-                c.M @ torch.ones((v.shape[0], 2), dtype=v.dtype, device=v.device)
-        basis = torch.ones((2, v.shape[0]), dtype=v.dtype, device=v.device)
-        torch.linalg.norm((basis @ v) @ basis)
+                rows(c.M.__matmul__, V)
+                c.M @ torch.ones((V.shape[1], 2), dtype=V.dtype, device=V.device)
+        basis = torch.ones((self.B, 2, V.shape[1]), dtype=V.dtype,
+                           device=V.device)
+        torch.linalg.norm(rows_rmv(rows_mv(basis, V), basis))
         if self.ortho == "cgs2_fused":
             from ..kernels.ortho import fused_update_matvec
 
-            Q = torch.ones((self.k + 1, 256), dtype=v.dtype, device=v.device)
-            for rows in range(1, self.k + 2):
-                fused_update_matvec(Q[:rows], Q[0], Q[:rows, 0].contiguous())
+            Q = torch.ones((self.k + 1, 256), dtype=V.dtype, device=V.device)
+            for nrows in range(1, self.k + 2):
+                fused_update_matvec(Q[:nrows], Q[0], Q[:nrows, 0].contiguous())
 
     # --- inputs and results -----------------------------------------------------
 
     def load(self, b: torch.Tensor, x0, constraints) -> None:
-        """Copy a solve's inputs into the static buffers: b, x0 (None: zero,
-        as the core was built for), each constraint's c and v.  The
+        """Copy the solves' inputs into the static buffers: b, x0 (None:
+        zero, as the core was built for), each constraint's c and v, with a
+        leading batch axis where the core has one (a field of a batch's
+        constraints may be shared, without it: ``batch_constraints``).  The
         constraints must have the core's operators M."""
         cons = tuple(constraints)
         if len(cons) != self.m or any(
@@ -526,46 +576,63 @@ class DeviceCore:
 
     def result(self) -> CgmresResult:
         """Copies of the last solve's results (the static buffers are
-        overwritten by the next solve)."""
-        return CgmresResult(
+        overwritten by the next solve), without the batch axis for a core
+        built for one solve."""
+        out = CgmresResult(
             x=self.x.clone(), res=self.res.clone(), steps=self.steps.clone(),
             constrained_steps=self.ncon.clone(), safety=self.safety.clone(),
             deviation=self.dev.clone(), breakdown=self.brk.clone(),
             kkt_iters=self.kkt_it.clone(), fallbacks=self.nfb.clone())
+        return out if self.batched else CgmresResult(*(t[0] for t in out))
 
     # --- the host loop -------------------------------------------------------
 
+    def _read_flags(self):
+        vals = self.runner.read(self.flags)
+        return vals[: self.B], vals[self.B:]
+
     def solve(self) -> dict:
-        """Run one solve on the loaded inputs; returns the host's timings:
+        """Run the solves on the loaded inputs; returns the host's timings:
         ``runtime`` (wall, captures left out), ``time_capture``, the phase-1
-        steps and wall, the catch-up's and the endgame's walls.  The
-        results stay in the static buffers (``result``)."""
-        R, k = self.runner, self.k
+        steps and wall (until the first gate opens), the first catch-up's
+        and the rest's walls, and the steps with an endgame.  The results
+        stay in the static buffers (``result``)."""
+        R, k, B = self.runner, self.k, self.B
         cap0 = R.time_capture
         t_start = time.perf_counter()
         R.run("init", self._init)
-        gate, done = R.read(self.flags)
+        gate, done = self._read_flags()
+        started = [False] * B
         j, j1, gated = 0, None, 0
         t_phase1 = t_build = None
         cap_phase1 = cap_build = 0.0
-        while j < k and not done:
-            if gate and j1 is None:
-                # the end of phase 1: the catch-up over the basis so far, and
-                # a read that waits for it, so the host clock times it
+        while j < k and not all(done):
+            live = [not d for d in done]
+            opened = [lv and g for lv, g in zip(live, gate)]
+            shut = [lv and not g for lv, g in zip(live, gate)]
+            catchup = (j > 0 and self.m > 0
+                       and any(o and not st for o, st in zip(opened, started)))
+            if any(opened) and j1 is None:
+                # the end of phase 1: the first catch-up, and a read that
+                # waits for it, so the host clock times it
                 j1, t_phase1 = j, time.perf_counter()
                 cap_phase1 = R.time_capture - cap0
-                if j1 > 0 and self.m:
-                    R.run(("catchup", j1), functools.partial(self._catchup, j1))
+                if catchup:
+                    R.run(("catchup", j), functools.partial(self._catchup, j))
+                    catchup = False
                 R.read(self.flags)
                 t_build = time.perf_counter()
                 cap_build = R.time_capture - cap0
+            if catchup:
+                R.run(("catchup", j), functools.partial(self._catchup, j))
             R.run(("arnoldi", j), functools.partial(self._arnoldi, j))
-            if gate:
+            if any(shut):
+                R.run(("advance", j), functools.partial(self._advance, j))
+            if any(opened):
                 self._endgame(j)
                 gated += 1
-            else:
-                R.run(("advance", j), functools.partial(self._advance, j))
-            gate, done = R.read(self.flags)
+                started = [st or o for st, o in zip(started, opened)]
+            gate, done = self._read_flags()
             j += 1
         t_end = time.perf_counter()
         cap = R.time_capture - cap0
@@ -599,7 +666,7 @@ class DeviceCore:
     # --- the steps -------------------------------------------------------------
 
     def _set_flags(self, j_next: int) -> None:
-        """[the gate of step j_next, done]: the reference's gate
+        """[the gates of step j_next, done]: the reference's gate
         (solvers.py:230) is shut while the residual is above contol·tol, the
         step is not the last and the latch is untouched."""
         if j_next < self.k - 1:
@@ -607,11 +674,19 @@ class DeviceCore:
                      & (self.safety == _SAFETY_NONE))
         else:
             gate = torch.ones_like(self.done)
-        self.flags.copy_(torch.stack([gate, self.done]).long())
+        self.flags.copy_(torch.cat([gate, self.done]).long())
+
+    def _shut(self) -> torch.Tensor:
+        """The solves that take the unconstrained step j."""
+        return ~self.done & ~self.gate
+
+    def _open(self) -> torch.Tensor:
+        """The solves that take the endgame at step j."""
+        return ~self.done & self.gate
 
     def _init(self) -> None:
-        r0 = self.b - self.A @ self.x0
-        beta = torch.linalg.norm(r0)
+        r0 = self.b - rows(self.A.__matmul__, self.x0)
+        beta = torch.linalg.norm(r0, dim=-1)
         start(self.st, r0, beta)
         self.beta.copy_(beta)
         self.r_prev.copy_(beta)
@@ -620,63 +695,71 @@ class DeviceCore:
         self.dev.fill_(float("inf"))
         for t in (self.yk, self.safety, self.steps, self.ncon, self.kkt_it,
                   self.nfb, self.done, self.brk, self.brk_now, self.haveK,
-                  self.lamc):
+                  self.lamc, self.started):
             t.zero_()
-        self.Kinvc.copy_(torch.eye(self.Kinvc.shape[0], dtype=self.Kinvc.dtype,
-                                   device=self.Kinvc.device))
+        self.Kinvc.copy_(torch.eye(self.Kinvc.shape[-1], dtype=self.Kinvc.dtype,
+                                   device=self.Kinvc.device)
+                         .expand_as(self.Kinvc))
         for i, (con, buf) in enumerate(zip(self.cons, self.bufs)):
             if self.x0_zero:
                 buf.t0.copy_(con.c)
-                self.s0[i] = con.c.abs()
+                self.s0[:, i] = con.c.abs()
             else:
-                t0, self.s0[i] = con.value_and_scale(self.x0)
+                t0, self.s0[:, i] = value_and_scale_rows(con, self.x0)
                 buf.t0.copy_(t0)
             buf.t1.zero_()
             buf.T2.zero_()
         self._set_flags(0)
 
     def _arnoldi(self, j: int) -> None:
+        self.gate.copy_(self.flags[: self.B].bool())
         live = ~self.done
         hlast = arnoldi_step_masked(self.A, self.prefunc, self.st, j,
                                     self.ortho, live)
         self.brk_now.copy_(live & (hlast == 0))
         self.y_unc.copy_(lsq_coeffs_device(self.st, j))
 
-    def _finish(self, j: int, y: torch.Tensor, gated: bool) -> None:
-        """The iterate from the coefficients y, its true residual, the
-        counts, ``done`` and the next step's flags."""
-        live = ~self.done
-        x = y[: j + 1] @ self.st.Z[: j + 1] + self.x0
-        r = torch.linalg.norm(self.A @ x - self.b)
-        self.x.copy_(torch.where(live, x, self.x))
-        self.res[j] = torch.where(live, r, self.res[j])
-        self.r_prev.copy_(torch.where(live, r, self.r_prev))
-        self.yk.copy_(torch.where(live, y, self.yk))
+    def _finish(self, j: int, y: torch.Tensor, mask: torch.Tensor,
+                gated: bool) -> None:
+        """The iterates of the solves of ``mask`` from the coefficients y
+        (B, k), their true residuals, the counts, ``done`` and the next
+        step's flags."""
+        x = rows_rmv(y[:, : j + 1], self.st.Z[:, : j + 1]) + self.x0
+        r = torch.linalg.norm(rows(self.A.__matmul__, x) - self.b, dim=-1)
+        mk = mask[:, None]
+        self.x.copy_(torch.where(mk, x, self.x))
+        self.res[:, j] = torch.where(mask, r, self.res[:, j])
+        self.r_prev.copy_(torch.where(mask, r, self.r_prev))
+        self.yk.copy_(torch.where(mk, y, self.yk))
         done = ((r < self.tol) & (self.safety == _SAFETY_OK)) | self.brk_now
-        self.brk.copy_(self.brk | self.brk_now)
-        self.steps.add_(live.long())
+        self.brk.copy_(self.brk | (mask & self.brk_now))
+        self.steps.add_(mask.long())
         if gated:
-            self.ncon.add_(live.long())
-        self.done.copy_(self.done | (live & done))
+            self.ncon.add_(mask.long())
+        self.done.copy_(self.done | (mask & done))
         self._set_flags(j + 1)
 
     def _advance(self, j: int) -> None:
-        live = ~self.done
-        self.dev.copy_(torch.where(live, float("inf"), self.dev))
-        self._finish(j, self.y_unc, gated=False)
+        mask = self._shut()
+        self.dev.copy_(torch.where(mask, float("inf"), self.dev))
+        self._finish(j, self.y_unc, mask, gated=False)
 
     def _finish0(self, j: int) -> None:
         """A gated step without constraints: the constrained solve is the
         LSQ and the latch is vacuously satisfied."""
-        live = ~self.done
-        self.safety.copy_(torch.where(live, _SAFETY_OK, self.safety))
-        self.dev.copy_(torch.where(live, 0.0, self.dev))
-        self._finish(j, self.y_unc, gated=True)
+        mask = self._open()
+        self.safety.copy_(torch.where(mask, _SAFETY_OK, self.safety))
+        self.dev.copy_(torch.where(mask, 0.0, self.dev))
+        self.started.copy_(self.started | mask)
+        self._finish(j, self.y_unc, mask, gated=True)
 
     def _catchup(self, j1: int) -> None:
-        live = ~self.done
+        """The reduction over the first j1 basis vectors, for the solves
+        whose gate opened at step j1 (read from ``flags``: it runs before
+        the step's ``arnoldi``)."""
+        mask = ~self.done & self.flags[: self.B].bool() & ~self.started
         for con, buf in zip(self.cons, self.bufs):
-            catch_up(con, buf, self.st.Z, self.x0, j1, live, self.x0_zero)
+            catch_up(con, buf, self.st.Z, self.x0, j1, mask, self.x0_zero)
 
     def _model(self, j: int):
         return kkt_model(self.st.H, self.beta, self.bufs, j + 1, self.s0)
@@ -686,14 +769,15 @@ class DeviceCore:
                                        self.work.refact.any()]).long())
 
     def _kkt_start(self, j: int) -> None:
-        live = ~self.done
+        mask = self._open()
         for con, buf in zip(self.cons, self.bufs):
-            fold_column(con, buf, self.st.Z, self.x0, j, live, self.x0_zero)
+            fold_column(con, buf, self.st.Z, self.x0, j, mask, self.x0_zero)
+        self.started.copy_(self.started | mask)
         ka, na = j + 1, self.m + j + 1
-        y0 = torch.stack([self.yk[:ka], self.y_unc[:ka]])
-        have = torch.stack([self.haveK, torch.zeros_like(self.haveK)])
+        y0 = torch.stack([self.yk[:, :ka], self.y_unc[:, :ka]], dim=1)
+        have = torch.stack([self.haveK, torch.zeros_like(self.haveK)], dim=1)
         kkt_start(self._model(j), self.work, y0, have, self.lamc,
-                  self.Kinvc[:na, :na], self.kkt_tol, self.linear)
+                  self.Kinvc[:, :na, :na], self.kkt_tol, self.linear, mask)
         self._set_kflags()
 
     def _kkt_step(self, j: int) -> None:
@@ -704,55 +788,59 @@ class DeviceCore:
         kkt_refactor(self._model(j), self.work)
 
     def _kkt_finish(self, j: int) -> None:
-        live = ~self.done
+        mask = self._open()
         mod, w, dt = self._model(j), self.work, self.b.dtype
-        ka, na, k = j + 1, self.m + j + 1, self.k
+        ka, na, k, B = j + 1, self.m + j + 1, self.k, self.B
         eps, tiny = torch.finfo(dt).eps, torch.finfo(dt).tiny
-        Y, y_unc, beta = w.y[:, :ka], self.y_unc[:ka], self.beta
+        Y, y_unc, beta = w.y[..., :ka], self.y_unc[:, :ka], self.beta
         dev_c = kkt_values(mod, Y)[0].abs().amax(-1)
         scale_c = kkt_scale(mod, Y)
         # the roundoff scale and deviation at the fallback (unconstrained)
         # coefficients: the dual start's one floor, and the kept point's
         # numbers if the far branch rejects the constrained one
-        dev_fb = kkt_values(mod, y_unc)[0].abs().amax(-1)
-        scale_fb = kkt_scale(mod, y_unc)
-        be1 = torch.cat([beta.reshape(1), Y.new_zeros(ka)])
-        resid = torch.linalg.norm(be1 - Y @ self.st.H[: ka + 1, :ka].T, dim=-1)
+        dev_fb = kkt_values(mod, y_unc[:, None])[0].abs().amax(-1)[:, 0]
+        scale_fb = kkt_scale(mod, y_unc[:, None])[:, 0]
+        be1 = torch.cat([beta[:, None], Y.new_zeros(B, ka)], dim=-1)
+        Ha = self.st.H[:, : ka + 1, :ka]
+        resid = torch.linalg.norm(be1[:, None] - Y @ Ha.mT, dim=-1)
         # the dual start's choice (``_take_fresh``): feasible first, then the
         # smaller Hessenberg residual, against one floor; never a NaN
         nan = torch.isnan(Y).any(-1)
         floor_fb = torch.clamp(32.0 * eps * scale_fb, min=self.ctol)
         cap = DIVERGED_SCALE * torch.clamp(scale_fb, min=tiny)
-        feas = ~nan & (dev_c <= floor_fb) & (scale_c < cap)
+        feas = (~nan & (dev_c <= floor_fb[:, None])
+                & (scale_c < cap[:, None]))
         rr = torch.where(nan, float("inf"), resid)
-        take = torch.where(feas[0] != feas[1], feas[1], rr[1] < rr[0]) & ~nan[1]
-        pick = take.long().reshape(1)
+        take = (torch.where(feas[:, 0] != feas[:, 1], feas[:, 1],
+                            rr[:, 1] < rr[:, 0]) & ~nan[:, 1])
 
         def chosen(t):
-            return t.index_select(0, pick)[0]
+            return torch.where(take.reshape(B, *([1] * (t.dim() - 2))),
+                               t[:, 1], t[:, 0])
 
         y_kkt, bad, res_kkt = chosen(Y), chosen(nan), chosen(resid)
         # far-branch rejection (reference solvers.py:256-284): a constrained
         # point whose residual exceeds the initial one keeps the LSQ
         # coefficients and the fallback's numbers, and trips the latch
-        res_unc = self.st.g[j + 1].abs()
+        res_unc = self.st.g[:, j + 1].abs()
         far = ~bad & (res_kkt > 0.5 * beta) & (res_kkt > 1e3 * res_unc)
         deviation = torch.where(far, dev_fb, chosen(dev_c))
         scale = torch.where(far, scale_fb, chosen(scale_c))
-        y = torch.cat([torch.where(bad | far, y_unc, y_kkt),
-                       Y.new_zeros(k - ka)])
+        y = torch.cat([torch.where((bad | far)[:, None], y_unc, y_kkt),
+                       Y.new_zeros(B, k - ka)], dim=-1)
         floor = torch.clamp(32.0 * eps * scale, min=self.ctol)
         safety = torch.where(bad, self.safety, torch.where(
             deviation > floor, _SAFETY_BAD, _SAFETY_OK))
-        self.safety.copy_(torch.where(live, safety, self.safety))
-        self.dev.copy_(torch.where(live, deviation, self.dev))
-        self.kkt_it.add_(torch.where(live, chosen(w.it), 0))
-        self.nfb.add_((live & bad).long())
-        self.lamc.copy_(torch.where(live, chosen(w.lam), self.lamc))
-        self.Kinvc[:na, :na] = torch.where(live, chosen(w.Kinv[:, :na, :na]),
-                                           self.Kinvc[:na, :na])
-        self.haveK.copy_(torch.where(live, ~bad & ~far, self.haveK))
-        self._finish(j, y, gated=True)
+        self.safety.copy_(torch.where(mask, safety, self.safety))
+        self.dev.copy_(torch.where(mask, deviation, self.dev))
+        self.kkt_it.add_(torch.where(mask, chosen(w.it), 0))
+        self.nfb.add_((mask & bad).long())
+        self.lamc.copy_(torch.where(mask[:, None], chosen(w.lam), self.lamc))
+        self.Kinvc[:, :na, :na] = torch.where(
+            mask[:, None, None], chosen(w.Kinv[..., :na, :na]),
+            self.Kinvc[:, :na, :na])
+        self.haveK.copy_(torch.where(mask, ~bad & ~far, self.haveK))
+        self._finish(j, y, mask, gated=True)
 
 
 def _quadratic(constraints) -> tuple:

@@ -830,3 +830,98 @@ def test_fused_evolve_on_card_matches_cpu():
     assert max(gpu["dm"]) < 1e-9 and max(gpu["de"]) / 3e4 < 1e-13
     assert gpu["timings"]["step_capture"][1:].sum() == 0  # captured once
     assert gpu["sol"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,offsets,wrap", CASES)
+def test_spmm_kernel_matches_plain(dtype, n, offsets, wrap):
+    """The batched DIA kernel on the (n, B) view of a (B, n) block and on a
+    contiguous (n, B) block, in both designs and both tiles, against its
+    plain twin, for widths within a tile, at a tile and past one."""
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+
+    g = torch.Generator().manual_seed(n)
+    data = torch.randn(len(offsets), n, generator=g, dtype=dtype).cuda()
+    data[:, : n // 3] = 0.0  # dead segments, which the live design skips
+    A = DIA(data, offsets, (n, n), wrap)
+    for B in (1, 3, 8, 9, 41):
+        X = torch.randn(B, n, generator=g, dtype=dtype).cuda().T
+        ref = kd.dia_spmm_torch(data, offsets, wrap, X)
+        before = kd.dia_spmm_cuda.launches
+        outs = [A @ X, A @ X.contiguous(),
+                kd.dia_spmm_cuda(data, offsets, wrap, X, tile=4),
+                kd.dia_spmm_live_cuda(data, offsets, wrap, A.live(), X)]
+        torch.cuda.synchronize()
+        assert kd.dia_spmm_cuda.launches == before + 4
+        for Y in outs:
+            assert Y.shape == (n, B)
+            err = float((Y - ref).abs().max() / ref.abs().max())
+            assert err <= RTOL[dtype], (B, err)
+            assert torch.equal(Y, outs[0])
+
+
+@pytest.mark.cuda
+def test_spmm_kernel_refuses_what_it_does_not_take():
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.ops import sparse as tsp
+
+    data = torch.randn(3, 64, dtype=torch.float64, device="cuda")
+    X = torch.randn(64, 4, dtype=torch.float64, device="cuda")
+    with pytest.raises(RuntimeError):
+        kd.dia_spmm_cuda(data, (-1, 0, 1), True, X, tile=5)
+    with pytest.raises(TypeError):
+        kd.dia_spmm_cuda(data, (-1, 0, 1), True, X.float())
+    with pytest.raises(ValueError):
+        kd.dia_spmm_cuda(data, (-1, 0, 1), True, X.cpu())
+    # the product the port calls launches the kernel or raises: no plain
+    # fallback on a CUDA block the kernel does not take
+    with pytest.raises(TypeError):
+        tsp.dia_spmm(tsp.DIA(data, (-1, 0, 1), (64, 64), True), X.float())
+
+
+@pytest.mark.cuda
+def test_cgmres_many_on_card_matches_cpu():
+    """A swe batch with the skew-normal Chebyshev whose items stop at
+    different steps: the same steps and latches on the card as on the CPU,
+    x within 1e-10, and every product with the batch through the batched
+    kernel (none through kernel #1)."""
+    _card()
+    import importlib
+
+    import torch_parity
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.models import swe
+
+    ref = torch_parity.reference_script()
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    out = {}
+    for device in ("cpu", "cuda"):
+        s = swe.linforms(M=32, device=device)
+        pre = default_pre_builder("swe")(s)
+        states = torch.as_tensor(ref.batch_states("swe_M32_snc_B4",
+                                                  s.z0.cpu().numpy()),
+                                 device=device)
+        items = [s.step_update(z) for z in states]
+        before = kd.dia_spmm_cuda.launches, kd.dia_spmv_cuda.launches
+        X, info = cgmres_many(s.A, torch.stack([t.b for t in items]),
+                              [t.constraints() for t in items], k=20,
+                              tol=1e-7, pre=pre)
+        out[device] = (X.cpu(), info, kd.dia_spmm_cuda.launches - before[0],
+                       kd.dia_spmv_cuda.launches - before[1])
+    (xc, ic, _, _), (xg, ig, spmm, spmv) = out["cpu"], out["cuda"]
+    assert list(ig["steps"]) == list(ic["steps"]) == [4, 5, 5, 5]
+    assert list(ig["safety"]) == list(ic["safety"]) == [1, 1, 1, 1]
+    assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-10
+    assert spmm > 0 and spmv == 0
+    cg.clear_core_cache()

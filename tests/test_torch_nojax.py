@@ -4,7 +4,8 @@ imports the port, runs lkdv CGMRES, the SingleSolve command line, the heat
 and swe TimedSolve command lines and the swe Evolve command line (with the
 fused orthogonalisation's plain twin) on the CPU, the device core
 (``cgmres(loop="while")``) and ``fused_evolve`` eagerly on the CPU, and
-imports the lkdvRK modules, the graph runner and the profiling module."""
+imports the lkdvRK modules, the graph runner and the profiling module, and
+runs ``cgmres_many``."""
 
 import re
 import subprocess
@@ -42,6 +43,11 @@ print("DEVICE", info2["steps"], info2["safety"], float((x2 - x).abs().max()))
 from structurepreservingiterativesolvers_torch.experiments.evolve import fused_evolve
 out = fused_evolve("swe", N=2, M=8, k=20, tol=1e-8, device="cpu")
 print("FUSED", out["safety"].tolist())
+from structurepreservingiterativesolvers_torch.experiments.batched import cgmres_many
+items = [s.step_update(s.z0 * (1.0 + 0.01 * i)) for i in range(3)]
+X, binfo = cgmres_many(s.A, torch.stack([t.b for t in items]),
+                       [t.constraints() for t in items], k=20, tol=1e-8)
+print("BATCHED", binfo["steps"].tolist(), binfo["safety"].tolist())
 from structurepreservingiterativesolvers_torch.solvers import cg, graphs
 from structurepreservingiterativesolvers_torch.utils import checkpoint, profiling
 from structurepreservingiterativesolvers_torch.experiments import error_sweep
@@ -65,6 +71,8 @@ def test_port_imports_and_solves_without_jax():
     _, steps2, safety2, dx = device[0].split()
     assert steps2 == steps and safety2 == "True" and float(dx) <= 1e-10
     assert "FUSED [1, 1]" in proc.stdout
+    # the batched solve of the JAX package's own test runs without JAX
+    assert "BATCHED [18, 18, 18] [1, 1, 1]" in proc.stdout
     # SingleSolve prints every invariant deviation of the three solvers;
     # the prototypical CGMRES ones are at roundoff
     cg = re.findall(r"^cgmres \w+ deviation = (\S+)$", proc.stdout, re.M)

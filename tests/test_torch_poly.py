@@ -166,7 +166,8 @@ def test_wrappers_refuse(operators):
 
 def test_build_key_follows_included_headers(tmp_path):
     """The kernels' build key hashes the ``csrc/`` headers a source includes,
-    so an edit of ``stencil_row.cuh`` rebuilds both sources that share it."""
+    so an edit of ``stencil_row.cuh`` (or ``dia_row.cuh``) rebuilds both
+    sources that share it."""
     from structurepreservingiterativesolvers_torch.kernels import build
 
     def names(src):
@@ -174,7 +175,8 @@ def test_build_key_follows_included_headers(tmp_path):
 
     assert names("poly_apply.cu") == ["poly_apply.cu", "stencil_row.cuh"]
     assert names("stencil_spmv.cu") == ["stencil_spmv.cu", "stencil_row.cuh"]
-    assert names("dia_spmv.cu") == ["dia_spmv.cu"]
+    assert names("dia_spmv.cu") == ["dia_spmv.cu", "dia_row.cuh"]
+    assert names("dia_spmm.cu") == ["dia_spmm.cu", "dia_row.cuh"]
     src, header = tmp_path / "k.cu", tmp_path / "h.cuh"
     src.write_text('#include <cuda_runtime.h>\n#include "h.cuh"\n')
     header.write_text("// one\n")

@@ -203,7 +203,14 @@ def operator_format(A) -> dict:
 
 def check_lkdvrk_row(name):
     """``time_cgmres`` with the default lkdvRK pre-builder against the
-    record's entry ``name``."""
+    record's entry ``name``.  CGMRES is held as the device core is held
+    (``tests/test_torch_fused.py``): certified where the record certifies,
+    in at most the record's steps and constrained steps.  The port pins a
+    linear constraint whose value every iterate keeps within its floor
+    (``solvers/kkt.py::pins``): lkdvRK's stage-mapped mass is 0 at the start
+    to roundoff and its Krylov vectors carry none, so the JAX package's KKT
+    matrix is singular there and its endgame takes more steps (5 against
+    2 at M=50, (3, 2))."""
     from structurepreservingiterativesolvers_torch.experiments import (
         timed_solve as tts,
     )
@@ -223,9 +230,8 @@ def check_lkdvrk_row(name):
     assert seen == {"format": rec["format"], "width": rec["width"],
                     "ras_blocks": rec["ras_blocks"]}
     assert abs(out["gmres_steps"] - rec["gmres"]["steps"]) <= 1
-    assert abs(out["steps"] - rec["cgmres"]["steps"]) <= 1
-    assert abs(out["constrained_steps"]
-               - rec["cgmres"]["constrained_steps"]) <= 1
+    assert out["steps"] <= rec["cgmres"]["steps"]
+    assert out["constrained_steps"] <= rec["cgmres"]["constrained_steps"]
     assert out["safety"] is rec["cgmres"]["safety"] is True
     assert max(out["conservation"][f"cgmres_{nm}"]
                for nm in out["invariant_names"]) <= 1e-10
