@@ -115,11 +115,23 @@ imported.  Phases, each of which raises on a failed check:
     (``reference/slice8.json``), with each step's wall beside the host-loop
     evolution's, ``time_capture`` and the idle share of a profiled
     evolution;
-19. (last) the ninth slice: the batched DIA kernel (``dia_spmm.cu``)
-    against its plain twin within 1e-12 on swe M=512's A at B = 1, 2, 3,
-    8, 41, on heat M=1024's A (after phase 6) and on lkdvRK (3, 2)'s A
-    (after phase 13) at B = 8, timed beside 8 launches of kernel #1,
-    cuSPARSE SpMM and the plain twin; then ``cgmres_many`` on the two swe
+19. (last) the ninth and tenth slices: the batched DIA kernel
+    (``dia_spmm.cu``) against its plain twin within 1e-12 on swe M=512's A
+    at B = 1, 2, 3, 8, 41, on heat M=1024's A (after phase 6) and on lkdvRK
+    (3, 2)'s A (after phase 13) at B = 8, and at the catch-up's shapes: lkdv
+    M=100's mass matrix (after phase 3), heat M=1024's ``Emat`` (after
+    phase 5) and lkdvRK (3, 2)'s mass matrix (after phase 14), each at the
+    widest block its path gave the kernel and read as the catch-up reads it;
+    in the design ``spmm_plan`` picks and in both designs forced (tile,
+    spread), bit-equal to each other, to a second launch, across layouts
+    (a view, a contiguous block, rows at an odd stride) and column by
+    column to kernel #1; each shape timed in both designs beside B launches
+    of kernel #1, cuSPARSE SpMM, the plain twin and the bound, and the
+    widest swe block beside three yardsticks of what holds it back (a copy
+    of its vectors, its tiles as launches of their own, the same operator
+    with its far offsets folded near); every batched launch of every path is noted with its
+    shape and design, and the lkdv hard solve runs on the device core too,
+    whose catch-up graph holds the batched kernel; then ``cgmres_many`` on the two swe
     M=512 rows of ``reference/slice9.json`` at B = 8, each item held to
     the JAX package with its targets summed as the port sums them (steps
     equal), to the record (safety, the residual trace before the first
@@ -128,7 +140,8 @@ imported.  Phases, each of which raises on a failed check:
     ``cgmres(loop="while")`` on the card (steps equal, x within 1e-10);
     the median wall of 5 batched solves beside the 8 single solves,
     ``time_capture``, device busy and idle share, and the batched kernel
-    inside the replays by the counters and the profiler.
+    inside the replays by the counters (in the design its plan picks) and
+    the profiler.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -484,11 +497,17 @@ def _within_one(info, rec, key):
 
 
 def phase_lkdv(record):
+    """The lkdv SingleSolve and hard configurations, held to the record;
+    the hard CGMRES solve again on the device core.  Returns the hard
+    system and the launches over its CGMRES solve on each loop."""
+    import importlib
+
     import torch
 
     from structurepreservingiterativesolvers_torch.experiments.single_solve import (
         single_solve,
     )
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
     from structurepreservingiterativesolvers_torch.models import lkdv
     from structurepreservingiterativesolvers_torch.solvers import cgmres, gmres
 
@@ -508,8 +527,43 @@ def phase_lkdv(record):
 
     s = lkdv.linforms(M=100, degree=3, device=DEVICE)
     xg, ig = gmres(s.A, s.b, k=50, tol=1e-6)
+    _reset_launches()
     xc, ic = cgmres(s.A, s.b, k=50, tol=1e-6, constraints=s.constraints())
     torch.cuda.synchronize()
+    launches = {"lkdv_hard": _read_launches()}
+    # the same solve on the device core: its catch-up graph holds the
+    # products with the mass matrix, counted by its replays
+    cgmres(s.A, s.b, k=50, tol=1e-6, constraints=s.constraints(),
+           loop="while")
+    _reset_launches()
+    xw, iw = cgmres(s.A, s.b, k=50, tol=1e-6, constraints=s.constraints(),
+                    loop="while")
+    torch.cuda.synchronize()
+    launches["lkdv_hard_graph_core"] = _read_launches()
+    importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres"
+    ).clear_core_cache()
+    for path, counts in launches.items():
+        print(f"[lkdv hard] {path}: batched kernel {counts['dia_spmm']} "
+              f"launches (" + ", ".join(
+                  f"{d} {counts[f'dia_spmm_{d}']}" for d in
+                  ("live", "dense", *kd.DESIGNS))
+              + f"), kernel #1 {counts['dia_spmv']}")
+        check(counts["dia_spmm"] > 0 and counts["dia_spmm_spread"]
+              == counts["dia_spmm"], f"[lkdv hard] {path}: the catch-up's "
+                                     f"products with the mass matrix did not "
+                                     f"all run the spread design: {counts}")
+    # tol=1e-6 leaves the iterate O(tol) from the solution, so the two
+    # loops' rounding moves x by more than roundoff: each is held to the
+    # certificate instead
+    dw = _deviations(s, xw)
+    print(f"[lkdv hard] on the device core: steps {iw['steps']}, safety "
+          f"{iw['safety']}, deviations {dw}; x {_rel(xw, xc):.3e} from the "
+          f"host loop's")
+    check(iw["steps"] == ic["steps"] and iw["safety"] is True
+          and max(abs(d) for d in dw.values()) <= DEVIATION_MAX,
+          f"lkdv hard on the device core: {iw['steps']} steps (host loop "
+          f"{ic['steps']}), safety {iw['safety']}, deviations {dw}")
     dg, dc = _deviations(s, xg), _deviations(s, xc)
     print(f"[lkdv hard] gmres steps {ig['steps']} deviations {dg}")
     print(f"[lkdv hard] cgmres steps {ic['steps']} constrained "
@@ -525,6 +579,7 @@ def phase_lkdv(record):
           and _within_one(ic, rec, "constrained_steps"),
           f"lkdv hard steps {ic['steps']}/{ic['constrained_steps']} vs record "
           f"{rec['steps']}/{rec['constrained_steps']}")
+    return s, launches
 
 
 def phase_swe(s, record):
@@ -622,7 +677,7 @@ def phase_heat(record):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {key: n for key, n in _read_launches().items()
-                if key.startswith(("dia_spmv", "stencil_spmv"))}
+                if key.startswith(("dia_sp", "stencil_spmv"))}
     s, pre = seen["system"], seen["pre"]
     rec = record[f"heat_M{HEAT_M}"]
     levels = [L.A.shape[0] for L in pre.levels]
@@ -667,7 +722,9 @@ def phase_heat(record):
         print(f"{tag} one {name} solve: {info['steps']} steps, DIA kernel "
               f"{counts['dia_spmv']} launches ({counts['dia_spmv_dense']} "
               f"dense), stencil kernel {counts['stencil_spmv']} "
-              f"({counts['stencil_spmv_tiled']} tiled)")
+              f"({counts['stencil_spmv_tiled']} tiled), batched kernel "
+              f"{counts['dia_spmm']} ({counts['dia_spmm_tile']} tile: the "
+              f"catch-up's product with Emat)")
         for kernel in ("dia_spmv", "stencil_spmv"):
             _check_design(f"{tag} one {name} solve", counts, kernel,
                           designs=HEAT_DESIGNS)
@@ -907,8 +964,9 @@ def _poly_builders():
 
 
 def _launch_counters():
-    """The launch counters of the five kernels by name, and of each design
-    of kernels #1 to #4 (``<name>_<design>``)."""
+    """The launch counters of the six kernels by name, and of each design
+    of kernels #1 to #4 and #1b (``<name>_<design>``; #1b's by its
+    operator's plan, live or dense, and by its own design)."""
     from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
     from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
     from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
@@ -931,7 +989,9 @@ def _launch_counters():
             "fused_update_matvec": fused_update_matvec_cuda,
             "dia_spmm": kd.dia_spmm_cuda,
             "dia_spmm_live": kd.dia_spmm_live_cuda,
-            "dia_spmm_dense": kd.dia_spmm_dense_cuda}
+            "dia_spmm_dense": kd.dia_spmm_dense_cuda,
+            **{f"dia_spmm_{design}": getattr(kd, f"dia_spmm_{design}_cuda")
+               for design in kd.DESIGNS}}
 
 
 # the design every launch of a kernel on a main path must run, and the other
@@ -2277,94 +2337,190 @@ def _reference_script():
     return mod
 
 
-def _check_spmm(label, A, gen, batches, dtypes=("float64", "float32")):
+class SpmmShapes:
+    """The batched kernel's launches on each path, as each was resolved (a
+    graph's at its capture): ``by_path[path]`` holds (n, B, dtype, design)
+    of each.  While a path runs (from ``path`` to ``checks``), the port's
+    batched launch (``ops/sparse.py``'s ``launch_many``, which ``A @ X``
+    reaches) is wrapped: the wrapper resolves the launch's plan, notes it
+    and launches with it, so the design noted is the one that ran.
+    ``checks`` puts the port's own launch back, for the kernel checks and
+    timings and after the last path."""
+
+    def __init__(self):
+        from structurepreservingiterativesolvers_torch.ops import sparse as tsp
+
+        self.by_path, self.running = {}, None
+        self._sparse, self._launch = tsp, tsp.launch_many
+
+    def _noted(self, rec, X, plan=None):
+        from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+
+        if plan is None:
+            plan = kd.spmm_plan(rec.n, X.shape[1], rec.dtype, rec.strip)
+        self.by_path.setdefault(self.running, set()).add(
+            (rec.n, X.shape[1], str(rec.dtype).split(".")[-1], plan.design))
+        return self._launch(rec, X, plan)
+
+    def path(self, name):
+        """Note the batched launches from here on under path ``name``."""
+        self.running = name
+        self._sparse.launch_many = self._noted
+
+    def checks(self):
+        """Stop noting: the port's own batched launch from here on."""
+        self.running = None
+        self._sparse.launch_many = self._launch
+
+    def widest(self, path, n):
+        """The widest block of n rows that the batched kernel took on
+        ``path``: the catch-up's jmax where the path's constraint matrix is
+        a DIA of n rows."""
+        widths = [B for m, B, _, _ in self.by_path.get(path, ()) if m == n]
+        check(bool(widths), f"no batched launch of {n} rows on {path}: "
+                            f"{sorted(self.by_path.get(path, ()))}")
+        return max(widths)
+
+    def report(self):
+        """The shapes of every path that ran the batched kernel, checks and
+        timings left out."""
+        return {path: sorted(shapes) for path, shapes in self.by_path.items()}
+
+
+def _field_view(n0, B, gen, dtype):
+    """The catch-up's operand for a 3-field constraint (lkdv's and lkdvRK's
+    mass matrix on one field): rows n0 .. 2 n0 of the (3 n0, B) view of B
+    basis rows, at the stride 3 n0 from an element n0 in."""
+    import torch
+
+    Z = torch.randn(B, 3 * n0, generator=gen, device=DEVICE, dtype=dtype)
+    return Z.T[n0:2 * n0]
+
+
+def _check_spmm(label, A, gen, batches, dtypes=("float64", "float32"),
+                operand=None):
     """The batched kernel on the DIA ``A`` against its plain twin for each
     block width in ``batches``, on the (n, B) view of a (B, n) block (read
-    without a copy) and on a contiguous (n, B) block (copied into that
-    layout first), which must give the same bits; its live and dense
-    designs, tiles of 4 and 8 vectors and a second launch bit-equal; and
-    each column against kernel #1's product of it (bit-equal expected: the
-    same sums in the same order).  ``A @ X`` runs the design A's plan picks,
-    and each launch counts in its design.  Returns the largest f64 absolute
-    error."""
+    without a copy; ``operand(B, gen, dtype)`` gives another, as the
+    catch-up reads it), on a contiguous (n, B) block (copied into that
+    layout first) and on rows at an odd stride: ``A @ X`` in the design
+    ``spmm_plan`` picks, each launch counted in the plan's counter and its
+    design's, then both designs forced (tile, spread) on the
+    operator's live plan and without it, all the same bits, a second launch
+    too, and each column bit-equal to kernel #1's product of it (the same
+    sums in the same order).  Returns the largest f64 absolute error and
+    the designs the plan picked."""
     import torch
 
     from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
 
-    max_abs = 0.0
+    max_abs, picked = 0.0, set()
+    n = A.shape[0]
     for tag in dtypes:
         dtype = getattr(torch, tag)
         Ad = A if A.dtype == dtype else A.astype(dtype)
         plan = Ad.live()
         for B in batches:
-            X = torch.randn(B, A.shape[0], generator=gen, device=DEVICE,
-                            dtype=dtype).T
-            before = (kd.dia_spmm_cuda.launches, kd.dia_spmm_live_cuda.launches)
+            X = (operand(B, gen, dtype) if operand else
+                 torch.randn(B, n, generator=gen, device=DEVICE, dtype=dtype).T)
+            odd = torch.randn(B, n + 1, generator=gen, device=DEVICE,
+                              dtype=dtype)[:, 1:].T
+            odd.copy_(X)
+            pick = kd.spmm_plan(n, B, dtype, kd.spmm_strip(n, A.offsets, dtype))
+            picked.add(pick.design)
+            counter = getattr(kd, f"dia_spmm_{pick.design}_cuda")
+            before = (kd.dia_spmm_cuda.launches, kd.dia_spmm_live_cuda.launches,
+                      counter.launches)
             Y = Ad @ X
             torch.cuda.synchronize()
             check(kd.dia_spmm_cuda.launches == before[0] + 1
-                  and kd.dia_spmm_live_cuda.launches == before[1] + plan.pays,
+                  and kd.dia_spmm_live_cuda.launches == before[1] + plan.pays
+                  and counter.launches == before[2] + 1,
                   f"SpMM {label} {tag} B={B}: the launch did not count in "
-                  f"its design")
-            live = kd.dia_spmm_live_cuda(Ad.data, Ad.offsets, Ad.wrap, plan, X)
-            dense = kd.dia_spmm_cuda(Ad.data, Ad.offsets, Ad.wrap, X)
-            tile4 = kd.dia_spmm_cuda(Ad.data, Ad.offsets, Ad.wrap, X,
-                                     plan if plan.pays else None, tile=4)
-            copied = Ad @ X.contiguous()
-            again = Ad @ X
+                  f"its plan's counter and its design's ({pick.design})")
+            outs = {"contiguous X": Ad @ X.contiguous(), "odd stride": Ad @ odd,
+                    "again": Ad @ X}
+            for design in kd.DESIGNS:
+                force = getattr(kd, f"dia_spmm_{design}_cuda")
+                outs[f"{design} live"] = force(Ad.data, Ad.offsets, Ad.wrap,
+                                               X, plan)
+                outs[f"{design} dense"] = force(Ad.data, Ad.offsets, Ad.wrap,
+                                                odd)
             cols = torch.stack([Ad @ X[:, b].contiguous() for b in range(B)], 1)
             torch.cuda.synchronize()
             abs_err, rel = _rel_err(Y, kd.dia_spmm_torch(Ad.data, Ad.offsets,
                                                          Ad.wrap, X))
-            same = {"live/dense": torch.equal(live, dense),
-                    "tile 4": torch.equal(Y, tile4),
-                    "contiguous X": torch.equal(Y, copied),
-                    "again": torch.equal(Y, again)}
-            print(f"[spmm] {label} n={A.shape[0]} ndiag={len(A.offsets)} "
-                  f"wrap={A.wrap} {tag} B={B}: max|dY|/max|Y| = {rel:.3e} "
-                  f"(bound {SPMM_RTOL[tag]:.0e}), {'live' if plan.pays else 'dense'} "
-                  f"design; bit-equal: " + ", ".join(
-                      f"{k} {v}" for k, v in same.items())
-                  + f"; columns equal kernel #1's {torch.equal(Y, cols)} "
-                  f"(max|d| {float((Y - cols).abs().max()):.3e})")
+            differ = [k for k, v in outs.items() if not torch.equal(v, Y)]
+            print(f"[spmm] {label} n={n} ndiag={len(A.offsets)} wrap={A.wrap} "
+                  f"{tag} B={B}: max|dY|/max|Y| = {rel:.3e} (bound "
+                  f"{SPMM_RTOL[tag]:.0e}), {'live' if plan.pays else 'dense'} "
+                  f"plan, {pick.design} design (tile {pick.tile}, split "
+                  f"{pick.split}, strip {pick.strip}); every design, layout "
+                  f"and repeat bit-equal: {not differ} {differ}; columns "
+                  f"equal kernel #1's {torch.equal(Y, cols)} (max|d| "
+                  f"{float((Y - cols).abs().max()):.3e})")
             check(math.isfinite(rel) and rel <= SPMM_RTOL[tag],
                   f"SpMM kernel disagrees with plain on {label} {tag} B={B}: "
                   f"{rel:.3e}")
-            check(all(same.values()), f"SpMM {label} {tag} B={B}: designs, "
-                                      f"tiles, layouts or repeats differ")
-            check(_rel_err(cols, Y)[1] <= SPMM_RTOL[tag],
+            check(not differ, f"SpMM {label} {tag} B={B}: {differ} differ")
+            check(torch.equal(Y, cols),
                   f"SpMM {label} {tag} B={B}: columns differ from kernel #1")
             if tag == "float64":
                 max_abs = max(max_abs, abs_err)
-    return max_abs
+    return max_abs, picked
 
 
-def _time_spmm(A, A_csr, B, label, gen):
-    """The batched kernel on an (n, B) view of a (B, n) block, with L2
-    flushed: ``A @ X`` (tile 8, the design A's plan picks) and tile 4,
-    beside B launches of kernel #1 on its columns (L2 flushed before the
-    first), cuSPARSE SpMM (``torch.sparse.mm`` of the CSR matrix with a
-    contiguous (n, B) block), the plain twin, and the bound: the stored
-    non-zeros read once, B vectors read and B written."""
+def _dia_csr(A):
+    """A DIA as a scipy CSR matrix (the library yardstick's operand)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = A.shape[0]
+    data = A.data.double().cpu().numpy()
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(A.offsets):
+        r = np.arange(n)
+        c = r + off
+        keep = np.ones(n, bool) if A.wrap else (c >= 0) & (c < n)
+        rows.append(r[keep])
+        cols.append(c[keep] % n)
+        vals.append(data[d][keep])
+    return sp.csr_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                 np.concatenate(cols))), (n, n))
+
+
+def _time_spmm(A, B, label, gen, A_csr=None, X=None):
+    """The batched kernel on an (n, B) view of a (B, n) block (or on ``X``,
+    as its path reads it), with L2 flushed: ``A @ X`` in the design its plan
+    picks and every design forced, beside B launches of kernel #1 on its
+    columns (L2 flushed before the first), cuSPARSE SpMM (``torch.sparse.mm``
+    of the CSR matrix with a contiguous (n, B) block), the plain twin, and
+    the bound: the stored non-zeros read once, B vectors read and B
+    written."""
     import torch
 
     from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
 
     n = A.shape[0]
-    X = torch.randn(B, n, generator=gen, device=DEVICE, dtype=torch.float64).T
+    if X is None:
+        X = torch.randn(B, n, generator=gen, device=DEVICE,
+                        dtype=torch.float64).T
     Xc = X.contiguous()
     cols = [X[:, b].contiguous() for b in range(B)]
-    plan = A.live()
-    Acsr = _csr(A_csr)
-    ref = Acsr @ Xc
-    check(_rel_err(A @ X, ref)[1] <= SPMM_RTOL["float64"],
+    Acsr = _csr(A_csr if A_csr is not None else _dia_csr(A))
+    check(_rel_err(A @ X, Acsr @ Xc)[1] <= SPMM_RTOL["float64"],
           f"SpMM {label} B={B}: the kernel and cuSPARSE differ")
+    rec = A._launch
+    plan = kd.spmm_plan(n, B, torch.float64, rec.strip)
     nnz = int(torch.count_nonzero(A.data))
-    out = {"B": B, "design": "live" if plan.pays else "dense",
+    out = {"B": B, "plan": "live" if A.live().pays else "dense",
+           "design": plan.design, "tile": plan.tile, "split": plan.split,
+           "strips": n // plan.strip,
            "ms": _time_cold_ms(lambda: A @ X),
-           "tile4_ms": _time_cold_ms(lambda: kd.dia_spmm_cuda(
-               A.data, A.offsets, A.wrap, X, plan if plan.pays else None,
-               tile=4)),
+           "designs_ms": {design: _time_cold_ms(
+               lambda: kd.launch_many(rec, X, kd.spmm_design(
+                   design, n, B, torch.float64, rec.strip)))
+               for design in kd.DESIGNS},
            "spmv_launches_ms": _time_cold_ms(lambda: [A @ c for c in cols]),
            "library_ms": _time_cold_ms(lambda: torch.sparse.mm(Acsr, Xc)),
            "plain_ms": _time_cold_ms(lambda: kd.dia_spmm_torch(
@@ -2372,12 +2528,61 @@ def _time_spmm(A, A_csr, B, label, gen):
     out["bound_ms"], out["bound_by"] = _bound_ms((nnz + 2 * B * n) * 8,
                                                  2 * nnz * B)
     print(f"[spmm] {label} B={B} (n={n}, {nnz / n:.2f} non-zeros a row, f64, "
-          f"L2 flushed): A @ X ({out['design']} design, tile 8) "
-          f"{out['ms']:.4f} ms, tile 4 {out['tile4_ms']:.4f} ms; {B} launches "
-          f"of kernel #1 {out['spmv_launches_ms']:.4f} ms; cuSPARSE SpMM "
-          f"{out['library_ms']:.4f} ms; plain {out['plain_ms']:.4f} ms; bound "
-          f"{out['bound_ms']:.4f} ms ({out['bound_by']}; A @ X at "
-          f"{out['bound_ms'] / out['ms']:.1%} of it)")
+          f"L2 flushed): A @ X ({out['plan']} plan, {plan.design} design, "
+          f"tile {plan.tile}, split {plan.split}, {out['strips']} strips) "
+          f"{out['ms']:.4f} ms; by design " + ", ".join(
+              f"{d} {t:.4f}" for d, t in out["designs_ms"].items())
+          + f" ms; {B} launches of kernel #1 {out['spmv_launches_ms']:.4f} ms;"
+          f" cuSPARSE SpMM {out['library_ms']:.4f} ms; plain "
+          f"{out['plain_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}; A @ X at {out['bound_ms'] / out['ms']:.1%} "
+          f"of it)")
+    return out
+
+
+def _why_spmm(A, B, label, gen):
+    """What holds the batched kernel back on the DIA ``A`` at B vectors,
+    from three yardsticks timed beside ``A @ X`` (L2 flushed): a device
+    copy of the (B, n) block (the vectors' bytes alone, read once and
+    written once, at the rate the card reaches for them); the product as
+    launches of one tile each (each reads the coefficients again); and the
+    same kernel on the same coefficients and live plan with the offsets
+    folded near (consecutive, so that every x a row reads lies in the
+    lines its first diagonal brought into L1), in the operator's strips:
+    the same loads and multiply-adds without the far columns' reads from
+    L2 or memory."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+
+    n = A.shape[0]
+    X = torch.randn(B, n, generator=gen, device=DEVICE, dtype=torch.float64).T
+    Y = A @ X
+    rec = A._launch
+    plan = kd.spmm_plan(n, B, torch.float64, rec.strip)
+    tile = kd.TILES["tile"][-1]
+    k = len(A.offsets)
+    near = tuple(range(-(k // 2), k - k // 2))
+    rec_near = kd.dia_launch(A.data, near, A.wrap, X[:, 0].contiguous(),
+                             A.live() if A.live().pays else None)
+    copy = torch.empty(B, n, dtype=torch.float64, device=DEVICE)
+    check(torch.equal(torch.cat([kd.launch_many(rec, X[:, b:b + tile])
+                                 for b in range(0, B, tile)], 1), Y),
+          f"SpMM {label} B={B}: its tiles as launches differ")
+    out = {"ms": _time_cold_ms(lambda: A @ X),
+           "copy_ms": _time_cold_ms(lambda: copy.copy_(X.T)),
+           "tile_launches_ms": _time_cold_ms(
+               lambda: [kd.launch_many(rec, X[:, b:b + tile])
+                        for b in range(0, B, tile)]),
+           "near_offsets_ms": _time_cold_ms(
+               lambda: kd.launch_many(rec_near, X, plan))}
+    out["copy_bound_ms"] = _bound_ms(2 * B * n * 8, 0)[0]
+    print(f"[spmm] {label} B={B}, what holds it back (L2 flushed): A @ X "
+          f"{out['ms']:.4f} ms ({plan.design}, tile {plan.tile}, split "
+          f"{plan.split}); a copy of its vectors {out['copy_ms']:.4f} ms "
+          f"(bound {out['copy_bound_ms']:.4f}); its {-(-B // tile)} tiles "
+          f"as launches {out['tile_launches_ms']:.4f} ms; offsets folded "
+          f"near {out['near_offsets_ms']:.4f} ms")
     return out
 
 
@@ -2400,7 +2605,7 @@ def _certifies(rec, i, tol):
             and rec["true_residual"][i] < tol)
 
 
-def phase_batched(record):
+def phase_batched(record, shapes):
     """The ninth slice at full width: the batched kernel on swe M=512's A
     at every width of ``SPMM_BATCHES`` (checked and timed), then both rows
     of ``BATCH_ROWS`` through ``cgmres_many`` (B = 8, each step a CUDA
@@ -2424,6 +2629,7 @@ def phase_batched(record):
     from structurepreservingiterativesolvers_torch.kernels import (
         launch_counters,
     )
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
     from structurepreservingiterativesolvers_torch.models import swe
 
     cg = importlib.import_module(
@@ -2432,15 +2638,19 @@ def phase_batched(record):
     s = swe.linforms(M=SWE_M, device=DEVICE)
     A = s.A
     gen = torch.Generator(device=DEVICE).manual_seed(9)
-    err = _check_spmm(f"swe M={SWE_M} A", A, gen, SPMM_BATCHES)
+    shapes.checks()
+    err, _ = _check_spmm(f"swe M={SWE_M} A", A, gen, SPMM_BATCHES)
     zero_filled = type(A)(A.data, A.offsets, A.shape, False)
     err = max(err, _check_spmm(f"swe M={SWE_M} A zero-filled", zero_filled,
-                               gen, (1, 8), ("float64",)))
-    times = {B: _time_spmm(A, s.A_csr, B, f"swe M={SWE_M} A", gen)
+                               gen, (1, 8), ("float64",))[0])
+    times = {B: _time_spmm(A, B, f"swe M={SWE_M} A", gen, s.A_csr)
              for B in SPMM_BATCHES}
+    for B in (8, SPMM_BATCHES[-1]):
+        times[B]["why"] = _why_spmm(A, B, f"swe M={SWE_M} A", gen)
     pre_snc = default_pre_builder("swe")(s)
     rows = {}
     for name in BATCH_ROWS:
+        shapes.path(name)
         tag = f"[{name}]"
         rec = record[name]
         _, _, B, k, tol, pre_spec, _ = ref.BATCHED[name]
@@ -2584,10 +2794,16 @@ def phase_batched(record):
               f"kernel: {launches}")
         check(launches["dia_spmm_live"] == launches["dia_spmm"],
               f"{tag} the batched kernel ran other than its live design")
+        want = kd.spmm_plan(SWE_N, B, torch.float64,
+                            kd.spmm_strip(SWE_N, A.offsets, torch.float64))
+        check(launches[f"dia_spmm_{want.design}"] == launches["dia_spmm"],
+              f"{tag} the batched kernel ran other than the {want.design} "
+              f"design its plan picks: {launches}")
         check(any("dia_spmm" in nm for nm in kernels),
               f"{tag} the profiler saw no batched kernel in the solve's span")
         rows[name] = {"launches": launches, "wall_ms": 1e3 * med,
                       "single_ms": 1e3 * sum(single_walls)}
+    shapes.checks()
     del s, pre_snc
     return err, times, rows
 
@@ -2608,6 +2824,7 @@ def main() -> int:
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
     from structurepreservingiterativesolvers_torch.models import (
         heat,
         lkdv,
@@ -2621,6 +2838,7 @@ def main() -> int:
                             "slice9.json")}
     t_start = time.perf_counter()
     phase_build()
+    shapes = SpmmShapes()
     t0 = time.perf_counter()
     swe_sys = swe.linforms(M=SWE_M, device=DEVICE)
     print(f"[swe M={SWE_M}] assembly {time.perf_counter() - t0:.2f} s")
@@ -2629,8 +2847,21 @@ def main() -> int:
     torch.cuda.synchronize()
     poly_err = phase_poly_kernels({f"swe M={SWE_M}": swe_sys.A})
     torch.cuda.synchronize()
-    phase_lkdv(records["slice1.json"])
+    shapes.path("lkdv")
+    lk_sys, lkdv_launches = phase_lkdv(records["slice1.json"])
     torch.cuda.synchronize()
+    shapes.checks()
+    gen10 = torch.Generator(device=DEVICE).manual_seed(11)
+    n0 = lk_sys.Mmat.shape[0]
+    B = shapes.widest("lkdv", n0)
+    spmm_err, _ = _check_spmm(
+        "lkdv M=100 deg 3 Mmat (catch-up)", lk_sys.Mmat, gen10, (B,),
+        operand=lambda B, gen, dtype: _field_view(n0, B, gen, dtype))
+    spmm_times = {f"lkdv_M100_deg3_Mmat_B{B}": _time_spmm(
+        lk_sys.Mmat, B, "lkdv M=100 deg 3 Mmat (catch-up)", gen10,
+        X=_field_view(n0, B, gen10, torch.float64))}
+    del lk_sys
+    shapes.path(f"swe_M{SWE_M}")
     swe_launches = phase_swe(swe_sys, records["slice1.json"])
     torch.cuda.synchronize()
     ortho_err = phase_ortho_kernel()
@@ -2641,14 +2872,24 @@ def main() -> int:
     graph_launches = phase_graph_core(swe_sys, records["slice1.json"])
     torch.cuda.synchronize()
     del swe_sys
+    shapes.path(f"heat_M{HEAT_M}")
     heat_sys, pre, launches = phase_heat(records["slice2.json"])
     torch.cuda.synchronize()
+    shapes.checks()
     st_err, st, dia_heat_err, dia = phase_heat_kernels(heat_sys, pre)
     torch.cuda.synchronize()
     gen9 = torch.Generator(device=DEVICE).manual_seed(10)
-    spmm_err = _check_spmm(f"heat M={HEAT_M} A", heat_sys.A.dia, gen9, (8,))
-    spmm_times = {f"heat_M{HEAT_M}_A_B8": _time_spmm(
-        heat_sys.A.dia, heat_sys.A_csr, 8, f"heat M={HEAT_M} A", gen9)}
+    spmm_err = max(spmm_err, _check_spmm(f"heat M={HEAT_M} A", heat_sys.A.dia,
+                                         gen9, (8,))[0])
+    spmm_times[f"heat_M{HEAT_M}_A_B8"] = _time_spmm(
+        heat_sys.A.dia, 8, f"heat M={HEAT_M} A", gen9, heat_sys.A_csr)
+    # the catch-up's product: Emat with the (n, jmax) view of the row's
+    # first jmax basis rows (n apart, n odd)
+    B = shapes.widest(f"heat_M{HEAT_M}", HEAT_N)
+    spmm_err = max(spmm_err, _check_spmm(f"heat M={HEAT_M} Emat (catch-up)",
+                                         heat_sys.Emat, gen9, (B,))[0])
+    spmm_times[f"heat_M{HEAT_M}_Emat_B{B}"] = _time_spmm(
+        heat_sys.Emat, B, f"heat M={HEAT_M} Emat (catch-up)", gen9)
     small = heat.linforms(M=16, device=DEVICE)
     for name, err in phase_poly_kernels(
             {f"heat M={HEAT_M}": heat_sys.A, "heat M=16": small.A},
@@ -2659,6 +2900,7 @@ def main() -> int:
     poly_times = phase_poly_timing(heat_sys)
     torch.cuda.synchronize()
     del heat_sys, pre, small
+    shapes.path("heat polynomial rows")
     rows = phase_poly_rows(records["slice3.json"])
     torch.cuda.synchronize()
     anchors = phase_poly_anchors(records["slice3.json"])
@@ -2673,20 +2915,33 @@ def main() -> int:
     t0 = time.perf_counter()
     rk_sys = lkdvrk.linforms(M=400, N=10, degree=3, tstages=2, device=DEVICE)
     print(f"[lkdvrk M=400 (3,2)] assembly {time.perf_counter() - t0:.2f} s")
+    shapes.checks()
     dia_rk_err, dia_rk = phase_lkdvrk_kernel(rk_sys)
     spmm_err = max(spmm_err, _check_spmm(f"{LKDVRK_ROWS[0]} A", rk_sys.A, gen9,
-                                         (8,)))
+                                         (8,))[0])
     spmm_times[f"{LKDVRK_ROWS[0]}_A_B8"] = _time_spmm(
-        rk_sys.A, rk_sys.A_csr, 8, f"{LKDVRK_ROWS[0]} A", gen9)
-    del rk_sys
+        rk_sys.A, 8, f"{LKDVRK_ROWS[0]} A", gen9, rk_sys.A_csr)
     torch.cuda.synchronize()
+    shapes.path("lkdvrk rows")
     rk_rows = phase_lkdvrk_rows(records["slice7.json"])
     torch.cuda.synchronize()
+    shapes.checks()
+    n0 = rk_sys.Mmat.shape[0]
+    B = shapes.widest("lkdvrk rows", n0)
+    spmm_err = max(spmm_err, _check_spmm(
+        f"{LKDVRK_ROWS[0]} Mmat (catch-up)", rk_sys.Mmat, gen9, (B,),
+        operand=lambda B, gen, dtype: _field_view(n0, B, gen, dtype))[0])
+    spmm_times[f"{LKDVRK_ROWS[0]}_Mmat_B{B}"] = _time_spmm(
+        rk_sys.Mmat, B, f"{LKDVRK_ROWS[0]} Mmat (catch-up)", gen9,
+        X=_field_view(n0, B, gen9, torch.float64))
+    del rk_sys
+    shapes.path(LKDVRK_EVOLVE)
     rk_evolve_launches, _ = phase_lkdvrk_evolve(records["slice7.json"])
     torch.cuda.synchronize()
+    shapes.path("lkdv_hard_general")
     general_launches = phase_general()
     torch.cuda.synchronize()
-    err9, swe_spmm, batch_rows = phase_batched(records["slice9.json"])
+    err9, swe_spmm, batch_rows = phase_batched(records["slice9.json"], shapes)
     spmm_err = max(spmm_err, err9)
     torch.cuda.synchronize()
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
@@ -2768,25 +3023,32 @@ def main() -> int:
          "times": {label: {key: t[key] for key in (
              "ms", "chain_ms", "bound_ms", "warm_ms", "warm_chain_ms")}
              for label, t in ortho_times.items()}})
+    # the batched kernel's launches on every path that ran it: the batched
+    # rows, and the catch-up's products with a DIA constraint matrix
+    # (heat's Emat, lkdv's and lkdvRK's mass matrix) and the general
+    # constraint's vmapped products on the host loop and the device core
+    spmm_paths = {**{name: row["launches"] for name, row in batch_rows.items()},
+                  f"heat_M{HEAT_M}": launches, **lkdv_launches, **rk_paths,
+                  **rows, **anchors}
+    spmm_paths = {path: n for path, n in spmm_paths.items()
+                  if n.get("dia_spmm")}
     head = swe_spmm[8]
     kernels.append(
         {"name": "dia_spmm", "route": "cuda", "source": src + "dia_spmm.cu",
          "replaces": f"{tpu}pallas_spmv.py:91",
          "replaces_under": "structurepreservingiterativesolvers_tpu/"
                            "experiments/batched.py:87 (jax.vmap)",
-         "launches": sum(row["launches"]["dia_spmm"]
-                         for row in batch_rows.values()),
-         "launches_by_path": {
-             name: row["launches"]["dia_spmm"]
-             for name, row in batch_rows.items()},
+         "launches": sum(n["dia_spmm"] for n in spmm_paths.values()),
+         "launches_by_path": {path: n["dia_spmm"]
+                              for path, n in spmm_paths.items()},
          "launches_by_design": {
-             design: sum(row["launches"][f"dia_spmm_{design}"]
-                         for row in batch_rows.values())
-             for design in ("live", "dense")},
+             design: sum(n[f"dia_spmm_{design}"] for n in spmm_paths.values())
+             for design in ("live", "dense", *kd.DESIGNS)},
+         "shapes_by_path": shapes.report(),
          "max_abs_err": spmm_err, "timed_at": f"swe_M{SWE_M}_A_B8",
          **{key: head[key] for key in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "tile4_ms", "spmv_launches_ms", "design")},
+             "spmv_launches_ms", "design", "designs_ms")},
          "times": {**{f"swe_M{SWE_M}_A_B{B}": t for B, t in swe_spmm.items()},
                    **spmm_times},
          "walls_ms": batch_rows})

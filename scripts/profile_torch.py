@@ -67,7 +67,7 @@ def _kind(name: str) -> str:
         return "stencil kernel, tiled"
     if "dia_spmv_kernel" in name:
         return "DIA kernel"
-    if "dia_spmm_kernel" in name:
+    if "dia_spmm_" in name:  # its designs' kernels
         return "batched DIA kernel"
     if "tiled_kernel" in name:
         return "fused polynomial kernel, tiled"

@@ -17,7 +17,8 @@ def launch_counters() -> dict:
     """Every kernel's launch counter, by name: each wrapper that launches on
     the card adds one to its ``launches`` (a design's wrapper and its
     kernel's both); ``<name>_<design>`` for the designs of kernels #1-#4
-    and of the batched #1 (``dia_spmm``)."""
+    and of the batched #1 (``dia_spmm``: ``_live`` and ``_dense`` by its
+    operator's plan, ``_tile`` and ``_spread`` by its design)."""
     from . import dia_spmv, ortho, poly_apply, stencil_spmv
 
     return {"dia_spmv": dia_spmv.dia_spmv_cuda,
@@ -26,6 +27,8 @@ def launch_counters() -> dict:
             "dia_spmm": dia_spmv.dia_spmm_cuda,
             "dia_spmm_live": dia_spmv.dia_spmm_live_cuda,
             "dia_spmm_dense": dia_spmv.dia_spmm_dense_cuda,
+            "dia_spmm_tile": dia_spmv.dia_spmm_tile_cuda,
+            "dia_spmm_spread": dia_spmv.dia_spmm_spread_cuda,
             "stencil_spmv": stencil_spmv.stencil_spmv_cuda,
             "stencil_spmv_tiled": stencil_spmv.stencil_spmv_tiled_cuda,
             "stencil_spmv_flat": stencil_spmv.stencil_spmv_flat_cuda,

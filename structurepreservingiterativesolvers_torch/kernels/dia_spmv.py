@@ -36,12 +36,20 @@ raises: there is no fallback.
 
 The product with a block of vectors, ``Y = A X`` for an (n, B) X
 (``dia_spmm``), is a kernel of its own (``csrc/dia_spmm.cu``), the
-counterpart of the JAX package's ``dia_spmv_pallas`` under ``jax.vmap``: it
-reads each coefficient once for a tile of vectors (``spmm_tile``), through the
-same live plan and the same resolved launch (``launch_many``), and counts
-its launches apart (``dia_spmm_cuda``, by design ``dia_spmm_live_cuda`` and
-``dia_spmm_dense_cuda``).  Column b of its product is kernel #1's product of
-column b.  Its plain twin is ``dia_spmm_torch``.
+counterpart of the JAX package's ``dia_spmv_pallas`` under ``jax.vmap``,
+through the same live plan and the same resolved launch (``launch_many``).
+``spmm_plan`` picks one of its designs from the shapes alone:
+
+* tile (large n): a tile of 4 or 8 vectors in registers, one diagonal at a
+  time, the blocks taken in strips of the operator (``spmm_strip``);
+* spread (small n, and one vector): four diagonals in flight, the vectors
+  split over a grid axis so that the card is covered.
+
+``spmm_design`` launches either, whatever the plan would pick.  Each launch
+counts in ``dia_spmm_cuda``, in its plan's counter (``dia_spmm_live_cuda``
+or ``dia_spmm_dense_cuda``) and in its design's (``dia_spmm_tile_cuda``,
+``dia_spmm_spread_cuda``).  Column b of its product is kernel #1's product
+of column b in both designs.  Its plain twin is ``dia_spmm_torch``.
 """
 
 from __future__ import annotations
@@ -65,14 +73,91 @@ LIVE_CHUNK = 64
 LIVE_MIN_SKIP = 0.1
 
 
-def spmm_tile(nvec: int) -> int:
-    """The vectors the batched kernel keeps in registers at a time for a
-    block of ``nvec``: a tile of 4 up to 4 vectors, else 8.  At the swe
-    M=512 operator on an H100 (chip_smoke.py, L2 flushed) tile 4 took
-    0.0429 / 0.0462 ms at B = 2 / 3 against 0.0464 / 0.0527 for tile 8, and
-    tile 8 0.0953 / 0.4807 ms at B = 8 / 41 against 0.1064 / 0.5508 (105
-    registers a thread in f64)."""
-    return 4 if nvec <= 4 else 8
+# streaming multiprocessors of an H100 SXM: below this many blocks of one
+# vector's rows the plan spreads the vectors over the grid
+SMS = 132
+# threads of a block of the batched kernel (DIA_THREADS in csrc/dia_row.cuh)
+SPMM_THREADS = 256
+# the designs of the batched kernel (csrc/dia_spmm.cu): the diagonals each
+# has in flight (``depth``) and the tiles it is built for
+DEPTHS = {"tile": 1, "spread": 4}
+TILES = {"tile": (4, 8), "spread": (1, 2)}
+DESIGNS = tuple(DEPTHS)
+
+
+class SpmmPlan(NamedTuple):
+    """A launch of the batched kernel: the design, the vectors a thread
+    sums at a time (``tile``), the vectors of a block column (``split``:
+    the grid's second axis has ceil(B / split) columns), the diagonals in
+    flight (``depth``) and the rows of a strip (``strip``,
+    ``spmm_strip``)."""
+
+    design: str
+    tile: int
+    split: int
+    depth: int
+    strip: int
+
+
+def _grid_blocks(n: int, dtype: torch.dtype) -> int:
+    """Blocks of the kernel's grid that one vector's n rows fill."""
+    return -(-n // (SPMM_THREADS // 32 * warp_rows(dtype)))
+
+
+def spmm_strip(n: int, offsets: Sequence[int], dtype: torch.dtype) -> int:
+    """The rows of a strip of the batched kernel's block order: where the
+    far offsets (|off| >= n / 8) couple rows about n / k apart for a whole
+    k >= 2 (swe's three fields of M^2 rows), n / k, so that the blocks that
+    run together take rows from every strip and read x from L2 where the
+    other strips' blocks have just read it; else n (one strip).  A strip
+    holds whole warps' rows."""
+    far = [abs(int(o)) for o in offsets if 8 * abs(int(o)) >= n]
+    if not far:
+        return n
+    k = round(n / min(far))
+    if k < 2 or n % k or (n // k) % warp_rows(dtype):
+        return n
+    return n // k
+
+
+def spmm_design(design: str, n: int, nvec: int,
+                dtype: torch.dtype = torch.float64,
+                strip: Optional[int] = None) -> SpmmPlan:
+    """The launch of ``design`` at these shapes, whether or not the plan
+    would pick it, with its least tile that holds the block (else its
+    largest): spread splits the vectors until the grid covers the card
+    (down to one vector a block column), the others take every vector in
+    one block column.  ``strip``: ``spmm_strip``'s, n by default."""
+    if design not in DESIGNS:
+        raise ValueError(f"no batched design {design!r}; one of "
+                         f"{DESIGNS}")
+    strip = n if strip is None else strip
+    tile = next((t for t in TILES[design] if t >= nvec), TILES[design][-1])
+    split = nvec
+    if design == "spread":
+        blocks = _grid_blocks(n, dtype)
+        tile = next((t for t in reversed(TILES["spread"])
+                     if t <= tile and blocks * -(-nvec // t) >= SMS), 1)
+        split = tile
+    return SpmmPlan(design, tile, split, DEPTHS[design], strip)
+
+
+@functools.lru_cache(maxsize=None)
+def spmm_plan(n: int, nvec: int, dtype: torch.dtype = torch.float64,
+              strip: Optional[int] = None) -> SpmmPlan:
+    """The batched kernel's launch for an (n, nvec) block of an operator
+    whose strip is ``strip`` (``spmm_strip``), from these numbers alone (no
+    host sync, no trial launch): spread where one vector's rows give the
+    kernel's grid fewer than ``SMS`` blocks (lkdvRK's and lkdv's
+    operators) and for one vector (kernel #1's schedule), tile elsewhere
+    (swe's and heat's operators), with a tile of 4 up to 4 vectors, else 8.
+    A tile of 8 for 3 vectors would leave 5 of its columns empty.  Measured
+    on an H100 (chip_smoke.py): at lkdvRK (3, 2)'s n = 9,600, B = 8, spread
+    took 0.0172 ms and tile 0.0343; at swe M=512, B = 8, tile 0.0673 and
+    spread 0.1062."""
+    if _grid_blocks(n, dtype) < SMS or nvec == 1:
+        return spmm_design("spread", n, nvec, dtype, strip)
+    return spmm_design("tile", n, nvec, dtype, strip)
 
 
 class LivePlan(NamedTuple):
@@ -235,8 +320,9 @@ def _entry_many(dtype: torch.dtype):
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
                    ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -251,6 +337,7 @@ class DiaLaunch:
     so a product costs the host the check of x and one C call."""
 
     design: str  # "live" or "dense"
+    strip: int  # the batched kernel's strip (spmm_strip)
     n: int
     dtype: torch.dtype
     device: torch.device
@@ -280,8 +367,9 @@ def dia_launch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
     args = (x.shape[0], len(offsets), offs, int(bool(wrap)), words, shift_,
             x.device.index or 0)
     many = (len(offsets), offs, int(bool(wrap)), words, shift_)
-    return DiaLaunch("dense" if live is None else "live", x.shape[0], x.dtype,
-                     x.device, data.data_ptr(), args, keep, many)
+    return DiaLaunch("dense" if live is None else "live",
+                     spmm_strip(x.shape[0], offsets, x.dtype), x.shape[0],
+                     x.dtype, x.device, data.data_ptr(), args, keep, many)
 
 
 def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
@@ -308,16 +396,17 @@ def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def launch_many(rec: DiaLaunch, X: torch.Tensor, tile: int = None) -> torch.Tensor:
+def launch_many(rec: DiaLaunch, X: torch.Tensor,
+                plan: Optional[SpmmPlan] = None) -> torch.Tensor:
     """Launch the batched kernel as ``rec`` resolved it on the block X
     (n, B), on PyTorch's current stream; returns A X as an (n, B) view of a
     contiguous (B, n) tensor, so that a product of it is read without a
     copy.  X is read as B rows of length n at the stride ``X.stride(1)``
     where ``X.stride(0)`` is 1 (the view X.T of a (B, n) block); any other
-    layout is copied into that one first.  ``tile``: the vectors held in
-    registers at a time, 4 or 8 (``spmm_tile`` by default).  The launch
-    counts in its
-    design's counter and in ``dia_spmm_cuda``'s; does not synchronise."""
+    layout is copied into that one first.  ``plan``: the launch,
+    ``spmm_plan``'s by default; a launch the kernel refuses raises.  The
+    launch counts in ``dia_spmm_cuda``'s counter, its plan's and its
+    design's; does not synchronise."""
     if (not rec.takes(X) or X.dim() != 2 or X.shape[0] != rec.n):
         raise ValueError(f"the batched launch takes a {rec.dtype} block of "
                          f"{rec.n} rows on {rec.device}; got {X.dtype} "
@@ -328,17 +417,23 @@ def launch_many(rec: DiaLaunch, X: torch.Tensor, tile: int = None) -> torch.Tens
     Y = torch.empty((nvec, rec.n), dtype=X.dtype, device=X.device)
     if nvec == 0:
         return Y.T
+    if plan is None:
+        plan = spmm_plan(rec.n, nvec, rec.dtype, rec.strip)
+    if plan.design not in DESIGNS:
+        raise ValueError(f"no batched design {plan.design!r}")
     stream = torch.cuda.current_stream(X.device).cuda_stream
     err = _entry_many(rec.dtype)(
         rec.data_ptr, X.data_ptr(), Y.data_ptr(), rec.n, nvec, X.stride(1),
-        rec.n, *rec.many, spmm_tile(nvec) if tile is None else int(tile),
-        rec.args[-1], stream)
+        rec.n, *rec.many, int(plan.tile), int(plan.split), int(plan.strip),
+        int(plan.depth), rec.args[-1], stream)
     if err != 0:
         raise RuntimeError(
-            f"dia_spmm kernel launch failed ({rec.design}): cudaError {err}")
+            f"dia_spmm kernel launch failed ({rec.design}, {plan}): "
+            f"cudaError {err}")
     counter = (dia_spmm_live_cuda if rec.design == "live"
                else dia_spmm_dense_cuda)
     counter.launches += 1
+    _DESIGN_COUNTERS[plan.design].launches += 1
     dia_spmm_cuda.launches += 1
     return Y.T
 
@@ -374,26 +469,46 @@ def _column(X: torch.Tensor) -> torch.Tensor:
 
 def dia_spmm_live_cuda(data: torch.Tensor, offsets: Sequence[int],
                        wrap: bool, live: LivePlan, X: torch.Tensor,
-                       tile: int = None) -> torch.Tensor:
+                       plan: Optional[SpmmPlan] = None) -> torch.Tensor:
     """Launch the batched kernel with a live plan on PyTorch's current
     stream; does not synchronise."""
-    return launch_many(dia_launch(data, offsets, wrap, _column(X), live), X, tile)
+    return launch_many(dia_launch(data, offsets, wrap, _column(X), live), X, plan)
 
 
 def dia_spmm_dense_cuda(data: torch.Tensor, offsets: Sequence[int],
                         wrap: bool, X: torch.Tensor,
-                        tile: int = None) -> torch.Tensor:
+                        plan: Optional[SpmmPlan] = None) -> torch.Tensor:
     """Launch the batched kernel with every diagonal live on PyTorch's
     current stream; does not synchronise."""
-    return launch_many(dia_launch(data, offsets, wrap, _column(X)), X, tile)
+    return launch_many(dia_launch(data, offsets, wrap, _column(X)), X, plan)
 
 
 def dia_spmm_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
                   X: torch.Tensor, live: Optional[LivePlan] = None,
-                  tile: int = None) -> torch.Tensor:
+                  plan: Optional[SpmmPlan] = None) -> torch.Tensor:
     """Launch the batched kernel: the live design with a plan, the dense
-    one without."""
-    return launch_many(dia_launch(data, offsets, wrap, _column(X), live), X, tile)
+    one without, in ``plan``'s design (``spmm_plan``'s by default)."""
+    return launch_many(dia_launch(data, offsets, wrap, _column(X), live), X, plan)
+
+
+def _forced(design: str):
+    def launch_design(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
+                      X: torch.Tensor,
+                      live: Optional[LivePlan] = None) -> torch.Tensor:
+        rec = dia_launch(data, offsets, wrap, _column(X), live)
+        return launch_many(rec, X, spmm_design(design, rec.n, X.shape[1],
+                                               X.dtype, rec.strip))
+
+    launch_design.__name__ = launch_design.__qualname__ = f"dia_spmm_{design}_cuda"
+    launch_design.__doc__ = (f"Launch the batched kernel in its {design} "
+                             f"design (``spmm_design``), whatever the plan "
+                             f"would pick; does not synchronise.")
+    return launch_design
+
+
+dia_spmm_tile_cuda = _forced("tile")
+dia_spmm_spread_cuda = _forced("spread")
+_DESIGN_COUNTERS = {"tile": dia_spmm_tile_cuda, "spread": dia_spmm_spread_cuda}
 
 
 # kernel launches of each design, and of either, for one vector and for a
@@ -401,6 +516,7 @@ def dia_spmm_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
 dia_spmv_live_cuda.launches = dia_spmv_dense_cuda.launches = 0
 dia_spmv_cuda.launches = 0
 dia_spmm_live_cuda.launches = dia_spmm_dense_cuda.launches = 0
+dia_spmm_tile_cuda.launches = dia_spmm_spread_cuda.launches = 0
 dia_spmm_cuda.launches = 0
 
 

@@ -1,6 +1,6 @@
 """Tests of the PyTorch port that need an NVIDIA card: the CUDA DIA kernel
-(its live and dense designs) and stencil kernel (its tiled and flat
-designs), the fused Chebyshev and Neumann applies (both designs, and
+(its live and dense designs), its batched kernel (every design, and the one
+its plan picks) and stencil kernel (its tiled and flat designs), the fused Chebyshev and Neumann applies (both designs, and
 the dispatch between them) and the fused CGS2 update against their plain
 twins, and solves on the card (lkdv, heat with
 the structured AMG, swe with the fused orthogonalisation and the skew-normal
@@ -832,13 +832,28 @@ def test_fused_evolve_on_card_matches_cpu():
     assert gpu["sol"].device.type == "cuda"
 
 
+# the batched kernel's edge cases beside CASES: odd offsets, odd n, wraps
+# and zero fills that cross 0 and n inside a block, a ragged last block
+SPMM_CASES = CASES + [
+    (1001, (-287, -255, -1, 0, 1, 255, 287), True),
+    (1001, (-287, -255, -1, 0, 1, 255, 287), False),
+    (4097, (-2049, -3, 0, 5, 1023), False),
+    # swe M=16's shape: three strips of 256 rows (spmm_strip)
+    (768, (-287, -272, -256, -255, -16, 0, 16, 255, 256, 272, 287), True),
+    (768, (-287, -272, -256, -255, -16, 0, 16, 255, 256, 272, 287), False),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n,offsets,wrap", CASES)
+@pytest.mark.parametrize("n,offsets,wrap", SPMM_CASES)
 def test_spmm_kernel_matches_plain(dtype, n, offsets, wrap):
-    """The batched DIA kernel on the (n, B) view of a (B, n) block and on a
-    contiguous (n, B) block, in both designs and both tiles, against its
-    plain twin, for widths within a tile, at a tile and past one."""
+    """The batched DIA kernel in both designs (tile, spread),
+    each counting in its own counter, on the (n, B) view of a (B, n) block, on a
+    contiguous (n, B) block and on rows at an odd stride, against its plain
+    twin, for widths within a tile, at a tile and past one; every design
+    gives ``A @ X``'s bits, a second launch too, and each column is kernel
+    #1's product of it bit for bit."""
     _card()
     from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
     from structurepreservingiterativesolvers_torch.ops.sparse import DIA
@@ -849,18 +864,24 @@ def test_spmm_kernel_matches_plain(dtype, n, offsets, wrap):
     A = DIA(data, offsets, (n, n), wrap)
     for B in (1, 3, 8, 9, 41):
         X = torch.randn(B, n, generator=g, dtype=dtype).cuda().T
+        odd = torch.randn(B, n + 1, generator=g, dtype=dtype).cuda()[:, 1:].T
+        odd.copy_(X)  # rows at the odd stride n + 1, one element in
         ref = kd.dia_spmm_torch(data, offsets, wrap, X)
-        before = kd.dia_spmm_cuda.launches
-        outs = [A @ X, A @ X.contiguous(),
-                kd.dia_spmm_cuda(data, offsets, wrap, X, tile=4),
-                kd.dia_spmm_live_cuda(data, offsets, wrap, A.live(), X)]
+        Y = A @ X
+        cols = torch.stack([A @ X[:, b].contiguous() for b in range(B)], 1)
+        outs = [A @ X.contiguous(), A @ odd, A @ X]
+        for design in kd.DESIGNS:
+            counter = getattr(kd, f"dia_spmm_{design}_cuda")
+            before = counter.launches
+            outs.append(counter(data, offsets, wrap, X, A.live()))
+            outs.append(counter(data, offsets, wrap, odd))
+            assert counter.launches == before + 2
         torch.cuda.synchronize()
-        assert kd.dia_spmm_cuda.launches == before + 4
-        for Y in outs:
-            assert Y.shape == (n, B)
-            err = float((Y - ref).abs().max() / ref.abs().max())
-            assert err <= RTOL[dtype], (B, err)
-            assert torch.equal(Y, outs[0])
+        err = float((Y - ref).abs().max() / ref.abs().max())
+        assert err <= RTOL[dtype], (B, err)
+        assert Y.shape == (n, B) and torch.equal(Y, cols)
+        for i, out in enumerate(outs):
+            assert torch.equal(out, Y), (B, i)
 
 
 @pytest.mark.cuda
@@ -871,8 +892,19 @@ def test_spmm_kernel_refuses_what_it_does_not_take():
 
     data = torch.randn(3, 64, dtype=torch.float64, device="cuda")
     X = torch.randn(64, 4, dtype=torch.float64, device="cuda")
-    with pytest.raises(RuntimeError):
-        kd.dia_spmm_cuda(data, (-1, 0, 1), True, X, tile=5)
+    before = kd.dia_spmm_cuda.launches
+    for plan in (kd.SpmmPlan("tile", 5, 4, 1, 64),  # a tile not built
+                 kd.SpmmPlan("spread", 1, 1, 3, 64),  # a depth not built
+                 kd.SpmmPlan("tile", 4, 4, 2, 64),  # a (tile, depth) not built
+                 # a strip that cuts a warp's rows
+                 kd.SpmmPlan("tile", 4, 4, 1, 48)):
+        with pytest.raises(RuntimeError):
+            kd.dia_spmm_cuda(data, (-1, 0, 1), True, X, plan=plan)
+    for design in ("tiled", "pair", "staged"):
+        with pytest.raises(ValueError):
+            kd.dia_spmm_cuda(data, (-1, 0, 1), True, X,
+                             plan=kd.SpmmPlan(design, 4, 4, 1, 64))
+    assert kd.dia_spmm_cuda.launches == before
     with pytest.raises(TypeError):
         kd.dia_spmm_cuda(data, (-1, 0, 1), True, X.float())
     with pytest.raises(ValueError):
@@ -881,6 +913,29 @@ def test_spmm_kernel_refuses_what_it_does_not_take():
     # fallback on a CUDA block the kernel does not take
     with pytest.raises(TypeError):
         tsp.dia_spmm(tsp.DIA(data, (-1, 0, 1), (64, 64), True), X.float())
+
+
+@pytest.mark.cuda
+def test_spmm_plan_runs_its_design_on_card():
+    """``A @ X`` launches the design ``spmm_plan`` picks and counts it
+    there: tile on a large operator, spread on a small one."""
+    _card()
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+
+    for n, want in ((200_000, "tile"), (9_600, "spread")):
+        data = torch.randn(3, n, dtype=torch.float64, device="cuda")
+        A = DIA(data, (-1, 0, 1), (n, n), True)
+        X = torch.randn(8, n, dtype=torch.float64, device="cuda").T
+        plan = kd.spmm_plan(n, 8, torch.float64)
+        counts = {d: getattr(kd, f"dia_spmm_{d}_cuda").launches
+                  for d in kd.DESIGNS}
+        A @ X
+        torch.cuda.synchronize()
+        assert plan.design == want
+        for d in kd.DESIGNS:
+            assert (getattr(kd, f"dia_spmm_{d}_cuda").launches - counts[d]
+                    == (d == want))
 
 
 @pytest.mark.cuda
