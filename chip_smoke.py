@@ -141,13 +141,41 @@ imported.  Phases, each of which raises on a failed check:
     the median wall of 5 batched solves beside the 8 single solves,
     ``time_capture``, device busy and idle share, and the batched kernel
     inside the replays by the counters (in the design its plan picks) and
-    the profiler.
+    the profiler;
+20. (after 19) the eleventh slice, heat under the graph core: the block
+    forms of kernels #2, #3 and #4 (#2b, #3b, #4b: ``stencil_spmv.cu``,
+    ``poly_tiled.cu`` and ``poly_apply.cu`` with a grid axis over the
+    vectors) on heat M=1024's stencil in f64 and f32 at B = 1, 2, 3 and 8,
+    over rows n and n + 2 apart (both odd), each design's every column
+    bit-equal to the single kernel's launch on it and the dispatch within
+    the bound of the plain twin; timed at B = 8 with L2 flushed beside the
+    bound, the flat design, B single launches, the plain twin, and for #2b
+    today's route (#1b on the explicit DIA) and cuSPARSE SpMM;
+21. heat on the device core: the heat M=1024 TimedSolve row with the AMG
+    through ``time_cgmres(loop="while")`` held to ``reference/slice2.json``;
+    its CGMRES solve on both loops in one call (medians of 5), x within
+    1e-10, ``time_capture``, the launches per replay (the V-cycle's DIA
+    products inside each ``arnoldi`` graph) and the idle shares; cheb8 and
+    neu4 on the device core at the certified anchors (held to
+    ``slice3.json``) and at M=1024 (the record's latch and steps, the time
+    per iteration of both loops);
+22. ``fused_evolve("heat")`` at M=1024 with the AMG, three steps of the
+    TimedSolve row's dt (T=0.3): every step certified, drifts within the
+    bar, no KKT fallback, step walls beside the host loop's ``evolve`` and
+    the idle share;
+23. ``cgmres_many`` on heat at B = 8: M=1024 with the AMG, the M=256 anchor
+    with cheb8 and the M=64 anchor with neu4, each item certified, its
+    steps equal to its single graph-core solve's and x within 1e-10, every
+    product of the batch through a block form (#2b, #1b for the V-cycle,
+    #3b, #4b) and none through a single kernel, the median wall of 5
+    beside the median of 5 rounds of the 8 single solves.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
 lkdvRK row the design of A's and the mass matrix's plans where they agree,
 else only that kernel #1 ran) and its stencil products the tiled one.  The line before
-the last is the kernel report as JSON; the last line is the device record.
+the last is the kernel report as JSON, the block forms #2b, #3b and #4b
+beside the kernels they extend; the last line is the device record.
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout.
 """
@@ -964,34 +992,15 @@ def _poly_builders():
 
 
 def _launch_counters():
-    """The launch counters of the six kernels by name, and of each design
-    of kernels #1 to #4 and #1b (``<name>_<design>``; #1b's by its
-    operator's plan, live or dense, and by its own design)."""
-    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
-    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
-    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
-    from structurepreservingiterativesolvers_torch.kernels.ortho import (
-        fused_update_matvec_cuda,
+    """The launch counters of every kernel by name, and of each design of
+    kernels #1 to #4, #1b and the block forms #2b, #3b and #4b
+    (``<name>_<design>``; #1b's by its operator's plan, live or dense, and
+    by its own design): the package's ``kernels.launch_counters``."""
+    from structurepreservingiterativesolvers_torch.kernels import (
+        launch_counters,
     )
 
-    return {"dia_spmv": kd.dia_spmv_cuda,
-            "dia_spmv_live": kd.dia_spmv_live_cuda,
-            "dia_spmv_dense": kd.dia_spmv_dense_cuda,
-            "stencil_spmv": ks.stencil_spmv_cuda,
-            "stencil_spmv_tiled": ks.stencil_spmv_tiled_cuda,
-            "stencil_spmv_flat": ks.stencil_spmv_flat_cuda,
-            "cheb_apply": pa.cheb_apply_cuda,
-            "cheb_apply_tiled": pa.cheb_apply_tiled_cuda,
-            "cheb_apply_flat": pa.cheb_apply_flat_cuda,
-            "neumann_apply": pa.neumann_apply_cuda,
-            "neumann_apply_tiled": pa.neumann_apply_tiled_cuda,
-            "neumann_apply_flat": pa.neumann_apply_flat_cuda,
-            "fused_update_matvec": fused_update_matvec_cuda,
-            "dia_spmm": kd.dia_spmm_cuda,
-            "dia_spmm_live": kd.dia_spmm_live_cuda,
-            "dia_spmm_dense": kd.dia_spmm_dense_cuda,
-            **{f"dia_spmm_{design}": getattr(kd, f"dia_spmm_{design}_cuda")
-               for design in kd.DESIGNS}}
+    return launch_counters()
 
 
 # the design every launch of a kernel on a main path must run, and the other
@@ -1818,7 +1827,7 @@ def phase_graph_core(s, record):
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
         t = ig["timings"]
-        core = next(iter(cg._CORES.values()))
+        core = cg.last_core()
         _, graph_walls = timed(graphs)
         _reset_launches()
         x2, i2 = graphs()
@@ -2345,12 +2354,14 @@ class SpmmShapes:
     reaches) is wrapped: the wrapper resolves the launch's plan, notes it
     and launches with it, so the design noted is the one that ran.
     ``checks`` puts the port's own launch back, for the kernel checks and
-    timings and after the last path."""
+    timings and after the last path.  A path started with ``keep`` also
+    keeps each operator's launch and the block widths it took, which
+    ``_check_path_spmm`` checks after the path."""
 
     def __init__(self):
         from structurepreservingiterativesolvers_torch.ops import sparse as tsp
 
-        self.by_path, self.running = {}, None
+        self.by_path, self.running, self.ops = {}, None, {}
         self._sparse, self._launch = tsp, tsp.launch_many
 
     def _noted(self, rec, X, plan=None):
@@ -2360,12 +2371,23 @@ class SpmmShapes:
             plan = kd.spmm_plan(rec.n, X.shape[1], rec.dtype, rec.strip)
         self.by_path.setdefault(self.running, set()).add(
             (rec.n, X.shape[1], str(rec.dtype).split(".")[-1], plan.design))
+        if self.running in self.ops:
+            self.ops[self.running].setdefault(
+                rec.data_ptr, (rec, set()))[1].add(X.shape[1])
         return self._launch(rec, X, plan)
 
-    def path(self, name):
-        """Note the batched launches from here on under path ``name``."""
+    def path(self, name, keep=False):
+        """Note the batched launches from here on under path ``name``; with
+        ``keep`` also their operators."""
         self.running = name
+        if keep:
+            self.ops.setdefault(name, {})
         self._sparse.launch_many = self._noted
+
+    def operators(self, path):
+        """The operators ``path`` (started with ``keep``) gave the batched
+        kernel, each as (launch, widths), handed over once."""
+        return list(self.ops.pop(path, {}).values())
 
     def checks(self):
         """Stop noting: the port's own batched launch from here on."""
@@ -2468,6 +2490,30 @@ def _check_spmm(label, A, gen, batches, dtypes=("float64", "float32"),
             if tag == "float64":
                 max_abs = max(max_abs, abs_err)
     return max_abs, picked
+
+
+def _check_path_spmm(shapes, path, gen):
+    """#1b on every operator of ``path`` at every block width the path gave
+    it (``SpmmShapes`` kept them), in the path's dtype, through
+    ``_check_spmm``: against the plain twin, every design, layout and repeat
+    bit-equal, and each column bit-equal to kernel #1.  Returns the largest
+    f64 absolute error and the (operator, width) pairs checked."""
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+
+    err, pairs = 0.0, 0
+    for rec, widths in shapes.operators(path):
+        ndiag = rec.many[0]
+        A = DIA(data=rec.keep[0],
+                offsets=tuple(int(o) for o in rec.many[1][:ndiag]),
+                shape=(rec.n, rec.n), wrap=bool(rec.many[2]))
+        tag = str(rec.dtype).split(".")[-1]
+        err = max(err, _check_spmm(f"{path} operator", A, gen, sorted(widths),
+                                   dtypes=(tag,))[0])
+        pairs += len(widths)
+    check(pairs > 0, f"{path}: no batched launch to check")
+    print(f"[spmm] {path}: {pairs} (operator, width) pairs of the path "
+          f"checked")
+    return err, pairs
 
 
 def _dia_csr(A):
@@ -2675,7 +2721,7 @@ def phase_batched(record, shapes):
         X, info = many()
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        core = next(iter(cg._CORES.values()))
+        core = cg.last_core()
         runner = core.runner
         capture = runner.time_capture
         walls = []
@@ -2806,6 +2852,726 @@ def phase_batched(record, shapes):
     shapes.checks()
     del s, pre_snc
     return err, times, rows
+
+
+# the eleventh slice: heat on the device core.  The block forms #2b, #3b and
+# #4b are checked at these widths, each over rows n and n + 2 apart (both
+# odd at heat M=1024, n = 1,050,625), and timed at B = 8
+BLOCK_BATCHES = (1, 2, 3, 8)
+HEAT_B = 8
+# the batched heat rows: (name, M, k, preconditioner), item i the system's
+# step_update(z0 + 0.02 i·p), p the smooth field of the lowest 3 x 3 cosine
+# modes (scripts/make_torch_reference.py::heat_smooth_field)
+HEAT_BATCH_ROWS = (("heat_M1024_amg_B8", HEAT_M, HEAT_K, "amg"),
+                   ("heat_M256_cheb8_B8", 256, 60, "cheb8"),
+                   ("heat_M64_neu4_B8", 64, 60, "neu4"))
+
+
+def _heat_block(n, B, gen, dtype, pad=0):
+    """B vectors as the rows of a (B, n + pad) block, through the (n, B)
+    view of its first n columns: rows n + pad apart."""
+    import torch
+
+    V = torch.randn(B, n + pad, generator=gen, device=DEVICE, dtype=dtype)
+    return V[:, :n].T
+
+
+def _heat_pre(short, s):
+    """The preconditioner of a heat row: the AMG of the TimedSolve
+    pre-builder, or the third slice's polynomial builders."""
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+
+    if short == "amg":
+        return default_pre_builder("heat")(s)
+    return _poly_builders()[short](s)
+
+
+def phase_block_kernels(s):
+    """The block forms of kernels #2, #3 and #4 (#2b, #3b, #4b) on heat
+    M=1024's stencil in f64 and f32, at B = 1, 2, 3 and 8 over rows n and
+    n + 2 apart: each design (tiled and flat) launched on the block, each
+    column bit-equal to the single kernel's launch on that vector in the
+    same design; the dispatch (the design ``stencil_plan`` or ``poly_plan``
+    picks) within the bound of the plain twin; then each timed at B = 8 in
+    f64 with L2 flushed beside its bound, the flat design, the plain twin,
+    B launches of the single kernel (for #3b and #4b in either design), and
+    for #2b today's route (#1b on the explicit DIA) and cuSPARSE SpMM.  Returns per kernel its largest f64
+    error and its report fields."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+    from structurepreservingiterativesolvers_torch.precond import (
+        chebyshev,
+        neumann,
+    )
+
+    S = s.A
+    n, ndiag = S.shape[0], len(S.offsets)
+    R = n // S.grid_c
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    base = chebyshev(S, degree=CHEB_DEGREE)
+    theta = 0.5 * (base.lmax + base.lmin)
+    delta = 0.5 * (base.lmax - base.lmin)
+    dinv64 = neumann(S, degree=NEU_DEGREE, omega=NEU_OMEGA).dinv
+    tile = ks.StencilTile(*ks.TILE)
+    errs = {"stencil_spmm": 0.0, "cheb_apply_many": 0.0,
+            "neumann_apply_many": 0.0}
+
+    def poly_args(kind, Sd, dinv):
+        if kind == "cheb":
+            return (CHEB_DEGREE, theta, delta, theta / delta)
+        return (dinv, NEU_DEGREE, NEU_OMEGA)
+
+    def stencil_design(design, ops):
+        if design == "tiled":
+            return lambda X: (ks.stencil_spmm_tiled_cuda if X.dim() == 2
+                              else ks.stencil_spmv_tiled_cuda)(
+                ops[0], ops[1], ops[3], ops[4], tile, X)
+        return lambda X: (ks.stencil_spmm_flat_cuda if X.dim() == 2
+                          else ks.stencil_spmv_flat_cuda)(*ops, X)
+
+    def poly_design(kind, design, Sd, scal):
+        fn = getattr(pa, f"{kind}_apply_{design}_cuda")
+        lead = ((Sd, pa.poly_plan(Sd, kind, scal[0 if kind == "cheb" else 1],
+                                  Sd.dtype))
+                if design == "tiled" else (Sd,))
+        return lambda X: fn(*lead, *scal, X)
+
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split(".")[-1]
+        Sd, dinv = S.astype(dtype), dinv64.to(dtype)
+        ops = (Sd.const, Sd.offsets, Sd.wrap, Sd.grid_c, Sd.strips)
+        for B in BLOCK_BATCHES:
+            for pad in (0, 2):
+                X = _heat_block(n, B, gen, dtype, pad)
+                cols = [X[:, b].contiguous() for b in range(B)]
+                label = f"heat M={HEAT_M} B={B} rows {n + pad} apart {tag}"
+                for design in ("tiled", "flat"):
+                    run = stencil_design(design, ops)
+                    Y = run(X)
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(Y[:, b], run(c))
+                              for b, c in enumerate(cols)),
+                          f"#2b {design} {label}: a column differs from "
+                          f"kernel #2")
+                    for kind in ("cheb", "neumann"):
+                        scal = poly_args(kind, Sd, dinv)
+                        run = poly_design(kind, design, Sd, scal)
+                        Y = run(X)
+                        torch.cuda.synchronize()
+                        check(all(torch.equal(Y[:, b], run(c))
+                                  for b, c in enumerate(cols)),
+                              f"#{3 if kind == 'cheb' else 4}b {design} "
+                              f"{label}: a column differs from the single "
+                              f"kernel")
+                before = (ks.stencil_spmm_tiled_cuda.launches,
+                          ks.stencil_spmm_cuda.launches,
+                          ks.stencil_spmv_cuda.launches)
+                Y = Sd @ X
+                torch.cuda.synchronize()
+                check((ks.stencil_spmm_tiled_cuda.launches,
+                       ks.stencil_spmm_cuda.launches,
+                       ks.stencil_spmv_cuda.launches)
+                      == (before[0] + 1, before[1] + 1, before[2]),
+                      f"#2b {label}: S @ X did not launch the tiled block "
+                      f"design once")
+                abs_err, rel = _rel_err(Y, ks.stencil_spmm_torch(*ops, X))
+                check(rel <= KERNEL_RTOL[tag],
+                      f"#2b {label} against the plain twin: {rel:.3e}")
+                line = [f"#2b {rel:.1e}"]
+                if dtype == torch.float64:
+                    errs["stencil_spmm"] = max(errs["stencil_spmm"], abs_err)
+                for kind, name in (("cheb", "cheb_apply_many"),
+                                   ("neumann", "neumann_apply_many")):
+                    scal = poly_args(kind, Sd, dinv)
+                    counter = getattr(pa, f"{name}_tiled_cuda")
+                    before = counter.launches
+                    Y = getattr(pa, f"{kind}_apply")(Sd, *scal, X)
+                    torch.cuda.synchronize()
+                    check(counter.launches == before + 1,
+                          f"{name} {label}: the dispatch did not launch the "
+                          f"tiled block design")
+                    abs_err, rel = _rel_err(
+                        Y, getattr(pa, f"{kind}_apply_torch")(Sd, *scal, X))
+                    check(rel <= POLY_RTOL[tag],
+                          f"{name} {label} against the plain twin: {rel:.3e}")
+                    line.append(f"#{3 if kind == 'cheb' else 4}b {rel:.1e}")
+                    if dtype == torch.float64:
+                        errs[name] = max(errs[name], abs_err)
+                print(f"[block] {label}: tiled and flat designs bit-equal to "
+                      f"the single kernels column by column; the dispatch "
+                      f"against the plain twin, max|dY|/max|Y|: "
+                      + ", ".join(line))
+
+    # times at B = 8, f64, L2 flushed
+    B = HEAT_B
+    X = _heat_block(n, B, gen, torch.float64)
+    cols = [X[:, b].contiguous() for b in range(B)]
+    ops = (S.const, S.offsets, S.wrap, S.grid_c, S.strips)
+    Acsr = _csr(s.A_csr)
+    Xc = X.contiguous()
+    strip_bytes = 2 * (S.grid_c + R) * ndiag * 8
+    _, rel = _rel_err(S @ X, torch.sparse.mm(Acsr, Xc))
+    check(rel <= 1e-13, f"#2b and cuSPARSE SpMM differ: {rel:.3e}")
+    st = {"B": B, "design": "tiled",
+          "ms": _time_cold_ms(lambda: S @ X),
+          "flat_ms": _time_cold_ms(lambda: ks.stencil_spmm_flat_cuda(*ops, X)),
+          "spmv_launches_ms": _time_cold_ms(lambda: [S @ c for c in cols]),
+          "dia_spmm_ms": _time_cold_ms(lambda: S.dia @ X),
+          "library_ms": _time_cold_ms(lambda: torch.sparse.mm(Acsr, Xc)),
+          "plain_ms": _time_cold_ms(lambda: ks.stencil_spmm_torch(*ops, X),
+                                    reps=10)}
+    st["bound_ms"], st["bound_by"] = _bound_ms(2 * B * n * 8 + strip_bytes,
+                                               2 * ndiag * n * B)
+    print(f"[block] #2b at heat M={HEAT_M}, B={B} (f64, L2 flushed): tiled "
+          f"{st['ms']:.4f} ms, flat {st['flat_ms']:.4f} ms, bound "
+          f"{st['bound_ms']:.4f} ms ({st['bound_by']}; tiled at "
+          f"{st['bound_ms'] / st['ms']:.1%} of it); today's route, #1b on "
+          f"the explicit DIA, {st['dia_spmm_ms']:.4f} ms; {B} launches of #2 "
+          f"{st['spmv_launches_ms']:.4f} ms; cuSPARSE SpMM "
+          f"{st['library_ms']:.4f} ms; plain {st['plain_ms']:.4f} ms")
+    p, q = CHEB_DEGREE, NEU_DEGREE
+    out = {"stencil_spmm": st}
+    dinv = dinv64
+    for kind, name, nbytes, nflop in (
+            # as phase_poly_timing counts one apply, for B vectors; D⁻¹ and
+            # the strips read once for the block
+            ("cheb", "cheb_apply_many", 2 * B * n * 8 + strip_bytes,
+             B * n * ((2 * ndiag + 3) + (p - 1) * (2 * ndiag + 5) + 1)),
+            ("neumann", "neumann_apply_many", (2 * B + 1) * n * 8 + strip_bytes,
+             B * n * ((2 * ndiag + 6) + (q - 2) * (2 * ndiag + 4)))):
+        scal = poly_args(kind, S, dinv)
+        apply = getattr(pa, f"{kind}_apply")
+        flat = getattr(pa, f"{kind}_apply_flat_cuda")
+        plan = pa.poly_plan(S, kind, scal[0 if kind == "cheb" else 1],
+                            torch.float64)
+        t = {"B": B, "design": "tiled",
+             "plan": {"tile": [plan.tile_r, plan.tile_c], "halo": plan.sweeps},
+             "ms": _time_cold_ms(lambda: apply(S, *scal, X)),
+             "flat_ms": _time_cold_ms(lambda: flat(S, *scal, X)),
+             "single_launches_ms": _time_cold_ms(
+                 lambda: [apply(S, *scal, c) for c in cols]),
+             "flat_single_launches_ms": _time_cold_ms(
+                 lambda: [flat(S, *scal, c) for c in cols]),
+             "plain_ms": _time_cold_ms(
+                 lambda: getattr(pa, f"{kind}_apply_torch")(S, *scal, X),
+                 reps=5),
+             "library_ms": None}
+        t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, nflop)
+        out[name] = t
+        print(f"[block] #{3 if kind == 'cheb' else 4}b {name} at heat "
+              f"M={HEAT_M}, B={B} (f64, L2 flushed): tiled {t['ms']:.4f} ms "
+              f"(tile {plan.tile_r}x{plan.tile_c}, halo {plan.sweeps}), flat "
+              f"{t['flat_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; tiled at {t['bound_ms'] / t['ms']:.1%} of "
+              f"it); {B} launches of the single kernel "
+              f"{t['single_launches_ms']:.4f} ms (flat "
+              f"{t['flat_single_launches_ms']:.4f} ms); plain "
+              f"{t['plain_ms']:.4f} ms")
+    return errs, out
+
+
+def _timed(fn, reps=GRAPH_SOLVES):
+    """``fn``'s result and the walls of ``reps`` calls, each synchronised."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def _median(walls):
+    return sorted(walls)[len(walls) // 2]
+
+
+def _ms(walls):
+    return ", ".join(f"{1e3 * w:.3f}" for w in walls)
+
+
+def _replayed(runner, before):
+    """The launches by counter name of the replays since ``before`` (the
+    runner's ``replayed`` then): each graph's launches times its replays."""
+    from structurepreservingiterativesolvers_torch.kernels import (
+        launch_counters,
+    )
+
+    names = {id(fn): nm for nm, fn in launch_counters().items()}
+    out = {nm: 0 for nm in _launch_counters()}
+    for key, (_, counts) in runner.graphs.items():
+        for counter, nl in counts:
+            out[names[id(counter)]] += nl * (runner.replayed.get(key, 0)
+                                             - before.get(key, 0))
+    return out
+
+
+def phase_heat_graph(slice2, slice3):
+    """heat on the device core, one solve.  The heat M=1024 TimedSolve row
+    with the AMG through ``time_cgmres(loop="while")`` (both solvers on the
+    device core, as the JAX package's), held to ``reference/slice2.json``;
+    then its CGMRES solve alone on both loops in this call, medians of 5,
+    held to the record and to each other (x within 1e-10), with
+    ``time_capture``, the launches per replay (the V-cycle's 28 DIA
+    products in each ``arnoldi`` graph) and of one solve (each graph's
+    launches times its replays), and the idle share of each loop under the
+    profiler.  Then cheb8 and neu4 on the device core: at the certified
+    anchors (``ANCHORS``) held to ``reference/slice3.json`` as phase 9 holds
+    the host loop, and at heat M=1024, where they stall, to the record's
+    latch and steps, with the time per iteration of both loops.  Returns
+    the launches of each path and the walls."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+        time_cgmres,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    seen = {}
+
+    def pre_builder(system):  # the default, keeping what it was given
+        seen["system"] = system
+        seen["pre"] = default_pre_builder("heat")(system)
+        return seen["pre"]
+
+    tag = f"[heat_M{HEAT_M}_graph_core]"
+    _reset_launches()
+    row = time_cgmres("heat", M=HEAT_M, k=HEAT_K, tol=HEAT_TOL,
+                      pre_builder=pre_builder, device=DEVICE, loop="while")
+    torch.cuda.synchronize()
+    row_launches = _read_launches()
+    s, pre = seen["system"], seen["pre"]
+    rec = slice2[f"heat_M{HEAT_M}"]
+    print(f"{tag} time_cgmres(loop='while'): gmres {row['gmres_steps']} steps "
+          f"(record {rec['gmres']['steps']}) {1e3 * row['time_gmres']:.3f} ms; "
+          f"cgmres {row['steps']} steps, {row['constrained_steps']} "
+          f"constrained (record {rec['cgmres']['steps']} / "
+          f"{rec['cgmres']['constrained_steps']}), safety {row['safety']}, "
+          f"runtime {1e3 * row['runtime']:.3f} ms (phase 1 "
+          f"{1e3 * row['iter_time_unconstrained']:.3f} ms/iteration, catch-up "
+          f"{1e3 * row['constraint_building']:.3f} ms, endgame "
+          f"{1e3 * row['iter_time_constrained']:.3f} ms/iteration), "
+          f"time_capture {row['time_capture']:.3f} s; AMG setup "
+          f"{row['time_pre']:.4f} s; warm-up pass (captures) "
+          f"{row['compile_time']:.3f} s; launches over the row "
+          f"{ {k: v for k, v in row_launches.items() if v} }")
+    check(row["safety"] is True, f"{tag} the row's safety {row['safety']}")
+    check(abs(row["gmres_steps"] - rec["gmres"]["steps"]) <= 1,
+          f"{tag} the row's gmres steps {row['gmres_steps']}")
+    _check_counts(tag + " row", row, rec["cgmres"],
+                  ("steps", "constrained_steps"))
+    check(max(row["conservation"][f"cgmres_{nm}"]
+              for nm in row["invariant_names"]) <= DEVIATION_MAX,
+          f"{tag} the row's deviations {row['conservation']}")
+
+    cons = s.constraints()
+    kw = dict(k=HEAT_K, tol=HEAT_TOL, pre=pre, constraints=cons)
+
+    def host():
+        return cg.cgmres(s.A, s.b, **kw)
+
+    def graphs(timing=False):
+        return cg.cgmres(s.A, s.b, loop="while", timing=timing, **kw)
+
+    xg, ig = graphs(timing=True)
+    core = cg.last_core()
+    runner = core.runner
+    before = dict(runner.replayed)
+    _reset_launches()
+    x2, i2 = graphs()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    expected = _replayed(runner, before)
+    per_replay = runner.launches()
+    (xh, ih), host_walls = _timed(host)
+    _, graph_walls = _timed(graphs)
+    hp, gp = _profiled(host), _profiled(graphs)
+    res = float(torch.linalg.norm(s.b - s.A @ xg))
+    hmed, med = _median(host_walls), _median(graph_walls)
+    levels = sum(1 for L in pre.levels if L.P is not None)
+    print(f"{tag} cgmres on the device core: steps {ig['steps']} (record "
+          f"{rec['cgmres']['steps']}), constrained {ig['constrained_steps']}, "
+          f"safety {ig['safety']}, KKT deviation {ig['deviation']:.3e}, true "
+          f"residual {res:.4e}; host loop steps {ih['steps']}; x against the "
+          f"host loop {_rel(xg, xh):.3e}; a second solve bit-equal "
+          f"{bool(torch.equal(xg, x2))}")
+    print(f"{tag} wall, median of {GRAPH_SOLVES}: host loop {1e3 * hmed:.3f} "
+          f"ms ({_ms(host_walls)}), device core {1e3 * med:.3f} ms "
+          f"({_ms(graph_walls)}); time_capture {runner.time_capture:.3f} s "
+          f"({runner.captures} graphs, captured by the row's warm-up); "
+          f"profiled: host loop busy {hp[1]:.3f} ms, idle {hp[2]:.3f}; device "
+          f"core busy {gp[1]:.3f} ms, idle {gp[2]:.3f}; busy over the "
+          f"unprofiled medians: host loop {1.0 - hp[1] / 1e3 / hmed:.3f} idle, "
+          f"device core {1.0 - gp[1] / 1e3 / med:.3f} idle")
+    print(f"{tag} launches over one solve {launches}; per replay by graph "
+          f"{per_replay}")
+    check(ig["safety"] is True and i2["safety"] is True, f"{tag} safety")
+    _check_counts(tag, ig, rec["cgmres"], ("steps", "constrained_steps"))
+    check(ig["deviation"] <= DEVIATION_MAX, f"{tag} KKT deviation "
+                                            f"{ig['deviation']:.3e}")
+    check(math.isfinite(res) and res < HEAT_TOL, f"{tag} true residual "
+                                                 f"{res:.3e}")
+    check(_rel(xg, xh) <= 1e-10, f"{tag} x {_rel(xg, xh):.3e} from the host "
+                                 f"loop")
+    check(torch.equal(xg, x2), f"{tag} a second replayed solve differs")
+    check(launches == expected, f"{tag} launches {launches} are not the "
+                                f"replays' {expected}")
+    check(per_replay["arnoldi"].get("dia_spmv") == 7 * levels
+          and per_replay["arnoldi"].get("stencil_spmv") == 1,
+          f"{tag} an arnoldi graph holds {per_replay['arnoldi']}, not the "
+          f"V-cycle's {7 * levels} DIA products and one stencil product")
+    for kernel in ("dia_spmv", "stencil_spmv"):
+        _check_design(tag, launches, kernel, designs=HEAT_DESIGNS)
+    kernels = sorted(nm for nm in gp[3] if "dia_spmv" in nm or "stencil" in nm)
+    check(any("dia_spmv" in nm for nm in kernels)
+          and any("stencil" in nm for nm in kernels),
+          f"{tag} the profiler saw {kernels} in the replays")
+    paths = {f"heat_M{HEAT_M}_graph_core_row": row_launches,
+             f"heat_M{HEAT_M}_graph_core": launches}
+    walls = {f"heat_M{HEAT_M}_amg": {"graph_ms": 1e3 * med,
+                                     "host_ms": 1e3 * hmed,
+                                     "capture_s": runner.time_capture,
+                                     "idle": gp[2], "host_idle": hp[2]}}
+    cg.clear_core_cache()
+
+    builders = _poly_builders()
+    polys = [(name, M, k, short, slice3[name]) for name, M, k, short in ANCHORS]
+    polys += [(f"heat_M{HEAT_M}_{short}", HEAT_M, HEAT_K, short,
+               slice3[f"heat_M{HEAT_M}_{short}"]) for short in ("cheb8", "neu4")]
+    for name, M, k, short, prec in polys:
+        tag = f"[{name} graph_core]"
+        sp = s if M == HEAT_M else heat.linforms(M=M, device=DEVICE)
+        p = builders[short](sp)
+        _check_bounds(tag, p, prec)
+        pkw = dict(k=k, tol=HEAT_TOL, pre=p, constraints=sp.constraints())
+        xg, ig = cg.cgmres(sp.A, sp.b, loop="while", timing=True, **pkw)
+        _reset_launches()
+        (x2, i2), gw = _timed(lambda: cg.cgmres(
+            sp.A, sp.b, loop="while", timing=True, **pkw), reps=1)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        (xh, ih), hw = _timed(lambda: cg.cgmres(sp.A, sp.b, **pkw), reps=1)
+        r = prec["cgmres"]
+        res = float(torch.linalg.norm(sp.b - sp.A @ x2))
+        per_it = i2["timings"]["runtime"] / i2["steps"]
+        kernel = "cheb_apply" if short.startswith("cheb") else "neumann_apply"
+        print(f"{tag} steps {i2['steps']}, constrained "
+              f"{i2['constrained_steps']}, safety {i2['safety']} (record "
+              f"{r['steps']} / {r['constrained_steps']} / {r['safety']}; host "
+              f"loop {ih['steps']} / {ih['constrained_steps']} / "
+              f"{ih['safety']}), KKT deviation {i2['deviation']:.3e}, true "
+              f"residual {res:.4e} (record {r['true_residual']:.4e}); wall "
+              f"{1e3 * gw[0]:.3f} ms, {1e3 * per_it:.3f} ms/iteration on the "
+              f"device core; host loop {1e3 * hw[0]:.3f} ms, "
+              f"{1e3 * hw[0] / ih['steps']:.3f} ms/iteration; x against the "
+              f"host loop {_rel(x2, xh):.3e}; {kernel} launches "
+              f"{launches[kernel]}")
+        check(i2["safety"] == r["safety"], f"{tag} safety {i2['safety']} vs "
+                                           f"record {r['safety']}")
+        _check_design(tag, launches, kernel)
+        _check_design(tag, launches, "stencil_spmv")
+        check(launches[kernel] == i2["steps"],
+              f"{tag} {launches[kernel]} {kernel} launches over "
+              f"{i2['steps']} steps")
+        if M == HEAT_M:  # the stalled rows: the record's latch and steps
+            check(i2["steps"] == r["steps"], f"{tag} steps {i2['steps']} vs "
+                                             f"record {r['steps']}")
+        else:  # the certified anchors, as phase 9 holds the host loop
+            _check_counts(tag, i2, r, ("steps", "constrained_steps"))
+            check(i2["deviation"] <= DEVIATION_MAX, f"{tag} KKT deviation "
+                                                    f"{i2['deviation']:.3e}")
+            if r["true_residual"] < HEAT_TOL:
+                check(res < HEAT_TOL, f"{tag} true residual {res:.3e}")
+            check(_rel(x2, xh) <= 1e-10, f"{tag} x {_rel(x2, xh):.3e} from "
+                                         f"the host loop")
+        paths[f"{name}_graph_core"] = launches
+        walls[name] = {"graph_ms_per_iteration": 1e3 * per_it,
+                       "host_ms_per_iteration": 1e3 * hw[0] / ih["steps"]}
+        cg.clear_core_cache()
+    return paths, walls
+
+
+def phase_heat_fused_evolve(s0):
+    """``fused_evolve`` on heat M=1024, three steps of the TimedSolve row's
+    dt (T=0.3, N=3: dt = 0.1, the row's operator), warm-started, with the
+    AMG built on the first system, at the row's k and tol: every step
+    certified, its mass and energy drifts within the certificate's bar, no
+    KKT fallback, kernel #1 in the design its operators' plans pick, the
+    counters the replays' launches; its step walls beside the host loop's
+    ``evolve`` of the same steps in this call, and its idle share under
+    the profiler.  ``s0``: heat's M=1024 system at that dt (the default
+    N=100, T=10), whose operators the evolution's are, so the AMG is built
+    on it.  Returns its launches and the walls."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        evolve,
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+
+    params = dict(M=HEAT_M, N=EVOLVE_N, T=EVOLVE_T)
+    tag = f"[fused_evolve heat_M{HEAT_M}]"
+    check(math.isclose(s0.prob.dt, EVOLVE_T / EVOLVE_N),
+          f"{tag} the system's dt {s0.prob.dt} is not the evolution's")
+    pre = default_pre_builder("heat")(s0)
+
+    def run():
+        return fused_evolve("heat", k=HEAT_K, tol=HEAT_TOL, pre=pre,
+                            device=DEVICE, **params)
+
+    _reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    t = out["timings"]
+    starts = []
+
+    def solver(system, **kw):  # the start of each step's solve
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return wrappers.cgmres_wrapper(system, **kw)
+
+    host = evolve("heat", k=HEAT_K, tol=HEAT_TOL, pre=pre, warm_start=True,
+                  solver=solver, device=DEVICE, **params)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    host_walls = [b - a for a, b in zip(starts, starts[1:])]
+    box = {}
+    prof = _profiled(lambda: box.setdefault("out", run()))[4]
+    wall, busy, names = _window_busy(prof, "fused_evolve steps")
+    cap = 1e3 * box["out"]["timings"]["time_capture"]
+    print(f"{tag} steps {list(map(int, out['steps']))} (host loop "
+          f"{host['steps']}), safety {list(map(int, out['safety']))} (host "
+          f"loop {host['safety']}), fallbacks "
+          f"{list(map(int, out['fallbacks']))}; mass {list(out['mass'])}, "
+          f"drift dm {list(out['dm'])}; energy (the dissipation identity) "
+          f"{list(out['energy'])}; host loop dm {list(host['dm'])}, de "
+          f"{list(host['de'])}")
+    print(f"{tag} step walls {_ms(t['step_wall'])} ms, of them capture "
+          f"{_ms(t['step_capture'])} ms; host-loop evolve step walls "
+          f"{_ms(host_walls)} ms; profiled warm evolution: wall {wall:.3f} ms, "
+          f"capture {cap:.3f} ms, busy {busy:.3f} ms, idle share of the wall "
+          f"less capture {1.0 - busy / (wall - cap):.3f}")
+    print(f"{tag} launches over the evolution {launches}; per replay by graph "
+          f"{t['launches_per_replay']}")
+    check(len(out["steps"]) == EVOLVE_N, f"{tag} ran {len(out['steps'])} steps")
+    check(all(int(sf) == 1 for sf in out["safety"]), f"{tag} safety "
+                                                     f"{out['safety']}")
+    check(not out["fallbacks"].any(), f"{tag} KKT fallbacks "
+                                      f"{out['fallbacks']}")
+    check(all(d <= DEVIATION_MAX for d in out["dm"])
+          and all(d <= DEVIATION_MAX for d in out["de"]),
+          f"{tag} drifts dm {out['dm']}, de {out['de']}")
+    check(all(abs(int(a) - int(b)) <= 1
+              for a, b in zip(out["steps"], host["steps"])),
+          f"{tag} steps {out['steps']} vs the host loop's {host['steps']}")
+    check(bool(torch.isfinite(out["sol"]).all()), f"{tag} solution not finite")
+    replayed = {nm: t["launches"].get(nm, 0) for nm in launches}
+    check(launches == replayed, f"{tag} launches {launches} are not the "
+                                f"replays' {replayed}")
+    # step_update's products with Mmat and Lmat, the V-cycle's, the
+    # endgame's with Emat: their plans need not agree
+    _check_dia_path(tag, launches, (s0.Mmat, s0.Lmat, s0.Emat,
+                                    *_amg_operators(pre).values()))
+    _check_design(tag, launches, "stencil_spmv")
+    check(any("stencil" in nm for nm in names)
+          and any("dia_spmv" in nm for nm in names),
+          f"{tag} the profiler saw no kernels #1 and #2 in the replays")
+    return {f"heat_M{HEAT_M}_fused_evolve": launches}, {
+        "step_ms": [1e3 * w for w in t["step_wall"]],
+        "host_step_ms": [1e3 * w for w in host_walls],
+        "idle": 1.0 - busy / (wall - cap)}
+
+
+def _check_block_row(tag, s, pre, short, gen):
+    """The block kernels of a batched heat row on the row's own operators
+    at B = HEAT_B, on the (n, B) view of a (B, n) block as the core reads
+    it: #2b's ``A @ X``, and for cheb8 (neu4) the preconditioner's apply,
+    #3b (#4b).  Each launches once in its block counter, agrees with its
+    plain twin within the bound, and gives each column the single kernel's
+    bits on that vector.  Returns per kernel its largest absolute error."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import (
+        launch_counters,
+    )
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+
+    S = s.A
+    n = S.shape[0]
+    X = _heat_block(n, HEAT_B, gen, torch.float64)
+    ops = (S.const, S.offsets, S.wrap, S.grid_c, S.strips)
+    runs = {"stencil_spmm": (lambda V: S @ V,
+                             lambda V: ks.stencil_spmm_torch(*ops, V),
+                             KERNEL_RTOL)}
+    if short == "cheb8":
+        theta = 0.5 * (pre.lmax + pre.lmin)
+        delta = 0.5 * (pre.lmax - pre.lmin)
+        runs["cheb_apply_many"] = (pre, lambda V: pa.cheb_apply_torch(
+            pre.A, pre.degree, theta, delta, theta / delta, V), POLY_RTOL)
+    elif short == "neu4":
+        runs["neumann_apply_many"] = (pre, lambda V: pa.neumann_apply_torch(
+            pre.A, pre.dinv, pre.degree, pre.omega, V), POLY_RTOL)
+    counters, errs = launch_counters(), {}
+    for name, (run, plain, rtol) in runs.items():
+        before = counters[name].launches
+        Y = run(X)
+        torch.cuda.synchronize()
+        check(counters[name].launches == before + 1,
+              f"{tag} {name}: the block did not launch the block form once")
+        errs[name], rel = _rel_err(Y, plain(X))
+        cols = torch.stack([run(X[:, b].contiguous())
+                            for b in range(HEAT_B)], 1)
+        torch.cuda.synchronize()
+        print(f"[block] {tag} {name} at the row's operator (n={n}, "
+              f"B={HEAT_B}, f64): max|dY|/max|Y| = {rel:.3e} against the "
+              f"plain twin (bound {rtol['float64']:.0e}); columns bit-equal "
+              f"to the single kernel {torch.equal(Y, cols)}")
+        check(rel <= rtol["float64"],
+              f"{tag} {name} against the plain twin: {rel:.3e}")
+        check(torch.equal(Y, cols),
+              f"{tag} {name}: a column differs from the single kernel")
+    return errs
+
+
+def phase_heat_batched(s1024, row):
+    """``cgmres_many`` on heat at B = 8, the row ``row`` of
+    ``HEAT_BATCH_ROWS`` (M=1024 with the AMG, the M=256 anchor with cheb8,
+    the M=64 anchor with neu4; ``s1024`` heat's M=1024 system), item i
+    the system's ``step_update(z0 + 0.02 i·p)``: every item certified
+    (latch 1, KKT deviation within the bar, and the true residual below tol
+    where its single solve converges), its steps equal to its single
+    graph-core solve's and x within 1e-10 of it; every product of the
+    batch through the block forms (#2b for A, #1b for the V-cycle's levels,
+    #3b or #4b for a polynomial) and none through a single kernel; the
+    counters the replays' launches; the median wall of 5 batched solves
+    beside the median of 5 rounds of the 8 single solves, ``time_capture``
+    and the idle share under the profiler.  Returns per row its launches
+    and walls."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    ref = _reference_script()
+    rows = {}
+    for name, M, k, short in HEAT_BATCH_ROWS:
+        if name != row:
+            continue
+        tag = f"[{name}]"
+        s = s1024 if M == HEAT_M else heat.linforms(M=M, device=DEVICE)
+        pre = _heat_pre(short, s)
+        field = torch.as_tensor(ref.heat_smooth_field(M, s.z0.cpu().numpy()),
+                                device=DEVICE)
+        items = [s.step_update(s.z0 + 0.02 * i * field) for i in range(HEAT_B)]
+        Bs = torch.stack([t.b for t in items])
+        cons = [t.constraints() for t in items]
+
+        def many():
+            return cgmres_many(s.A, Bs, cons, k=k, tol=HEAT_TOL, pre=pre)
+
+        (X, info), first = _timed(many, reps=1)
+        runner = cg.last_core().runner
+        capture = runner.time_capture
+        _, walls = _timed(many)
+        before = dict(runner.replayed)
+        _reset_launches()
+        X2, info2 = many()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        expected = _replayed(runner, before)
+        per_replay = runner.launches()
+        prof = _profiled(many)
+        span_wall, span_busy, span_names = _window_busy(prof[4], "cgmres_many")
+        cg.clear_core_cache()
+
+        def singles():
+            return [cg.cgmres(s.A, t.b, k=k, tol=HEAT_TOL, pre=pre,
+                              constraints=c, loop="while")
+                    for t, c in zip(items, cons)]
+
+        singles()  # the first item's solve captures the graphs
+        one, single_walls = _timed(singles)
+        cg.clear_core_cache()
+        med, smed = _median(walls), _median(single_walls)
+        true_res = [float(torch.linalg.norm(t.A @ x - t.b))
+                    for t, x in zip(items, X)]
+        x_rel = [_rel(X[i], xs) for i, (xs, _) in enumerate(one)]
+        print(f"{tag} B={HEAT_B}, k={k}: steps {list(map(int, info['steps']))}"
+              f" (single solves {[i1['steps'] for _, i1 in one]}), safety "
+              f"{list(map(int, info['safety']))}, KKT deviation "
+              f"{['%.2e' % d for d in info['deviation']]}, true residual "
+              f"{['%.2e' % r for r in true_res]}; x against each single "
+              f"solve {['%.2e' % r for r in x_rel]}; a second batched solve "
+              f"bit-equal {bool(torch.equal(X, X2))}")
+        print(f"{tag} wall, median of {GRAPH_SOLVES}: batched {1e3 * med:.3f} "
+              f"ms ({_ms(walls)}), the {HEAT_B} single device-core solves "
+              f"{1e3 * smed:.3f} ms ({_ms(single_walls)}); first batched solve "
+              f"(capturing) {1e3 * first[0]:.1f} ms, time_capture "
+              f"{1e3 * capture:.1f} ms ({runner.captures} graphs); profiled: "
+              f"busy {prof[1]:.3f} ms, idle {prof[2]:.3f}; inside the span "
+              f"{span_wall:.3f} ms, busy {span_busy:.3f} ms; busy over the "
+              f"unprofiled median {1.0 - prof[1] / 1e3 / med:.3f} idle")
+        print(f"{tag} launches over one batched solve {launches}; per replay "
+              f"by graph {per_replay}")
+        for i, (xs, i1) in enumerate(one):
+            check(int(info["safety"][i]) == 1
+                  and info["deviation"][i] <= DEVIATION_MAX,
+                  f"{tag} item {i}: safety {info['safety'][i]}, deviation "
+                  f"{info['deviation'][i]:.3e}")
+            check(int(info["steps"][i]) == i1["steps"],
+                  f"{tag} item {i}: {info['steps'][i]} steps, its single "
+                  f"solve {i1['steps']}")
+            if i1["steps"] < k:
+                check(true_res[i] < HEAT_TOL, f"{tag} item {i}: true "
+                                              f"residual {true_res[i]:.3e}")
+            check(x_rel[i] <= 1e-10, f"{tag} item {i}: x {x_rel[i]:.3e} from "
+                                     f"its single solve")
+        check(torch.equal(X, X2), f"{tag} a second batched solve differs")
+        check(launches == expected, f"{tag} launches {launches} are not the "
+                                    f"replays' {expected}")
+        block = {"amg": "dia_spmm", "cheb8": "cheb_apply_many",
+                 "neu4": "neumann_apply_many"}[short]
+        check(launches["stencil_spmm"] > 0 and launches[block] > 0,
+              f"{tag} the batch did not run #2b and {block}: {launches}")
+        single = ("stencil_spmv", "dia_spmv", "cheb_apply", "neumann_apply")
+        check(all(launches[nm] == 0 for nm in single),
+              f"{tag} a product of the batch ran a single kernel: {launches}")
+        check(launches["stencil_spmm_tiled"] == launches["stencil_spmm"],
+              f"{tag} #2b ran other than its tiled design")
+        if short != "amg":
+            check(launches[f"{block}_tiled"] == launches[block],
+                  f"{tag} {block} ran other than its tiled design")
+        check(any("stencil" in nm for nm in span_names),
+              f"{tag} the profiler saw no stencil kernel in the solve's span")
+        errs = _check_block_row(tag, s, pre, short,
+                                torch.Generator(device=DEVICE).manual_seed(M))
+        rows[name] = {"launches": launches, "wall_ms": 1e3 * med,
+                      "single_ms": 1e3 * smed, "capture_s": capture,
+                      "idle": prof[2], "errs": errs}
+    return rows
 
 
 def main() -> int:
@@ -2944,6 +3710,39 @@ def main() -> int:
     err9, swe_spmm, batch_rows = phase_batched(records["slice9.json"], shapes)
     spmm_err = max(spmm_err, err9)
     torch.cuda.synchronize()
+    # the eleventh slice: heat on the device core
+    t0 = time.perf_counter()
+    heat_sys = heat.linforms(M=HEAT_M, device=DEVICE)
+    print(f"[heat M={HEAT_M}] assembly {time.perf_counter() - t0:.2f} s")
+    block_err, block_times = phase_block_kernels(heat_sys)
+    torch.cuda.synchronize()
+    # #1b on every operator and width of each of these paths, after it
+    gen11 = torch.Generator(device=DEVICE).manual_seed(12)
+    shapes.path(f"heat_M{HEAT_M}_graph_core", keep=True)
+    heat11, heat11_walls = phase_heat_graph(records["slice2.json"],
+                                            records["slice3.json"])
+    torch.cuda.synchronize()
+    shapes.checks()
+    spmm_err = max(spmm_err, _check_path_spmm(
+        shapes, f"heat_M{HEAT_M}_graph_core", gen11)[0])
+    shapes.path(f"heat_M{HEAT_M}_fused_evolve", keep=True)
+    paths, heat11_walls["fused_evolve"] = phase_heat_fused_evolve(heat_sys)
+    heat11.update(paths)
+    torch.cuda.synchronize()
+    shapes.checks()
+    spmm_err = max(spmm_err, _check_path_spmm(
+        shapes, f"heat_M{HEAT_M}_fused_evolve", gen11)[0])
+    heat_rows = {}
+    for name, *_ in HEAT_BATCH_ROWS:
+        shapes.path(name, keep=True)
+        heat_rows.update(phase_heat_batched(heat_sys, name))
+        torch.cuda.synchronize()
+        shapes.checks()
+        spmm_err = max(spmm_err, _check_path_spmm(shapes, name, gen11)[0])
+        for kernel, err in heat_rows[name]["errs"].items():
+            block_err[kernel] = max(block_err[kernel], err)
+    del heat_sys
+    heat11.update({name: row["launches"] for name, row in heat_rows.items()})
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
@@ -2964,7 +3763,8 @@ def main() -> int:
     def by_path(name, **first):
         """A kernel's launches on each path that ran it."""
         paths = {**first, **{row: rows[row][name] for row in rows},
-                 **{a: anchors[a][name] for a in anchors}}
+                 **{a: anchors[a][name] for a in anchors},
+                 **{path: n[name] for path, n in heat11.items()}}
         return {path: n for path, n in paths.items() if n}
 
     kernels = [
@@ -3029,7 +3829,7 @@ def main() -> int:
     # constraint's vmapped products on the host loop and the device core
     spmm_paths = {**{name: row["launches"] for name, row in batch_rows.items()},
                   f"heat_M{HEAT_M}": launches, **lkdv_launches, **rk_paths,
-                  **rows, **anchors}
+                  **rows, **anchors, **heat11}
     spmm_paths = {path: n for path, n in spmm_paths.items()
                   if n.get("dia_spmm")}
     head = swe_spmm[8]
@@ -3052,6 +3852,38 @@ def main() -> int:
          "times": {**{f"swe_M{SWE_M}_A_B{B}": t for B, t in swe_spmm.items()},
                    **spmm_times},
          "walls_ms": batch_rows})
+    # the block forms of kernels #2, #3 and #4 on the batched heat rows
+    for name, source, line, single in (
+            ("stencil_spmm", "stencil_spmv.cu", "pallas_spmv.py:165",
+             "stencil_spmv"),
+            ("cheb_apply_many", "poly_tiled.cu", "pallas_poly.py:217",
+             "cheb_apply"),
+            ("neumann_apply_many", "poly_tiled.cu", "pallas_poly.py:230",
+             "neumann_apply")):
+        t = block_times[name]
+        entry = {"name": name, "route": "cuda", "source": src + source,
+                 "replaces": f"{tpu}{line}",
+                 "replaces_under": "structurepreservingiterativesolvers_tpu/"
+                                   "experiments/batched.py:87 (jax.vmap)",
+                 "block_form_of": single,
+                 "launches": sum(n[name] for n in heat11.values()),
+                 "launches_by_path": {path: n[name]
+                                      for path, n in heat11.items() if n[name]},
+                 "launches_by_design": {
+                     design: sum(n[f"{name}_{design}"] for n in heat11.values())
+                     for design in ("tiled", "flat")},
+                 "max_abs_err": block_err[name], "timed_at":
+                     f"heat_M{HEAT_M}_B{HEAT_B}",
+                 **{key: t[key] for key in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                 "times": t}
+        if source != "stencil_spmv.cu":
+            entry["flat_source"] = src + "poly_apply.cu"
+        kernels.append(entry)
+    print("[heat11] " + json.dumps({"walls": heat11_walls, "batched": {
+        name: {key: row[key] for key in ("wall_ms", "single_ms", "capture_s",
+                                         "idle")}
+        for name, row in heat_rows.items()}}))
     print("[lkdvrk] " + json.dumps({name: {
         key: row[key] for key in ("format", "width", "ras_blocks", "time_pre",
                                   "time_pre_first", "runtime", "time_gmres",

@@ -11,8 +11,11 @@ with the skew-normal Chebyshev preconditioner of the TimedSolve
 pre-builder, and time evolutions) and ``slice7.json`` (lkdvRK with the RAS +
 Neumann composite of the TimedSolve pre-builder at the reference's M=400
 error-sweep grid and at M=50, its evolutions and error sweep, and lkdv's
-TimedSolve row), ``slice8.json`` (the JAX package's ``fused_evolve``) and
-``slice9.json`` (the JAX package's batched ``cgmres_many``, ``BATCHED``):
+TimedSolve row), ``slice8.json`` (the JAX package's ``fused_evolve``),
+``slice9.json`` (the JAX package's batched ``cgmres_many``, ``BATCHED``) and
+``slice11.json`` (heat on the JAX package's device core: ``cgmres`` on its
+default loop with each of heat's four preconditioners, ``cgmres_many`` on
+heat with each of them, and ``fused_evolve`` on heat with the AMG):
 for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
@@ -65,6 +68,7 @@ REFERENCE = ROOT / "structurepreservingiterativesolvers_torch" / "reference"
 # builds, at full size and at the sizes of the CPU tests.
 CHEB8 = ("chebyshev", dict(degree=8))
 NEU4 = ("neumann", dict(degree=4))
+JACOBI = ("jacobi", {})
 CONFIGS = {
     "lkdv_easy": ("lkdv", dict(degree=1, M=50, N=100), 20, 1e-50, True, True,
                   None),
@@ -98,7 +102,24 @@ CONFIGS = {
                             50, 1e-5, False, False, "default"),
     "lkdvrk_M400_deg5_s4": ("lkdvrk", dict(M=400, N=10, degree=5, tstages=4),
                             50, 1e-7, False, False, "default"),
+    # the eleventh slice: heat M=64 (the TimedSolve row's tol=1e-7
+    # absolute) through the JAX cgmres on its default loop, the device
+    # core, with each of heat's four preconditioners (k=20 with the AMG, as
+    # the row; k=60 with the others, as slice3.json's M=64 anchors)
+    "heat_M64_amg_while": ("heat", dict(M=64), 20, 1e-7, False, False,
+                           "amg"),
+    "heat_M64_cheb8_while": ("heat", dict(M=64), 60, 1e-7, False, False,
+                             CHEB8),
+    "heat_M64_neu4_while": ("heat", dict(M=64), 60, 1e-7, False, False, NEU4),
+    "heat_M64_jacobi_while": ("heat", dict(M=64), 60, 1e-7, False, False,
+                              JACOBI),
 }
+
+# the configurations whose records go to slice11.json
+SLICE11 = {"heat_M64_amg_while", "heat_M64_cheb8_while",
+           "heat_M64_neu4_while", "heat_M64_jacobi_while",
+           "heat_M64_amg_fused", "heat_M32_amg_B3", "heat_M32_cheb8_B3",
+           "heat_M32_neu4_B3", "heat_M32_jacobi_B3"}
 
 # evolutions: name -> (problem, evolve/linforms parameters, k, tol,
 # preconditioner built on the evolution's first system).  swe at M=512 runs
@@ -125,6 +146,9 @@ FUSED = {
     "swe_M512_snc_fused": ("swe", dict(M=512, N=3, T=0.3), 20, 1e-7, "snc"),
     "swe_M16_fused": ("swe", dict(M=16, N=5, T=1.0), 20, 1e-7, None),
     "lkdv_M50_fused": ("lkdv", dict(M=50, N=10, degree=2), 30, 1e-6, None),
+    # heat M=64, three steps of the default dt (T=10, N=3), with the AMG of
+    # the TimedSolve row built on the first system, at the row's k and tol
+    "heat_M64_amg_fused": ("heat", dict(M=64, N=3), 20, 1e-7, "amg"),
 }
 
 
@@ -160,16 +184,31 @@ BATCHED = {
     "swe_M32_snc_B4": ("swe", dict(M=32), 4, 20, 1e-7, "snc", "noise"),
     "swe_M512_B8": ("swe", dict(M=512), 8, 60, 1e-9, None, "smooth"),
     "swe_M512_snc_B8": ("swe", dict(M=512), 8, 20, 1e-7, "snc", "smooth"),
+    # the eleventh slice: heat M=32 at B = 3 with each of heat's four
+    # preconditioners, built on the unperturbed system (the k of the
+    # single rows: 20 with the AMG, 30 with a polynomial as heat_M32_cheb8,
+    # 60 with Jacobi)
+    "heat_M32_amg_B3": ("heat", dict(M=32), 3, 20, 1e-7, "amg", "smooth"),
+    "heat_M32_cheb8_B3": ("heat", dict(M=32), 3, 30, 1e-7, CHEB8, "smooth"),
+    "heat_M32_neu4_B3": ("heat", dict(M=32), 3, 30, 1e-7, NEU4, "smooth"),
+    "heat_M32_jacobi_B3": ("heat", dict(M=32), 3, 60, 1e-7, JACOBI,
+                           "smooth"),
 }
 
 
-def smooth_field(M: int, z0):
+def smooth_field(M: int, z0, problem: str = "swe"):
     """A smooth perturbation of a swe state on the M x M grid: on each of
     the three fields (u, v, rho), the real part of the lowest 3 x 3 Fourier
     modes with complex amplitudes drawn N(0, 1) from numpy's generator of
-    seed 0, the whole scaled so that max|p| = max|z0|."""
+    seed 0, the whole scaled so that max|p| = max|z0|.  For heat, the one
+    field on the (M + 1) x (M + 1) vertex grid of the unit square: the
+    lowest 3 x 3 cosine modes cos(pi kx x) cos(pi ky y) (the modes of its
+    natural boundary) with amplitudes drawn N(0, 1) from the same
+    generator, scaled the same way."""
     import numpy as np
 
+    if problem == "heat":
+        return heat_smooth_field(M, z0)
     amp = np.random.default_rng(0).standard_normal((3, 3, 3, 2))
     idx = np.arange(M * M)
     ix, iy = idx // M, idx % M
@@ -183,6 +222,21 @@ def smooth_field(M: int, z0):
                 p += a * np.cos(phase) - b * np.sin(phase)
         fields.append(p)
     p = np.concatenate(fields)
+    z0 = np.asarray(z0, dtype=np.float64)
+    return p * (np.abs(z0).max() / np.abs(p).max())
+
+
+def heat_smooth_field(M: int, z0):
+    """``smooth_field`` for heat: vertex (i, j) of the grid at flat index
+    i (M + 1) + j, at x = i / M, y = j / M (``models/fem2d.py`` numbers
+    the vertices so)."""
+    import numpy as np
+
+    amp = np.random.default_rng(0).standard_normal((3, 3))
+    t = np.arange(M + 1) / M
+    p = sum(amp[kx, ky] * np.outer(np.cos(np.pi * kx * t),
+                                   np.cos(np.pi * ky * t))
+            for kx in range(3) for ky in range(3)).reshape(-1)
     z0 = np.asarray(z0, dtype=np.float64)
     return p * (np.abs(z0).max() / np.abs(p).max())
 
@@ -203,7 +257,8 @@ def batch_states(name, z0):
         g = np.random.default_rng(0).standard_normal(z0.shape[0])
         return z0[None] + 0.05 * i * g[None]
     if kind == "smooth":
-        return z0[None] + 0.02 * i * smooth_field(params["M"], z0)[None]
+        return z0[None] + 0.02 * i * smooth_field(params["M"], z0,
+                                                  problem)[None]
     raise ValueError(f"unknown kind of batch {kind!r}")
 
 
@@ -212,6 +267,8 @@ def out_path(name) -> Path:
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in SLICE11:
+        return REFERENCE / "slice11.json"
     if name in BATCHED:
         return REFERENCE / "slice9.json"
     if name in FUSED:
@@ -253,8 +310,12 @@ def pre_builder(name):
     """The JAX package's preconditioner builder of configuration or
     evolution ``name`` (a function of the system), or None."""
     spec = EVOLVES.get(name) or FUSED.get(name)
-    problem, pre = ((spec[0], spec[4]) if spec is not None
-                    else (CONFIGS[name][0], CONFIGS[name][6]))
+    if name in BATCHED:
+        problem, pre = BATCHED[name][0], BATCHED[name][5]
+    elif spec is not None:
+        problem, pre = spec[0], spec[4]
+    else:
+        problem, pre = CONFIGS[name][0], CONFIGS[name][6]
     if pre is None:
         return None
     from structurepreservingiterativesolvers_tpu import precond
@@ -318,6 +379,8 @@ def record(name, s=None):
         "gmres": _summary(s, measure, xg, ig),
         "cgmres": _summary(s, measure, xc, ic),
     }
+    if name in SLICE11:
+        out["config"]["loop"] = "while"
     if pre_spec == "amg":
         out["config"]["pre"] = "amg"
         out["amg_levels"] = [int(L.A.shape[0]) for L in pre.levels]
@@ -406,10 +469,10 @@ def record_fused(name):
     from structurepreservingiterativesolvers_tpu.experiments.evolve import (
         fused_evolve,
     )
-    from structurepreservingiterativesolvers_tpu.models import lkdv, swe
+    from structurepreservingiterativesolvers_tpu.models import heat, lkdv, swe
 
     problem, params, k, tol, pre_spec = FUSED[name]
-    s = {"lkdv": lkdv, "swe": swe}[problem].linforms(**params)
+    s = {"lkdv": lkdv, "swe": swe, "heat": heat}[problem].linforms(**params)
     build = pre_builder(name)
     pre = None if build is None else build(s)
     out = fused_evolve(problem, k=k, tol=tol, pre=pre, **params)
@@ -426,7 +489,10 @@ def record_fused(name):
                   for key in ("dm", "dmo", "de") if key in out},
         "sol_max": float(np.abs(np.asarray(out["sol"])).max()),
     }
-    if pre_spec is not None:
+    if pre_spec == "amg":
+        rec["config"]["pre"] = "amg"
+        rec["amg_levels"] = [int(L.A.shape[0]) for L in pre.levels]
+    elif pre_spec is not None:
         _pre_fields(rec, pre_spec, pre)
     return rec
 
@@ -554,13 +620,8 @@ def record_batched(name):
 
     problem, params, B, k, tol, pre_spec, kind = BATCHED[name]
     s = get_model(problem).linforms(**params)
-    pre = None
-    if pre_spec is not None:
-        from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
-            default_pre_builder,
-        )
-
-        pre = default_pre_builder(problem)(s)
+    build = pre_builder(name)
+    pre = None if build is None else build(s)
     items = batch_systems(name, s)
     t0 = time.perf_counter()
     X, info = cgmres_many(
@@ -593,7 +654,9 @@ def record_batched(name):
     if problem == "swe":
         out["spread"] = _spread(items, batch_states(name, np.asarray(s.z0)),
                                 k, tol, pre)
-    if pre_spec is not None:
+    if pre_spec == "amg":
+        out["config"]["pre"] = "amg"
+    elif pre_spec is not None:
         _pre_fields(out, pre_spec, pre)
     return out
 

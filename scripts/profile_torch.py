@@ -14,19 +14,24 @@ pass, on the slice's configurations:
 
 ``--ortho cgs2_fused`` runs the Arnoldi orthogonalisation's middle pair
 through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
-``--loop while`` runs CGMRES on the device core, each step a CUDA graph
-(captured in the warm-up pass), in place of the host loop; then replays
-one graph of each kind alone under the profiler (after the solve, so every
-write is masked) and prints its device operations and device time.
-``--batch B`` (swe, ``--loop while``) profiles one ``cgmres_many`` solve
+``--loop while`` runs GMRES and CGMRES on the device core, each step a
+CUDA graph (captured in the warm-up pass), in place of the host loop; then
+replays one graph of each kind alone under the profiler (after the solve,
+so every write is masked) and prints its device operations and device
+time.  ``--batch B`` (``--loop while``) profiles one ``cgmres_many`` solve
 of B items on the batched device core in place of the GMRES and CGMRES
 pair: item i is ``step_update(z0 + 0.02 i·p)``, p the smooth field of
-``scripts/make_torch_reference.py`` (the rows ``swe_M512_B8`` and, with
-``--pre snc``, ``swe_M512_snc_B8`` at B = 8); it prints the median wall of
-5 unprofiled solves after the capture, and the batched DIA kernel's share
-of device busy beside the graphs' operations.
+``scripts/make_torch_reference.py`` (swe: the rows ``swe_M512_B8`` and,
+with ``--pre snc``, ``swe_M512_snc_B8`` at B = 8; heat: the lowest 3 x 3
+cosine modes, with any of heat's preconditioners, whose applies then run
+on the block: the V-cycle through the batched DIA kernel, a polynomial
+through the block forms of kernels #3 and #4, A through the stencil
+kernel's); it prints the median wall of 5 unprofiled solves after the
+capture, and each kernel's share of device busy beside the graphs'
+operations.
 
-    python scripts/profile_torch.py --problem heat [--pre amg|cheb8|neu4] [--M 1024] [--out build/profile]
+    python scripts/profile_torch.py --problem heat [--pre amg|cheb8|neu4] [--M 1024] [--loop host|while] [--out build/profile]
+    python scripts/profile_torch.py --problem heat --loop while --batch 8 [--pre amg|cheb8|neu4]
     python scripts/profile_torch.py --problem swe [--pre none|snc] [--ortho cgs2|cgs2_fused] [--loop host|while]
     python scripts/profile_torch.py --problem swe --loop while --batch 8 [--pre snc]
 
@@ -103,7 +108,7 @@ def _graph_ops(torch, profile, ProfilerActivity):
 
     cgmres = importlib.import_module(
         "structurepreservingiterativesolvers_torch.solvers.cgmres")
-    core = next(iter(cgmres._CORES.values()))
+    core = cgmres.last_core()
     by_kind = {}
     for key in core.runner.graphs:  # in the order of capture
         by_kind.setdefault(key if isinstance(key, str) else key[0], []).append(key)
@@ -121,9 +126,9 @@ def _graph_ops(torch, profile, ProfilerActivity):
             print(f"   {key}: {len(ops)} operations, {us / 1e3:.3f} ms")
 
 
-def _batched(s, B, cfg, pre):
-    """One ``cgmres_many`` solve of B swe items, as a function of no
-    arguments returning ``(X, info)``."""
+def _batched(problem, s, B, cfg, pre):
+    """One ``cgmres_many`` solve of B items of ``problem``, as a function of
+    no arguments returning ``(X, info)``."""
     import importlib.util
 
     import torch
@@ -137,7 +142,8 @@ def _batched(s, B, cfg, pre):
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
     z0 = s.z0.cpu().numpy()
-    p = torch.as_tensor(ref.smooth_field(s.prob.M, z0), device=s.b.device)
+    p = torch.as_tensor(ref.smooth_field(s.prob.M, z0, problem),
+                        device=s.b.device)
     items = [s.step_update(s.z0 + 0.02 * i * p) for i in range(B)]
     Bs = torch.stack([t.b for t in items])
     cons = [t.constraints() for t in items]
@@ -156,18 +162,17 @@ def main():
     ap.add_argument("--loop", choices=["host", "while"], default="host",
                     help="CGMRES's loop: the host loop or the device core")
     ap.add_argument("--batch", type=int, default=None,
-                    help="profile cgmres_many on this many swe items")
+                    help="profile cgmres_many on this many items")
     ap.add_argument("--M", type=int, default=None)
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
     args.pre = args.pre or PRES[args.problem][0]
     if args.pre not in PRES[args.problem]:
         ap.error(f"--pre {args.pre} is not a preconditioner of {args.problem}")
-    if args.batch is not None and (args.problem != "swe"
-                                   or args.loop != "while"
+    if args.batch is not None and (args.loop != "while"
                                    or args.ortho != "cgs2"):
-        ap.error("--batch runs swe on the device core: --problem swe "
-                 "--loop while, with --ortho cgs2")
+        ap.error("--batch runs on the device core: --loop while, with "
+                 "--ortho cgs2")
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -206,12 +211,12 @@ def main():
 
     kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre, ortho=args.ortho)
     solves = {
-        "gmres": lambda: wrappers.gmres_wrapper(s, **kw),
+        "gmres": lambda: wrappers.gmres_wrapper(s, loop=args.loop, **kw),
         "cgmres": lambda: wrappers.cgmres_wrapper(s, loop=args.loop, **kw),
     }
     if args.batch is not None:
-        solves = {f"cgmres_many_B{args.batch}": _batched(s, args.batch, cfg,
-                                                          apply)}
+        solves = {f"cgmres_many_B{args.batch}": _batched(
+            args.problem, s, args.batch, cfg, apply)}
     for fn in solves.values():  # warm-up
         fn()
     torch.cuda.synchronize()

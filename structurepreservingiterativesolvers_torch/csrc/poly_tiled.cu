@@ -58,6 +58,17 @@
 // coefficients from device memory; they are set apart, one a thread, and
 // take stencil_sum over the shared buffer as the flat kernel takes it, so
 // that no run waits on those loads row after row.
+//
+// The block forms (#3b, #4b): one launch applies the polynomial to nvec
+// vectors, the rows of a (B, n) block read through its (n, B) view, v's
+// rows ldv apart and y's ldy apart, with the grid's y axis over the
+// vectors, as pallas_call's batching rule gives cheb_apply_fused and
+// neumann_apply_fused under jax.vmap a grid axis over the batch.  A block
+// runs one tile of one vector with the code of one apply, so each column
+// takes kernel #3's (or #4's) bits on that vector; D^-1 is shared.  Every
+// load and store is of one T, so a row may start at any element offset
+// (odd ones at heat M=1024, n odd).  The shared-memory attribute belongs
+// to the one kernel of each kind and type, which the block form shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +85,8 @@
 #define TILED_MAX_SMEM 232448
 // points a thread has in flight while the tile loads
 #define TILED_LOADS 12
+// vectors of one launch: the grid's y axis
+#define TILED_MAX_VECTORS 65535
 
 struct ChebCoef {
   double a[TILED_MAX_DEGREE];  // step k (1 <= k < p) at k - 1: rho' rho
@@ -238,9 +251,14 @@ template <typename T, bool CHEB>
 __global__ void __launch_bounds__(TILED_THREADS, TILED_BLOCKS_PER_SM)
     tiled_kernel(const __grid_constant__ GridOp<T> op,
                  const T* __restrict__ v, const T* __restrict__ dinv,
-                 T* __restrict__ y, int sweeps, T scal, T c0,
+                 T* __restrict__ y, long long ldv, long long ldy,
+                 int sweeps, T scal, T c0,
                  const __grid_constant__ ChebCoef cf) {
   // scal: theta (Chebyshev) or omega (Neumann); c0 and cf: Chebyshev only.
+  // The vector of this block: row blockIdx.y of the block of vectors (D^-1
+  // is shared).
+  v += (long long)blockIdx.y * ldv;
+  y += (long long)blockIdx.y * ldy;
   // Buffers: b0, b1 (d or z), keep (Chebyshev: v, then r; Neumann: D^-1)
   // and, on the interior, xb (x or acc).
   extern __shared__ __align__(16) unsigned char smem[];
@@ -439,11 +457,15 @@ static int grid_op(GridOp<T>* op, long long n, int ndiag,
 // the most a block may have, so no plan asks above it.
 template <typename T, bool CHEB>
 static int launch(const GridOp<T>& op, size_t smem, int device, void* stream,
-                  const T* v, const T* dinv, T* y, int sweeps, T scal, T c0,
+                  const T* v, const T* dinv, T* y, int nvec, long long ldv,
+                  long long ldy, int sweeps, T scal, T c0,
                   const ChebCoef& cf) {
   static bool allowed[TILED_MAX_DEVICES];
   if (device < 0 || device >= TILED_MAX_DEVICES)
     return (int)cudaErrorInvalidDevice;
+  if (nvec < 1 || nvec > TILED_MAX_VECTORS ||
+      (nvec > 1 && (ldv < op.n || ldy < op.n)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (!allowed[device]) {
@@ -456,9 +478,9 @@ static int launch(const GridOp<T>& op, size_t smem, int device, void* stream,
   const long long tiles = ((op.R + op.tile_r - 1) / op.tile_r) *
                           ((op.C + op.tile_c - 1) / op.tile_c);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tiled_kernel<T, CHEB><<<(unsigned)tiles, TILED_THREADS, smem,
-                          (cudaStream_t)stream>>>(op, v, dinv, y, sweeps, scal,
-                                                  c0, cf);
+  const dim3 grid((unsigned)tiles, (unsigned)nvec);
+  tiled_kernel<T, CHEB><<<grid, TILED_THREADS, smem, (cudaStream_t)stream>>>(
+      op, v, dinv, y, ldv, ldy, sweeps, scal, c0, cf);
   return (int)cudaGetLastError();
 }
 
@@ -466,9 +488,10 @@ template <typename T>
 static int cheb(long long n, int ndiag, const long long* offsets,
                 const double* consts, long long grid_c, const void* top,
                 const void* bot, const void* left, const void* right,
-                const int* plan, const void* v, void* y, int degree,
-                double theta, double c0, const double* coef_a,
-                const double* coef_b, int device, void* stream) {
+                const int* plan, const void* v, void* y, int nvec,
+                long long ldv, long long ldy, int degree, double theta,
+                double c0, const double* coef_a, const double* coef_b,
+                int device, void* stream) {
   if (degree < 1 || degree > TILED_MAX_DEGREE)
     return (int)cudaErrorInvalidValue;
   GridOp<T> op;
@@ -482,7 +505,7 @@ static int cheb(long long n, int ndiag, const long long* offsets,
     cf.b[k] = k < degree - 1 ? coef_b[k] : 0.0;
   }
   return launch<T, true>(op, smem, device, stream, (const T*)v, nullptr,
-                         (T*)y, degree, (T)theta, (T)c0, cf);
+                         (T*)y, nvec, ldv, ldy, degree, (T)theta, (T)c0, cf);
 }
 
 template <typename T>
@@ -490,7 +513,8 @@ static int neumann(long long n, int ndiag, const long long* offsets,
                    const double* consts, long long grid_c, const void* top,
                    const void* bot, const void* left, const void* right,
                    const int* plan, const void* v, const void* dinv, void* y,
-                   int degree, double omega, int device, void* stream) {
+                   int nvec, long long ldv, long long ldy, int degree,
+                   double omega, int device, void* stream) {
   if (degree < 1 || degree > TILED_MAX_DEGREE)
     return (int)cudaErrorInvalidValue;
   GridOp<T> op;
@@ -500,16 +524,17 @@ static int neumann(long long n, int ndiag, const long long* offsets,
   if (bad) return bad;
   const ChebCoef unused = {};
   return launch<T, false>(op, smem, device, stream, (const T*)v,
-                          (const T*)dinv, (T*)y, degree - 1, (T)omega, T(0),
-                          unused);
+                          (const T*)dinv, (T*)y, nvec, ldv, ldy, degree - 1,
+                          (T)omega, T(0), unused);
 }
 
 extern "C" {
 
 // n, ndiag, offsets, consts, grid_c and the strips (top, bot: (ndiag, C);
 // left, right: (ndiag, R)) as in stencil_row.cuh; plan: tile_r, tile_c
-// (grid_op); v, y: (n,); coef_a, coef_b: degree - 1 values each.  Returns
-// a cudaError code.
+// (grid_op); v, y: nvec rows of n values, ldv and ldy apart (one apply:
+// nvec = 1); coef_a, coef_b: degree - 1 values each.  Returns a cudaError
+// code.
 #define TILED_OP_PARAMS                                                 \
   long long n, int ndiag, const long long *offsets,                    \
       const double *consts, long long grid_c, const void *top,         \
@@ -518,33 +543,35 @@ extern "C" {
 #define TILED_OP_ARGS \
   n, ndiag, offsets, consts, grid_c, top, bot, left, right, plan
 
-int cheb_tiled_f64(TILED_OP_PARAMS, const void* v, void* y, int degree,
-                   double theta, double c0, const double* coef_a,
-                   const double* coef_b, int device, void* stream) {
-  return cheb<double>(TILED_OP_ARGS, v, y, degree, theta, c0, coef_a, coef_b,
-                      device, stream);
+int cheb_tiled_f64(TILED_OP_PARAMS, const void* v, void* y, int nvec,
+                   long long ldv, long long ldy, int degree, double theta,
+                   double c0, const double* coef_a, const double* coef_b,
+                   int device, void* stream) {
+  return cheb<double>(TILED_OP_ARGS, v, y, nvec, ldv, ldy, degree, theta, c0,
+                   coef_a, coef_b, device, stream);
 }
 
-int cheb_tiled_f32(TILED_OP_PARAMS, const void* v, void* y, int degree,
-                   double theta, double c0, const double* coef_a,
-                   const double* coef_b, int device, void* stream) {
-  return cheb<float>(TILED_OP_ARGS, v, y, degree, theta, c0, coef_a, coef_b,
-                     device, stream);
+int cheb_tiled_f32(TILED_OP_PARAMS, const void* v, void* y, int nvec,
+                   long long ldv, long long ldy, int degree, double theta,
+                   double c0, const double* coef_a, const double* coef_b,
+                   int device, void* stream) {
+  return cheb<float>(TILED_OP_ARGS, v, y, nvec, ldv, ldy, degree, theta, c0,
+                   coef_a, coef_b, device, stream);
 }
 
 // dinv: (n,)
 int neumann_tiled_f64(TILED_OP_PARAMS, const void* v, const void* dinv,
-                      void* y, int degree, double omega, int device,
-                      void* stream) {
-  return neumann<double>(TILED_OP_ARGS, v, dinv, y, degree, omega, device,
-                         stream);
+                      void* y, int nvec, long long ldv, long long ldy,
+                      int degree, double omega, int device, void* stream) {
+  return neumann<double>(TILED_OP_ARGS, v, dinv, y, nvec, ldv, ldy, degree,
+                      omega, device, stream);
 }
 
 int neumann_tiled_f32(TILED_OP_PARAMS, const void* v, const void* dinv,
-                      void* y, int degree, double omega, int device,
-                      void* stream) {
-  return neumann<float>(TILED_OP_ARGS, v, dinv, y, degree, omega, device,
-                        stream);
+                      void* y, int nvec, long long ldv, long long ldy,
+                      int degree, double omega, int device, void* stream) {
+  return neumann<float>(TILED_OP_ARGS, v, dinv, y, nvec, ldv, ldy, degree,
+                      omega, device, stream);
 }
 
 }  // extern "C"

@@ -62,6 +62,18 @@
 //     launch constant and would otherwise wait on one load after another.
 // Index arithmetic on the grid is 64-bit; the strips are read only by the
 // strip points.
+//
+// The block form (#2b): the same launch over nvec vectors, the rows of a
+// (B, n) block read through its (n, B) view, x's rows ldx apart and y's ldy
+// apart, one more grid axis over the vectors (y in the flat design, z in
+// the tiled one).  It replaces the JAX package's stencil_spmv_pallas under
+// jax.vmap, which pallas_call's batching rule gives a grid axis over the
+// batch.  Each block serves one vector with the code of one product, so
+// each column takes kernel #2's bits on that vector.  A row may start at
+// any element offset (at heat M=1024, n = 1,050,625 is odd, so every row
+// after the first starts at an odd one): every load, copy and store is of
+// one T, none assumes more alignment than that.  Its bound is the vectors'
+// bytes, B times one product's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,16 +83,22 @@
 #define STENCIL_TILE_MAX_THREADS 256
 // a block's shared memory without the opt-in attribute
 #define STENCIL_TILE_MAX_SMEM 49152
+// vectors of one launch: the grid's y axis (flat) or z axis (tiled)
+#define STENCIL_MAX_VECTORS 65535
 
 template <typename T, bool WRAP>
 __global__ void stencil_spmv_kernel(const T* __restrict__ x,
-                                    T* __restrict__ y, long long n,
+                                    T* __restrict__ y, long long ldx,
+                                    long long ldy, long long n,
                                     int ndiag, StencilParams<T> p,
                                     long long C, long long R,
                                     const T* __restrict__ top,
                                     const T* __restrict__ bot,
                                     const T* __restrict__ left,
                                     const T* __restrict__ right) {
+  // the vector of this block: row blockIdx.y of the block of vectors
+  x += (long long)blockIdx.y * ldx;
+  y += (long long)blockIdx.y * ldy;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const ReadOnlyLoad<T> ld{x};
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -141,7 +159,11 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, bool ok) {
 template <typename T, int RUN>
 __global__ void __launch_bounds__(STENCIL_TILE_MAX_THREADS)
     stencil_tiled_kernel(const __grid_constant__ TiledStencil<T> op,
-                         const T* __restrict__ x, T* __restrict__ y) {
+                         const T* __restrict__ x, T* __restrict__ y,
+                         long long ldx, long long ldy) {
+  // the vector of this block: row blockIdx.z of the block of vectors
+  x += (long long)blockIdx.z * ldx;
+  y += (long long)blockIdx.z * ldy;
   const long long C = op.C;
   if ((int)blockIdx.y >= op.strip_rows) {
     // an interior tile of TX columns by TY * RUN rows from (r0, c0), and
@@ -242,15 +264,25 @@ static void fill_params(StencilParams<T>* p, int ndiag,
   }
 }
 
+// The vectors: nvec rows of n values, x's ldx apart and y's ldy apart (at
+// least n, so that no two rows overlap; any element offset, odd ones too:
+// every load and store is of one T).
+static bool rows_ok(long long n, int nvec, long long ldx, long long ldy) {
+  return nvec >= 1 && nvec <= STENCIL_MAX_VECTORS &&
+         (nvec == 1 || (ldx >= n && ldy >= n));
+}
+
 template <typename T>
-static int launch(const void* x, void* y, long long n, int ndiag,
+static int launch(const void* x, void* y, int nvec, long long ldx,
+                  long long ldy, long long n, int ndiag,
                   const long long* offsets, const double* consts, int wrap,
                   long long grid_c, const void* top, const void* bot,
                   const void* left, const void* right, int device,
                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (ndiag < 0 || ndiag > STENCIL_MAX_DIAGS) return (int)cudaErrorInvalidValue;
+  if (ndiag < 0 || ndiag > STENCIL_MAX_DIAGS || !rows_ok(n, nvec, ldx, ldy))
+    return (int)cudaErrorInvalidValue;
   if (grid_c < 0 || (grid_c > 0 && (wrap || n % grid_c != 0)))
     return (int)cudaErrorInvalidValue;
   StencilParams<T> p;
@@ -261,13 +293,14 @@ static int launch(const void* x, void* y, long long n, int ndiag,
   if (blocks > 8192) blocks = 8192;  // grid-stride loop covers the rest
   if (blocks < 1) blocks = 1;
   cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid((unsigned)blocks, (unsigned)nvec);
   if (wrap) {
-    stencil_spmv_kernel<T, true><<<(unsigned)blocks, threads, 0, s>>>(
-        (const T*)x, (T*)y, n, ndiag, p, 0, 0, nullptr, nullptr, nullptr,
-        nullptr);
+    stencil_spmv_kernel<T, true><<<grid, threads, 0, s>>>(
+        (const T*)x, (T*)y, ldx, ldy, n, ndiag, p, 0, 0, nullptr, nullptr,
+        nullptr, nullptr);
   } else {
-    stencil_spmv_kernel<T, false><<<(unsigned)blocks, threads, 0, s>>>(
-        (const T*)x, (T*)y, n, ndiag, p, grid_c, R, (const T*)top,
+    stencil_spmv_kernel<T, false><<<grid, threads, 0, s>>>(
+        (const T*)x, (T*)y, ldx, ldy, n, ndiag, p, grid_c, R, (const T*)top,
         (const T*)bot, (const T*)left, (const T*)right);
   }
   return (int)cudaGetLastError();
@@ -278,13 +311,15 @@ static int launch(const void* x, void* y, long long n, int ndiag,
 // plan: tx (a multiple of 32), ty, run (4, 8 or 16), tx * ty <= 256, and
 // the buffer (ty run + 2) (tx + 2) within the default 48 KB of shared memory.
 template <typename T>
-static int launch_tiled(const void* x, void* y, long long n, int ndiag,
+static int launch_tiled(const void* x, void* y, int nvec, long long ldx,
+                        long long ldy, long long n, int ndiag,
                         const long long* offsets, const double* consts,
                         long long grid_c, const void* top, const void* bot,
                         const void* left, const void* right, const int* plan,
                         int device, void* stream) {
   const int tx = plan[0], ty = plan[1], run = plan[2];
-  if (ndiag < 1 || ndiag > 9 || grid_c < 3 || n < 1 || n % grid_c != 0 ||
+  if (!rows_ok(n, nvec, ldx, ldy) || ndiag < 1 || ndiag > 9 || grid_c < 3 ||
+      n < 1 || n % grid_c != 0 ||
       n / grid_c < 3 || !top || !bot || !left || !right || tx < 32 ||
       tx % 32 != 0 || ty < 1 || tx * ty > STENCIL_TILE_MAX_THREADS ||
       (run != 4 && run != 8 && run != 16))
@@ -320,57 +355,69 @@ static int launch_tiled(const void* x, void* y, long long n, int ndiag,
   if (tiles_c > 0x7fffffffLL || tiles_r + strip_rows > 65535)
     return (int)cudaErrorInvalidValue;
   op.strip_rows = (int)strip_rows;
-  const dim3 grid((unsigned)tiles_c, (unsigned)(tiles_r + strip_rows));
+  const dim3 grid((unsigned)tiles_c, (unsigned)(tiles_r + strip_rows),
+                  (unsigned)nvec);
   const dim3 block((unsigned)tx, (unsigned)ty);
   const size_t smem = (size_t)(ty * run + 2) * (tx + 2) * sizeof(T);
   if (smem > STENCIL_TILE_MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const T* xp = (const T*)x;
+  T* yp = (T*)y;
   if (run == 4)
-    stencil_tiled_kernel<T, 4><<<grid, block, smem, s>>>(op, (const T*)x, (T*)y);
+    stencil_tiled_kernel<T, 4><<<grid, block, smem, s>>>(op, xp, yp, ldx, ldy);
   else if (run == 8)
-    stencil_tiled_kernel<T, 8><<<grid, block, smem, s>>>(op, (const T*)x, (T*)y);
+    stencil_tiled_kernel<T, 8><<<grid, block, smem, s>>>(op, xp, yp, ldx, ldy);
   else
-    stencil_tiled_kernel<T, 16><<<grid, block, smem, s>>>(op, (const T*)x, (T*)y);
+    stencil_tiled_kernel<T, 16><<<grid, block, smem, s>>>(op, xp, yp, ldx,
+                                                          ldy);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-int stencil_spmv_f64(const void* x, void* y, long long n, int ndiag,
+// x, y: nvec rows of n values, ldx and ldy apart (the vector of one
+// product: nvec = 1)
+int stencil_spmv_f64(const void* x, void* y, int nvec, long long ldx,
+                     long long ldy, long long n, int ndiag,
                      const long long* offsets, const double* consts, int wrap,
                      long long grid_c, const void* top, const void* bot,
                      const void* left, const void* right, int device,
                      void* stream) {
-  return launch<double>(x, y, n, ndiag, offsets, consts, wrap, grid_c, top,
-                        bot, left, right, device, stream);
+  return launch<double>(x, y, nvec, ldx, ldy, n, ndiag, offsets, consts,
+                        wrap, grid_c, top, bot, left, right, device, stream);
 }
 
-int stencil_spmv_f32(const void* x, void* y, long long n, int ndiag,
+int stencil_spmv_f32(const void* x, void* y, int nvec, long long ldx,
+                     long long ldy, long long n, int ndiag,
                      const long long* offsets, const double* consts, int wrap,
                      long long grid_c, const void* top, const void* bot,
                      const void* left, const void* right, int device,
                      void* stream) {
-  return launch<float>(x, y, n, ndiag, offsets, consts, wrap, grid_c, top,
-                       bot, left, right, device, stream);
+  return launch<float>(x, y, nvec, ldx, ldy, n, ndiag, offsets, consts,
+                       wrap, grid_c, top, bot, left, right, device, stream);
 }
 
 // plan: tx, ty, run (launch_tiled)
-int stencil_tiled_f64(const void* x, void* y, long long n, int ndiag,
+int stencil_tiled_f64(const void* x, void* y, int nvec, long long ldx,
+                      long long ldy, long long n, int ndiag,
                       const long long* offsets, const double* consts,
                       long long grid_c, const void* top, const void* bot,
                       const void* left, const void* right, const int* plan,
                       int device, void* stream) {
-  return launch_tiled<double>(x, y, n, ndiag, offsets, consts, grid_c, top,
-                              bot, left, right, plan, device, stream);
+  return launch_tiled<double>(x, y, nvec, ldx, ldy, n, ndiag, offsets,
+                              consts, grid_c, top, bot, left, right, plan,
+                              device, stream);
 }
 
-int stencil_tiled_f32(const void* x, void* y, long long n, int ndiag,
+int stencil_tiled_f32(const void* x, void* y, int nvec, long long ldx,
+                      long long ldy, long long n, int ndiag,
                       const long long* offsets, const double* consts,
                       long long grid_c, const void* top, const void* bot,
                       const void* left, const void* right, const int* plan,
                       int device, void* stream) {
-  return launch_tiled<float>(x, y, n, ndiag, offsets, consts, grid_c, top,
-                             bot, left, right, plan, device, stream);
+  return launch_tiled<float>(x, y, nvec, ldx, ldy, n, ndiag, offsets,
+                             consts, grid_c, top, bot, left, right, plan,
+                             device, stream);
 }
 
 }  // extern "C"

@@ -11,10 +11,15 @@ through the batched kernel #1 (``csrc/dia_spmm.cu``), the counterpart of
 the JAX package's ``dia_spmv_pallas`` under ``vmap``.
 
 The batched core takes what the JAX package's vmapped core takes in this
-port: quadratic constraints, no preconditioner or the skew-normal
-Chebyshev (swe's, a chain of ``A @ X``), and the plain CGS2.  Every other
-preconditioner and every general constraint raises, naming the ROADMAP.md
-item that will take it; none runs item by item.
+port: quadratic constraints, the plain CGS2, and no preconditioner or one
+that applies to a block (n, B) column by column: the skew-normal Chebyshev
+(swe's, a chain of ``A @ X``), the structured AMG (its V-cycle on the
+block, every level's product one launch of #1b), the Chebyshev and Neumann
+polynomials (one launch of the block forms #3b and #4b when fused, the
+recurrences over ``A @ X`` otherwise) and Jacobi.  On heat ``A @ X`` is one
+launch of the stencil kernel's block form #2b.  Every other preconditioner
+and every general constraint raises, naming the ROADMAP.md item that will
+take it; none runs item by item.
 """
 
 from __future__ import annotations
@@ -28,20 +33,20 @@ import torch
 from ..config import CTOL, require_f64
 from ..constraints.general import GeneralConstraint
 from ..constraints.quadratic import QuadraticConstraint
-from ..precond.chebyshev import SkewNormalChebyshev
+from ..precond.amg import AMG
+from ..precond.chebyshev import Chebyshev, Neumann, SkewNormalChebyshev
+from ..precond.jacobi import Jacobi
 from ..solvers.cgmres import _core_for
 from ..utils.profiling import span
 
-# the preconditioners the batched core refuses, by class name, and the item
-# of ROADMAP.md (Queue 1, item 3, "Next, in order") that takes them
+# the preconditioners the batched core takes: each applies to a block
+_TAKEN = (SkewNormalChebyshev, AMG, Chebyshev, Neumann, Jacobi)
+# the preconditioners it refuses, by class name, and the item of ROADMAP.md
+# (Queue 1) that takes them
 _REFUSED = {
-    "AMG": "next 1, heat with the AMG under the graph core",
-    "Chebyshev": "next 1, heat under the graph core (the fused polynomials)",
-    "Neumann": "next 1, heat under the graph core (the fused polynomials)",
-    "Jacobi": "next 1, heat under the graph core",
-    "RAS": "next 2, lkdvRK under the graph core",
-    "BlockJacobi": "next 2, lkdvRK under the graph core",
-    "NeumannComposite": "next 2, lkdvRK under the graph core (the RAS + "
+    "RAS": "item 2, lkdvRK under the graph core",
+    "BlockJacobi": "item 2, lkdvRK under the graph core",
+    "NeumannComposite": "item 2, lkdvRK under the graph core (the RAS + "
                         "Neumann composite)",
 }
 
@@ -89,7 +94,7 @@ def batch_constraints(cons_list: Sequence) -> Tuple[tuple, tuple]:
         if any(isinstance(c, GeneralConstraint) for c in col):
             raise NotImplementedError(
                 "a general constraint under a batch waits for lkdvRK under "
-                "the graph core (ROADMAP.md, Queue 1, item 3, next 2)")
+                "the graph core (ROADMAP.md, Queue 1, item 2)")
         fields, ax = {}, {}
         for name in ("M", "v", "c"):
             vals = [getattr(c, name) for c in col]
@@ -112,17 +117,17 @@ def batch_constraints(cons_list: Sequence) -> Tuple[tuple, tuple]:
 
 
 def _check_pre(pre) -> None:
-    if pre is None or isinstance(pre, SkewNormalChebyshev):
+    if pre is None or isinstance(pre, _TAKEN):
         return
     name = type(pre).__name__
     where = _REFUSED.get(name)
     if where is None:
         raise NotImplementedError(
-            f"preconditioner {name}: the batched core takes pre=None or the "
-            "skew-normal Chebyshev (skew_normal_chebyshev)")
+            f"preconditioner {name}: the batched core takes pre=None or "
+            + ", ".join(c.__name__ for c in _TAKEN))
     raise NotImplementedError(
         f"preconditioner {name} under a batch waits for ROADMAP.md, Queue 1, "
-        f"item 3, {where}")
+        f"{where}")
 
 
 def cgmres_many(
@@ -150,7 +155,7 @@ def cgmres_many(
     if mixed:
         raise NotImplementedError(
             "mixed=True: f32 storage is not ported (ROADMAP.md, Queue 1, "
-            "item 7)")
+            "item 8)")
     if Bs.dim() != 2:
         raise ValueError(f"Bs is (batch, n), got {tuple(Bs.shape)}")
     _check_pre(pre)

@@ -5,6 +5,7 @@
     python -m structurepreservingiterativesolvers_torch single --problem swe --M 64 --k 60 --tol 1e-9
     python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 1024
     python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 16 32 --device cpu
+    python -m structurepreservingiterativesolvers_torch timed --problem heat --sizes 1024 --loop while
     python -m structurepreservingiterativesolvers_torch timed --problem swe --sizes 512 --ortho cgs2_fused
     python -m structurepreservingiterativesolvers_torch evolve --problem swe --M 16 --N 5 --tol 1e-6 --k 30 --device cpu
     python -m structurepreservingiterativesolvers_torch evolve --problem lkdvrk --M 20 --N 10 --tol 1e-8 --device cpu
@@ -14,7 +15,8 @@
 
 ``--ortho`` picks the Arnoldi orthogonalisation of both solvers: ``cgs2``
 (the default), ``cgs2_fused`` (its middle pair through the fused CGS2
-kernel on the card) or ``mgs``.
+kernel on the card) or ``mgs``.  ``timed --loop while`` runs both solvers
+on the device core, the JAX package's default loop.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ def main(argv=None):
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--tol", type=float, default=1e-7)
     p.add_argument("--tol-mode", default="abs", choices=["abs", "rhs"])
+    p.add_argument("--loop", default="host", choices=["host", "while"],
+                   help="both solvers' loop: host (default) or while, the "
+                        "device core (CUDA graphs on the card)")
     device_arg(p)
 
     p = sub.add_parser("evolve", help="time evolution with drift tracking "
@@ -85,7 +90,7 @@ def main(argv=None):
 
         timed_solve(args.problem, sizes=args.sizes, tol=args.tol, k=args.k,
                     tol_mode=args.tol_mode, device=args.device,
-                    ortho=args.ortho)
+                    ortho=args.ortho, loop=args.loop)
     elif args.cmd == "evolve":
         import functools
 

@@ -178,7 +178,11 @@ def fused_evolve(
     Returns, as the JAX package does, ``time`` (the N step times), ``steps``
     and ``safety`` (0 untouched, 1 certified, 2 tripped) per step, ``sol``
     (the last solution, on ``device``), and per invariant its series and
-    its drift from the initial value (``dm``, ``dmo``, ``de``); and
+    its drift from the initial value (``dm``, ``dmo``, ``de``), each step's
+    invariants taken against its previous solution where the model's read
+    one (heat); the port adds ``fallbacks`` per step (the endgame's
+    iterations whose KKT solve failed and fell back to the unconstrained
+    coefficients); and
     ``timings``: each step's wall (``step_wall``, from one step's start to
     the next's, the last to the fetch) and the seconds of it spent
     capturing (``step_capture``, in all ``time_capture``), and the kernel
@@ -186,20 +190,23 @@ def fused_evolve(
     of all replays (``launches``).  The steps and the fetch run
     inside the span ``fused_evolve steps``.  ``ortho``
     is the Arnoldi orthogonalisation (``arnoldi_step``); the JAX package
-    runs ``cgs2`` there.  ``mesh`` (a sharded evolution) and
+    runs ``cgs2`` there.  lkdv, swe and heat run; heat's operator does not
+    change with ``step_update``, so a preconditioner built on the first
+    system (``pre``: the AMG, a polynomial, Jacobi) serves every step, as
+    in the JAX package.  lkdvRK, ``mesh`` (a sharded evolution) and
     ``loop="fori"`` are not ported."""
     if mesh is not None:
         raise NotImplementedError(
             "a sharded evolution (mesh=) waits for the port of parallel/ "
-            "(ROADMAP.md, Queue 1, item 6)")
+            "(ROADMAP.md, Queue 1, item 7)")
     if loop != "while":
         raise NotImplementedError(
             f"loop={loop!r}: only 'while' is ported ('fori' is a TPU "
             "workaround, not ported on purpose)")
-    if problem.lower() not in ("lkdv", "swe"):
+    if problem.lower() not in ("lkdv", "swe", "heat"):
         raise NotImplementedError(
-            f"fused_evolve runs lkdv and swe; {problem!r} is not in this "
-            "slice (ROADMAP.md, Queue 1)")
+            f"fused_evolve runs lkdv, swe and heat; {problem!r} waits for "
+            "lkdvRK under the graph core (ROADMAP.md, Queue 1, item 2)")
     from ..solvers.cgmres import DeviceCore
 
     sys0 = get_model(problem).linforms(N=N, M=M, degree=degree, device=device,
@@ -211,7 +218,7 @@ def fused_evolve(
     z = sys0.z0.clone()
     row = torch.zeros(1, dtype=torch.long, device=z.device)
     inv = torch.zeros((N, len(names)), dtype=z.dtype, device=z.device)
-    counts = torch.zeros((N, 2), dtype=torch.long, device=z.device)
+    counts = torch.zeros((N, 3), dtype=torch.long, device=z.device)
 
     def prologue():
         s = sys0.step_update(z)
@@ -219,16 +226,19 @@ def fused_evolve(
                   s.constraints())
 
     def epilogue():
-        # the core's buffers of its one solve (its batch axis is 1)
+        # the core's buffers of its one solve (its batch axis is 1); z still
+        # holds the step's previous solution, which heat's dissipation
+        # identity reads (the JAX step evaluates it on the stepped system)
         x = core.x[0]
-        values = sys0.compute_invariants(x)
+        values = sys0.compute_invariants(x, zold=z)
         inv.index_copy_(0, row, torch.stack([values[nm] for nm in names])[None])
-        counts.index_copy_(0, row,
-                           torch.stack([core.steps[0], core.safety[0]])[None])
+        counts.index_copy_(0, row, torch.stack(
+            [core.steps[0], core.safety[0], core.nfb[0]])[None])
         z.copy_(x)
         row.add_(1)
 
-    runner.warmup(lambda: (sys0.step_update(z), sys0.compute_invariants(z)))
+    runner.warmup(lambda: (sys0.step_update(z),
+                           sys0.compute_invariants(z, zold=z)))
     starts, captured = [], []
     with span("fused_evolve steps", z.device):
         for _ in range(N):
@@ -243,7 +253,8 @@ def fused_evolve(
     captured.append(runner.time_capture)
     targets = torch.stack([getattr(sys0, TARGETS[nm]) for nm in names]).tolist()
     out = {"time": np.linspace(0.0, float(sys0.prob.T), N + 1)[1:],
-           "steps": counts[:, 0], "safety": counts[:, 1], "sol": z,
+           "steps": counts[:, 0], "safety": counts[:, 1],
+           "fallbacks": counts[:, 2], "sol": z,
            "timings": {
                "step_wall": np.diff(starts), "time_capture": runner.time_capture,
                "step_capture": np.diff(captured),

@@ -81,11 +81,17 @@ def time_cgmres(
     *,
     device,
     ortho: str = "cgs2",
+    loop: str = "host",
     **params,
 ):
     """One row of the sweep.  ``tol_mode='rhs'`` scales ``tol`` by ‖b‖;
     ``ortho`` is both solvers' Arnoldi orthogonalisation
-    (``solvers.arnoldi.arnoldi_step``)."""
+    (``solvers.arnoldi.arnoldi_step``); ``loop`` both solvers' loop:
+    ``"host"`` (the default, every earlier record's) or ``"while"``, the
+    device core, the JAX package's default (its ``time_cgmres`` runs
+    both solvers there).  On the device core the warm-up captures the
+    graphs, so the timed solves replay them; the row's ``time_capture`` is
+    the timed CGMRES solve's (0 after the warm-up)."""
     model = get_model(problem)
     system = model.linforms(M=M, degree=degree, device=device, **params)
     dev = system.b.device
@@ -109,7 +115,7 @@ def time_cgmres(
     end_pre2 = time.perf_counter()
 
     # warm up both solvers so the reported times are steady-state
-    kw = dict(x0=x0, k=k, tol=tol, pre=pre, ortho=ortho)
+    kw = dict(x0=x0, k=k, tol=tol, pre=pre, ortho=ortho, loop=loop)
     t0 = time.perf_counter()
     wrappers.gmres_wrapper(system, **kw)
     wrappers.cgmres_wrapper(system, timing=True, **kw)
@@ -188,10 +194,12 @@ def timed_solve(
     *,
     device,
     ortho: str = "cgs2",
+    loop: str = "host",
     **params,
 ):
     """Size sweep (reference: heat M=2⁴..2¹¹, swe M=2⁴..2⁹).  Returns one
-    dict per size and prints them as a markdown table like the reference."""
+    dict per size and prints them as a markdown table like the reference.
+    ``loop`` as in ``time_cgmres``."""
     if sizes is None:
         sizes = [2**i for i in range(4, 9)]
 
@@ -199,7 +207,7 @@ def timed_solve(
     for M in sizes:
         out = time_cgmres(problem, M=M, degree=degree, tol=tol, k=k,
                           pre_builder=pre_builder, tol_mode=tol_mode,
-                          device=device, ortho=ortho, **params)
+                          device=device, ortho=ortho, loop=loop, **params)
         con = out["conservation"]
         row = {
             "M": M,

@@ -3,9 +3,11 @@
 ``dia_spmv``: the DIA sparse matrix-vector product (``csrc/dia_spmv.cu``),
 and its product with a block of vectors (``csrc/dia_spmm.cu``).
 ``stencil_spmv``: the constant-stencil product with its boundary-strip
-correction (``csrc/stencil_spmv.cu``).
+correction (``csrc/stencil_spmv.cu``), and its product with a block of
+vectors.
 ``poly_apply``: the fused degree-p Chebyshev and Neumann preconditioner
-applies, one launch each (``csrc/poly_apply.cu``).
+applies, one launch each (``csrc/poly_tiled.cu``, ``csrc/poly_apply.cu``),
+on a vector or a block of vectors.
 ``ortho``: the middle pair of CGS2, ``w1 = w − hᵀQ`` and ``u2 = Q w1``, in one
 read of the Krylov basis (``csrc/ortho_fused.cu``).  Importing this package builds
 nothing; a kernel is compiled from ``csrc/`` the first time a CUDA tensor
@@ -32,10 +34,20 @@ def launch_counters() -> dict:
             "stencil_spmv": stencil_spmv.stencil_spmv_cuda,
             "stencil_spmv_tiled": stencil_spmv.stencil_spmv_tiled_cuda,
             "stencil_spmv_flat": stencil_spmv.stencil_spmv_flat_cuda,
+            "stencil_spmm": stencil_spmv.stencil_spmm_cuda,
+            "stencil_spmm_tiled": stencil_spmv.stencil_spmm_tiled_cuda,
+            "stencil_spmm_flat": stencil_spmv.stencil_spmm_flat_cuda,
             "cheb_apply": poly_apply.cheb_apply_cuda,
             "cheb_apply_tiled": poly_apply.cheb_apply_tiled_cuda,
             "cheb_apply_flat": poly_apply.cheb_apply_flat_cuda,
             "neumann_apply": poly_apply.neumann_apply_cuda,
             "neumann_apply_tiled": poly_apply.neumann_apply_tiled_cuda,
             "neumann_apply_flat": poly_apply.neumann_apply_flat_cuda,
+            "cheb_apply_many": poly_apply.cheb_apply_many_cuda,
+            "cheb_apply_many_tiled": poly_apply.cheb_apply_many_tiled_cuda,
+            "cheb_apply_many_flat": poly_apply.cheb_apply_many_flat_cuda,
+            "neumann_apply_many": poly_apply.neumann_apply_many_cuda,
+            "neumann_apply_many_tiled":
+                poly_apply.neumann_apply_many_tiled_cuda,
+            "neumann_apply_many_flat": poly_apply.neumann_apply_many_flat_cuda,
             "fused_update_matvec": ortho.fused_update_matvec_cuda}

@@ -28,7 +28,16 @@ it and how it is laid out:
   barriers between the sweeps and the recurrence vectors in scratch.
 
 The design follows from the shapes alone (``poly_plan``), before the
-launch; each design counts its own launches.  The wrappers take the plain
+launch; each design counts its own launches.
+
+The block forms, "#3b" and "#4b": every wrapper takes a block v (n, B),
+the JAX package's tall operand, and applies the polynomial to each column
+in one launch of the same design with one more grid axis over the vectors
+(the kernels under ``jax.vmap``).  The vectors are the rows of a (B, n)
+block, read through its (n, B) view without a copy at any row stride; the
+result is the (n, B) view of a new (B, n) block, each column bit-equal to
+the single apply on that vector.  They count in ``<kind>_apply_many_cuda``
+and ``<kind>_apply_many_<design>_cuda``, apart from the single applies.  The wrappers take the plain
 version for CPU tensors only.  A CUDA tensor is launched through a kernel,
 or the wrapper raises: there is no fallback.
 """
@@ -43,11 +52,17 @@ from typing import Optional
 
 import torch
 
-from .dia_spmv import dia_spmv_torch
-from .stencil_spmv import in_box, split_offsets, stencil_spmv_torch  # noqa: F401
+from .dia_spmv import dia_spmm_torch, dia_spmv_torch
+from .stencil_spmv import (  # noqa: F401
+    in_box,
+    split_offsets,
+    stencil_spmm_torch,
+    stencil_spmv_torch,
+)
 
 MAX_DIAGS = 64  # POLY_MAX_DIAGS in csrc/poly_apply.cu
 MAX_DEGREE = 64  # POLY_MAX_DEGREE
+MAX_VECTORS = 65535  # POLY_MAX_VECTORS, TILED_MAX_VECTORS: a block launch
 
 # The tiled design's plan on an H100 (csrc/poly_tiled.cu): the tile sides
 # tried; a block's threads (TILED_THREADS), shared memory (TILED_MAX_SMEM)
@@ -71,10 +86,13 @@ def _is_stencil(A) -> bool:
 
 
 def _matvec_torch(A, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` through the plain twin of A's SpMV kernel."""
+    """``A @ x`` through the plain twin of A's SpMV kernel, for a vector or
+    a block (n, B)."""
     if _is_stencil(A):
-        return stencil_spmv_torch(A.const, A.offsets, A.wrap, A.grid_c,
-                                  A.strips, x)
+        twin = stencil_spmv_torch if x.dim() == 1 else stencil_spmm_torch
+        return twin(A.const, A.offsets, A.wrap, A.grid_c, A.strips, x)
+    if x.dim() == 2:
+        return dia_spmm_torch(A.data, A.offsets, A.wrap, x)
     return dia_spmv_torch(A.data, A.offsets, A.wrap, x)
 
 
@@ -114,7 +132,10 @@ def cheb_recurrence(matvec, degree: int, theta: float, delta: float,
 def neumann_recurrence(matvec, dinv: torch.Tensor, degree: int, omega: float,
                        v: torch.Tensor) -> torch.Tensor:
     """The truncated Neumann series, one ``matvec`` per degree past the
-    first: the JAX package's unfused ``Neumann.__call__``, line for line."""
+    first: the JAX package's unfused ``Neumann.__call__``, line for line.
+    On a block v (n, B) the diagonal scales each column."""
+    if v.dim() == 2:
+        dinv = dinv[:, None]
     z = omega * (dinv * v)
     acc = z
     for _ in range(degree - 1):
@@ -248,8 +269,9 @@ def _operands(A):
 def _check(A, degree: int, v: torch.Tensor, dinv=None) -> None:
     if v.dtype not in (torch.float64, torch.float32):
         raise TypeError(f"polynomial kernels take f64 or f32; got v {v.dtype}")
-    if v.dim() != 1 or not v.is_contiguous():
-        raise ValueError(f"v must be a contiguous vector, got {tuple(v.shape)}")
+    if not (v.dim() == 1 and v.is_contiguous()) and v.dim() != 2:
+        raise ValueError(f"v must be a contiguous vector or a block (n, B), "
+                         f"got {tuple(v.shape)}")
     n, ndiag = v.shape[0], len(A.offsets)
     if tuple(A.shape) != (n, n):
         raise ValueError(f"operator of shape {tuple(A.shape)} for v of {n}")
@@ -295,11 +317,14 @@ _TILED_OP_ARGTYPES = [ctypes.c_longlong, ctypes.c_int,
 _VP, _INT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _DBLS = ctypes.POINTER(ctypes.c_double)
 # after the operator: the vectors, the flat design's scratch, the scalars
+# (v, y, scratch, the vectors and their strides, degree, scalars)
+_LL = ctypes.c_longlong
+_ROWS = [_INT, _LL, _LL]
 _ARGTYPES = {
-    ("cheb", "flat"): [_VP, _VP, _VP, _INT, _DBL, _DBL, _DBLS, _DBLS],
-    ("cheb", "tiled"): [_VP, _VP, _INT, _DBL, _DBL, _DBLS, _DBLS],
-    ("neumann", "flat"): [_VP, _VP, _VP, _VP, _INT, _DBL],
-    ("neumann", "tiled"): [_VP, _VP, _VP, _INT, _DBL],
+    ("cheb", "flat"): [_VP, _VP, _VP, *_ROWS, _INT, _DBL, _DBL, _DBLS, _DBLS],
+    ("cheb", "tiled"): [_VP, _VP, *_ROWS, _INT, _DBL, _DBL, _DBLS, _DBLS],
+    ("neumann", "flat"): [_VP, _VP, _VP, _VP, *_ROWS, _INT, _DBL],
+    ("neumann", "tiled"): [_VP, _VP, _VP, *_ROWS, _INT, _DBL],
 }
 
 
@@ -357,133 +382,184 @@ def _tiled_op_args(A, n: int, plan: TilePlan) -> list:
             *[s.data_ptr() for s in A.strips], plan.c_args]
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-
-
 def _on_card(v: torch.Tensor, who: str) -> None:
     if v.device.type != "cuda":
         raise ValueError(f"{who} needs CUDA tensors, got {v.device}")
 
 
+def _rows(v: torch.Tensor):
+    """v as the kernels read it, and (nvec, ldv): a vector as one row; a
+    block (n, B) as B rows of n values ``v.stride(1)`` apart where
+    ``v.stride(0)`` is 1 and the rows do not overlap (the view X.T of a
+    (B, n) block, at any row stride), any other layout copied into that
+    one first."""
+    n = v.shape[0]
+    if v.dim() == 1:
+        return v, 1, n
+    nvec = v.shape[1]
+    if nvec > MAX_VECTORS:
+        raise ValueError(f"a block of {nvec} vectors: at most {MAX_VECTORS}")
+    if n > 1 and (v.stride(0) != 1 or (nvec > 1 and v.stride(1) < n)):
+        v = v.T.contiguous().T
+    return v, nvec, v.stride(1)
+
+
+# scratch vectors a flat launch needs per vector, by kind, and the degree
+# from which it needs them
+_SCRATCH = {"cheb": (4, 2), "neumann": (3, 3)}
+
+
+def _launch(kind: str, design: str, A, plan: Optional[TilePlan], degree: int,
+            v: torch.Tensor, dinv, scalars: tuple, counters: tuple):
+    """One launch of ``kind`` in ``design`` on v (n,) or a block (n, B):
+    y of v's shape, a block's as the (n, B) view of a new (B, n) block.
+    ``scalars`` follow the degree (theta, c0, a, b; omega); each of
+    ``counters`` counts the launch."""
+    who = f"{kind}_apply ({design}{', block' if v.dim() == 2 else ''})"
+    _on_card(v, who)
+    _check(A, degree, v, dinv)
+    if plan is not None and plan.sweeps != sweeps(kind, degree):
+        raise ValueError(f"a plan of {plan.sweeps} sweeps for degree {degree}")
+    n = v.shape[0]
+    v, nvec, ldv = _rows(v)
+    y = (torch.empty_like(v) if v.dim() == 1
+         else torch.empty((nvec, n), dtype=v.dtype, device=v.device))
+    vecs = [v.data_ptr()] + ([] if dinv is None else [dinv.data_ptr()])
+    vecs.append(y.data_ptr())
+    if design == "flat":
+        per, from_degree = _SCRATCH[kind]
+        scratch = (torch.empty(per * n * nvec, dtype=v.dtype, device=v.device)
+                   if degree >= from_degree else None)
+        vecs.append(None if scratch is None else scratch.data_ptr())
+        head = _op_args(A, n)
+    else:
+        head = _tiled_op_args(A, n, plan)
+    if nvec:
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = _entry(kind, design, v.dtype)(
+            *head, *vecs, nvec, ldv, n, degree, *scalars,
+            v.device.index or 0, stream)
+        if err != 0:
+            raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
+    for counter in counters:
+        counter.launches += 1
+    return y if v.dim() == 1 else y.T
+
+
+def _cheb_scalars(theta, delta, sigma, degree):
+    c0, a, b = _c_cheb(degree, float(delta), float(sigma))
+    return float(theta), c0, a, b
+
+
 def cheb_apply_flat_cuda(A, degree: int, theta: float, delta: float,
                          sigma: float, v: torch.Tensor) -> torch.Tensor:
-    """Launch the flat design of kernel #3 on PyTorch's current stream; does
-    not synchronise."""
-    _on_card(v, "cheb_apply_flat_cuda")
-    _check(A, degree, v)
-    n = v.shape[0]
-    y = torch.empty_like(v)
-    # x, r and two buffers of d
-    scratch = (torch.empty(4 * n, dtype=v.dtype, device=v.device)
-               if degree > 1 else None)
-    c0, a, b = _c_cheb(degree, float(delta), float(sigma))
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _raise_on(_entry("cheb", "flat", v.dtype)(
-        *_op_args(A, n), v.data_ptr(), y.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), degree, float(theta),
-        c0, a, b, v.device.index or 0, stream), "cheb_apply (flat)")
-    cheb_apply_flat_cuda.launches += 1
-    return y
+    """Launch the flat design of kernel #3 (on a block, #3b) on PyTorch's
+    current stream; does not synchronise."""
+    return _launch("cheb", "flat", A, None, degree, v, None,
+                   _cheb_scalars(theta, delta, sigma, degree),
+                   _counters("cheb", "flat", v))
 
 
 def cheb_apply_tiled_cuda(A, plan: TilePlan, degree: int, theta: float,
                           delta: float, sigma: float,
                           v: torch.Tensor) -> torch.Tensor:
-    """Launch the tiled design of kernel #3 with ``plan`` on PyTorch's
-    current stream; does not synchronise.  It allocates only y."""
-    _on_card(v, "cheb_apply_tiled_cuda")
-    _check(A, degree, v)
-    if plan.sweeps != sweeps("cheb", degree):
-        raise ValueError(f"a plan of {plan.sweeps} sweeps for degree {degree}")
-    y = torch.empty_like(v)
-    c0, a, b = _c_cheb(degree, float(delta), float(sigma))
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _raise_on(_entry("cheb", "tiled", v.dtype)(
-        *_tiled_op_args(A, v.shape[0], plan), v.data_ptr(), y.data_ptr(),
-        degree, float(theta), c0, a, b, v.device.index or 0, stream),
-        "cheb_apply (tiled)")
-    cheb_apply_tiled_cuda.launches += 1
-    return y
+    """Launch the tiled design of kernel #3 (on a block, #3b) with ``plan``
+    on PyTorch's current stream; does not synchronise.  It allocates only
+    y."""
+    return _launch("cheb", "tiled", A, plan, degree, v, None,
+                   _cheb_scalars(theta, delta, sigma, degree),
+                   _counters("cheb", "tiled", v))
 
 
 def neumann_apply_flat_cuda(A, dinv: torch.Tensor, degree: int, omega: float,
                             v: torch.Tensor) -> torch.Tensor:
-    """Launch the flat design of kernel #4 on PyTorch's current stream; does
-    not synchronise."""
-    _on_card(v, "neumann_apply_flat_cuda")
-    _check(A, degree, v, dinv)
-    n = v.shape[0]
-    y = torch.empty_like(v)
-    # acc and two buffers of z
-    scratch = (torch.empty(3 * n, dtype=v.dtype, device=v.device)
-               if degree > 2 else None)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _raise_on(_entry("neumann", "flat", v.dtype)(
-        *_op_args(A, n), v.data_ptr(), dinv.data_ptr(), y.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), degree, float(omega),
-        v.device.index or 0, stream), "neumann_apply (flat)")
-    neumann_apply_flat_cuda.launches += 1
-    return y
+    """Launch the flat design of kernel #4 (on a block, #4b) on PyTorch's
+    current stream; does not synchronise."""
+    return _launch("neumann", "flat", A, None, degree, v, dinv,
+                   (float(omega),), _counters("neumann", "flat", v))
 
 
 def neumann_apply_tiled_cuda(A, plan: TilePlan, dinv: torch.Tensor,
                              degree: int, omega: float,
                              v: torch.Tensor) -> torch.Tensor:
-    """Launch the tiled design of kernel #4 with ``plan`` on PyTorch's
-    current stream; does not synchronise.  It allocates only y."""
-    _on_card(v, "neumann_apply_tiled_cuda")
-    _check(A, degree, v, dinv)
-    if plan.sweeps != sweeps("neumann", degree):
-        raise ValueError(f"a plan of {plan.sweeps} sweeps for degree {degree}")
-    y = torch.empty_like(v)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _raise_on(_entry("neumann", "tiled", v.dtype)(
-        *_tiled_op_args(A, v.shape[0], plan), v.data_ptr(), dinv.data_ptr(),
-        y.data_ptr(), degree, float(omega), v.device.index or 0, stream),
-        "neumann_apply (tiled)")
-    neumann_apply_tiled_cuda.launches += 1
-    return y
-
-
-# kernel launches of each design; reset them to count a run
-cheb_apply_flat_cuda.launches = cheb_apply_tiled_cuda.launches = 0
-neumann_apply_flat_cuda.launches = neumann_apply_tiled_cuda.launches = 0
+    """Launch the tiled design of kernel #4 (on a block, #4b) with ``plan``
+    on PyTorch's current stream; does not synchronise.  It allocates only
+    y."""
+    return _launch("neumann", "tiled", A, plan, degree, v, dinv,
+                   (float(omega),), _counters("neumann", "tiled", v))
 
 
 def cheb_apply_cuda(A, degree: int, theta: float, delta: float, sigma: float,
                     v: torch.Tensor) -> torch.Tensor:
-    """Launch kernel #3 in the design ``poly_plan`` picks from the shapes."""
+    """Launch kernel #3 (on a block, #3b) in the design ``poly_plan`` picks
+    from the shapes."""
     plan = poly_plan(A, "cheb", degree, v.dtype)
     if plan is None:
-        y = cheb_apply_flat_cuda(A, degree, theta, delta, sigma, v)
-    else:
-        y = cheb_apply_tiled_cuda(A, plan, degree, theta, delta, sigma, v)
-    cheb_apply_cuda.launches += 1
-    return y
+        return cheb_apply_flat_cuda(A, degree, theta, delta, sigma, v)
+    return cheb_apply_tiled_cuda(A, plan, degree, theta, delta, sigma, v)
 
 
 def neumann_apply_cuda(A, dinv: torch.Tensor, degree: int, omega: float,
                        v: torch.Tensor) -> torch.Tensor:
-    """Launch kernel #4 in the design ``poly_plan`` picks from the shapes."""
+    """Launch kernel #4 (on a block, #4b) in the design ``poly_plan`` picks
+    from the shapes."""
     plan = poly_plan(A, "neumann", degree, v.dtype)
     if plan is None:
-        y = neumann_apply_flat_cuda(A, dinv, degree, omega, v)
-    else:
-        y = neumann_apply_tiled_cuda(A, plan, dinv, degree, omega, v)
-    neumann_apply_cuda.launches += 1
-    return y
+        return neumann_apply_flat_cuda(A, dinv, degree, omega, v)
+    return neumann_apply_tiled_cuda(A, plan, dinv, degree, omega, v)
 
 
-# launches of either design; reset them to count a run
+class _Launches:
+    """A launch counter of the block forms, which have no wrapper of their
+    own: the vector's wrappers take a block."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+# kernel launches of each design and of either, for one vector (#3, #4)
+# and for a block (#3b, #4b: ``<kind>_apply_many``); reset them to count a
+# run
 cheb_apply_cuda.launches = neumann_apply_cuda.launches = 0
+cheb_apply_flat_cuda.launches = cheb_apply_tiled_cuda.launches = 0
+neumann_apply_flat_cuda.launches = neumann_apply_tiled_cuda.launches = 0
+cheb_apply_many_cuda = _Launches()
+cheb_apply_many_tiled_cuda = _Launches()
+cheb_apply_many_flat_cuda = _Launches()
+neumann_apply_many_cuda = _Launches()
+neumann_apply_many_tiled_cuda = _Launches()
+neumann_apply_many_flat_cuda = _Launches()
+
+
+# the counters by (kind, block, design), design None for the kind's own
+_COUNTERS = {
+    ("cheb", False, None): cheb_apply_cuda,
+    ("cheb", False, "flat"): cheb_apply_flat_cuda,
+    ("cheb", False, "tiled"): cheb_apply_tiled_cuda,
+    ("cheb", True, None): cheb_apply_many_cuda,
+    ("cheb", True, "flat"): cheb_apply_many_flat_cuda,
+    ("cheb", True, "tiled"): cheb_apply_many_tiled_cuda,
+    ("neumann", False, None): neumann_apply_cuda,
+    ("neumann", False, "flat"): neumann_apply_flat_cuda,
+    ("neumann", False, "tiled"): neumann_apply_tiled_cuda,
+    ("neumann", True, None): neumann_apply_many_cuda,
+    ("neumann", True, "flat"): neumann_apply_many_flat_cuda,
+    ("neumann", True, "tiled"): neumann_apply_many_tiled_cuda,
+}
+
+
+def _counters(kind: str, design: str, v: torch.Tensor) -> tuple:
+    """The counters a launch on v counts in: its kind's and its design's,
+    of the single form for a vector and of the block form for a block."""
+    block = v.dim() == 2
+    return _COUNTERS[kind, block, None], _COUNTERS[kind, block, design]
 
 
 def cheb_apply(A, degree: int, theta: float, delta: float, sigma: float,
                v: torch.Tensor) -> torch.Tensor:
-    """The wrapper: CUDA tensors go through kernel #3, CPU tensors through
-    the plain version."""
+    """The wrapper, for a vector v (n,) or a block (n, B): CUDA tensors go
+    through kernel #3 (a block through its block form #3b, in one launch),
+    CPU tensors through the plain version."""
     if v.device.type == "cuda":
         return cheb_apply_cuda(A, degree, theta, delta, sigma, v)
     if v.device.type == "cpu":
@@ -494,8 +570,9 @@ def cheb_apply(A, degree: int, theta: float, delta: float, sigma: float,
 
 def neumann_apply(A, dinv: torch.Tensor, degree: int, omega: float,
                   v: torch.Tensor) -> torch.Tensor:
-    """The wrapper: CUDA tensors go through kernel #4, CPU tensors through
-    the plain version."""
+    """The wrapper, for a vector v (n,) or a block (n, B): CUDA tensors go
+    through kernel #4 (a block through its block form #4b, in one launch),
+    CPU tensors through the plain version."""
     if v.device.type == "cuda":
         return neumann_apply_cuda(A, dinv, degree, omega, v)
     if v.device.type == "cpu":

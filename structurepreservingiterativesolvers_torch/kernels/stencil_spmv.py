@@ -27,6 +27,17 @@ design and arguments once, and ``ops/stencil.py::Stencil`` keeps them, so a
 product costs the host one C call (``launch``).  The wrapper takes the plain
 version for CPU tensors only.  A CUDA tensor is launched through the kernel, or the wrapper
 raises: there is no fallback.
+
+The block form, "#2b" (``stencil_spmm``, ``launch_many``): the product with
+each vector of a block X (n, B), the JAX package's tall operand, in one
+launch of either design with one more grid axis over the vectors (the
+kernel under ``jax.vmap``).  The vectors are the rows of a (B, n) block,
+read through its (n, B) view ``X`` (``X.stride(0) == 1``) without a copy at
+any row stride, odd ones too; the result is the (n, B) view of a new
+(B, n) block.  Each column is bit-equal to kernel #2 on that vector.  Its
+launches count in ``stencil_spmm_cuda`` and its design's
+``stencil_spmm_{tiled,flat}_cuda``.  Its plain twin is the plain product
+on each column.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import torch.nn.functional as F
 from .dia_spmv import shift
 
 MAX_DIAGS = 64  # STENCIL_MAX_DIAGS in csrc/stencil_spmv.cu
+MAX_VECTORS = 65535  # STENCIL_MAX_VECTORS: vectors of one block launch
 # The tiled design's tile: TX columns by TY x RUN rows of interior grid
 # points, a block of TX x TY threads, each down a run of RUN rows, and a
 # buffer of (TY RUN + 2) (TX + 2) values in shared memory (at most 48 KB in
@@ -109,6 +121,16 @@ def stencil_spmv_torch(const: Sequence[float], offsets: Sequence[int],
     if grid_c:
         y = _apply_strips(offsets, grid_c, strips, x, y)
     return y
+
+
+def stencil_spmm_torch(const: Sequence[float], offsets: Sequence[int],
+                       wrap: bool, grid_c: int, strips: Strips,
+                       X: torch.Tensor) -> torch.Tensor:
+    """The plain version of the block form: the plain product on each
+    column of X (n, B)."""
+    return torch.stack([stencil_spmv_torch(const, offsets, wrap, grid_c,
+                                           strips, X[:, b])
+                        for b in range(X.shape[1])], dim=1)
 
 
 def split_offsets(offsets, grid_c: int) -> tuple:
@@ -207,9 +229,10 @@ def _entry(design: str, dtype: torch.dtype):
 
     tag = "f64" if dtype == torch.float64 else "f32"
     lib = load("stencil_spmv.cu")
-    head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-            ctypes.POINTER(ctypes.c_double)]
+    # x, y, the vectors and their strides, then the operator
+    head = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_double)]
     strips = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
               ctypes.c_void_p, ctypes.c_void_p]
     if design == "flat":
@@ -291,8 +314,8 @@ def launch(rec: StencilLaunch, x: torch.Tensor) -> torch.Tensor:
     if rec.n:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _entry(rec.design, rec.dtype)(
-            x.data_ptr(), y.data_ptr(), *rec.args, rec.device.index or 0,
-            stream)
+            x.data_ptr(), y.data_ptr(), 1, rec.n, rec.n, *rec.args,
+            rec.device.index or 0, stream)
         if err != 0:
             raise RuntimeError(f"stencil_spmv kernel launch failed "
                                f"({rec.design}): cudaError {err}")
@@ -301,6 +324,43 @@ def launch(rec: StencilLaunch, x: torch.Tensor) -> torch.Tensor:
     counter.launches += 1
     stencil_spmv_cuda.launches += 1
     return y
+
+
+def launch_many(rec: StencilLaunch, X: torch.Tensor) -> torch.Tensor:
+    """Launch the block form as ``rec`` resolved it on X (n, B), on
+    PyTorch's current stream; returns A X as the (n, B) view of a new
+    (B, n) block.  X is read as B rows of n values ``X.stride(1)`` apart
+    where ``X.stride(0)`` is 1 and the rows do not overlap (the view X.T of
+    a (B, n) block, at any row stride); any other layout is copied into
+    that one first.  A block the kernel does not take (another dtype or
+    device, n rows other than the operator's, more than ``MAX_VECTORS``
+    vectors) raises; so does a launch it refuses.  The launch counts in
+    ``stencil_spmm_cuda`` and its design's counter; does not
+    synchronise."""
+    if (not rec.takes(X) or X.dim() != 2 or X.shape[0] != rec.n
+            or X.shape[1] > MAX_VECTORS):
+        raise ValueError(f"the block launch takes a {rec.dtype} block of "
+                         f"{rec.n} rows and at most {MAX_VECTORS} vectors on "
+                         f"{rec.device}; got {X.dtype} {tuple(X.shape)} on "
+                         f"{X.device}")
+    nvec = X.shape[1]
+    if rec.n > 1 and (X.stride(0) != 1 or (nvec > 1 and X.stride(1) < rec.n)):
+        X = X.T.contiguous().T
+    Y = torch.empty((nvec, rec.n), dtype=X.dtype, device=X.device)
+    if nvec and rec.n:
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        err = _entry(rec.design, rec.dtype)(
+            X.data_ptr(), Y.data_ptr(), nvec, X.stride(1), rec.n, *rec.args,
+            rec.device.index or 0, stream)
+        if err != 0:
+            raise RuntimeError(f"stencil_spmm kernel launch failed "
+                               f"({rec.design}, {nvec} vectors): cudaError "
+                               f"{err}")
+    counter = (stencil_spmm_tiled_cuda if rec.design == "tiled"
+               else stencil_spmm_flat_cuda)
+    counter.launches += 1
+    stencil_spmm_cuda.launches += 1
+    return Y.T
 
 
 def stencil_spmv_flat_cuda(const: Sequence[float], offsets: Sequence[int],
@@ -329,9 +389,45 @@ def stencil_spmv_cuda(const: Sequence[float], offsets: Sequence[int],
     return launch(stencil_launch(const, offsets, wrap, grid_c, strips, x), x)
 
 
-# kernel launches of each design, and of either; reset them to count a run
+def stencil_spmm_flat_cuda(const: Sequence[float], offsets: Sequence[int],
+                           wrap: bool, grid_c: int, strips: Strips,
+                           X: torch.Tensor) -> torch.Tensor:
+    """Launch the flat design of the block form on PyTorch's current
+    stream; does not synchronise."""
+    return launch_many(stencil_launch(const, offsets, wrap, grid_c, strips,
+                                      _like(X), "flat"), X)
+
+
+def stencil_spmm_tiled_cuda(const: Sequence[float], offsets: Sequence[int],
+                            grid_c: int, strips: Strips, plan: StencilTile,
+                            X: torch.Tensor) -> torch.Tensor:
+    """Launch the tiled design of the block form with the tile ``plan`` on
+    PyTorch's current stream; does not synchronise."""
+    return launch_many(stencil_launch(const, offsets, False, grid_c, strips,
+                                      _like(X), "tiled", plan), X)
+
+
+def stencil_spmm_cuda(const: Sequence[float], offsets: Sequence[int],
+                      wrap: bool, grid_c: int, strips: Strips,
+                      X: torch.Tensor) -> torch.Tensor:
+    """Launch the block form in the design ``stencil_plan`` picks."""
+    return launch_many(stencil_launch(const, offsets, wrap, grid_c, strips,
+                                      _like(X)), X)
+
+
+def _like(X: torch.Tensor) -> torch.Tensor:
+    """A vector of X's rows, dtype and device, for ``stencil_launch``."""
+    if X.dim() != 2:
+        raise ValueError(f"a block is (n, B), got {tuple(X.shape)}")
+    return X.new_empty(X.shape[0])
+
+
+# kernel launches of each design, and of either, for one vector and for a
+# block; reset them to count a run
 stencil_spmv_flat_cuda.launches = stencil_spmv_tiled_cuda.launches = 0
 stencil_spmv_cuda.launches = 0
+stencil_spmm_flat_cuda.launches = stencil_spmm_tiled_cuda.launches = 0
+stencil_spmm_cuda.launches = 0
 
 
 def stencil_spmv(const: Sequence[float], offsets: Sequence[int], wrap: bool,
@@ -343,3 +439,14 @@ def stencil_spmv(const: Sequence[float], offsets: Sequence[int], wrap: bool,
     if x.device.type == "cpu":
         return stencil_spmv_torch(const, offsets, wrap, grid_c, strips, x)
     raise ValueError(f"no stencil SpMV for device {x.device}")
+
+
+def stencil_spmm(const: Sequence[float], offsets: Sequence[int], wrap: bool,
+                 grid_c: int, strips: Strips, X: torch.Tensor) -> torch.Tensor:
+    """The block form's wrapper: CUDA tensors go through the kernel, CPU
+    tensors through the plain version."""
+    if X.device.type == "cuda":
+        return stencil_spmm_cuda(const, offsets, wrap, grid_c, strips, X)
+    if X.device.type == "cpu":
+        return stencil_spmm_torch(const, offsets, wrap, grid_c, strips, X)
+    raise ValueError(f"no stencil SpMM for device {X.device}")

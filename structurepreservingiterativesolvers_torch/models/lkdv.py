@@ -88,7 +88,9 @@ class System:
         )
         return [mass, momentum, energy]
 
-    def compute_invariants(self, z: torch.Tensor) -> dict:
+    def compute_invariants(self, z: torch.Tensor,
+                           zold: Optional[torch.Tensor] = None) -> dict:
+        """The invariants of z; ``zold`` is unread (heat's read it)."""
         u, v, w = torch.split(z, self.n0)
         return {
             "mass": torch.dot(self.omega, u),

@@ -127,7 +127,10 @@ class System:
         return [stage_mapped(c, bw, self.prob.dt, self.prob.ns, self.z0)
                 for c in inner]
 
-    def compute_invariants(self, zbig: torch.Tensor) -> dict:
+    def compute_invariants(self, zbig: torch.Tensor,
+                           zold: Optional[torch.Tensor] = None) -> dict:
+        """The invariants of the step's end state; ``zold`` is unread
+        (heat's read it)."""
         u, v, w = torch.split(self.z1calc(zbig), self.n0)
         Mu = self.Mmat @ u
         return {

@@ -97,7 +97,9 @@ class System:
         energy = QuadraticConstraint(M=self.Lfull, v=None, c=-self.e0, name="energy")
         return [mass, energy]
 
-    def compute_invariants(self, z: torch.Tensor) -> dict:
+    def compute_invariants(self, z: torch.Tensor,
+                           zold: Optional[torch.Tensor] = None) -> dict:
+        """The invariants of z; ``zold`` is unread (heat's read it)."""
         return {
             "mass": torch.dot(self.omega, z),
             "energy": 0.5 * torch.dot(z, self.Lfull @ z),

@@ -6,15 +6,16 @@ every row of a structured-mesh operator is the same stencil, so
 boundary strips of the (R, C) grid view of the flat index.  ``A @ x`` then
 reads no matrix data on the constant part.  On a CUDA tensor it is one
 launch of the hand-written kernel ``kernels/stencil_spmv.py``, which also
-applies ``E``; on a CPU tensor its plain twin.
+applies ``E``; on a CPU tensor its plain twin.  ``A @ X`` for a tall (n, B)
+X is one launch of the kernel's block form (#2b), each column bit-equal to
+``A @ x`` on that vector.
 
 ``maybe_stencil`` performs the host-side decomposition at assembly time,
 exactly as the JAX package does (the constant of each diagonal is its mode
 over in-range rows; the residual must lie on the grid's boundary strips),
 and returns the ``DIA`` unchanged otherwise.  ``Stencil`` mirrors the DIA
 operator surface and keeps the full ``DIA`` as a field for the consumers
-that need explicit matrix values (AMG set-up, the constraint catch-up SpMM,
-oracles).
+that need explicit matrix values (AMG set-up, oracles).
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ import torch
 from ..kernels.stencil_spmv import (
     StencilLaunch,
     launch,
+    launch_many,
     stencil_launch,
+    stencil_spmm_torch,
     stencil_spmv as _stencil_spmv,
 )
-from .sparse import DIA, dia_spmm
+from .sparse import DIA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,20 +194,33 @@ def maybe_stencil(A):
     return A
 
 
+def _resolved(S: Stencil, x: torch.Tensor) -> StencilLaunch:
+    """The launch S keeps for x's dtype and device (resolved again for
+    another); x is a vector or a block (n, B)."""
+    rec = S._launch
+    if rec is None or not rec.takes(x):
+        like = x if x.dim() == 1 else x.new_empty(x.shape[0])
+        rec = stencil_launch(S.const, S.offsets, S.wrap, S.grid_c, S.strips,
+                             like)
+        object.__setattr__(S, "_launch", rec)
+    return rec
+
+
 def stencil_spmv(S: Stencil, x: torch.Tensor) -> torch.Tensor:
     """``S @ x``: the stencil kernel on CUDA tensors, through the launch S
     keeps (resolved again for an x of another dtype or device); its plain
     twin on CPU ones."""
     if x.device.type != "cuda":
         return _stencil_spmv(S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
-    rec = S._launch
-    if rec is None or not rec.takes(x):
-        rec = stencil_launch(S.const, S.offsets, S.wrap, S.grid_c, S.strips, x)
-        object.__setattr__(S, "_launch", rec)
-    return launch(rec, x)
+    return launch(_resolved(S, x), x)
 
 
 def stencil_spmm(S: Stencil, X: torch.Tensor) -> torch.Tensor:
-    """SpMM runs on the exact explicit operator: its consumers (the
-    constraint catch-up, oracles) read the matrix data anyway."""
-    return dia_spmm(S.dia, X)
+    """``S @ X`` for a tall (n, B) X: on CUDA tensors the block form of
+    the stencil kernel (#2b) through the launch S keeps, its result an
+    (n, B) view of a (B, n) block; on CPU tensors the plain product on each
+    column."""
+    if X.device.type != "cuda":
+        return stencil_spmm_torch(S.const, S.offsets, S.wrap, S.grid_c,
+                                  S.strips, X)
+    return launch_many(_resolved(S, X), X)

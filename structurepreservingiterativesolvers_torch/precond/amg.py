@@ -8,6 +8,12 @@ code: weighted-Jacobi smoothing, gather-free restriction and prolongation
 reshapes) and a dense coarsest solve.  Every level operator and smoother is
 a DIA, so on the card each of their products is a launch of the DIA kernel.
 
+The apply takes a vector or a block (n, B), the JAX package's operand under
+``jax.vmap``: the V-cycle then runs on the B rows of a (B, n) block, the
+layout of the device core's batch, so that every level's product reads the
+(n, B) view of its block without a copy (the batched DIA kernel #1b on the
+card).
+
 The setup runs on the operator's device as plain PyTorch: box aggregation
 of a grid-local stencil operator yields Galerkin coarse operators that are
 themselves grid-local stencils, so every coarse operator's DIA bands are
@@ -35,6 +41,12 @@ from ..ops.sparse import DIA, dia_from_scipy
 from ..ops.stencil import Stencil, as_dia
 
 
+def _mv(A: DIA, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for a vector, or on each row of a block x (B, n): the
+    product with its (n, B) view."""
+    return A @ x if x.dim() == 1 else (A @ x.T).T
+
+
 @dataclasses.dataclass(frozen=True)
 class BoxProlong:
     """Gather-free prolongation for grid-structured hierarchies:
@@ -50,9 +62,18 @@ class BoxProlong:
     Cc2: int  # coarse grid cols
 
     def __matmul__(self, e: torch.Tensor) -> torch.Tensor:
-        E = e.reshape(self.Cc1, self.Cc2)
-        Fg = E.repeat_interleave(self.b, 0).repeat_interleave(self.b, 1)
-        return self.S @ Fg[: self.C1, : self.C2].reshape(-1)
+        """P e for a vector, or for each column of a block (nc, B)."""
+        return self.rows(e) if e.dim() == 1 else self.rows(e.T).T
+
+    def rows(self, e: torch.Tensor) -> torch.Tensor:
+        """P on the last axis: (..., nc) to (..., n).  The box repeat is a
+        broadcast and a reshape."""
+        lead, b = e.shape[:-1], self.b
+        E = e.reshape(*lead, self.Cc1, 1, self.Cc2, 1).expand(
+            *lead, self.Cc1, b, self.Cc2, b).reshape(
+            *lead, self.Cc1 * b, self.Cc2 * b)
+        Fg = E[..., : self.C1, : self.C2].reshape(*lead, self.C1 * self.C2)
+        return _mv(self.S, Fg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +90,17 @@ class BoxRestrict:
     Cc2: int
 
     def __matmul__(self, r: torch.Tensor) -> torch.Tensor:
-        W = (self.S @ r).reshape(self.C1, self.C2)
-        W = F.pad(W, (0, self.b * self.Cc2 - self.C2,
-                      0, self.b * self.Cc1 - self.C1))
-        Wc = W.reshape(self.b * self.Cc1, self.Cc2, self.b).sum(-1)
-        return Wc.reshape(self.Cc1, self.b, self.Cc2).sum(1).reshape(-1)
+        """R r for a vector, or for each column of a block (n, B)."""
+        return self.rows(r) if r.dim() == 1 else self.rows(r.T).T
+
+    def rows(self, r: torch.Tensor) -> torch.Tensor:
+        """R on the last axis: (..., n) to (..., nc)."""
+        lead, b = r.shape[:-1], self.b
+        W = _mv(self.S, r).reshape(*lead, self.C1, self.C2)
+        W = F.pad(W, (0, b * self.Cc2 - self.C2, 0, b * self.Cc1 - self.C1))
+        Wc = W.reshape(*lead, b * self.Cc1, self.Cc2, b).sum(-1)
+        return Wc.reshape(*lead, self.Cc1, b, self.Cc2).sum(-2).reshape(
+            *lead, self.Cc1 * self.Cc2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,21 +119,27 @@ class AMG:
     nu: int  # pre/post smoothing sweeps
 
     def _cycle(self, lvl: int, b: torch.Tensor) -> torch.Tensor:
+        """The V-cycle from level ``lvl`` on a vector b (n,), or on each row
+        of a block b (B, n)."""
         L = self.levels[lvl]
         if L.P is None:
-            return self.coarse_inv @ b
+            if b.dim() == 1:
+                return self.coarse_inv @ b
+            return b @ self.coarse_inv.T
         x = torch.zeros_like(b)
         for _ in range(self.nu):  # pre-smooth (weighted Jacobi)
-            x = x + L.omega * (L.dinv * (b - L.A @ x))
-        r = b - L.A @ x
-        ec = self._cycle(lvl + 1, L.R @ r)
-        x = x + L.P @ ec
+            x = x + L.omega * (L.dinv * (b - _mv(L.A, x)))
+        r = b - _mv(L.A, x)
+        ec = self._cycle(lvl + 1, L.R.rows(r))
+        x = x + L.P.rows(ec)
         for _ in range(self.nu):  # post-smooth
-            x = x + L.omega * (L.dinv * (b - L.A @ x))
+            x = x + L.omega * (L.dinv * (b - _mv(L.A, x)))
         return x
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return self._cycle(0, v)
+        """The V-cycle on v (n,), or on each column of a block v (n, B),
+        run on the rows of its (B, n) view."""
+        return self._cycle(0, v) if v.dim() == 1 else self._cycle(0, v.T).T
 
     def solve(self, v: torch.Tensor) -> torch.Tensor:
         return self(v)
@@ -144,7 +177,7 @@ def amg(A, omega: float = 0.8, nu: int = 2, coarse_size: int = 200,
     if grid is None or setup == "host":
         raise NotImplementedError(
             "the greedy host AMG setup ships ELL transfers; the ELL format "
-            "is not ported")
+            "is not ported (ROADMAP.md, Queue 1, item 6)")
     if device is None:
         raise ValueError("a scipy matrix input needs device=")
     A_dia = dia_from_scipy(A, wrap=False, dtype=dtype or DEFAULT_DTYPE,
@@ -158,7 +191,7 @@ def amg(A, omega: float = 0.8, nu: int = 2, coarse_size: int = 200,
         raise NotImplementedError(
             f"device AMG setup unavailable ({e}); the JAX package falls back "
             "to its greedy host setup, which needs the ELL format the port "
-            "does not have") from e
+            "does not have (ROADMAP.md, Queue 1, item 6)") from e
 
 
 def _grid_decompose(offsets, C2: int, rmax: int = 4):

@@ -36,20 +36,21 @@ def diagonal(A) -> torch.Tensor:
         return torch.diagonal(A)
     raise NotImplementedError(
         f"no diagonal of a {type(A).__name__} in the port: the diagonal of "
-        f"an ELL operator is not ported")
+        f"an ELL operator is not ported (ROADMAP.md, Queue 1, item 6)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Jacobi:
-    """Diagonal-inverse preconditioner."""
+    """Diagonal-inverse preconditioner, on a vector or on each column of a
+    block (n, B)."""
 
     dinv: torch.Tensor
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return self.dinv * v
+        return (self.dinv if v.dim() == 1 else self.dinv[:, None]) * v
 
     def solve(self, v: torch.Tensor) -> torch.Tensor:
-        return self.dinv * v
+        return self(v)
 
 
 def jacobi(A) -> Jacobi:

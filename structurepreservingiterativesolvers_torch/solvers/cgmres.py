@@ -49,6 +49,7 @@ ported.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import time
@@ -531,8 +532,11 @@ class DeviceCore:
     def _first_use(self):
         """What the steps do the first time they meet the card, on scratch
         tensors: the kernel builds and loads, each DIA's live plan and
-        resolved launch, the cuBLAS handles on the capture stream, and the
-        fused CGS2 kernel's per-m attribute and occupancy."""
+        resolved launch (the AMG's levels and smoothers among them: one
+        preconditioner apply on the core's block), the polynomial kernels'
+        plans and shared-memory attribute, the cuBLAS handles on the
+        capture stream, and the fused CGS2 kernel's per-m attribute and
+        occupancy."""
         V = torch.ones_like(self.b)
         rows(self.A.__matmul__, rows(self.prefunc, V))
         for c in self.cons:
@@ -848,7 +852,8 @@ def _quadratic(constraints) -> tuple:
     if any(isinstance(c, GeneralConstraint) for c in cons):
         raise NotImplementedError(
             "the device core takes quadratic constraints; a general "
-            "constraint runs in the host loop (loop='host')")
+            "constraint runs in the host loop (loop='host') until lkdvRK "
+            "under the graph core (ROADMAP.md, Queue 1, item 2)")
     return cons
 
 
@@ -872,28 +877,40 @@ def _key(obj):
     return ("id", id(obj))
 
 
-# the device core of the last ``cgmres(loop="while")`` call, with its captured
-# graphs, by what it was built for; a call with another key replaces it
-_CORES: dict = {}
+# the device cores of the last ``CORE_CACHE`` keys that ``cgmres`` and
+# ``gmres`` with ``loop="while"`` and ``cgmres_many`` ran, with their
+# captured graphs, by what each was built for, the most recent last: two,
+# so that a GMRES and a CGMRES solve of one system (``time_cgmres``) each
+# keep theirs; a call with a new key drops the oldest
+CORE_CACHE = 2
+_CORES: "collections.OrderedDict" = collections.OrderedDict()
 
 
 def clear_core_cache() -> None:
-    """Drop the cached device core (its buffers and graphs)."""
+    """Drop the cached device cores (their buffers and graphs)."""
     _CORES.clear()
+
+
+def last_core() -> DeviceCore:
+    """The device core of the last device-core solve."""
+    return next(reversed(_CORES.values()))
 
 
 def _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho) -> DeviceCore:
     """The cached device core for these operators and options, built (and
-    cached in place of the last one) if it is not the cached one."""
+    cached, dropping the oldest past ``CORE_CACHE``) if none is."""
     key = (_key(A), _key(pre), int(k), float(tol), float(contol), float(ctol),
            ortho, x0 is None, tuple(b.shape), b.dtype, str(b.device),
            tuple((_key(c.M), c.v is None) for c in cons))
     core = _CORES.get(key)
     if core is None:
-        _CORES.clear()  # the last core's buffers go before the new ones come
+        while len(_CORES) >= CORE_CACHE:
+            # the oldest core's buffers go before the new ones come
+            _CORES.popitem(last=False)
         core = _CORES[key] = DeviceCore(
             A, pre, k, cons, like=b, tol=tol, contol=contol, ctol=ctol,
             ortho=ortho, x0_zero=x0 is None)
+    _CORES.move_to_end(key)
     return core
 
 
@@ -901,7 +918,8 @@ def _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
                 timing, ortho):
     if history:
         raise NotImplementedError(
-            "history is recorded by the host loop (loop='host')")
+            "history is recorded by the host loop (loop='host') until "
+            "lkdvRK under the graph core (ROADMAP.md, Queue 1, item 2)")
     cons = _quadratic(constraints)
     t0 = time.perf_counter()
     core = _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho)
@@ -983,12 +1001,13 @@ def cgmres(
 
     ``loop``: ``"host"`` (the default) runs the host loop; ``"while"`` the
     device core (``DeviceCore``; quadratic constraints, no ``history``),
-    captured as CUDA graphs on the card, eager on the CPU.  The last core
-    is kept, on the operators, the preconditioner, ``k``, the tolerances,
-    ``ortho`` and the constraints' operators (``clear_core_cache`` drops
-    it), so a second solve with new b, x0 or targets replays the first
-    one's graphs; its ``timings`` add ``time_capture``, the seconds spent
-    capturing, which ``runtime`` leaves out.
+    captured as CUDA graphs on the card, eager on the CPU.  The last
+    ``CORE_CACHE`` cores are kept, on the operators, the preconditioner,
+    ``k``, the tolerances, ``ortho`` and the constraints' operators
+    (``clear_core_cache`` drops them), so a second solve with new b, x0 or
+    targets replays the first one's graphs; its ``timings`` add
+    ``time_capture``, the seconds spent capturing, which ``runtime`` leaves
+    out.
     """
     return _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
                 timing, prototypical=False, ortho=ortho, loop=loop)

@@ -5,18 +5,25 @@ The port of the JAX package's ``solvers/gmres.py`` (reference
 reconstruction, CGS2 Arnoldi (``ortho='cgs2_fused'`` for its middle pair
 through the fused kernel, ``ortho='mgs'`` for the reference's sequential
 recurrence; see ``arnoldi_step``), the true residual ‖Ax−b‖ every iteration,
-breakdown detection, and the reference's ``(x, info)`` contract.  The
-iteration loop runs on the host; each step reads its residual there.
+breakdown detection, and the reference's ``(x, info)`` contract.  With
+``loop="host"`` (the default) the iteration loop runs on the host and each
+step reads its residual there; with ``loop="while"`` the solve runs on the
+device core of CGMRES (``solvers/cgmres.py::DeviceCore``, each step a CUDA
+graph on the card), the JAX package's default loop, as CGMRES without
+constraints whose gate is open from the first step: each step is the
+Arnoldi step and the iterate from the LSQ coefficients, with its true
+residual, until it is below ``tol``.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import numpy as np
 import torch
 
-from ..config import require_f64
+from ..config import CTOL, require_f64
 from ..precond.base import as_preconditioner
 from .arnoldi import arnoldi_step, init_state, iterate, lsq_coeffs
 
@@ -35,6 +42,17 @@ def warn_breakdown() -> None:
     )
 
 
+def _gmres_device(A, b, x0, k, tol, pre, history, ortho):
+    """GMRES on the device core: CGMRES without constraints, its gate open
+    from the first step (``contol`` infinite)."""
+    from .cgmres import _run_device
+
+    x, info = _run_device(A, b, x0, k, tol, math.inf, (), pre, CTOL, history,
+                          False, ortho)
+    return x, {"name": "gmres", "res": info["res"], "steps": info["steps"],
+               "breakdown": info["breakdown"]}
+
+
 def gmres(
     A,
     b: torch.Tensor,
@@ -44,6 +62,7 @@ def gmres(
     pre=None,
     history: bool = False,
     ortho: str = "cgs2",
+    loop: str = "host",
 ):
     """Solve ``A x = b`` with right-preconditioned flexible GMRES.
 
@@ -51,10 +70,15 @@ def gmres(
     residuals ``res`` (numpy, trimmed to the steps taken), ``steps``,
     ``breakdown`` and, when ``history=True``, the iterate history ``x``
     whose row 0 holds the initial residual vector (reference quirk,
-    solvers.py:75-80).
+    solvers.py:75-80).  ``loop``: ``"host"`` or ``"while"`` (the device
+    core; no ``history``).
     """
     require_f64(b)
     x0 = as_operand(x0, b)
+    if loop == "while":
+        return _gmres_device(A, b, x0, k, tol, pre, history, ortho)
+    if loop != "host":
+        raise ValueError(f"loop={loop!r}: use 'host' or 'while'")
     if x0 is None:
         x0 = torch.zeros_like(b)
     prefunc = as_preconditioner(pre)

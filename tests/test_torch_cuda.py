@@ -980,3 +980,241 @@ def test_cgmres_many_on_card_matches_cpu():
     assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-10
     assert spmm > 0 and spmv == 0
     cg.clear_core_cache()
+
+
+# the block forms of kernels #2, #3 and #4 (#2b, #3b, #4b): B vectors as
+# the rows of a (B, n + pad) block, read through the (n, B) view of its
+# first n columns.  heat M=16 has n = 289, odd, so with pad 0 and 2 every
+# row after the first starts at an odd element offset
+BLOCK_BATCHES = (1, 2, 3, 8)
+BLOCK_PADS = (0, 2)
+
+
+def _block(n, B, dtype, pad, seed):
+    g = torch.Generator().manual_seed(seed)
+    V = torch.randn(B, n + pad, generator=g, dtype=dtype).cuda()
+    return V[:, :n].T
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B", BLOCK_BATCHES)
+def test_block_stencil_bit_equal_to_columns(heat_stencils, B, dtype):
+    """#2b in both designs, on heat M=16's stencil (tiled and flat) and on
+    a ragged periodic stencil (flat, n = 777): each column bit-equal to
+    kernel #2's launch on that vector in the same design, the dispatch
+    (``S @ X``) in the design the plan picks, each launch counted once in
+    the block counters and none in the single ones; within RTOL of the
+    plain twin."""
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+
+    S = heat_stencils[16].astype(dtype)
+    heat_ops = (S.const, S.offsets, S.wrap, S.grid_c, S.strips)
+    ragged = _stencil_operands(1, 777, (-256, -3, 0, 3, 256), True, False,
+                               dtype)
+    ragged_ops = (ragged[0], ragged[1], True, 0, None)
+    tile = ks.StencilTile(*ks.TILE)
+    for ops, designs in ((heat_ops, ("tiled", "flat")), (ragged_ops, ("flat",))):
+        n = 289 if ops is heat_ops else 777
+        for pad in BLOCK_PADS:
+            X = _block(n, B, dtype, pad, 10 * B + pad)
+            for design in designs:
+                if design == "tiled":
+                    Y = ks.stencil_spmm_tiled_cuda(ops[0], ops[1], ops[3],
+                                                   ops[4], tile, X)
+                else:
+                    Y = ks.stencil_spmm_flat_cuda(*ops, X)
+                torch.cuda.synchronize()
+                assert Y.shape == (n, B) and Y.stride(0) == 1
+                for b in range(B):
+                    x = X[:, b].contiguous()
+                    if design == "tiled":
+                        y = ks.stencil_spmv_tiled_cuda(ops[0], ops[1], ops[3],
+                                                       ops[4], tile, x)
+                    else:
+                        y = ks.stencil_spmv_flat_cuda(*ops, x)
+                    torch.cuda.synchronize()
+                    assert torch.equal(Y[:, b], y), (design, b, pad)
+            counters = (ks.stencil_spmm_cuda, ks.stencil_spmv_cuda,
+                        ks.stencil_spmm_tiled_cuda)
+            before = [c.launches for c in counters]
+            Y = ks.stencil_spmm(*ops, X)
+            torch.cuda.synchronize()
+            grew = [c.launches - b for c, b in zip(counters, before)]
+            assert grew == [1, 0, 1 if ops is heat_ops else 0]
+            ref = ks.stencil_spmm_torch(*ops, X)
+            assert float((Y - ref).abs().max() / ref.abs().max()) <= RTOL[dtype]
+    X = _block(289, B, dtype, 1, B)
+    assert torch.equal(S @ X, ks.stencil_spmm(*heat_ops, X))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B", BLOCK_BATCHES)
+def test_block_poly_bit_equal_to_columns(heat_on_card, B, dtype):
+    """#3b and #4b in both designs on heat M=16's stencil (cheb8, neu4 and
+    degrees 1, 2, 3), and flat on a wrapped DIA: each column bit-equal to
+    kernel #3's (#4's) launch on that vector in the same design; the
+    dispatch counts once in the block counters; within POLY_RTOL of the
+    plain twin on the block."""
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+
+    A, dinv, theta, delta = heat_on_card[16]
+    A, dinv = A.astype(dtype), dinv.to(dtype)
+    Ad, dinv_d = _poly_operator("dia_wrap", dtype)
+    for op, d, th, dl, designs in ((A, dinv, theta, delta, ("tiled", "flat")),
+                                   (Ad, dinv_d, 2.25, 1.25, ("flat",))):
+        n = op.shape[0]
+        for kind, degree in (("cheb", 8), ("neumann", 4), ("cheb", 1),
+                             ("cheb", 2), ("neumann", 2), ("neumann", 3)):
+            scal = ((degree, th, dl, th / dl) if kind == "cheb"
+                    else (d, degree, 0.8))
+            for pad in BLOCK_PADS:
+                X = _block(n, B, dtype, pad, 100 * B + degree + pad)
+                for design in designs:
+                    fn = getattr(pa, f"{kind}_apply_{design}_cuda")
+                    lead = ((op, pa.poly_plan(op, kind, degree, dtype))
+                            if design == "tiled" else (op,))
+
+                    def run(v, fn=fn, lead=lead):
+                        return fn(*lead, *scal, v)
+                    many = getattr(pa, f"{kind}_apply_many_{design}_cuda")
+                    before = many.launches
+                    Y = run(X)
+                    torch.cuda.synchronize()
+                    assert many.launches == before + 1
+                    assert Y.shape == (n, B) and Y.stride(0) == 1
+                    for b in range(B):
+                        y = run(X[:, b].contiguous())
+                        torch.cuda.synchronize()
+                        assert torch.equal(Y[:, b], y), (kind, degree, design, b)
+                wrapper = getattr(pa, f"{kind}_apply")
+                before = (getattr(pa, f"{kind}_apply_many_cuda").launches,
+                          getattr(pa, f"{kind}_apply_cuda").launches)
+                Y = wrapper(op, *scal, X)
+                torch.cuda.synchronize()
+                assert (getattr(pa, f"{kind}_apply_many_cuda").launches,
+                        getattr(pa, f"{kind}_apply_cuda").launches) == (
+                    before[0] + 1, before[1])
+                ref = getattr(pa, f"{kind}_apply_torch")(op, *scal, X)
+                rel = float((Y - ref).abs().max() / ref.abs().max())
+                assert rel <= POLY_RTOL[dtype], (kind, degree, rel)
+
+
+@pytest.mark.cuda
+def test_block_kernels_refuse_what_they_do_not_take(heat_on_card):
+    """#2b, #3b and #4b raise on what they do not build: another dtype than
+    the operator's, CPU blocks, a block of other rows, more vectors than a
+    grid axis holds, and a block that is not 2-D."""
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+    from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as ks
+
+    A, dinv, theta, delta = heat_on_card[16]
+    ops = (A.const, A.offsets, A.wrap, A.grid_c, A.strips)
+    X = torch.randn(3, 289, dtype=torch.float64, device="cuda").T
+    cheb = (8, theta, delta, theta / delta)
+    with pytest.raises((TypeError, ValueError)):
+        ks.stencil_spmm(*ops, X.float())
+    with pytest.raises(ValueError):
+        ks.stencil_spmm_cuda(*ops, X.cpu())
+    with pytest.raises(ValueError):
+        ks.stencil_spmm(*ops, X[:-1])
+    with pytest.raises(ValueError):
+        ks.stencil_spmm(*ops, X[:, :, None])
+    wide = torch.empty((289, ks.MAX_VECTORS + 1), dtype=torch.float64,
+                       device="cuda").as_strided((289, ks.MAX_VECTORS + 1),
+                                                 (1, 0))
+    with pytest.raises(ValueError):
+        ks.launch_many(ks.stencil_launch(*ops, X[:, 0].contiguous()), wide)
+    with pytest.raises(TypeError):
+        pa.cheb_apply(A, *cheb, X.float())
+    with pytest.raises(ValueError):
+        pa.cheb_apply_cuda(A, *cheb, X.cpu())
+    with pytest.raises(ValueError):
+        pa.neumann_apply(A, dinv, 4, 0.8, X[:-1])
+    with pytest.raises(ValueError):
+        pa.neumann_apply(A, dinv, 4, 0.8, X[:, :, None])
+    with pytest.raises(ValueError):
+        pa.cheb_apply(A, *cheb, wide)
+
+
+@pytest.mark.cuda
+def test_flat_block_poly_walks_rounds(heat_on_card):
+    """The flat #3b and #4b on more vectors than the resident blocks serve
+    at once (2,000 vectors of heat M=16, one or two blocks each) walk the
+    block in rounds: each sampled column bit-equal to the single kernel on
+    that vector, the whole within POLY_RTOL of the plain twin."""
+    from structurepreservingiterativesolvers_torch.kernels import poly_apply as pa
+
+    A, dinv, theta, delta = heat_on_card[16]
+    n, B = A.shape[0], 2000
+    X = _block(n, B, torch.float64, 1, 7)
+    for kind, scal in (("cheb", (8, theta, delta, theta / delta)),
+                       ("neumann", (dinv, 4, 0.8))):
+        fn = getattr(pa, f"{kind}_apply_flat_cuda")
+        Y = fn(A, *scal, X)
+        torch.cuda.synchronize()
+        for b in (0, 1, 97, 511, 512, 1023, 1024, 1500, B - 1):
+            assert torch.equal(Y[:, b], fn(A, *scal, X[:, b].contiguous())), \
+                (kind, b)
+        ref = getattr(pa, f"{kind}_apply_torch")(A, *scal, X)
+        rel = float((Y - ref).abs().max() / ref.abs().max())
+        assert rel <= POLY_RTOL[torch.float64], (kind, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", ["amg", "cheb8", "neu4", "jacobi"])
+def test_heat_graph_core_launches_per_replay(pre):
+    """heat M=64 on the device core with each of its preconditioners: the
+    launches per replay of each kind of graph (the V-cycle's 14 DIA
+    products in each ``arnoldi`` graph with the AMG, one fused apply with a
+    polynomial, one stencil product in each graph that forms A z), the
+    same on a batch of 3 through the block forms, and x within 1e-10 of
+    the CPU's solve."""
+    _card()
+    import importlib
+
+    from structurepreservingiterativesolvers_torch import precond
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    build = {"amg": default_pre_builder("heat"),
+             "cheb8": lambda s: precond.chebyshev(s.A, degree=8),
+             "neu4": lambda s: precond.neumann(s.A, degree=4),
+             "jacobi": lambda s: precond.jacobi(s.A)}[pre]
+    k = 20 if pre == "amg" else 60
+    xs = {}
+    for device in ("cpu", "cuda"):
+        s = heat.linforms(M=64, device=device)
+        xs[device], info = cg.cgmres(s.A, s.b, k=k, tol=1e-7, pre=build(s),
+                                     constraints=s.constraints(),
+                                     loop="while")
+    assert float((xs["cuda"].cpu() - xs["cpu"]).abs().max()
+                 / xs["cpu"].abs().max()) <= 1e-10
+    single = cg.last_core().runner.launches()
+    items = [s.step_update(s.z0 * (1.0 + 0.01 * i)) for i in range(3)]
+    cgmres_many(s.A, torch.stack([t.b for t in items]),
+                [t.constraints() for t in items], k=k, tol=1e-7, pre=build(s))
+    batch = cg.last_core().runner.launches()
+    pre_kernel = {"amg": ("dia_spmv", 14), "cheb8": ("cheb_apply", 1),
+                  "neu4": ("neumann_apply", 1), "jacobi": (None, 0)}[pre]
+    block = {"dia_spmv": "dia_spmm", "cheb_apply": "cheb_apply_many",
+             "neumann_apply": "neumann_apply_many"}
+    for launches, stencil, names in (
+            (single, "stencil_spmv", {}), (batch, "stencil_spmm", block)):
+        arnoldi, advance = launches["arnoldi"], launches["advance"]
+        assert arnoldi.get(stencil) == 1 and advance.get(stencil) == 1
+        if pre_kernel[0]:
+            name = names.get(pre_kernel[0], pre_kernel[0])
+            assert arnoldi.get(name) == pre_kernel[1], (pre, arnoldi)
+    assert not any(name in kinds for kinds in batch.values()
+                   for name in ("stencil_spmv", "dia_spmv", "cheb_apply",
+                                "neumann_apply"))
+    cg.clear_core_cache()

@@ -118,13 +118,21 @@ def test_plain_stencil_matches_pallas_f32(operators, name):
 
 
 def test_stencil_surface(operators):
-    """The DIA surface: SpMM and todense go through the explicit operator."""
+    """The DIA surface: todense goes through the explicit operator; the
+    product with a block (n, B) is the stencil product on each column (the
+    block form's plain twin), within rounding of the explicit operator's
+    SpMM."""
     St = tst.maybe_stencil(_port(operators["heat16"]))
     assert tst.as_dia(St) is St.dia and tst.as_dia(St.dia) is St.dia
     assert St.dtype == torch.float64 and St.device == torch.device("cpu")
     torch.testing.assert_close(St.data, St.dia.data, rtol=0, atol=0)
     X = torch.as_tensor(np.random.default_rng(3).standard_normal((289, 3)))
-    torch.testing.assert_close(St @ X, tsp.dia_spmm(St.dia, X), rtol=0, atol=0)
+    Y = St @ X
+    for b in range(3):
+        torch.testing.assert_close(Y[:, b], St @ X[:, b].contiguous(), rtol=0,
+                                   atol=0)
+    assert torch_parity.rel_max(Y.numpy(),
+                                tsp.dia_spmm(St.dia, X).numpy()) <= RTOL64
     torch.testing.assert_close(St.todense(), St.dia.todense(), rtol=0, atol=0)
 
 
