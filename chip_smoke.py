@@ -169,6 +169,28 @@ imported.  Phases, each of which raises on a failed check:
     product of the batch through a block form (#2b, #1b for the V-cycle,
     #3b, #4b) and none through a single kernel, the median wall of 5
     beside the median of 5 rounds of the 8 single solves.
+24. (after 16) the twelfth slice, lkdvRK under the graph core, on the
+    systems and composites of phase 14: kernel #1 on each row's mass
+    matrix and the (3, 2) row's G; each M=400 grid row through
+    ``time_cgmres(loop="while")`` held to ``reference/slice7.json``, and
+    its CGMRES solve on both loops in one call (medians of 5; x within
+    1e-10; the composite's products inside each ``arnoldi`` graph;
+    ``time_capture``; idle shares), the (3, 2) row with ``cgs2_fused`` on
+    the device core;
+25. ``fused_evolve("lkdvrk")`` on the (3, 2) row's evolution (N=10),
+    the state carried on the device: every step certified, steps and the
+    mass and momentum drifts within the record's, every series equal to
+    the host loop's ``evolve`` from the same starts; and the error sweep's
+    ``run_single`` on ``loop="while"`` against ``loop="host"``, one device
+    core for all its steps;
+26. ``cgmres_many`` on the (3, 2) and (5, 4) rows at B = 8 with the
+    composite (its RAS one ``torch.bmm`` of the inverses with the block),
+    each item certified, its steps its single device-core solve's and x
+    within 1e-10, every DIA product of the batch through #1b;
+27. lkdv M=100, degree 3 on the device core with the energy as a
+    ``GeneralConstraint`` (its Taylor model in the ``kkt_start`` graph) and
+    with ``history``, each against the host loop.  After each of 24–27,
+    #1b on every (operator, width) the path gave it.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -2061,13 +2083,15 @@ def _composite_times(tag, s, pre):
     return out
 
 
-def phase_lkdvrk_rows(record):
+def phase_lkdvrk_rows(record, keep=None):
     """The seventh slice's main path: each row of the reference's
     error-sweep grid at M=400 through ``time_cgmres`` with the default
     lkdvRK pre-builder (RAS over 5 blocks, Neumann degree 3), held to
     ``reference/slice7.json``; the composite's device time per apply; and
     the (3, 2) row once more with the fused orthogonalisation.  Returns,
-    per row, its numbers and the launches over it."""
+    per row, its numbers and the launches over it; each row's system and
+    preconditioner go into ``keep`` where given, for the device-core
+    phases."""
     import torch
 
     from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
@@ -2142,6 +2166,8 @@ def phase_lkdvrk_rows(record):
                       "composite": times, **fmt, "ras_blocks": blocks}
         if name == LKDVRK_ROWS[0]:
             rows[name]["fused"] = _lkdvrk_fused(tag, s, pre, rec)
+        if keep is not None:
+            keep[name] = (s, pre)
         del seen, s, pre
         torch.cuda.empty_cache()
     return rows
@@ -3574,6 +3600,583 @@ def phase_heat_batched(s1024, row):
     return rows
 
 
+# the twelfth slice: lkdvRK under the graph core (phases 24-27)
+RK_B = 8
+RK_BATCH_ROWS = (LKDVRK_ROWS[0], LKDVRK_ROWS[2])
+GENERAL = dict(M=100, degree=3)
+
+
+def _rk_counts(rec, got):
+    return (f"{got['steps']} steps, {got['constrained_steps']} constrained "
+            f"(record {rec['steps']} / {rec['constrained_steps']})")
+
+
+def phase_lkdvrk_graph(record, kept):
+    """(24) The three M=400 grid rows on the device core, each on the
+    system and the RAS + Neumann composite that phase 14 built (``kept``):
+    the row through ``time_cgmres(loop="while")``, held to
+    ``reference/slice7.json`` as the host-loop row is (certified, CGMRES's
+    counts at most the record's, GMRES's within one, deviations within the
+    bar); then its CGMRES solve on both loops in this call, medians of 5:
+    steps and latch equal, x within 1e-10, a second replayed solve
+    bit-equal, the counters the replays' launches, the launches per replay
+    of each graph (the composite's 3 products with A and the solve's own
+    inside each ``arnoldi`` graph: kernel #1 at (3, 2), the ELL's torch ops
+    at (4, 3) and (5, 4)), ``time_capture`` and the idle share of each loop
+    under the profiler; the (3, 2) row once more with ``cgs2_fused`` on the
+    device core (kernel #5 once per ``arnoldi`` replay).  Returns the
+    launches of each path and the walls."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        time_cgmres,
+    )
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    paths, walls = {}, {}
+    for name in LKDVRK_ROWS:
+        s, pre = kept[name]
+        rec = record[name]
+        cfg = rec["config"]
+        tag = f"[{name} graph_core]"
+        _reset_launches()
+        row = time_cgmres("lkdvrk", k=cfg["k"], tol=cfg["tol"],
+                          pre_builder=lambda system: pre, device=DEVICE,
+                          loop="while", **cfg["params"])
+        torch.cuda.synchronize()
+        row_launches = _read_launches()
+        devs = max(row["conservation"][f"cgmres_{nm}"]
+                   for nm in row["invariant_names"])
+        print(f"{tag} time_cgmres(loop='while'): gmres {row['gmres_steps']} "
+              f"steps (record {rec['gmres']['steps']}) "
+              f"{1e3 * row['time_gmres']:.3f} ms; cgmres "
+              f"{_rk_counts(rec['cgmres'], row)}, safety {row['safety']}, "
+              f"runtime {1e3 * row['runtime']:.3f} ms (phase 1 "
+              f"{1e3 * row['iter_time_unconstrained']:.3f} ms/iteration, "
+              f"catch-up {1e3 * row['constraint_building']:.3f} ms, endgame "
+              f"{1e3 * row['iter_time_constrained']:.3f} ms/iteration), "
+              f"time_capture {row['time_capture']:.3f} s, warm-up pass "
+              f"(captures) {row['compile_time']:.3f} s; largest deviation "
+              f"{devs:.3e}; launches over the row "
+              f"{ {k: v for k, v in row_launches.items() if v} }")
+        check(row["safety"] is True, f"{tag} the row's safety "
+                                     f"{row['safety']}")
+        _check_at_most(tag + " row", row, rec["cgmres"],
+                       ("steps", "constrained_steps"))
+        check(abs(row["gmres_steps"] - rec["gmres"]["steps"]) <= 1,
+              f"{tag} the row's gmres steps {row['gmres_steps']}")
+        check(devs <= DEVIATION_MAX, f"{tag} the row's deviation {devs:.3e}")
+        cg.clear_core_cache()
+
+        kw = dict(k=cfg["k"], tol=cfg["tol"], pre=pre,
+                  constraints=s.constraints())
+
+        def host():
+            return cg.cgmres(s.A, s.b, **kw)
+
+        def graphs(timing=False, ortho="cgs2"):
+            return cg.cgmres(s.A, s.b, loop="while", timing=timing,
+                             ortho=ortho, **kw)
+
+        xg, ig = graphs(timing=True)
+        runner = cg.last_core().runner
+        before = dict(runner.replayed)
+        _reset_launches()
+        x2, i2 = graphs()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        expected = _replayed(runner, before)
+        per_replay = runner.launches()
+        (xh, ih), host_walls = _timed(host)
+        _, graph_walls = _timed(graphs)
+        hp, gp = _profiled(host), _profiled(graphs)
+        hmed, med = _median(host_walls), _median(graph_walls)
+        res = float(torch.linalg.norm(s.b - s.A @ xg))
+        dia_a = type(s.A).__name__ == "DIA"
+        print(f"{tag} cgmres on the device core: steps {ig['steps']}, "
+              f"constrained {ig['constrained_steps']}, safety "
+              f"{ig['safety']}, KKT deviation {ig['deviation']:.3e}, true "
+              f"residual {res:.4e} (tol {cfg['tol']:.0e}); host loop "
+              f"{ih['steps']} / {ih['constrained_steps']} / {ih['safety']}; "
+              f"x against the host loop {_rel(xg, xh):.3e}; a second solve "
+              f"bit-equal {bool(torch.equal(xg, x2))}")
+        print(f"{tag} wall, median of {GRAPH_SOLVES}: host loop "
+              f"{1e3 * hmed:.3f} ms ({_ms(host_walls)}), device core "
+              f"{1e3 * med:.3f} ms ({_ms(graph_walls)}); time_capture "
+              f"{runner.time_capture:.3f} s ({runner.captures} graphs); "
+              f"profiled: host loop busy {hp[1]:.3f} ms, idle {hp[2]:.3f}; "
+              f"device core busy {gp[1]:.3f} ms, idle {gp[2]:.3f}; busy over "
+              f"the unprofiled medians: host loop "
+              f"{1.0 - hp[1] / 1e3 / hmed:.3f} idle, device core "
+              f"{1.0 - gp[1] / 1e3 / med:.3f} idle")
+        print(f"{tag} launches over one solve "
+              f"{ {k: v for k, v in launches.items() if v} }; per replay by "
+              f"graph {per_replay}")
+        for key in ("steps", "constrained_steps", "safety"):
+            check(ig[key] == ih[key] == i2[key],
+                  f"{tag} {key}: device core {ig[key]}, host loop {ih[key]}")
+        check(ig["safety"] is True and ig["deviation"] <= DEVIATION_MAX,
+              f"{tag} safety {ig['safety']}, deviation {ig['deviation']:.3e}")
+        check(math.isfinite(res) and res < cfg["tol"],
+              f"{tag} true residual {res:.3e}")
+        check(_rel(xg, xh) <= 1e-10, f"{tag} x {_rel(xg, xh):.3e} from the "
+                                     f"host loop")
+        check(torch.equal(xg, x2), f"{tag} a second replayed solve differs")
+        check(launches == expected, f"{tag} launches {launches} are not the "
+                                    f"replays' {expected}")
+        nA = (1 + pre.degree) if dia_a else 0
+        check(per_replay.get("arnoldi", {}).get("dia_spmv", 0) == nA,
+              f"{tag} an arnoldi graph holds {per_replay.get('arnoldi')}, not "
+              f"{nA} products with A")
+        _check_dia_path(tag, launches, [op for op in (s.A, s.Mmat)
+                                        if type(op).__name__ == "DIA"])
+        paths[f"{name}_graph_core_row"] = row_launches
+        paths[f"{name}_graph_core"] = launches
+        walls[name] = {"graph_ms": 1e3 * med, "host_ms": 1e3 * hmed,
+                       "capture_s": runner.time_capture, "idle": gp[2],
+                       "host_idle": hp[2], "busy_ms": gp[1],
+                       "host_busy_ms": hp[1], "steps": ig["steps"]}
+        cg.clear_core_cache()
+        if name == LKDVRK_ROWS[0]:
+            graphs(ortho="cgs2_fused")  # captures
+            _reset_launches()
+            (xf, jf), fw = _timed(lambda: graphs(ortho="cgs2_fused"), reps=1)
+            torch.cuda.synchronize()
+            fl = _read_launches()
+            print(f"{tag} cgs2_fused on the device core: steps {jf['steps']}"
+                  f", safety {jf['safety']}, deviation {jf['deviation']:.3e},"
+                  f" wall {1e3 * fw[0]:.3f} ms; x against the host loop "
+                  f"{_rel(xf, xh):.3e}; kernel #5 launches "
+                  f"{fl['fused_update_matvec']}")
+            check(jf["safety"] is True and jf["steps"] == ih["steps"],
+                  f"{tag} cgs2_fused: steps {jf['steps']}, safety "
+                  f"{jf['safety']}")
+            check(_rel(xf, xh) <= 1e-10, f"{tag} cgs2_fused x "
+                                         f"{_rel(xf, xh):.3e}")
+            check(fl["fused_update_matvec"] == jf["steps"],
+                  f"{tag} kernel #5 launched {fl['fused_update_matvec']} "
+                  f"times over {jf['steps']} Arnoldi steps")
+            paths[f"{name}_graph_core_cgs2_fused"] = fl
+            cg.clear_core_cache()
+    return paths, walls
+
+
+def phase_lkdvrk_fused_evolve(record, s0, pre):
+    """(25) ``fused_evolve("lkdvrk")`` on the (3, 2) row's evolution of the
+    error sweep (M=400, N=10, T=1, k=50, tol=1e-3), the composite built
+    once on the row's system ``s0`` (the evolution's operators): the stage
+    vector from zeros, as the JAX package's, the state carried in a static
+    buffer.  Held to ``lkdvrk_M400_deg3_s2_evolve``: every step certified,
+    no KKT fallback, steps at most the record's, the mass and momentum
+    drifts within max(1e-10, 10× the record's).  Its energy drift jumps at
+    the second step by the first solve's algebraic residual, where
+    ``step_update`` re-derives the auxiliary fields: the record's evolution
+    starts its first solve from z0 over the stages, this one from zeros,
+    as the JAX ``fused_evolve``; so every series is held to the host-loop
+    ``evolve`` on the card from the same starts (the first from zeros, a
+    step's from the last stage vector after): equal steps, each series
+    within 1e-12·i·|e0| at step i, and the step walls side by side.  Then
+    the error sweep's evolution, ``run_single`` on ``loop="while"`` against
+    ``loop="host"``: its L2 error series within max(1e-6, 10× the record's
+    own drift) of the host loop's (PERF.md §2), its steps within one of
+    the host loop's (at tol=1e-3 a solve's last residual lies near tol,
+    where the rounding of either loop can add a step), and one
+    device core built for all its steps, whose captures all come in its
+    first steps.  Returns the launches of each path and the walls."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import (
+        error_sweep,
+        wrappers,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        evolve,
+        fused_evolve,
+    )
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    rec = record[LKDVRK_EVOLVE]
+    cfg = rec["config"]
+    (degree, tstages, tol), = cfg["grid"]
+    run = rec["runs"][f"CGMRES_{degree}_{tstages}"]
+    tag = f"[{LKDVRK_ROWS[0]}_fused_evolve]"
+    params = dict(N=cfg["N"], M=cfg["M"], degree=degree, tstages=tstages,
+                  T=1.0)
+    check(math.isclose(s0.prob.dt, 1.0 / cfg["N"]) and s0.prob.M == cfg["M"],
+          f"{tag} the row's system is not the evolution's")
+
+    def fused():
+        return fused_evolve("lkdvrk", k=cfg["k"], tol=tol, pre=pre,
+                            device=DEVICE, **params)
+
+    # the set-up's launches outside the graphs: the core is built for the
+    # first system's constraints, whose stage mapping multiplies z0 by the
+    # mass matrix
+    _reset_launches()
+    s0.constraints()
+    torch.cuda.synchronize()
+    setup = _read_launches()
+    _reset_launches()
+    out = fused()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    t = out["timings"]
+    starts, solves = [], []
+
+    def solver(system, x0=None, **kw):  # zeros for the first solve
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        if not solves:
+            x0 = torch.zeros_like(system.b)
+        solves.append(1)
+        return wrappers.cgmres_wrapper(system, x0=x0, **kw)
+
+    host = evolve("lkdvrk", k=cfg["k"], tol=tol, pre=pre, solver=solver,
+                  device=DEVICE, **params)
+    torch.cuda.synchronize()
+    starts.append(time.perf_counter())
+    host_walls = [b - a for a, b in zip(starts, starts[1:])]
+    box = {}
+    prof = _profiled(lambda: box.setdefault("out", fused()))[4]
+    wall, busy, _ = _window_busy(prof, "fused_evolve steps")
+    cap = 1e3 * box["out"]["timings"]["time_capture"]
+    e0 = abs(host["energy"][0])
+    gaps = {key: max(abs(float(a) - float(b)) / (i + 1) for i, (a, b) in
+                     enumerate(zip(out[key], host[key][1:])))
+            for key in ("dm", "dmo", "de")}
+    print(f"{tag} steps {list(map(int, out['steps']))} (record "
+          f"{run['steps']}; host loop from the same starts {host['steps']}),"
+          f" safety {list(map(int, out['safety']))}, fallbacks "
+          f"{list(map(int, out['fallbacks']))}; dm {list(out['dm'])} (record "
+          f"{run['dm'][1:]}); dmo {list(out['dmo'])}; de/|e0| "
+          f"{[float(d / e0) for d in out['de']]} (record "
+          f"{[d / e0 for d in run['de'][1:]]}); largest gap to the host loop "
+          f"per step {gaps}")
+    print(f"{tag} step walls {_ms(t['step_wall'])} ms, of them capture "
+          f"{_ms(t['step_capture'])} ms; host-loop evolve step walls "
+          f"{_ms(host_walls)} ms; profiled warm evolution: wall {wall:.3f} ms,"
+          f" capture {cap:.3f} ms, busy {busy:.3f} ms, idle share of the "
+          f"wall less capture {1.0 - busy / (wall - cap):.3f}")
+    print(f"{tag} launches over the evolution "
+          f"{ {k: v for k, v in launches.items() if v} }; per replay by graph "
+          f"{t['launches_per_replay']}")
+    check(len(out["steps"]) == cfg["N"], f"{tag} ran {len(out['steps'])} steps")
+    check(all(int(sf) == 1 for sf in out["safety"]),
+          f"{tag} safety {out['safety']}")
+    check(not out["fallbacks"].any(), f"{tag} KKT fallbacks")
+    check(all(int(a) <= b for a, b in zip(out["steps"], run["steps"])),
+          f"{tag} steps {out['steps']} vs record {run['steps']}")
+    for key in ("dm", "dmo"):
+        check(all(d <= max(1e-10, 10.0 * r)
+                  for d, r in zip(out[key], run[key][1:])),
+              f"{tag} {key} {out[key]} vs record {run[key]}")
+    check(list(map(int, out["steps"])) == host["steps"],
+          f"{tag} steps {out['steps']} vs the host loop's {host['steps']}")
+    check(all(g <= 1e-12 * e0 for g in gaps.values()),
+          f"{tag} drifts off the host loop's: {gaps}")
+    check(bool(torch.isfinite(out["sol"]).all())
+          and out["sol"].shape == s0.b.shape,
+          f"{tag} sol is not a finite stage vector")
+    replayed = {nm: t["launches"].get(nm, 0) + setup[nm] for nm in launches}
+    check(launches == replayed, f"{tag} launches {launches} are not the "
+                                f"replays' and the set-up's {replayed}")
+    _check_dia_path(tag, launches, [op for op in (s0.A, s0.Mmat, s0.Gmat)
+                                    if type(op).__name__ == "DIA"])
+    paths = {f"{LKDVRK_ROWS[0]}_fused_evolve": launches}
+    walls = {"fused_step_ms": [1e3 * w for w in t["step_wall"]],
+             "fused_capture_ms": [1e3 * w for w in t["step_capture"]],
+             "host_step_ms": [1e3 * w for w in host_walls],
+             "idle": 1.0 - busy / (wall - cap)}
+    cg.clear_core_cache()
+
+    # the error sweep's evolution on both loops
+    tag = f"[{LKDVRK_EVOLVE} while]"
+    tmpdir = ROOT / "build" / "chip_smoke"
+    cores, step_starts = [], []
+    solve = wrappers.cgmres_wrapper
+
+    def noted(system, **kw):  # the core of each step, and its start
+        torch.cuda.synchronize()
+        step_starts.append(time.perf_counter())
+        x, info = solve(system, **kw)
+        cores.append(cg.last_core())
+        return x, info
+
+    args = dict(N=cfg["N"], M=cfg["M"], k=cfg["k"])
+    _reset_launches()
+    wrappers.cgmres_wrapper = noted
+    try:
+        dev = error_sweep.run_single("CGMRES", degree, tstages, tol,
+                                     tmpdir=str(tmpdir / "while"),
+                                     loop="while", device=DEVICE, **args)
+    finally:
+        wrappers.cgmres_wrapper = solve
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    dev_launches = _read_launches()
+    dev_walls = [b - a for a, b in zip(step_starts, step_starts[1:] + [t_end])]
+    runner = cores[0].runner
+    hst = error_sweep.run_single("CGMRES", degree, tstages, tol,
+                                 tmpdir=str(tmpdir / "host2"), device=DEVICE,
+                                 **args)
+
+    def rel(a, b):
+        return max(abs(x - y) for x, y in zip(a, b)) / max(abs(y) for y in b)
+
+    bar = max(1e-6, 10.0 * run["own_drift"])
+    err, err_host = [float(e) for e in dev["err"]], [float(e) for e in hst["err"]]
+    print(f"{tag} steps {dev['steps']} (host loop {hst['steps']}, record "
+          f"{run['steps']}); step walls {_ms(dev_walls)} ms; one core for "
+          f"the evolution {all(c is cores[0] for c in cores)}, "
+          f"{runner.captures} graphs captured, replays "
+          f"{sum(runner.replayed.values())}; err against the host loop "
+          f"{rel(err, err_host):.3e} (bar {bar:.3e}), against the record "
+          f"{rel(err, run['err']):.3e}; dm {[float(d) for d in dev['dm']]}")
+    check(all(c is cores[0] for c in cores),
+          f"{tag} more than one device core for one evolution")
+    check(all(abs(a - b) <= 1 for a, b in zip(dev["steps"], hst["steps"])),
+          f"{tag} steps {dev['steps']} vs the host loop's {hst['steps']}")
+    check(len(err) == len(err_host) and rel(err, err_host) <= bar,
+          f"{tag} error series off the host loop's by "
+          f"{rel(err, err_host):.3e} (bar {bar:.3e})")
+    check(all(d <= 1e-9 for d in dev["dm"]), f"{tag} mass drift {dev['dm']}")
+    check(dev_launches["dia_spmv"] > 0, f"{tag} kernel #1 never launched")
+    paths[f"{LKDVRK_EVOLVE}_while"] = dev_launches
+    walls["sweep_step_ms"] = [1e3 * w for w in dev_walls]
+    walls["sweep_captures"] = runner.captures
+    cg.clear_core_cache()
+    return paths, walls
+
+
+def phase_lkdvrk_batched(record, kept):
+    """(26) ``cgmres_many`` on the (3, 2) and (5, 4) grid rows at B = 8
+    with the composite that phase 14 built, item i the row's system
+    stepped by ``lkdvrk_stage_states`` (u1 = u0 + 0.02 i·p): every item
+    certified, its steps equal to its single device-core solve's and x
+    within 1e-10 of it, its true residual below tol; every product of the
+    batch with a DIA through #1b and none through #1 (the composite's RAS
+    one ``torch.bmm`` of the inverses with the 8 vectors: at (5, 4) 2.6 GB
+    read once a block apply); the counters the replays' launches; the
+    median wall of 5 batched solves beside the median of 5 rounds of the 8
+    single solves, ``time_capture`` and the idle share.  Returns per row its
+    launches and walls."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    ref = _reference_script()
+    rows = {}
+    for name in RK_BATCH_ROWS:
+        s, pre = kept[name]
+        cfg = record[name]["config"]
+        k, tol = cfg["k"], cfg["tol"]
+        tag = f"[{name}_B{RK_B}]"
+        p = ref.lkdvrk_field(s.fem, s.prob.mlength,
+                             s.z0[:s.n0].cpu().numpy())
+        states = torch.as_tensor(ref.lkdvrk_stage_states(
+            p, RK_B, s.prob.ns, s.n0, s.prob.dt), device=DEVICE)
+        items = [s.step_update(z) for z in states]
+        Bs = torch.stack([t.b for t in items])
+        cons = [t.constraints() for t in items]
+
+        def many():
+            return cgmres_many(s.A, Bs, cons, k=k, tol=tol, pre=pre)
+
+        (X, info), first = _timed(many, reps=1)
+        runner = cg.last_core().runner
+        capture = runner.time_capture
+        _, walls = _timed(many)
+        before = dict(runner.replayed)
+        _reset_launches()
+        X2, _ = many()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        expected = _replayed(runner, before)
+        per_replay = runner.launches()
+        prof = _profiled(many)
+        cg.clear_core_cache()
+
+        def singles():
+            return [cg.cgmres(s.A, t.b, k=k, tol=tol, pre=pre,
+                              constraints=c, loop="while")
+                    for t, c in zip(items, cons)]
+
+        singles()  # the first item's solve captures the graphs
+        one, single_walls = _timed(singles)
+        cg.clear_core_cache()
+        med, smed = _median(walls), _median(single_walls)
+        true_res = [float(torch.linalg.norm(t.A @ x - t.b))
+                    for t, x in zip(items, X)]
+        x_rel = [_rel(X[i], xs) for i, (xs, _) in enumerate(one)]
+        print(f"{tag} B={RK_B}, k={k}, tol={tol:.0e}: steps "
+              f"{list(map(int, info['steps']))} (single solves "
+              f"{[i1['steps'] for _, i1 in one]}), safety "
+              f"{list(map(int, info['safety']))}, KKT deviation "
+              f"{['%.2e' % d for d in info['deviation']]}, true residual "
+              f"{['%.2e' % r for r in true_res]}; x against each single "
+              f"solve {['%.2e' % r for r in x_rel]}; a second batched solve "
+              f"bit-equal {bool(torch.equal(X, X2))}")
+        print(f"{tag} wall, median of {GRAPH_SOLVES}: batched {1e3 * med:.3f} "
+              f"ms ({_ms(walls)}), the {RK_B} single device-core solves "
+              f"{1e3 * smed:.3f} ms ({_ms(single_walls)}); first batched "
+              f"solve (capturing) {1e3 * first[0]:.1f} ms, time_capture "
+              f"{1e3 * capture:.1f} ms ({runner.captures} graphs); profiled: "
+              f"busy {prof[1]:.3f} ms, idle {prof[2]:.3f}")
+        print(f"{tag} launches over one batched solve "
+              f"{ {k2: v for k2, v in launches.items() if v} }; per replay "
+              f"by graph {per_replay}")
+        for i, (_, i1) in enumerate(one):
+            check(int(info["safety"][i]) == 1
+                  and info["deviation"][i] <= DEVIATION_MAX,
+                  f"{tag} item {i}: safety {info['safety'][i]}, deviation "
+                  f"{info['deviation'][i]:.3e}")
+            check(int(info["steps"][i]) == i1["steps"],
+                  f"{tag} item {i}: {info['steps'][i]} steps, its single "
+                  f"solve {i1['steps']}")
+            check(true_res[i] < tol, f"{tag} item {i}: true residual "
+                                     f"{true_res[i]:.3e}")
+            check(x_rel[i] <= 1e-10, f"{tag} item {i}: x {x_rel[i]:.3e} from "
+                                     f"its single solve")
+        check(torch.equal(X, X2), f"{tag} a second batched solve differs")
+        check(launches == expected, f"{tag} launches {launches} are not the "
+                                    f"replays' {expected}")
+        check(launches["dia_spmm"] > 0 and launches["dia_spmv"] == 0,
+              f"{tag} the batch's DIA products did not all run #1b: "
+              f"{launches}")
+        rows[f"{name}_B{RK_B}"] = {
+            "launches": launches, "wall_ms": 1e3 * med,
+            "single_ms": 1e3 * smed, "capture_s": capture, "idle": prof[2],
+            "busy_ms": prof[1]}
+    return rows
+
+
+def phase_lkdv_core_extras():
+    """(27) The device core's general constraints and history: CGMRES on
+    lkdv M=100, degree 3 (phase 16's system) with the energy as a
+    ``GeneralConstraint`` on the device core, whose ``kkt_start`` graph
+    holds its Taylor model (the value through kernel #1, the Hessian's
+    vmapped products one launch of #1b at width j + 1) and whose
+    ``kkt_finish`` graph re-checks the true g; and a ``history=True`` solve
+    of the quadratic constraints on the device core.  Each against the host
+    loop on the card: steps and latch equal, certified.  This solve runs to
+    k at a residual of 5e-4, O(tol) from the solution, so the two loops'
+    rounding moves x by more than roundoff (4.6e-6, as phase 3 finds for
+    its quadratic solve): the general solve's x is held to the device
+    core's quadratic solve within 1e-6 (the bar of
+    tests/test_cgmres_lkdv.py::test_general_constraint_matches_quadratic),
+    and the history to its own solve: row 0 is r0 (b, from x0 = 0), the
+    last row is x, bit for bit, and each row j + 1's true residual is the
+    solve's ``res[j]`` within 1e-12 relative.  Returns the launches of
+    each."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.constraints import (
+        GeneralConstraint,
+    )
+    from structurepreservingiterativesolvers_torch.models import lkdv
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    s = lkdv.linforms(device=DEVICE, **GENERAL)
+    mass, mom, energy_q = s.constraints()
+
+    def energy(x):
+        u, _, w = torch.split(x, s.n0)
+        return (0.5 * torch.dot(w, s.Mmat @ w) - 0.5 * torch.dot(u, s.Mmat @ u)
+                - s.e0)
+
+    gen = GeneralConstraint(func=energy, name="energy")
+    kw = dict(k=50, tol=1e-6)
+    xq, _ = cg.cgmres(s.A, s.b, constraints=[mass, mom, energy_q],
+                      loop="while", **kw)
+    cg.clear_core_cache()
+    paths = {}
+    for label, cons, extra in (("general", [mass, mom, gen], {}),
+                               ("history", [mass, mom, energy_q],
+                                {"history": True})):
+        tag = f"[lkdv hard {label} graph_core]"
+        xh, ih = cg.cgmres(s.A, s.b, constraints=cons, **kw, **extra)
+        cg.cgmres(s.A, s.b, constraints=cons, loop="while", **kw, **extra)
+        runner = cg.last_core().runner
+        before = dict(runner.replayed)
+        _reset_launches()
+        (xd, idv), w = _timed(lambda: cg.cgmres(
+            s.A, s.b, constraints=cons, loop="while", **kw, **extra), reps=1)
+        launches = _read_launches()
+        expected = _replayed(runner, before)
+        _, hw = _timed(lambda: cg.cgmres(s.A, s.b, constraints=cons, **kw,
+                                         **extra), reps=1)
+        dev = _deviations(s, xd)
+        print(f"{tag} steps {idv['steps']} (host loop {ih['steps']}), "
+              f"constrained {idv['constrained_steps']}, safety "
+              f"{idv['safety']}, KKT deviation {idv['deviation']:.3e}; "
+              f"deviations {dev}; x against the host loop "
+              f"{_rel(xd, xh):.3e}; wall {1e3 * w[0]:.3f} ms against the "
+              f"host loop's {1e3 * hw[0]:.3f} ms; time_capture "
+              f"{runner.time_capture:.3f} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        for key in ("steps", "constrained_steps", "safety"):
+            check(idv[key] == ih[key], f"{tag} {key}: device core {idv[key]},"
+                                       f" host loop {ih[key]}")
+        check(idv["safety"] is True and max(abs(d) for d in dev.values())
+              <= DEVIATION_MAX, f"{tag} safety {idv['safety']}, deviations "
+                                f"{dev}")
+        check(launches == expected, f"{tag} launches {launches} are not the "
+                                    f"replays' {expected}")
+        check(launches["dia_spmv"] > 0, f"{tag} kernel #1 never launched")
+        if label == "general":
+            print(f"{tag} x against the device core's quadratic solve "
+                  f"{_rel(xd, xq):.3e}")
+            check(_rel(xd, xq) <= 1e-6, f"{tag} x {_rel(xd, xq):.3e} from the "
+                                        f"quadratic solve")
+            check(launches["dia_spmm"] > 0,
+                  f"{tag} the Taylor model's Hessian did not run #1b")
+        else:
+            xs, xsh = idv["x"], ih["x"]
+            rows = torch.stack([torch.linalg.norm(s.A @ r - s.b)
+                                for r in xs[1:]])
+            res = torch.as_tensor(idv["res"], device=DEVICE)
+            gap = float(((rows - res).abs() / res).max())
+            print(f"{tag} history {tuple(xs.shape)}: rows' true residuals "
+                  f"against res {gap:.3e}; against the host loop's history "
+                  f"{_rel(xs, xsh):.3e}")
+            check(xs.shape == xsh.shape == (idv["steps"] + 1, s.b.shape[0])
+                  and torch.equal(xs[0], s.b) and torch.equal(xs[-1], xd)
+                  and gap <= 1e-12,
+                  f"{tag} history {tuple(xs.shape)}: row 0 r0 "
+                  f"{torch.equal(xs[0], s.b)}, last row x "
+                  f"{torch.equal(xs[-1], xd)}, residuals off res by {gap:.3e}")
+        paths[f"lkdv_hard_{label}_graph_core"] = launches
+        cg.clear_core_cache()
+    return paths
+
+
+def _check_path_spmm_any(shapes, path, gen):
+    """``_check_path_spmm`` where ``path`` gave the batched kernel any
+    operator (a device-core row whose gate opens at its first step has no
+    catch-up); returns the largest f64 error, 0 where it gave none."""
+    if not shapes.ops.get(path):
+        shapes.ops.pop(path, None)
+        print(f"[spmm] {path}: no batched launch on this path")
+        return 0.0
+    return _check_path_spmm(shapes, path, gen)[0]
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -3689,7 +4292,8 @@ def main() -> int:
         rk_sys.A, 8, f"{LKDVRK_ROWS[0]} A", gen9, rk_sys.A_csr)
     torch.cuda.synchronize()
     shapes.path("lkdvrk rows")
-    rk_rows = phase_lkdvrk_rows(records["slice7.json"])
+    kept = {}
+    rk_rows = phase_lkdvrk_rows(records["slice7.json"], keep=kept)
     torch.cuda.synchronize()
     shapes.checks()
     n0 = rk_sys.Mmat.shape[0]
@@ -3707,6 +4311,45 @@ def main() -> int:
     shapes.path("lkdv_hard_general")
     general_launches = phase_general()
     torch.cuda.synchronize()
+    # the twelfth slice: lkdvRK under the graph core (phases 24-27), on the
+    # systems and preconditioners of phase 14; #1 on the operators these
+    # paths add, #1b on every (operator, width) each path gave it
+    shapes.checks()
+    gen12 = torch.Generator(device=DEVICE).manual_seed(13)
+    for name, (s12, _) in kept.items():
+        dia_rk_err = max(dia_rk_err, _check_dia(f"{name} Mmat", s12.Mmat,
+                                                gen12))
+    s32, pre32 = kept[LKDVRK_ROWS[0]]
+    dia_rk_err = max(dia_rk_err, _check_dia(f"{LKDVRK_ROWS[0]} Gmat",
+                                            s32.Gmat, gen12))
+    shapes.path("lkdvrk_graph_core", keep=True)
+    rk12, rk12_walls = phase_lkdvrk_graph(records["slice7.json"], kept)
+    torch.cuda.synchronize()
+    shapes.checks()
+    spmm_err = max(spmm_err, _check_path_spmm_any(shapes, "lkdvrk_graph_core",
+                                                  gen12))
+    shapes.path(f"{LKDVRK_ROWS[0]}_fused_evolve", keep=True)
+    paths, rk12_walls["fused_evolve"] = phase_lkdvrk_fused_evolve(
+        records["slice7.json"], s32, pre32)
+    rk12.update(paths)
+    torch.cuda.synchronize()
+    shapes.checks()
+    spmm_err = max(spmm_err, _check_path_spmm_any(
+        shapes, f"{LKDVRK_ROWS[0]}_fused_evolve", gen12))
+    shapes.path("lkdvrk_B8", keep=True)
+    rk_batch = phase_lkdvrk_batched(records["slice7.json"], kept)
+    rk12.update({name: row["launches"] for name, row in rk_batch.items()})
+    torch.cuda.synchronize()
+    shapes.checks()
+    spmm_err = max(spmm_err, _check_path_spmm_any(shapes, "lkdvrk_B8", gen12))
+    del kept, s32, pre32, s12
+    torch.cuda.empty_cache()
+    shapes.path("lkdv_hard_graph_core", keep=True)
+    rk12.update(phase_lkdv_core_extras())
+    torch.cuda.synchronize()
+    shapes.checks()
+    spmm_err = max(spmm_err, _check_path_spmm_any(
+        shapes, "lkdv_hard_graph_core", gen12))
     err9, swe_spmm, batch_rows = phase_batched(records["slice9.json"], shapes)
     spmm_err = max(spmm_err, err9)
     torch.cuda.synchronize()
@@ -3758,7 +4401,7 @@ def main() -> int:
     rk_paths = {**{name: row["launches"] for name, row in rk_rows.items()},
                 f"{LKDVRK_ROWS[0]}_cgs2_fused": rk_rows[LKDVRK_ROWS[0]]["fused"],
                 LKDVRK_EVOLVE: rk_evolve_launches,
-                "lkdv_hard_general": general_launches}
+                "lkdv_hard_general": general_launches, **rk12}
 
     def by_path(name, **first):
         """A kernel's launches on each path that ran it."""
@@ -3889,6 +4532,10 @@ def main() -> int:
                                   "time_pre_first", "runtime", "time_gmres",
                                   "cgmres_over_gmres", "wall", "composite")}
         for name, row in rk_rows.items()}))
+    print("[lkdvrk12] " + json.dumps({"walls": rk12_walls, "batched": {
+        name: {key: row[key] for key in ("wall_ms", "single_ms", "capture_s",
+                                         "idle", "busy_ms")}
+        for name, row in rk_batch.items()}}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

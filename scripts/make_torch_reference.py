@@ -15,7 +15,12 @@ TimedSolve row), ``slice8.json`` (the JAX package's ``fused_evolve``),
 ``slice9.json`` (the JAX package's batched ``cgmres_many``, ``BATCHED``) and
 ``slice11.json`` (heat on the JAX package's device core: ``cgmres`` on its
 default loop with each of heat's four preconditioners, ``cgmres_many`` on
-heat with each of them, and ``fused_evolve`` on heat with the AMG):
+heat with each of them, and ``fused_evolve`` on heat with the AMG) and
+``slice12.json`` (lkdvRK on the JAX package's device core, ``SLICE12``:
+``evolve`` and ``fused_evolve`` of one small evolution, the chained record
+and the one with the JAX ``fused_evolve``'s state fault; ``cgmres_many``
+with the RAS + Neumann composite and with RAS alone; ``cgmres`` with a
+general constraint and with ``history``):
 for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
@@ -121,6 +126,27 @@ SLICE11 = {"heat_M64_amg_while", "heat_M64_cheb8_while",
            "heat_M64_amg_fused", "heat_M32_amg_B3", "heat_M32_cheb8_B3",
            "heat_M32_neu4_B3", "heat_M32_jacobi_B3"}
 
+# the configurations whose records go to slice12.json: lkdvRK M=20, (3, 2)
+# (n = 480), four steps of dt = 0.1 with the composite of
+# default_pre_builder("lkdvrk") built on the first system, at k=50,
+# tol=1e-8, through the JAX evolve (the chained stepped systems) and the
+# JAX fused_evolve (each step from sys0.step_update of the stage vector:
+# from the third step on the initial state plus the last increment); the
+# same system's batches of 3 (``BATCHED``, items ``stages``); lkdv degree 3,
+# M=50 with the energy as a GeneralConstraint, and lkdv degree 2, M=50 with
+# history (``CORE``)
+SLICE12 = {"lkdvrk_M20_evolve", "lkdvrk_M20_fused", "lkdvrk_M20_B3",
+           "lkdvrk_M20_ras_B3", "lkdv_M50_general", "lkdv_M50_history"}
+LKDVRK_SMALL = dict(M=20, N=4, degree=3, tstages=2, T=0.4)
+
+# the JAX cgmres on its default loop (the device core): name -> (linforms
+# parameters of lkdv, k, tol, what it records: "general" (the energy as a
+# GeneralConstraint) or "history")
+CORE = {
+    "lkdv_M50_general": (dict(M=50, degree=3, N=100), 50, 1e-6, "general"),
+    "lkdv_M50_history": (dict(M=50, degree=2, N=100), 50, 1e-8, "history"),
+}
+
 # evolutions: name -> (problem, evolve/linforms parameters, k, tol,
 # preconditioner built on the evolution's first system).  swe at M=512 runs
 # three steps of dt = T/N = 0.1, the dt of the TimedSolve row; swe M=16 is
@@ -132,6 +158,7 @@ EVOLVES = {
     "swe_M16_evolve": ("swe", dict(M=16, N=5, T=1.0), 20, 1e-7, "snc"),
     "lkdv_M50_evolve": ("lkdv", dict(M=50, N=10, degree=2), 30, 1e-6, None),
     "heat_M16_cheb8_evolve": ("heat", dict(M=16, N=5), 25, 1e-8, CHEB8),
+    "lkdvrk_M20_evolve": ("lkdvrk", LKDVRK_SMALL, 50, 1e-8, "default"),
 }
 
 
@@ -149,6 +176,7 @@ FUSED = {
     # heat M=64, three steps of the default dt (T=10, N=3), with the AMG of
     # the TimedSolve row built on the first system, at the row's k and tol
     "heat_M64_amg_fused": ("heat", dict(M=64, N=3), 20, 1e-7, "amg"),
+    "lkdvrk_M20_fused": ("lkdvrk", LKDVRK_SMALL, 50, 1e-8, "default"),
 }
 
 
@@ -193,6 +221,14 @@ BATCHED = {
     "heat_M32_neu4_B3": ("heat", dict(M=32), 3, 30, 1e-7, NEU4, "smooth"),
     "heat_M32_jacobi_B3": ("heat", dict(M=32), 3, 60, 1e-7, JACOBI,
                            "smooth"),
+    # the twelfth slice: lkdvRK M=20, (3, 2) at B = 3 with the RAS +
+    # Neumann composite of default_pre_builder("lkdvrk") and with its RAS
+    # alone, item i the stepped system of ``lkdvrk_stage_states``
+    "lkdvrk_M20_B3": ("lkdvrk", dict(M=20, degree=3, tstages=2, N=4, T=0.4),
+                      3, 50, 1e-8, "default", "stages"),
+    "lkdvrk_M20_ras_B3": ("lkdvrk", dict(M=20, degree=3, tstages=2, N=4,
+                                         T=0.4),
+                          3, 50, 1e-8, "ras", "stages"),
 }
 
 
@@ -241,6 +277,36 @@ def heat_smooth_field(M: int, z0):
     return p * (np.abs(z0).max() / np.abs(p).max())
 
 
+def lkdvrk_field(fem, mlength, u0):
+    """A smooth periodic perturbation of an lkdvRK u field: the projection
+    onto ``fem`` (either package's ``Space1D``) of the lowest 3 Fourier
+    modes of the periodic interval [0, mlength), a_m cos(2 pi m x / L) -
+    b_m sin(2 pi m x / L) for m = 0, 1, 2, with (a_m, b_m) drawn N(0, 1)
+    from numpy's generator of seed 0, scaled so that max|p| = max|u0|."""
+    import numpy as np
+
+    amp = np.random.default_rng(0).standard_normal((3, 2))
+
+    def f(x):
+        return sum(a * np.cos(2.0 * np.pi * m * x / mlength)
+                   - b * np.sin(2.0 * np.pi * m * x / mlength)
+                   for m, (a, b) in enumerate(amp))
+
+    p = np.asarray(fem.project(f), dtype=np.float64)
+    return p * (np.abs(np.asarray(u0)).max() / np.abs(p).max())
+
+
+def lkdvrk_stage_states(p, B, ns, n0, dt):
+    """The stage vectors zbig_i (B, ns·3·n0) whose ``step_update`` gives
+    the items of an lkdvRK batch: 0.02 i·p/dt in every stage's u block and
+    zeros elsewhere, so that u1 = u0 + 0.02 i·p (the weights sum to one)."""
+    import numpy as np
+
+    Z = np.zeros((B, ns, 3, n0))
+    Z[:, :, 0] = 0.02 * np.arange(B)[:, None, None] * np.asarray(p) / dt
+    return Z.reshape(B, -1)
+
+
 def batch_states(name, z0):
     """The states z_i (B, n) whose ``step_update`` gives the items of
     ``BATCHED[name]``, from the system's z0 (numpy, f64): ``scaled``
@@ -267,6 +333,8 @@ def out_path(name) -> Path:
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in SLICE12:
+        return REFERENCE / "slice12.json"
     if name in SLICE11:
         return REFERENCE / "slice11.json"
     if name in BATCHED:
@@ -325,6 +393,8 @@ def pre_builder(name):
 
     if pre in ("amg", "snc", "default"):
         return default_pre_builder(problem)
+    if pre == "ras":  # the composite's inner RAS alone
+        return lambda s: default_pre_builder(problem)(s).inner
     builder, kwargs = pre
     return lambda s: getattr(precond, builder)(s.A, **kwargs)
 
@@ -424,11 +494,12 @@ def record_evolve(name):
 
     from structurepreservingiterativesolvers_tpu.experiments import wrappers
     from structurepreservingiterativesolvers_tpu.experiments.evolve import evolve
+    from structurepreservingiterativesolvers_tpu.experiments.single_solve import (
+        get_model,
+    )
 
     problem, params, k, tol, pre_spec = EVOLVES[name]
-    from structurepreservingiterativesolvers_tpu.models import heat, lkdv, swe
-
-    s = {"lkdv": lkdv, "swe": swe, "heat": heat}[problem].linforms(**params)
+    s = get_model(problem).linforms(**params)
     build = pre_builder(name)
     pre = None if build is None else build(s)
     infos = []
@@ -453,7 +524,9 @@ def record_evolve(name):
         "drift": {key: [float(v) for v in np.asarray(out[key])]
                   for key in ("dm", "dmo", "de") if key in out},
     }
-    if pre_spec is not None:
+    if pre_spec == "default":
+        rec["config"]["pre"] = "default"
+    elif pre_spec is not None:
         _pre_fields(rec, pre_spec, pre)
     return rec
 
@@ -469,10 +542,12 @@ def record_fused(name):
     from structurepreservingiterativesolvers_tpu.experiments.evolve import (
         fused_evolve,
     )
-    from structurepreservingiterativesolvers_tpu.models import heat, lkdv, swe
+    from structurepreservingiterativesolvers_tpu.experiments.single_solve import (
+        get_model,
+    )
 
     problem, params, k, tol, pre_spec = FUSED[name]
-    s = {"lkdv": lkdv, "swe": swe, "heat": heat}[problem].linforms(**params)
+    s = get_model(problem).linforms(**params)
     build = pre_builder(name)
     pre = None if build is None else build(s)
     out = fused_evolve(problem, k=k, tol=tol, pre=pre, **params)
@@ -492,9 +567,77 @@ def record_fused(name):
     if pre_spec == "amg":
         rec["config"]["pre"] = "amg"
         rec["amg_levels"] = [int(L.A.shape[0]) for L in pre.levels]
+    elif pre_spec == "default":
+        rec["config"]["pre"] = "default"
     elif pre_spec is not None:
         _pre_fields(rec, pre_spec, pre)
     return rec
+
+
+def record_core(name):
+    """Run the JAX ``cgmres`` on its default loop (the device core) on
+    ``CORE[name]``: with the energy as a ``GeneralConstraint`` (beside the
+    quadratic mass and momentum), or with ``history``.  Returns its entry:
+    the steps, constrained steps, latch, KKT deviation, residual trace, the
+    invariants' deviations of x and x itself; with history the max-norm of
+    each row of ``xs`` (row 0 is r0).  Each with its own drift
+    (``own_drift``): how far the same solve moves x (and, with history,
+    each row's max-norm), max|Δ| / max|·|, when b is perturbed by
+    ``DRIFT_SIZE`` relative (seed 0).  The general solve runs to k without
+    reaching tol, where that drift is far above the rounding."""
+    _jax_cpu()
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.constraints.general import (
+        GeneralConstraint,
+    )
+    from structurepreservingiterativesolvers_tpu.models import lkdv
+    from structurepreservingiterativesolvers_tpu.solvers import cgmres
+
+    params, k, tol, kind = CORE[name]
+    s = lkdv.linforms(**params)
+    cons = list(s.constraints())
+    if kind == "general":
+        Mmat, e0 = s.Mmat, s.e0
+
+        def energy(x):
+            u, _, w = jnp.split(x, 3)
+            return (0.5 * jnp.dot(w, Mmat @ w) - 0.5 * jnp.dot(u, Mmat @ u)
+                    - e0)
+
+        cons[2] = GeneralConstraint(func=energy, name="energy")
+    x, info = cgmres(s.A, s.b, k=k, tol=tol, constraints=cons,
+                     history=kind == "history")
+    noise = np.random.default_rng(0).standard_normal(s.b.shape[0])
+    xp, infop = cgmres(s.A, s.b * (1.0 + DRIFT_SIZE * jnp.asarray(noise)),
+                       k=k, tol=tol, constraints=cons,
+                       history=kind == "history")
+
+    def drift(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+    inv = s.compute_invariants(x)
+    targets = {"mass": s.m0, "momentum": s.mo0, "energy": s.e0}
+    out = {
+        "config": {"problem": "lkdv", "params": params, "k": k, "tol": tol,
+                   "kind": kind, "loop": "while"},
+        "n": int(s.b.shape[0]),
+        "steps": int(info["steps"]),
+        "constrained_steps": int(info["constrained_steps"]),
+        "safety": info["safety"],
+        "deviation": float(info["deviation"]),
+        "res": [float(v) for v in np.asarray(info["res"])],
+        "deviations": {kk: float(inv[kk] - targets[kk]) for kk in inv},
+        "x": [float(v) for v in np.asarray(x)],
+        "own_drift": {"x": drift(xp, x)},
+    }
+    if kind == "history":
+        xs_max = np.abs(np.asarray(info["x"])).max(axis=1)
+        out["xs_max"] = [float(v) for v in xs_max]
+        out["own_drift"]["xs_max"] = drift(
+            np.abs(np.asarray(infop["x"])).max(axis=1), xs_max)
+    return out
 
 
 # the perturbations of b whose effect on an evolution's error series is
@@ -584,12 +727,18 @@ def record_sweep(name):
 
 def batch_systems(name, s):
     """The items of ``BATCHED[name]``: the JAX system ``s``'s
-    ``step_update`` of each state of ``batch_states``."""
+    ``step_update`` of each state of ``batch_states``, or, for lkdvRK
+    (``stages``), of each stage vector of ``lkdvrk_stage_states``."""
     import jax.numpy as jnp
     import numpy as np
 
-    return [s.step_update(jnp.asarray(z))
-            for z in batch_states(name, np.asarray(s.z0))]
+    if BATCHED[name][6] == "stages":
+        B, p = BATCHED[name][2], lkdvrk_field(s.fem, s.prob.mlength,
+                                              np.asarray(s.z0)[:s.n0])
+        states = lkdvrk_stage_states(p, B, s.prob.ns, s.n0, s.prob.dt)
+    else:
+        states = batch_states(name, np.asarray(s.z0))
+    return [s.step_update(jnp.asarray(z)) for z in states]
 
 
 def record_batched(name):
@@ -656,6 +805,9 @@ def record_batched(name):
                                 k, tol, pre)
     if pre_spec == "amg":
         out["config"]["pre"] = "amg"
+    elif pre_spec in ("default", "ras"):
+        out["config"]["pre"] = pre_spec
+        out["x"] = [[float(v) for v in x] for x in X]
     elif pre_spec is not None:
         _pre_fields(out, pre_spec, pre)
     return out
@@ -710,7 +862,8 @@ def load(name):
 def main(names):
     import jax
 
-    for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED]:
+    for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED,
+                          *CORE]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
@@ -721,6 +874,7 @@ def main(names):
                      else record_fused(name) if name in FUSED
                      else record_sweep(name) if name in SWEEPS
                      else record_batched(name) if name in BATCHED
+                     else record_core(name) if name in CORE
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -10,7 +10,12 @@ pass, on the slice's configurations:
   TimedSolve pre-builder, or with ``--pre cheb8`` / ``--pre neu4`` the
   polynomial pre-builders ``chebyshev(A, degree=8)`` /
   ``neumann(A, degree=4)``, each apply one launch of the fused kernel (its
-  tiled design on heat's stencil).
+  tiled design on heat's stencil);
+* ``lkdvrk``: the reference's error-sweep grid at M=400, N=10, k=50, the
+  row of ``--degree`` (3, 4 or 5: (degree, stages, tol) = (3, 2, 1e-3),
+  (4, 3, 1e-5), (5, 4, 1e-7)), with the RAS + Neumann composite of the
+  TimedSolve pre-builder (``--pre default``), each apply 4 RAS applies (a
+  gather, ``torch.bmm`` of the block inverses, a scatter) and 3 ``A @ z``.
 
 ``--ortho cgs2_fused`` runs the Arnoldi orthogonalisation's middle pair
 through the fused CGS2 kernel (default ``cgs2``, four cuBLAS products).
@@ -26,7 +31,9 @@ with ``--pre snc``, ``swe_M512_snc_B8`` at B = 8; heat: the lowest 3 x 3
 cosine modes, with any of heat's preconditioners, whose applies then run
 on the block: the V-cycle through the batched DIA kernel, a polynomial
 through the block forms of kernels #3 and #4, A through the stencil
-kernel's); it prints the median wall of 5 unprofiled solves after the
+kernel's; lkdvRK: the system stepped by ``lkdvrk_stage_states``, u1 =
+u0 + 0.02 i·p, the composite on the block, its RAS one ``torch.bmm`` of
+the inverses with the B vectors); it prints the median wall of 5 unprofiled solves after the
 capture, and each kernel's share of device busy beside the graphs'
 operations.
 
@@ -34,6 +41,7 @@ operations.
     python scripts/profile_torch.py --problem heat --loop while --batch 8 [--pre amg|cheb8|neu4]
     python scripts/profile_torch.py --problem swe [--pre none|snc] [--ortho cgs2|cgs2_fused] [--loop host|while]
     python scripts/profile_torch.py --problem swe --loop while --batch 8 [--pre snc]
+    python scripts/profile_torch.py --problem lkdvrk --loop while [--degree 3|4|5] [--batch 8]
 
 Prints the busiest device kernels, the device-busy time against the wall
 time of each solve (the device's idle share), the device time by kind
@@ -55,14 +63,20 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-CONFIGS = {"swe": dict(M=512, k=60, tol=1e-9), "heat": dict(M=1024, k=20, tol=1e-7)}
+CONFIGS = {"swe": dict(M=512, k=60, tol=1e-9), "heat": dict(M=1024, k=20, tol=1e-7),
+           "lkdvrk": dict(M=400, k=50)}
+# lkdvRK's grid rows (the reference's, lkdvRK/ErrorGenerator.py:28-39): by
+# degree, the stage count and tol
+LKDVRK_ROWS = {3: (2, 1e-3), 4: (3, 1e-5), 5: (4, 1e-7)}
 # the swe TimedSolve row with its preconditioner
 SNC_CONFIG = dict(M=512, k=20, tol=1e-7)
 # the profiler range around each preconditioner apply, per --pre
 PRE_RANGES = {"amg": "amg_vcycle", "cheb8": "chebyshev_apply",
-              "neu4": "neumann_apply", "snc": "skew_normal_chebyshev_apply"}
+              "neu4": "neumann_apply", "snc": "skew_normal_chebyshev_apply",
+              "default": "ras_neumann_apply"}
 # the preconditioners of each problem; the first is the default
-PRES = {"swe": ("none", "snc"), "heat": ("amg", "cheb8", "neu4")}
+PRES = {"swe": ("none", "snc"), "heat": ("amg", "cheb8", "neu4"),
+        "lkdvrk": ("default",)}
 
 
 def _kind(name: str) -> str:
@@ -142,9 +156,15 @@ def _batched(problem, s, B, cfg, pre):
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
     z0 = s.z0.cpu().numpy()
-    p = torch.as_tensor(ref.smooth_field(s.prob.M, z0, problem),
-                        device=s.b.device)
-    items = [s.step_update(s.z0 + 0.02 * i * p) for i in range(B)]
+    if problem == "lkdvrk":
+        p = ref.lkdvrk_field(s.fem, s.prob.mlength, z0[:s.n0])
+        states = torch.as_tensor(ref.lkdvrk_stage_states(
+            p, B, s.prob.ns, s.n0, s.prob.dt), device=s.b.device)
+    else:
+        p = torch.as_tensor(ref.smooth_field(s.prob.M, z0, problem),
+                            device=s.b.device)
+        states = [s.z0 + 0.02 * i * p for i in range(B)]
+    items = [s.step_update(z) for z in states]
     Bs = torch.stack([t.b for t in items])
     cons = [t.constraints() for t in items]
     return lambda: cgmres_many(s.A, Bs, cons, k=cfg["k"], tol=cfg["tol"],
@@ -164,6 +184,8 @@ def main():
     ap.add_argument("--batch", type=int, default=None,
                     help="profile cgmres_many on this many items")
     ap.add_argument("--M", type=int, default=None)
+    ap.add_argument("--degree", type=int, choices=sorted(LKDVRK_ROWS),
+                    default=3, help="lkdvRK's grid row (default 3)")
     ap.add_argument("--out", default=str(ROOT / "build" / "profile"))
     args = ap.parse_args()
     args.pre = args.pre or PRES[args.problem][0]
@@ -187,11 +209,15 @@ def main():
 
     cfg = dict(SNC_CONFIG if args.pre == "snc" else CONFIGS[args.problem])
     M = args.M or cfg["M"]
+    params = {}
+    if args.problem == "lkdvrk":
+        tstages, cfg["tol"] = LKDVRK_ROWS[args.degree]
+        params = dict(N=10, degree=args.degree, tstages=tstages)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())
-    s = get_model(args.problem).linforms(M=M, device="cuda")
+    s = get_model(args.problem).linforms(M=M, device="cuda", **params)
     pre = apply = None
     span = PRE_RANGES.get(args.pre)
     if args.pre != "none":
@@ -202,6 +228,7 @@ def main():
 
         apply = {"amg": lambda: default_pre_builder("heat")(s),
                  "snc": lambda: default_pre_builder("swe")(s),
+                 "default": lambda: default_pre_builder("lkdvrk")(s),
                  "cheb8": lambda: precond.chebyshev(s.A, degree=8),
                  "neu4": lambda: precond.neumann(s.A, degree=4)}[args.pre]()
 
@@ -250,7 +277,8 @@ def main():
                    and e.key not in ("flag read", "cgmres_many")]
         busy_us = sum(e.self_device_time_total for e in kernels)
         label = (f"{args.problem} --pre {args.pre} --ortho {args.ortho}"
-                 f" --loop {args.loop}")
+                 f" --loop {args.loop}"
+                 + (f" --degree {args.degree}" if params else ""))
         steps = info["steps"]
         steps = steps if isinstance(steps, int) else list(map(int, steps))
         print(f"\n== {label} {name} M={M}: steps {steps}, wall "
@@ -270,7 +298,8 @@ def main():
                       f"{e.cpu_time_total / 1e3:.3f} ms")
         print(events.table(sort_by="self_device_time_total", row_limit=15,
                            max_name_column_width=60))
-        tag = (f"_{args.pre}" if apply else "") + (
+        tag = (f"_deg{args.degree}" if params else "") + (
+            f"_{args.pre}" if apply else "") + (
             "_fused" if args.ortho == "cgs2_fused" else "") + (
             "_graphs" if args.loop == "while" else "")
         prof.export_chrome_trace(

@@ -10,7 +10,10 @@ from ``torch.func``.  The solver handles each general constraint as a
 quadratic Taylor model about the warm coefficients, built afresh every
 constrained iteration (exact where g is quadratic, as every invariant of
 the reference is), and its safety latch checks the true g at the accepted
-iterate.
+iterate.  The host loop reads the model into host buffers
+(``taylor_buffers``); the device core writes it into its own buffers inside
+a step's graph (``taylor_model``), as the JAX core builds it inside its
+loop.
 
 A DIA product ``A @ x`` inside g is differentiable: on the card its value
 is the DIA kernel's and its derivatives are products with A and Aᵀ
@@ -39,24 +42,35 @@ class GeneralConstraint:
         return self.func(x)
 
 
-def taylor_buffers(con: GeneralConstraint, y0: torch.Tensor, Z: torch.Tensor,
-                   x0: torch.Tensor) -> ReducedBuffers:
+def taylor_model(con: GeneralConstraint, y0: torch.Tensor, Z: torch.Tensor,
+                 x0: torch.Tensor):
     """The quadratic model of the reduced constraint about y0,
-    g̃(y) ≈ t0 + t1·y + yᵀ T2 y.  ``y0`` (k,) lies on the host, the basis
-    ``Z`` (k, n) and ``x0`` on the solve's device; the buffers land on the
-    host, read in one copy."""
+    g̃(y) ≈ t0 + t1·y + yᵀ T2 y, as tensors on the solve's device: t0
+    (0-dim), t1 (k,) and T2 (k, k), from y0 (k,), the basis ``Z`` (k, n)
+    and ``x0`` (n,).  No host read and no host copy: the device core runs
+    it inside its ``kkt_start`` graph, where the value's ``A @ x`` is
+    kernel #1 and the Hessian's vmapped products one launch of #1b at width
+    k (``ops/sparse.py::_DiaProduct``)."""
 
     def reduced(y):
         return con.func(x0 + y @ Z)
 
-    y = y0.to(Z.device, Z.dtype)
-    val = reduced(y)
-    grad = torch.func.grad(reduced)(y)
-    hess = torch.func.hessian(reduced)(y)
-    hy = hess @ y
-    t0 = val - torch.dot(grad, y) + 0.5 * torch.dot(y, hy)
-    k = y.shape[0]
-    host = torch.cat([t0.reshape(1), grad - hy, 0.5 * hess.reshape(-1)]).to(HOST)
+    val = reduced(y0)
+    grad = torch.func.grad(reduced)(y0)
+    hess = torch.func.hessian(reduced)(y0)
+    hy = hess @ y0
+    t0 = val - torch.dot(grad, y0) + 0.5 * torch.dot(y0, hy)
+    return t0, grad - hy, 0.5 * hess
+
+
+def taylor_buffers(con: GeneralConstraint, y0: torch.Tensor, Z: torch.Tensor,
+                   x0: torch.Tensor) -> ReducedBuffers:
+    """``taylor_model`` for the host loop: ``y0`` (k,) lies on the host,
+    the basis ``Z`` (k, n) and ``x0`` on the solve's device; the buffers
+    land on the host, read in one copy."""
+    k = y0.shape[0]
+    t0, t1, T2 = taylor_model(con, y0.to(Z.device, Z.dtype), Z, x0)
+    host = torch.cat([t0.reshape(1), t1, T2.reshape(-1)]).to(HOST)
     return ReducedBuffers(t0=host[0], t1=host[1:k + 1],
                           T2=host[k + 1:].reshape(k, k))
 

@@ -10,16 +10,20 @@ CUDA graph on the card, and every product of a DIA A with the batch goes
 through the batched kernel #1 (``csrc/dia_spmm.cu``), the counterpart of
 the JAX package's ``dia_spmv_pallas`` under ``vmap``.
 
-The batched core takes what the JAX package's vmapped core takes in this
-port: quadratic constraints, the plain CGS2, and no preconditioner or one
-that applies to a block (n, B) column by column: the skew-normal Chebyshev
-(swe's, a chain of ``A @ X``), the structured AMG (its V-cycle on the
-block, every level's product one launch of #1b), the Chebyshev and Neumann
-polynomials (one launch of the block forms #3b and #4b when fused, the
-recurrences over ``A @ X`` otherwise) and Jacobi.  On heat ``A @ X`` is one
-launch of the stencil kernel's block form #2b.  Every other preconditioner
-and every general constraint raises, naming the ROADMAP.md item that will
-take it; none runs item by item.
+The batched core takes what the JAX package's vmapped core takes: quadratic
+constraints (the JAX ``cgmres_many`` builds its core with ``kinds``
+``("q",) * m``, so a general constraint raises there too), the plain CGS2,
+and no preconditioner or one that applies to a block (n, B) column by
+column: the skew-normal Chebyshev (swe's, a chain of ``A @ X``), the
+structured AMG (its V-cycle on the block, every level's product one launch
+of #1b), the Chebyshev and Neumann polynomials (one launch of the block
+forms #3b and #4b when fused, the recurrences over ``A @ X`` otherwise),
+Jacobi, lkdvRK's ``BlockJacobi`` and ``RAS`` (a gather, one ``torch.bmm``
+of the block inverses with the B vectors, a scatter) and the RAS + Neumann
+composite (``NeumannComposite``, its ``A @ Z`` through #1b on a DIA, the
+ELL's block product otherwise).  On heat ``A @ X`` is one launch of the
+stencil kernel's block form #2b.  Any other preconditioner raises; none
+runs item by item.
 """
 
 from __future__ import annotations
@@ -34,21 +38,20 @@ from ..config import CTOL, require_f64
 from ..constraints.general import GeneralConstraint
 from ..constraints.quadratic import QuadraticConstraint
 from ..precond.amg import AMG
-from ..precond.chebyshev import Chebyshev, Neumann, SkewNormalChebyshev
-from ..precond.jacobi import Jacobi
+from ..precond.chebyshev import (
+    Chebyshev,
+    Neumann,
+    NeumannComposite,
+    SkewNormalChebyshev,
+)
+from ..precond.jacobi import RAS, BlockJacobi, Jacobi
 from ..solvers.cgmres import _core_for
 from ..utils.profiling import span
 
-# the preconditioners the batched core takes: each applies to a block
-_TAKEN = (SkewNormalChebyshev, AMG, Chebyshev, Neumann, Jacobi)
-# the preconditioners it refuses, by class name, and the item of ROADMAP.md
-# (Queue 1) that takes them
-_REFUSED = {
-    "RAS": "item 2, lkdvRK under the graph core",
-    "BlockJacobi": "item 2, lkdvRK under the graph core",
-    "NeumannComposite": "item 2, lkdvRK under the graph core (the RAS + "
-                        "Neumann composite)",
-}
+# the preconditioners the batched core takes: each applies to a block (a
+# NeumannComposite where its inner one does)
+_TAKEN = (SkewNormalChebyshev, AMG, Chebyshev, Neumann, Jacobi, BlockJacobi,
+          RAS, NeumannComposite)
 
 
 def _same(a, b) -> bool:
@@ -93,8 +96,10 @@ def batch_constraints(cons_list: Sequence) -> Tuple[tuple, tuple]:
         col = [c[i] for c in items]
         if any(isinstance(c, GeneralConstraint) for c in col):
             raise NotImplementedError(
-                "a general constraint under a batch waits for lkdvRK under "
-                "the graph core (ROADMAP.md, Queue 1, item 2)")
+                "a general constraint under a batch: the JAX package's "
+                "cgmres_many builds its core for quadratic constraints only "
+                "(kinds ('q',) * m), so it refuses one too; solve each item "
+                "with cgmres(loop='while')")
         fields, ax = {}, {}
         for name in ("M", "v", "c"):
             vals = [getattr(c, name) for c in col]
@@ -117,17 +122,13 @@ def batch_constraints(cons_list: Sequence) -> Tuple[tuple, tuple]:
 
 
 def _check_pre(pre) -> None:
+    if isinstance(pre, NeumannComposite):
+        return _check_pre(pre.inner)
     if pre is None or isinstance(pre, _TAKEN):
         return
-    name = type(pre).__name__
-    where = _REFUSED.get(name)
-    if where is None:
-        raise NotImplementedError(
-            f"preconditioner {name}: the batched core takes pre=None or "
-            + ", ".join(c.__name__ for c in _TAKEN))
     raise NotImplementedError(
-        f"preconditioner {name} under a batch waits for ROADMAP.md, Queue 1, "
-        f"{where}")
+        f"preconditioner {type(pre).__name__}: the batched core takes "
+        "pre=None or " + ", ".join(c.__name__ for c in _TAKEN))
 
 
 def cgmres_many(
@@ -155,7 +156,7 @@ def cgmres_many(
     if mixed:
         raise NotImplementedError(
             "mixed=True: f32 storage is not ported (ROADMAP.md, Queue 1, "
-            "item 8)")
+            "item 7)")
     if Bs.dim() != 2:
         raise ValueError(f"Bs is (batch, n), got {tuple(Bs.shape)}")
     _check_pre(pre)

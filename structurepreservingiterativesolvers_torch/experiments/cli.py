@@ -12,11 +12,14 @@
     python -m structurepreservingiterativesolvers_torch timed --problem lkdv --sizes 50 100 --device cpu
     python -m structurepreservingiterativesolvers_torch sweep --M 400 --N 10
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --device cpu
+    python -m structurepreservingiterativesolvers_torch timed --problem lkdvrk --sizes 50 --loop while --device cpu
+    python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --loop while --device cpu
 
 ``--ortho`` picks the Arnoldi orthogonalisation of both solvers: ``cgs2``
 (the default), ``cgs2_fused`` (its middle pair through the fused CGS2
-kernel on the card) or ``mgs``.  ``timed --loop while`` runs both solvers
-on the device core, the JAX package's default loop.
+kernel on the card) or ``mgs``.  ``timed --loop while`` and ``sweep --loop
+while`` run the solvers on the device core, the JAX package's default
+loop.
 """
 
 from __future__ import annotations
@@ -75,6 +78,9 @@ def main(argv=None):
     p.add_argument("--M", type=int, default=400)
     p.add_argument("--plot", action="store_true",
                    help="plot the errors (needs matplotlib)")
+    p.add_argument("--loop", default="host", choices=["host", "while"],
+                   help="the solvers' loop: host (default) or while, the "
+                        "device core (CUDA graphs on the card)")
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda)")
 
@@ -108,7 +114,7 @@ def main(argv=None):
         from .error_sweep import error_plot, run_sweep
 
         merged = run_sweep(parallel=args.parallel, N=args.N, M=args.M,
-                           device=args.device)
+                           loop=args.loop, device=args.device)
         for run in merged:
             print(f"{run['solver']} q={run['degree']} s={run['tstages']}: "
                   f"final err {run['err'][-1]:.6e}, dm {run['dm'][-1]:.3e}, "

@@ -11,10 +11,16 @@ Every run pins its device.  ``run_sweep`` runs the grid in this process by
 default; ``parallel=True`` starts one worker process per run, at most
 ``max_processes`` at a time (the reference's CPU pool), each running
 ``python -m structurepreservingiterativesolvers_torch.experiments.error_sweep``
-on the same device.
+on the same device.  ``loop`` is the iterative solvers' loop: ``"host"``
+(the default, every earlier record's) or ``"while"``, the device core, the
+JAX package's default; there one cached core serves every step of an
+evolution (the stepped systems share A, the preconditioner and the
+constraints' operators), so on the card its graphs are captured once and
+replayed for every step.
 
     python -m structurepreservingiterativesolvers_torch sweep --M 400 --N 10
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --device cpu
+    python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --loop while --device cpu
 """
 
 from __future__ import annotations
@@ -50,12 +56,14 @@ def run_single(
     k: int = 50,
     tmpdir: str = "tmp",
     precondition: bool = True,
+    loop: str = "host",
     *,
     device,
 ) -> dict:
     """One evolution on ``device`` (the reference's ``subcall``), with the
     RAS + Neumann composite of the TimedSolve pre-builder built once on its
-    first system; the result is pickled and returned."""
+    first system, each step's solve on ``loop``; the result is pickled and
+    returned."""
     from ..models import lkdvrk
     from . import wrappers
     from .evolve import evolve
@@ -76,7 +84,7 @@ def run_single(
                  "CGMRES": wrappers.cgmres_wrapper}[solver]
 
         def step_solver(system, x0=None, k=k, tol=tol, pre=pre):
-            return solve(system, x0=x0, k=k, tol=tol, pre=pre)
+            return solve(system, x0=x0, k=k, tol=tol, pre=pre, loop=loop)
 
     out = evolve("lkdvrk", N=N, M=M, degree=degree, tstages=tstages, T=1.0,
                  k=k, tol=tol, solver=step_solver, pre=pre,
@@ -98,11 +106,13 @@ def run_sweep(
     tmpdir: str = "tmp",
     parallel: bool = False,
     max_processes: int = 12,
+    loop: str = "host",
     *,
     device,
 ) -> List[dict]:
-    """The whole sweep on ``device``; the merged results are written to
-    ``<tmpdir>/error.pickle`` and returned."""
+    """The whole sweep on ``device``, the iterative solvers on ``loop``; the
+    merged results are written to ``<tmpdir>/error.pickle`` and
+    returned."""
     os.makedirs(tmpdir, exist_ok=True)
     runs = [(solver, degree, tstages, tol)
             for degree, tstages, tol in grid for solver in solvers]
@@ -115,13 +125,13 @@ def run_sweep(
                 sys.executable, "-m",
                 "structurepreservingiterativesolvers_torch.experiments.error_sweep",
                 solver, str(degree), str(tstages), str(tol), str(N), str(M),
-                str(k), tmpdir, str(device)]))
+                str(k), tmpdir, str(device), loop]))
         for proc in procs:
             proc.wait()
     else:
         for solver, degree, tstages, tol in runs:
             run_single(solver, degree, tstages, tol, N=N, M=M, k=k,
-                       tmpdir=tmpdir, device=device)
+                       tmpdir=tmpdir, loop=loop, device=device)
 
     # merge, skipping the runs that failed (reference ErrorGenerator.py:62-74)
     merged = []
@@ -173,6 +183,7 @@ def error_plot(tmpdir: str = "tmp", filename: Optional[str] = None):
 
 if __name__ == "__main__":
     # a worker of the fan-out: solver degree tstages tol N M k tmpdir device
+    # loop
     a = sys.argv[1:]
     run_single(a[0], int(a[1]), int(a[2]), float(a[3]), int(a[4]), int(a[5]),
-               int(a[6]), a[7], device=a[8])
+               int(a[6]), a[7], loop=a[9], device=a[8])

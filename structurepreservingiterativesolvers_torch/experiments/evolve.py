@@ -13,13 +13,17 @@ per step (``compute_error``).
 ``fused_evolve`` is the JAX package's whole evolution as one program (a
 jitted ``lax.scan`` over its CGMRES core there): here the device core
 (``solvers/cgmres.py::DeviceCore``) with a prologue and an epilogue step,
-captured as CUDA graphs once and replayed every time step on the card.
+captured as CUDA graphs once and replayed every time step on the card.  On
+lkdvRK it chains the stepped systems as ``evolve`` does, where the JAX
+``fused_evolve`` steps every system from the first one's state (ROADMAP.md,
+Queue 3).
 
 Left out: the figure of ``deviation_plotter``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -190,23 +194,28 @@ def fused_evolve(
     of all replays (``launches``).  The steps and the fetch run
     inside the span ``fused_evolve steps``.  ``ortho``
     is the Arnoldi orthogonalisation (``arnoldi_step``); the JAX package
-    runs ``cgs2`` there.  lkdv, swe and heat run; heat's operator does not
-    change with ``step_update``, so a preconditioner built on the first
-    system (``pre``: the AMG, a polynomial, Jacobi) serves every step, as
-    in the JAX package.  lkdvRK, ``mesh`` (a sharded evolution) and
-    ``loop="fori"`` are not ported."""
+    runs ``cgs2`` there.  lkdv, swe, heat and lkdvRK run; no model's
+    operator changes with ``step_update``, so a preconditioner built on the
+    first system (``pre``: the AMG, a polynomial, Jacobi, lkdvRK's RAS +
+    Neumann composite) serves every step, as in the JAX package.
+
+    On lkdvRK the solve's unknown is the stage vector (ns·3·n0), which
+    starts from zeros, as in the JAX package, and is each step's warm
+    start; ``sol`` is the last one.  The step's state (3·n0, the stepped
+    system's z0) is carried too, in a static buffer: each step's system is
+    the previous step's stepped by its solution, as ``evolve`` chains them,
+    and its invariants are taken on that system.  (The JAX ``fused_evolve``
+    steps ``sys0`` by each stage vector, so from the third step on it
+    restarts from the initial state plus the last step's increment.)
+    ``mesh`` (a sharded evolution) and ``loop="fori"`` are not ported."""
     if mesh is not None:
         raise NotImplementedError(
             "a sharded evolution (mesh=) waits for the port of parallel/ "
-            "(ROADMAP.md, Queue 1, item 7)")
+            "(ROADMAP.md, Queue 1, item 6)")
     if loop != "while":
         raise NotImplementedError(
             f"loop={loop!r}: only 'while' is ported ('fori' is a TPU "
             "workaround, not ported on purpose)")
-    if problem.lower() not in ("lkdv", "swe", "heat"):
-        raise NotImplementedError(
-            f"fused_evolve runs lkdv, swe and heat; {problem!r} waits for "
-            "lkdvRK under the graph core (ROADMAP.md, Queue 1, item 2)")
     from ..solvers.cgmres import DeviceCore
 
     sys0 = get_model(problem).linforms(N=N, M=M, degree=degree, device=device,
@@ -215,13 +224,25 @@ def fused_evolve(
                       tol=tol, contol=contol, ctol=ctol, ortho=ortho)
     runner = core.runner
     names = [nm for nm, attr in TARGETS.items() if hasattr(sys0, attr)]
-    z = sys0.z0.clone()
+    is_rk = problem.lower() == "lkdvrk"
+    # the solution: lkdvRK's stage vector from zeros, every other model's
+    # state from the initial one; lkdvRK's state, the stepped system's z0
+    z = torch.zeros_like(sys0.b) if is_rk else sys0.z0.clone()
+    state = sys0.z0.clone()
     row = torch.zeros(1, dtype=torch.long, device=z.device)
     inv = torch.zeros((N, len(names)), dtype=z.dtype, device=z.device)
     counts = torch.zeros((N, 3), dtype=torch.long, device=z.device)
 
+    def stepped():
+        """The step's system before its solve: on lkdvRK the one at the
+        carried state (which ``prologue`` has advanced), else ``sys0``,
+        whose ``step_update`` replaces the whole state."""
+        return dataclasses.replace(sys0, z0=state) if is_rk else sys0
+
     def prologue():
-        s = sys0.step_update(z)
+        s = stepped().step_update(z)
+        if is_rk:
+            state.copy_(s.z0)
         core.load(s.b, z if warm_start else torch.zeros_like(z),
                   s.constraints())
 
@@ -230,7 +251,7 @@ def fused_evolve(
         # holds the step's previous solution, which heat's dissipation
         # identity reads (the JAX step evaluates it on the stepped system)
         x = core.x[0]
-        values = sys0.compute_invariants(x, zold=z)
+        values = stepped().compute_invariants(x, zold=z)
         inv.index_copy_(0, row, torch.stack([values[nm] for nm in names])[None])
         counts.index_copy_(0, row, torch.stack(
             [core.steps[0], core.safety[0], core.nfb[0]])[None])

@@ -90,14 +90,25 @@ class System:
     # host-side CSR kept for the direct solve and the block preconditioners
     A_csr: sp.csr_matrix = dataclasses.field(repr=False, default=None)
     Mh: sp.csr_matrix = dataclasses.field(repr=False, default=None)
+    # the RK weights b_s (ns,) on the device, put there once (by
+    # ``linforms``, or here for a system built field by field) and carried
+    # by ``dataclasses.replace``: every stepped system's ``z1calc``,
+    # constraints and invariants read this one tensor, so a step copies
+    # nothing from the host (a CUDA graph capture takes no such copy) and
+    # the stage-mapped constraints' M keeps its key across ``step_update``
+    bw: torch.Tensor = dataclasses.field(repr=False, default=None)
+
+    def __post_init__(self):
+        if self.bw is None:
+            self.bw = torch.as_tensor(self.prob.tableau.b, dtype=self.b.dtype,
+                                      device=self.b.device)
 
     @property
     def dof(self) -> int:
         return 3 * self.n0
 
     def _weights(self) -> torch.Tensor:
-        return torch.as_tensor(self.prob.tableau.b, dtype=self.b.dtype,
-                               device=self.b.device)
+        return self.bw
 
     def z1calc(self, zbig: torch.Tensor) -> torch.Tensor:
         """Step reconstruction z1 = z0 + dt Σ b_s k_s
@@ -296,4 +307,5 @@ def linforms(
         fem=fem,
         A_csr=A_csr,
         Mh=Mh,
+        bw=dev(prob.tableau.b),
     )

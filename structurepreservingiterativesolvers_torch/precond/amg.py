@@ -177,7 +177,7 @@ def amg(A, omega: float = 0.8, nu: int = 2, coarse_size: int = 200,
     if grid is None or setup == "host":
         raise NotImplementedError(
             "the greedy host AMG setup ships ELL transfers; the ELL format "
-            "is not ported (ROADMAP.md, Queue 1, item 6)")
+            "is not ported (ROADMAP.md, Queue 1, item 5)")
     if device is None:
         raise ValueError("a scipy matrix input needs device=")
     A_dia = dia_from_scipy(A, wrap=False, dtype=dtype or DEFAULT_DTYPE,
@@ -191,7 +191,7 @@ def amg(A, omega: float = 0.8, nu: int = 2, coarse_size: int = 200,
         raise NotImplementedError(
             f"device AMG setup unavailable ({e}); the JAX package falls back "
             "to its greedy host setup, which needs the ELL format the port "
-            "does not have (ROADMAP.md, Queue 1, item 6)") from e
+            "does not have (ROADMAP.md, Queue 1, item 5)") from e
 
 
 def _grid_decompose(offsets, C2: int, rmax: int = 4):

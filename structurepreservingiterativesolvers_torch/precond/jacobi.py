@@ -5,7 +5,11 @@ The port of the JAX package's ``precond/jacobi.py``: ``diagonal``,
 (lkdvRK/Evolve.py:51-52), ``BlockJacobi`` and restricted additive Schwarz
 (``RAS``), whose dense block inverses are built on the host with numpy and
 applied on the device as a gather, one batched product (``torch.bmm``) and a
-scatter.  ``diagonal`` also feeds the Neumann series and the bound estimate
+scatter.  Each takes a vector (n,) or a block (n, B), the (n, B) view of a
+batch's rows as the batched device core hands it over: the gather makes
+(nb, bs, B), one ``torch.bmm`` applies every block inverse to the B vectors
+at once (the inverses read once for the block, what ``jax.vmap`` makes of
+the JAX package's apply), and the scatter writes the rows.  ``diagonal`` also feeds the Neumann series and the bound estimate
 of ``chebyshev.py``; the diagonal of an ELL operator is not ported, so any
 operator that is neither a DIA, a ``Stencil`` nor a dense tensor raises
 ``NotImplementedError``.
@@ -36,7 +40,7 @@ def diagonal(A) -> torch.Tensor:
         return torch.diagonal(A)
     raise NotImplementedError(
         f"no diagonal of a {type(A).__name__} in the port: the diagonal of "
-        f"an ELL operator is not ported (ROADMAP.md, Queue 1, item 6)")
+        f"an ELL operator is not ported (ROADMAP.md, Queue 1, item 5)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +65,11 @@ def jacobi(A) -> Jacobi:
 
 def _block_solve(inv: torch.Tensor, idx: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
-    """inv_p @ v[idx_p] for every block p, as one batched product."""
-    return torch.bmm(inv, v[idx].unsqueeze(-1)).squeeze(-1)
+    """inv_p @ v[idx_p] for every block p, as one batched product: v (n,)
+    or (n, B), the result (nb, bs) or (nb, bs, B)."""
+    if v.dim() == 1:
+        return torch.bmm(inv, v[idx].unsqueeze(-1)).squeeze(-1)
+    return torch.bmm(inv, v[idx])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,9 +81,9 @@ class BlockJacobi:
     inv: torch.Tensor  # (nb, bs, bs)
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros_like(v)
+        out = torch.zeros_like(v)  # a block keeps its layout
         out[self.idx.reshape(-1)] = _block_solve(self.inv, self.idx,
-                                                 v).reshape(-1)
+                                                 v).reshape(-1, *v.shape[1:])
         return out
 
     def solve(self, v: torch.Tensor) -> torch.Tensor:
@@ -95,10 +102,15 @@ class RAS:
     own: torch.Tensor  # (nb, bs) bool, the owned positions
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        n = v.shape[0]
-        solved = torch.where(self.own, _block_solve(self.inv, self.idx, v), 0.0)
-        out = v.new_zeros(n + 1)
-        out[torch.where(self.own, self.idx, n).reshape(-1)] = solved.reshape(-1)
+        n, rest = v.shape[0], v.shape[1:]
+        own = self.own.reshape(*self.own.shape, *(1,) * len(rest))
+        solved = torch.where(own, _block_solve(self.inv, self.idx, v), 0.0)
+        # a block's result in the layout of the core's batch: the (n, B)
+        # view of B rows, which the next product reads without a copy
+        out = (v.new_zeros(n + 1) if not rest
+               else v.new_zeros((rest[0], n + 1)).T)
+        out[torch.where(self.own, self.idx, n).reshape(-1)] = solved.reshape(
+            -1, *rest)
         return out[:-1]
 
     def solve(self, v: torch.Tensor) -> torch.Tensor:

@@ -28,9 +28,11 @@ Two loops drive the solve (``cgmres(..., loop=...)``):
   on the CPU.  The host loop over the steps replays one graph and reads
   two flags (the next step's gate and ``done``) per step; a gated step
   replays the endgame's graphs, one Newton iteration each, with a flag read
-  after each.  Quadratic constraints only.  The same core carries a batch
-  of solves on a leading axis (``experiments/batched.py::cgmres_many``, the
-  JAX package's vmapped core); a single solve is its batch of one.
+  after each.  Quadratic and general constraints, and ``history``, as the
+  JAX core takes them.  The same core carries a batch of solves on a
+  leading axis (``experiments/batched.py::cgmres_many``, the JAX package's
+  vmapped core, quadratic constraints only); a single solve is its batch
+  of one.
 
 ``cgmres_p`` is the prototypical variant enforcing constraints cumulatively
 (iteration j enforces the first j constraints, reference solvers.py:328-445).
@@ -60,7 +62,12 @@ import numpy as np
 import torch
 
 from ..config import CTOL, require_f64
-from ..constraints.general import GeneralConstraint, taylor_buffers, true_value
+from ..constraints.general import (
+    GeneralConstraint,
+    taylor_buffers,
+    taylor_model,
+    true_value,
+)
 from ..constraints.quadratic import (
     QuadraticConstraint,
     catch_up,
@@ -412,7 +419,8 @@ def _info(prototypical, steps, ncon, safety, dev_j, brk, kkt_it, nfb, res):
 
 class CgmresResult(NamedTuple):
     """The device core's result, as device tensors (the JAX package's
-    ``CgmresResult`` without ``xs``)."""
+    ``CgmresResult``, whose ``xs`` stays in the core's ``xs`` buffer, kept
+    with ``history``)."""
 
     x: torch.Tensor
     res: torch.Tensor
@@ -428,10 +436,20 @@ class CgmresResult(NamedTuple):
 class DeviceCore:
     """CGMRES as fixed-shape steps on the operands' device: the counterpart
     of the JAX package's ``_build_core`` (``cgmres.py:147-470`` there, its
-    ``loop="while"`` form with the true residual each step), for quadratic
-    constraints, for one solve or for a batch of B solves that share A, the
-    preconditioner and the constraints' operators M (the JAX package's core
-    under ``jax.vmap``, ``experiments/batched.py::cgmres_many``).
+    ``loop="while"`` form with the true residual each step), for one solve
+    or for a batch of B solves that share A, the preconditioner and the
+    constraints' operators M (the JAX package's core under ``jax.vmap``,
+    ``experiments/batched.py::cgmres_many``).
+
+    A constraint is quadratic, whose reduction the core keeps in its
+    buffers (folded in a column a step), or, for a single solve, general
+    (``GeneralConstraint``), as the JAX core's ``kinds``: ``kkt_start``
+    writes a fresh Taylor model about the warm coefficients into its
+    buffers, which both starts of the dual start share, and ``kkt_finish``
+    re-checks the true g at the accepted coefficients and keeps the larger
+    deviation (JAX ``cgmres.py:278-296``, ``:410-420``).  ``history``
+    (single solve) keeps the JAX core's ``xs``: r0, then each step's
+    iterate.
 
     Everything a solve reads or writes is a tensor allocated here, on the
     device of ``like`` (its *static buffers*), with a leading axis of B: the
@@ -484,15 +502,22 @@ class DeviceCore:
     def __init__(self, A, pre, k: int, constraints, *, like: torch.Tensor,
                  tol: float, contol: float = 10.0, ctol: float = CTOL,
                  ortho: str = "cgs2", x0_zero: bool = False,
-                 runner: GraphRunner = None):
-        cons = _quadratic(constraints)
+                 history: bool = False, runner: GraphRunner = None):
+        cons = tuple(constraints)
         require_f64(like)
         self.batched = like.dim() == 2
         B = like.shape[0] if self.batched else 1
+        # each constraint's kind, as the JAX core's ``kinds``
+        self.general = tuple(isinstance(c, GeneralConstraint) for c in cons)
         if B > 1 and ortho not in ("cgs2", "cgs2_xla"):
             raise NotImplementedError(
                 f"ortho={ortho!r} under a batch: the batched core runs "
                 "'cgs2', as the JAX package's cgmres_many builds its core")
+        if B > 1 and (any(self.general) or history):
+            raise NotImplementedError(
+                "a general constraint or history under a batch: the JAX "
+                "package's cgmres_many builds its core with quadratic "
+                "constraints only (kinds ('q',) * m) and without history")
         self.A, self.pre, self.prefunc = A, pre, as_preconditioner(pre)
         self.B, self.k, self.m = B, int(k), len(cons)
         self.tol, self.contol, self.ctol = float(tol), float(contol), float(ctol)
@@ -505,12 +530,16 @@ class DeviceCore:
             return torch.zeros((B, *shape), dtype=dtype, device=like.device)
 
         self.b, self.x0 = z(n), z(n)
+        # a quadratic constraint's c and v are loaded into static buffers; a
+        # general one is its function, which the steps call
         self.cons = tuple(
-            QuadraticConstraint(M=c.M, v=None if c.v is None else z(n), c=z(),
-                                name=c.name) for c in cons)
+            c if g else QuadraticConstraint(
+                M=c.M, v=None if c.v is None else z(n), c=z(), name=c.name)
+            for c, g in zip(cons, self.general))
         self.st = device_state(n, k, dt, like.device, B)
         self.bufs = tuple(device_buffers(k, like, B) for _ in cons)
         self.x, self.yk, self.y_unc, self.res = z(n), z(k), z(k), z(k)
+        self.xs = z(k + 1, n) if history else None
         self.beta, self.r_prev, self.dev = z(), z(), z()
         (self.safety, self.steps, self.ncon, self.kkt_it,
          self.nfb) = (z(dtype=torch.long) for _ in range(5))
@@ -525,8 +554,9 @@ class DeviceCore:
         self.flags = torch.zeros(2 * B, dtype=torch.long, device=like.device)
         self.kflags = torch.zeros(2, dtype=torch.long, device=like.device)
         self.work = kkt_work(B, 2, k, m, like) if m else None
-        self.linear = torch.tensor([c.M is None for c in cons],
-                                   dtype=torch.bool, device=like.device)
+        self.linear = torch.tensor(
+            [not g and c.M is None for c, g in zip(cons, self.general)],
+            dtype=torch.bool, device=like.device)
         self.runner.warmup(self._first_use)
 
     def _first_use(self):
@@ -536,11 +566,15 @@ class DeviceCore:
         preconditioner apply on the core's block), the polynomial kernels'
         plans and shared-memory attribute, the cuBLAS handles on the
         capture stream, and the fused CGS2 kernel's per-m attribute and
-        occupancy."""
+        occupancy; and one Taylor model of each general constraint, which
+        builds the transposes, plans and launches its derivatives take."""
         V = torch.ones_like(self.b)
         rows(self.A.__matmul__, rows(self.prefunc, V))
-        for c in self.cons:
-            if c.M is not None:
+        for c, g in zip(self.cons, self.general):
+            if g:
+                Z = torch.ones((2, V.shape[1]), dtype=V.dtype, device=V.device)
+                taylor_model(c, Z[:, 0], Z, V[0])
+            elif c.M is not None:
                 rows(c.M.__matmul__, V)
                 c.M @ torch.ones((V.shape[1], 2), dtype=V.dtype, device=V.device)
         basis = torch.ones((self.B, 2, V.shape[1]), dtype=V.dtype,
@@ -560,10 +594,11 @@ class DeviceCore:
         zero, as the core was built for), each constraint's c and v, with a
         leading batch axis where the core has one (a field of a batch's
         constraints may be shared, without it: ``batch_constraints``).  The
-        constraints must have the core's operators M."""
+        constraints must have the core's operators M, and its general
+        constraints be the ones it was built for."""
         cons = tuple(constraints)
         if len(cons) != self.m or any(
-                _key(c.M) != _key(mine.M) or (c.v is None) != (mine.v is None)
+                _con_key(c) != _con_key(mine)
                 for c, mine in zip(cons, self.cons)):
             raise ValueError("these constraints are not the ones the core "
                              "was built for")
@@ -573,7 +608,9 @@ class DeviceCore:
         self.b.copy_(b)
         if x0 is not None:
             self.x0.copy_(x0)
-        for c, mine in zip(cons, self.cons):
+        for c, mine, g in zip(cons, self.cons, self.general):
+            if g:
+                continue
             mine.c.copy_(c.c)
             if mine.v is not None:
                 mine.v.copy_(c.v)
@@ -704,7 +741,13 @@ class DeviceCore:
         self.Kinvc.copy_(torch.eye(self.Kinvc.shape[-1], dtype=self.Kinvc.dtype,
                                    device=self.Kinvc.device)
                          .expand_as(self.Kinvc))
-        for i, (con, buf) in enumerate(zip(self.cons, self.bufs)):
+        if self.xs is not None:
+            self.xs[:, 0] = r0
+        for i, (con, buf, g) in enumerate(zip(self.cons, self.bufs,
+                                              self.general)):
+            if g:
+                # its Taylor model and scale come at each gated step
+                continue
             if self.x0_zero:
                 buf.t0.copy_(con.c)
                 self.s0[:, i] = con.c.abs()
@@ -723,15 +766,23 @@ class DeviceCore:
         self.brk_now.copy_(live & (hlast == 0))
         self.y_unc.copy_(lsq_coeffs_device(self.st, j))
 
+    def _iterate(self, j: int, y: torch.Tensor) -> torch.Tensor:
+        """The iterates x0 + y Z of the coefficients y (B, k) at step j."""
+        return rows_rmv(y[:, : j + 1], self.st.Z[:, : j + 1]) + self.x0
+
     def _finish(self, j: int, y: torch.Tensor, mask: torch.Tensor,
-                gated: bool) -> None:
+                gated: bool, x: torch.Tensor = None) -> None:
         """The iterates of the solves of ``mask`` from the coefficients y
-        (B, k), their true residuals, the counts, ``done`` and the next
-        step's flags."""
-        x = rows_rmv(y[:, : j + 1], self.st.Z[:, : j + 1]) + self.x0
+        (B, k) (``x`` where the caller has formed them), their true
+        residuals, the history, the counts, ``done`` and the next step's
+        flags."""
+        if x is None:
+            x = self._iterate(j, y)
         r = torch.linalg.norm(rows(self.A.__matmul__, x) - self.b, dim=-1)
         mk = mask[:, None]
         self.x.copy_(torch.where(mk, x, self.x))
+        if self.xs is not None:
+            self.xs[:, j + 1] = torch.where(mk, x, self.xs[:, j + 1])
         self.res[:, j] = torch.where(mask, r, self.res[:, j])
         self.r_prev.copy_(torch.where(mask, r, self.r_prev))
         self.yk.copy_(torch.where(mk, y, self.yk))
@@ -762,8 +813,9 @@ class DeviceCore:
         whose gate opened at step j1 (read from ``flags``: it runs before
         the step's ``arnoldi``)."""
         mask = ~self.done & self.flags[: self.B].bool() & ~self.started
-        for con, buf in zip(self.cons, self.bufs):
-            catch_up(con, buf, self.st.Z, self.x0, j1, mask, self.x0_zero)
+        for con, buf, g in zip(self.cons, self.bufs, self.general):
+            if not g:
+                catch_up(con, buf, self.st.Z, self.x0, j1, mask, self.x0_zero)
 
     def _model(self, j: int):
         return kkt_model(self.st.H, self.beta, self.bufs, j + 1, self.s0)
@@ -774,10 +826,23 @@ class DeviceCore:
 
     def _kkt_start(self, j: int) -> None:
         mask = self._open()
-        for con, buf in zip(self.cons, self.bufs):
-            fold_column(con, buf, self.st.Z, self.x0, j, mask, self.x0_zero)
-        self.started.copy_(self.started | mask)
         ka, na = j + 1, self.m + j + 1
+        for i, (con, buf, g) in enumerate(zip(self.cons, self.bufs,
+                                              self.general)):
+            if not g:
+                fold_column(con, buf, self.st.Z, self.x0, j, mask,
+                            self.x0_zero)
+                continue
+            # a fresh Taylor model about the warm coefficients, which both
+            # starts share (B = 1), with |t0| as its value's scale
+            t0, t1, T2 = taylor_model(con, self.yk[0, :ka],
+                                      self.st.Z[0, :ka], self.x0[0])
+            buf.t0.copy_(torch.where(mask, t0, buf.t0))
+            buf.t1[:, :ka] = torch.where(mask[:, None], t1, buf.t1[:, :ka])
+            buf.T2[:, :ka, :ka] = torch.where(mask[:, None, None], T2,
+                                              buf.T2[:, :ka, :ka])
+            self.s0[:, i] = torch.where(mask, t0.abs(), self.s0[:, i])
+        self.started.copy_(self.started | mask)
         y0 = torch.stack([self.yk[:, :ka], self.y_unc[:, :ka]], dim=1)
         have = torch.stack([self.haveK, torch.zeros_like(self.haveK)], dim=1)
         kkt_start(self._model(j), self.work, y0, have, self.lamc,
@@ -832,6 +897,12 @@ class DeviceCore:
         scale = torch.where(far, scale_fb, chosen(scale_c))
         y = torch.cat([torch.where((bad | far)[:, None], y_unc, y_kkt),
                        Y.new_zeros(B, k - ka)], dim=-1)
+        x = self._iterate(j, y)
+        for con, g in zip(self.cons, self.general):
+            if g:
+                # the Taylor model is exact for a quadratic g; a general g
+                # is checked at the accepted coefficients (B = 1)
+                deviation = torch.maximum(deviation, con.func(x[0]).abs())
         floor = torch.clamp(32.0 * eps * scale, min=self.ctol)
         safety = torch.where(bad, self.safety, torch.where(
             deviation > floor, _SAFETY_BAD, _SAFETY_OK))
@@ -844,17 +915,16 @@ class DeviceCore:
             mask[:, None, None], chosen(w.Kinv[..., :na, :na]),
             self.Kinvc[:, :na, :na])
         self.haveK.copy_(torch.where(mask, ~bad & ~far, self.haveK))
-        self._finish(j, y, mask, gated=True)
+        self._finish(j, y, mask, gated=True, x=x)
 
 
-def _quadratic(constraints) -> tuple:
-    cons = tuple(constraints)
-    if any(isinstance(c, GeneralConstraint) for c in cons):
-        raise NotImplementedError(
-            "the device core takes quadratic constraints; a general "
-            "constraint runs in the host loop (loop='host') until lkdvRK "
-            "under the graph core (ROADMAP.md, Queue 1, item 2)")
-    return cons
+def _con_key(c):
+    """What a cached core keeps of a constraint: a quadratic one's operator
+    M and whether it has v (its c and v are loaded per solve); a general
+    one itself (its function is called inside the steps)."""
+    if isinstance(c, GeneralConstraint):
+        return ("general", _key(c))
+    return (_key(c.M), c.v is None)
 
 
 def _key(obj):
@@ -896,12 +966,13 @@ def last_core() -> DeviceCore:
     return next(reversed(_CORES.values()))
 
 
-def _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho) -> DeviceCore:
+def _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho,
+              history=False) -> DeviceCore:
     """The cached device core for these operators and options, built (and
     cached, dropping the oldest past ``CORE_CACHE``) if none is."""
     key = (_key(A), _key(pre), int(k), float(tol), float(contol), float(ctol),
-           ortho, x0 is None, tuple(b.shape), b.dtype, str(b.device),
-           tuple((_key(c.M), c.v is None) for c in cons))
+           ortho, x0 is None, bool(history), tuple(b.shape), b.dtype,
+           str(b.device), tuple(_con_key(c) for c in cons))
     core = _CORES.get(key)
     if core is None:
         while len(_CORES) >= CORE_CACHE:
@@ -909,20 +980,17 @@ def _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho) -> DeviceCore:
             _CORES.popitem(last=False)
         core = _CORES[key] = DeviceCore(
             A, pre, k, cons, like=b, tol=tol, contol=contol, ctol=ctol,
-            ortho=ortho, x0_zero=x0 is None)
+            ortho=ortho, x0_zero=x0 is None, history=bool(history))
     _CORES.move_to_end(key)
     return core
 
 
 def _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
                 timing, ortho):
-    if history:
-        raise NotImplementedError(
-            "history is recorded by the host loop (loop='host') until "
-            "lkdvRK under the graph core (ROADMAP.md, Queue 1, item 2)")
-    cons = _quadratic(constraints)
+    cons = tuple(constraints)
     t0 = time.perf_counter()
-    core = _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho)
+    core = _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho,
+                     history)
     core.load(b, x0, cons)
     t_setup = time.perf_counter() - t0
     times = core.solve()
@@ -935,6 +1003,8 @@ def _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
     steps, ncon = int(steps), int(ncon)
     info = _info(False, steps, ncon, int(safety), dev_j, bool(brk),
                  int(kkt_it), int(nfb), out.res.cpu().numpy())
+    if history:
+        info["x"] = core.xs[0, : steps + 1].clone()
     if timing:
         j1 = times["phase1_steps_measured"]
         info["timings"] = {
@@ -1000,10 +1070,10 @@ def cgmres(
     the Arnoldi orthogonalisation (``arnoldi_step``).
 
     ``loop``: ``"host"`` (the default) runs the host loop; ``"while"`` the
-    device core (``DeviceCore``; quadratic constraints, no ``history``),
-    captured as CUDA graphs on the card, eager on the CPU.  The last
-    ``CORE_CACHE`` cores are kept, on the operators, the preconditioner,
-    ``k``, the tolerances, ``ortho`` and the constraints' operators
+    device core (``DeviceCore``), captured as CUDA graphs on the card, eager
+    on the CPU.  The last ``CORE_CACHE`` cores are kept, on the operators,
+    the preconditioner, ``k``, the tolerances, ``ortho``, ``history``, the
+    constraints' operators and the general constraints
     (``clear_core_cache`` drops them), so a second solve with new b, x0 or
     targets replays the first one's graphs; its ``timings`` add
     ``time_capture``, the seconds spent capturing, which ``runtime`` leaves

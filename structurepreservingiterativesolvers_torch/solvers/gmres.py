@@ -49,8 +49,11 @@ def _gmres_device(A, b, x0, k, tol, pre, history, ortho):
 
     x, info = _run_device(A, b, x0, k, tol, math.inf, (), pre, CTOL, history,
                           False, ortho)
-    return x, {"name": "gmres", "res": info["res"], "steps": info["steps"],
-               "breakdown": info["breakdown"]}
+    out = {"name": "gmres", "res": info["res"], "steps": info["steps"],
+           "breakdown": info["breakdown"]}
+    if history:
+        out["x"] = info["x"]
+    return x, out
 
 
 def gmres(
@@ -71,7 +74,7 @@ def gmres(
     ``breakdown`` and, when ``history=True``, the iterate history ``x``
     whose row 0 holds the initial residual vector (reference quirk,
     solvers.py:75-80).  ``loop``: ``"host"`` or ``"while"`` (the device
-    core; no ``history``).
+    core).
     """
     require_f64(b)
     x0 = as_operand(x0, b)

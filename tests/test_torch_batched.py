@@ -294,16 +294,16 @@ def test_refusals():
         cgmres_many(ps.A, Bs.float(), cons, **kw)
     with pytest.raises(NotImplementedError):
         cgmres_many(ps.A, Bs, cons, mixed=True, **kw)
-    # heat's preconditioners run under a batch (tests/test_torch_heat_batched.py);
-    # lkdvRK's wait for ROADMAP.md's item
-    for pre in (tprecond.RAS(idx=None, inv=None, own=None),
-                tprecond.BlockJacobi(idx=None, inv=None),
-                tprecond.neumann_composite(ps.A, None, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # heat's and lkdvRK's preconditioners run under a batch
+    # (tests/test_torch_heat_batched.py, tests/test_torch_lkdvrk_batched.py);
+    # one that does not apply to a block is refused, inside a composite too
+    for pre in (lambda v: v, tprecond.neumann_composite(ps.A, lambda v: v, 2)):
+        with pytest.raises(NotImplementedError, match="batched core takes"):
             cgmres_many(ps.A, Bs, cons, pre=pre, **kw)
+    # a general constraint, as the JAX package's cgmres_many refuses it
     general = [[GeneralConstraint(func=lambda x: x.sum(), name="sum")]
                for _ in pitems]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="cgmres_many"):
         cgmres_many(ps.A, Bs, general, **kw)
     with pytest.raises(NotImplementedError):
         tcgmres.DeviceCore(ps.A, None, k, cons[0], like=Bs, tol=tol,

@@ -155,9 +155,11 @@ def test_device_core_matches_host_loop_and_jax():
     x2, i2 = tcgmres.cgmres(s.A, s.b.clone(), constraints=s.constraints(),
                             loop="while", **kw)
     assert len(tcgmres._CORES) == cores and torch.equal(x2, xd)
-    with pytest.raises(NotImplementedError):
-        tcgmres.cgmres(s.A, s.b, constraints=s.constraints(), loop="while",
-                       history=True, **kw)
+    # with history the core keeps r0 (= b from x0 = 0) and each iterate
+    xs = tcgmres.cgmres(s.A, s.b, constraints=s.constraints(), loop="while",
+                        history=True, **kw)[1]["x"]
+    assert xs.shape == (idv["steps"] + 1, s.b.shape[0])
+    assert torch.equal(xs[0], s.b) and torch.equal(xs[-1], xd)
     with pytest.raises(ValueError):
         tcgmres.cgmres(s.A, s.b, loop="fori", **kw)
 
@@ -233,7 +235,8 @@ def test_fused_evolve_refusals():
     for kw in (dict(mesh=object()), dict(loop="fori")):
         with pytest.raises(NotImplementedError):
             tevolve.fused_evolve("swe", N=1, M=8, device="cpu", **kw)
-    # heat runs (tests/test_torch_heat_graph.py); lkdvRK waits for
+    # heat and lkdvRK run (tests/test_torch_heat_graph.py,
+    # tests/test_torch_lkdvrk_graph.py); a sharded evolution waits for
     # ROADMAP.md's item
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tevolve.fused_evolve("lkdvrk", N=1, M=8, device="cpu")
+        tevolve.fused_evolve("heat", N=1, M=8, device="cpu", mesh=object())

@@ -113,8 +113,11 @@ def test_time_cgmres_on_the_device_core():
     assert idv["steps"] == ih["steps"] and idv["breakdown"] == ih["breakdown"]
     np.testing.assert_allclose(idv["res"], ih["res"], rtol=1e-8)
     assert torch_parity.rel_max(xd.numpy(), xh.numpy()) <= 1e-10
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gmres(s.A, s.b, k=20, tol=TOL, pre=p, loop="while", history=True)
+    # the device core records the history too (r0, then each iterate)
+    _, ihh = gmres(s.A, s.b, k=20, tol=TOL, pre=p, history=True)
+    _, idh = gmres(s.A, s.b, k=20, tol=TOL, pre=p, loop="while", history=True)
+    assert idh["x"].shape == ihh["x"].shape == (ih["steps"] + 1, s.b.shape[0])
+    assert torch_parity.rel_max(idh["x"].numpy(), ihh["x"].numpy()) <= 1e-10
 
 
 def test_fused_evolve_heat_matches_record():

@@ -201,9 +201,9 @@ def operator_format(A) -> dict:
     return {"format": "ELL", "width": A.row_width}
 
 
-def check_lkdvrk_row(name):
-    """``time_cgmres`` with the default lkdvRK pre-builder against the
-    record's entry ``name``.  CGMRES is held as the device core is held
+def check_lkdvrk_row(name, loop="host"):
+    """``time_cgmres`` with the default lkdvRK pre-builder, both solvers on
+    ``loop``, against the record's entry ``name``; returns the row.  CGMRES is held as the device core is held
     (``tests/test_torch_fused.py``): certified where the record certifies,
     in at most the record's steps and constrained steps.  The port pins a
     linear constraint whose value every iterate keeps within its floor
@@ -226,7 +226,8 @@ def check_lkdvrk_row(name):
         return pre
 
     out = tts.time_cgmres("lkdvrk", k=cfg["k"], tol=cfg["tol"],
-                          pre_builder=builder, device="cpu", **cfg["params"])
+                          pre_builder=builder, device="cpu", loop=loop,
+                          **cfg["params"])
     assert seen == {"format": rec["format"], "width": rec["width"],
                     "ras_blocks": rec["ras_blocks"]}
     assert abs(out["gmres_steps"] - rec["gmres"]["steps"]) <= 1
@@ -235,6 +236,16 @@ def check_lkdvrk_row(name):
     assert out["safety"] is rec["cgmres"]["safety"] is True
     assert max(out["conservation"][f"cgmres_{nm}"]
                for nm in out["invariant_names"]) <= 1e-10
+    return out
+
+
+def slice12() -> dict:
+    """The JAX record of lkdvRK on the device core
+    (``reference/slice12.json``)."""
+    import json
+
+    return json.loads((ROOT / "structurepreservingiterativesolvers_torch"
+                       / "reference" / "slice12.json").read_text())
 
 
 def check_lkdvrk_runs(merged, name, floor=1e-8):
