@@ -191,6 +191,26 @@ imported.  Phases, each of which raises on a failed check:
     ``GeneralConstraint`` (its Taylor model in the ``kkt_start`` graph) and
     with ``history``, each against the host loop.  After each of 24–27,
     #1b on every (operator, width) the path gave it.
+28. (last) the thirteenth slice, heat P2 at M=512 (n = 1,050,625; the
+    operator and the constraint matrices ELL of width 19), k=60, tol=1e-7
+    absolute, f64, with the greedy host AMG that the default heat
+    pre-builder builds from the system's scipy matrix: the TimedSolve row
+    through ``time_cgmres`` on both loops (assembly seconds, ``time_pre``
+    and ``time_pre_first``, each level's size and format), certified with
+    a gain of 2 or more; kernel #1 on every level ``from_scipy`` stores as
+    a DIA against its plain twin in f64 and f32, and timed; GMRES and
+    CGMRES on both loops (medians of 5; the same steps and latch, x within
+    1e-10; the mass and energy deviations beside GMRES's; idle shares and
+    the kernels with the most device time; the V-cycle's busy per apply);
+    CGMRES with ``ortho="cgs2_fused"`` on both loops (#5 once a step, x
+    within 1e-10 of the ``cgs2`` solve);
+29. ``cgmres_many`` on heat P2 M=512 at B = 8 (``heat_P2_M512_amg_B8``):
+    every item certified, its steps its single device-core solve's, x
+    within 1e-10; the V-cycle on the block's rows (#1b on the DIA levels,
+    none of #1); then #1b on those levels at the batch's widths, and timed,
+    and #5 timed at the row's widest basis;
+30. the native host kernels (``utils/native.py``, g++ into
+    ``build/native/``) against scipy on a tridiagonal matrix.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -1484,45 +1504,49 @@ def phase_ortho_kernel():
     return max_abs
 
 
-def phase_ortho_timing():
-    """Kernel #5 in f64 with L2 flushed at the paths' shapes, beside its
-    bound and its plain twin, which is the unfused pair of cuBLAS products
-    (``w − h @ Q``, then ``Q @ w1``).  Returns the report's fields of each
-    shape, the swe M=512, m = 21 one first."""
+def _time_ortho(label, n, m, gen):
+    """Kernel #5 in f64 with L2 flushed at (n, m), beside its bound and its
+    plain twin, which is the unfused pair of cuBLAS products
+    (``w − h @ Q``, then ``Q @ w1``); returns the report's fields."""
     import torch
 
     from structurepreservingiterativesolvers_torch.kernels import ortho
 
+    Q = torch.randn(m, n, generator=gen, device=DEVICE, dtype=torch.float64)
+    w = torch.randn(n, generator=gen, device=DEVICE, dtype=torch.float64)
+    h = Q @ w
+    pair = _time_cold_ms(lambda: ortho.fused_update_matvec_torch(Q, w, h))
+    t = {
+        "ms": _time_cold_ms(lambda: ortho.fused_update_matvec(Q, w, h)),
+        "plain_ms": pair, "chain_ms": pair, "library_ms": None,
+        "warm_ms": _time_ms(lambda: ortho.fused_update_matvec(Q, w, h)),
+        "warm_chain_ms": _time_ms(
+            lambda: ortho.fused_update_matvec_torch(Q, w, h)),
+    }
+    # Q and w read once, w1 written once; a multiply-add per entry of Q
+    # in each of the two products
+    nbytes = (m * n + 2 * n) * 8
+    t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 4 * m * n)
+    print(f"[ortho] fused CGS2 update at {label} (n={n}, m={m}, f64, L2 "
+          f"flushed): kernel {t['ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.0f}"
+          f" GB/s of {nbytes / 1e6:.1f} MB), bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}; kernel at {t['bound_ms'] / t['ms']:.1%} of "
+          f"it), plain twin = unfused cuBLAS pair {pair:.4f} ms; back to "
+          f"back with operands in L2: kernel {t['warm_ms']:.4f} ms, pair "
+          f"{t['warm_chain_ms']:.4f} ms")
+    return t
+
+
+def phase_ortho_timing():
+    """Kernel #5 at the paths' shapes (``_time_ortho``).  Returns the
+    report's fields of each shape, the swe M=512, m = 21 one first."""
+    import torch
+
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    out = {}
-    for label, n, m in ((f"swe_M{SWE_M}_m21", SWE_N, 21),
-                        (f"swe_M{SWE_M}_m61", SWE_N, 61),
-                        (f"heat_M{HEAT_M}_m21", HEAT_N, 21)):
-        Q = torch.randn(m, n, generator=gen, device=DEVICE, dtype=torch.float64)
-        w = torch.randn(n, generator=gen, device=DEVICE, dtype=torch.float64)
-        h = Q @ w
-        pair = _time_cold_ms(lambda: ortho.fused_update_matvec_torch(Q, w, h))
-        t = {
-            "ms": _time_cold_ms(lambda: ortho.fused_update_matvec(Q, w, h)),
-            "plain_ms": pair, "chain_ms": pair, "library_ms": None,
-            "warm_ms": _time_ms(lambda: ortho.fused_update_matvec(Q, w, h)),
-            "warm_chain_ms": _time_ms(
-                lambda: ortho.fused_update_matvec_torch(Q, w, h)),
-        }
-        # Q and w read once, w1 written once; a multiply-add per entry of Q
-        # in each of the two products
-        nbytes = (m * n + 2 * n) * 8
-        t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, 4 * m * n)
-        print(f"[ortho] fused CGS2 update at {label} (n={n}, m={m}, f64, L2 "
-              f"flushed): kernel {t['ms']:.4f} ms ({nbytes / t['ms'] / 1e6:.0f}"
-              f" GB/s of {nbytes / 1e6:.1f} MB), bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}; kernel at {t['bound_ms'] / t['ms']:.1%} of "
-              f"it), plain twin = unfused cuBLAS pair {pair:.4f} ms; back to "
-              f"back with operands in L2: kernel {t['warm_ms']:.4f} ms, pair "
-              f"{t['warm_chain_ms']:.4f} ms")
-        out[label] = t
-        del Q
-    return out
+    return {label: _time_ortho(label, n, m, gen)
+            for label, n, m in ((f"swe_M{SWE_M}_m21", SWE_N, 21),
+                                (f"swe_M{SWE_M}_m61", SWE_N, 61),
+                                (f"heat_M{HEAT_M}_m21", HEAT_N, 21))}
 
 
 def phase_swe_fused(s, record):
@@ -4177,6 +4201,597 @@ def _check_path_spmm_any(shapes, path, gen):
     return _check_path_spmm(shapes, path, gen)[0]
 
 
+# the thirteenth slice: heat P2 with the greedy host AMG (phases 28-30)
+P2_M, P2_K, P2_TOL, P2_B = 512, 60, 1e-7, 8
+P2 = f"heat_P2_M{P2_M}"
+P2_N = (2 * P2_M + 1) ** 2
+P2_KERNELS = ("dia_spmv", "dia_spmm", "fused_update_matvec")
+
+
+def _p2_levels(pre):
+    """Each level of an AMG hierarchy as (n, format, width): a DIA with its
+    diagonal count, an ELL with its row width."""
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+
+    return [(L.A.shape[0], "DIA", len(L.A.offsets)) if isinstance(L.A, DIA)
+            else (L.A.shape[0], "ELL", L.A.row_width) for L in pre.levels]
+
+
+def _graph_ms(fn):
+    """The device time of ``fn`` captured in a CUDA graph, its replays timed
+    by CUDA events back to back (no host gaps): as a step graph of the
+    device core runs it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _time_ms(graph.replay, reps=20)
+
+
+def _top_kernels(prof, count=6):
+    """The device's kernels of a profile with the most time: (name, ms)."""
+    import torch
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not _is_span(e.key)]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return [(e.key[:60], e.self_device_time_total / 1e3)
+            for e in events[:count]]
+
+
+def phase_heat_p2():
+    """Phase 28: heat P2 at M=512 (n = 1,050,625; the operator and the
+    constraint matrices ELL of width 19), k=60, tol=1e-7 absolute, f64,
+    with the default heat pre-builder, which builds the greedy host AMG of
+    the system's scipy matrix and places its levels on the card: the
+    TimedSolve row through ``time_cgmres`` on both loops (assembly seconds,
+    ``time_pre``, ``time_pre_first``, the hierarchy's level sizes and
+    formats, steps, constrained steps, latch, residuals and the mass and
+    energy deviations of both solvers), each row certified with a gain of
+    2 or more over GMRES.  Then, on the device-core row's system and AMG:
+    kernel #1 on every level ``from_scipy`` stores as a DIA against its
+    plain twin in f64 and f32, and timed there (M=512's levels are all
+    ELL: the M=256 anchor, ``phase_heat_p2_dia_anchor``, holds a DIA
+    level); the finest level's ELL product on a vector and on a block of
+    8, timed; GMRES and CGMRES on both
+    loops in this call (medians of 5): the same steps and latch, x within
+    1e-10, the KKT deviation, the true residual, the mass and energy
+    deviations beside GMRES's, ``time_capture``, the idle share and the
+    kernels with the most device time under the profiler, and the
+    V-cycle's device busy per apply; #1 launched only on the DIA levels
+    (the counters of one solve on each loop, the replays' on the device
+    core); then CGMRES with ``ortho="cgs2_fused"`` on both loops, kernel #5
+    once per Arnoldi step, x within 1e-10 of the ``cgs2`` solve.  Returns
+    the system, the AMG, and the launches, walls and times of the
+    report."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        certified_deviations,
+        default_pre_builder,
+        time_cgmres,
+    )
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA, ELL
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    gm = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.gmres")
+    paths, walls, rows = {}, {}, {}
+    for loop in ("host", "while"):
+        tag = f"[{P2} time_cgmres(loop={loop!r})]"
+        seen = {"builds": []}
+
+        def pre_builder(system):  # the default, keeping what it was given
+            t0 = time.perf_counter()
+            seen.setdefault("assembled", t0)
+            seen["system"] = system
+            seen["pre"] = default_pre_builder("heat")(system)
+            torch.cuda.synchronize()
+            seen["builds"].append(time.perf_counter() - t0)
+            return seen["pre"]
+
+        _reset_launches()
+        t0 = time.perf_counter()
+        row = time_cgmres("heat", M=P2_M, degree=2, k=P2_K, tol=P2_TOL,
+                          pre_builder=pre_builder, device=DEVICE, loop=loop)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_launches()
+        s, pre = seen["system"], seen["pre"]
+        levels = _p2_levels(pre)
+        con = row["conservation"]
+        print(f"{tag} assembly {seen['assembled'] - t0:.2f} s; AMG setup "
+              f"time_pre_first {row['time_pre_first']:.3f} s, time_pre "
+              f"{row['time_pre']:.3f} s; levels (n, format, width) {levels}; "
+              f"gmres {row['gmres_steps']} steps {1e3 * row['time_gmres']:.3f}"
+              f" ms, residual {row['gmres_res_final']:.3e}; cgmres "
+              f"{row['steps']} steps, {row['constrained_steps']} constrained, "
+              f"safety {row['safety']}, residual {row['res_final']:.3e}, "
+              f"runtime {1e3 * row['runtime']:.3f} ms; deviations cgmres mass "
+              f"{con['cgmres_mass']:.3e} energy {con['cgmres_energy']:.3e}, "
+              f"gmres mass {con['gmres_mass']:.3e} energy "
+              f"{con['gmres_energy']:.3e}; warm-up {row['compile_time']:.3f} "
+              f"s; the row {wall:.1f} s; launches over the row "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        check(isinstance(s.A, ELL) and s.A.row_width == 19
+              and isinstance(s.Emat, ELL),
+              f"{tag} the operator is not the ELL of width 19")
+        check(row["safety"] is True and row["res_final"] < P2_TOL,
+              f"{tag} safety {row['safety']}, residual {row['res_final']:.3e}")
+        for nm in row["invariant_names"]:
+            check(con[f"cgmres_{nm}"] <= DEVIATION_MAX
+                  and (con[f"cgmres_{nm}"] < 0.5 * con[f"gmres_{nm}"]
+                       or con[f"floor_{nm}"]),
+                  f"{tag} {nm}: cgmres {con[f'cgmres_{nm}']:.3e}, gmres "
+                  f"{con[f'gmres_{nm}']:.3e}")
+        check(launches["dia_spmm"] == 0, f"{tag} #1b ran on a single solve")
+        check(launches["dia_spmv"] > 0 or all(f == "ELL" for _, f, _ in levels),
+              f"{tag} the DIA levels ran no kernel #1")
+        rows[loop] = {
+            "assembly_s": seen["assembled"] - t0, "time_pre": row["time_pre"],
+            "time_pre_first": row["time_pre_first"],
+            "steps": row["steps"], "gmres_steps": row["gmres_steps"],
+            "constrained_steps": row["constrained_steps"],
+            "runtime_ms": 1e3 * row["runtime"],
+            "gmres_ms": 1e3 * row["time_gmres"], "levels": levels}
+        paths[f"{P2}_{loop}_row"] = launches
+        if loop == "host":
+            del s, pre, seen
+            cg.clear_core_cache()
+    walls["rows"] = rows
+
+    # the DIA levels' products against their plain twins, and timed
+    tag = f"[{P2}]"
+    gen = torch.Generator(device=DEVICE).manual_seed(28)
+    dia_err, dia_times = 0.0, {}
+    for lvl, L in enumerate(pre.levels):
+        if isinstance(L.A, DIA):
+            label = f"{P2}_level{lvl}_A"
+            dia_err = max(dia_err, _check_dia(label, L.A, gen))
+            x = torch.randn(L.A.shape[0], generator=gen, device=DEVICE,
+                            dtype=torch.float64)
+            dia_times[label] = _time_dia(L.A, _dia_csr(L.A), x, label)
+
+    # GMRES and CGMRES on both loops, medians of 5
+    cons = s.constraints()
+    kw = dict(k=P2_K, tol=P2_TOL, pre=pre)
+    solves = {
+        "gmres_host": lambda: gm.gmres(s.A, s.b, **kw),
+        "gmres_while": lambda: gm.gmres(s.A, s.b, loop="while", **kw),
+        "cgmres_host": lambda: cg.cgmres(s.A, s.b, constraints=cons, **kw),
+        "cgmres_while": lambda: cg.cgmres(s.A, s.b, constraints=cons,
+                                          loop="while", **kw),
+    }
+    got = {}
+    for name, fn in solves.items():
+        fn()  # the device core captures its graphs here
+        runner = cg.last_core().runner if name.endswith("while") else None
+        before = dict(runner.replayed) if runner else None
+        _reset_launches()
+        (x, info), _ = _timed(fn, reps=1)
+        launches = _read_launches()
+        if runner:
+            check(launches == _replayed(runner, before),
+                  f"{tag} {name}: launches {launches} are not the replays'")
+        _, w = _timed(fn)
+        prof = _profiled(fn)
+        got[name] = (x, info, launches, w, prof)
+        if name == "cgmres_while":
+            capture, graphs = runner.time_capture, runner.captures
+    for solver in ("gmres", "cgmres"):
+        xh, ih, lh, wh, ph = got[f"{solver}_host"]
+        xw, iw, lw, ww, pw = got[f"{solver}_while"]
+        dev = (certified_deviations(s, xh), certified_deviations(s, xw))
+        res = [float(torch.linalg.norm(s.b - s.A @ v)) for v in (xh, xw)]
+        keys = ("steps", "constrained_steps", "safety")
+        print(f"{tag} {solver}: steps host {ih['steps']} / device core "
+              f"{iw['steps']}" + (
+                  f", constrained {ih['constrained_steps']} / "
+                  f"{iw['constrained_steps']}, safety {ih['safety']} / "
+                  f"{iw['safety']}, KKT deviation {ih['deviation']:.3e} / "
+                  f"{iw['deviation']:.3e}" if solver == "cgmres" else "")
+              + f"; true residual {res[0]:.4e} / {res[1]:.4e}; mass "
+              f"deviation {dev[0]['mass']:.3e} / {dev[1]['mass']:.3e}, "
+              f"energy {dev[0]['energy']:.3e} / {dev[1]['energy']:.3e}; x "
+              f"device core against host loop {_rel(xw, xh):.3e}")
+        print(f"{tag} {solver} wall, median of {GRAPH_SOLVES}: host loop "
+              f"{1e3 * _median(wh):.3f} ms ({_ms(wh)}), device core "
+              f"{1e3 * _median(ww):.3f} ms ({_ms(ww)}); profiled busy host "
+              f"loop {ph[1]:.3f} ms (idle {ph[2]:.3f}), device core "
+              f"{pw[1]:.3f} ms (idle {pw[2]:.3f}); unprofiled idle: host "
+              f"loop {1.0 - ph[1] / 1e3 / _median(wh):.3f}, device core "
+              f"{1.0 - pw[1] / 1e3 / _median(ww):.3f}")
+        print(f"{tag} {solver} kernels with the most device time, device "
+              f"core: {_top_kernels(pw[4])}")
+        print(f"{tag} {solver} launches of #1, #1b and #5 over one solve: "
+              f"host loop {[lh[k] for k in P2_KERNELS]}, device core "
+              f"{[lw[k] for k in P2_KERNELS]}")
+        for k_ in keys:
+            if k_ in ih:
+                check(ih[k_] == iw[k_], f"{tag} {solver} {k_}: host loop "
+                                        f"{ih[k_]}, device core {iw[k_]}")
+        check(_rel(xw, xh) <= 1e-10, f"{tag} {solver} x {_rel(xw, xh):.3e} "
+                                     f"between the loops")
+        check(max(res) < P2_TOL, f"{tag} {solver} true residuals {res}")
+        for lz in (lh, lw):
+            check(lz["dia_spmm"] == 0
+                  and (lz["dia_spmv"] > 0 or not dia_times),
+                  f"{tag} {solver}: #1 on the DIA levels, none of #1b: {lz}")
+        if solver == "cgmres":
+            check(iw["safety"] is True and iw["deviation"] <= DEVIATION_MAX,
+                  f"{tag} cgmres safety {iw['safety']}, deviation "
+                  f"{iw['deviation']:.3e}")
+            for nm in ("mass", "energy"):
+                check(max(dev[0][nm], dev[1][nm]) <= DEVIATION_MAX,
+                      f"{tag} cgmres {nm} deviation {dev}")
+        walls[solver] = {"host_ms": 1e3 * _median(wh),
+                         "graph_ms": 1e3 * _median(ww),
+                         "host_idle": ph[2], "idle": pw[2],
+                         "busy_ms": pw[1], "host_busy_ms": ph[1],
+                         "steps": iw["steps"]}
+        paths[f"{P2}_{solver}_host"] = lh
+        paths[f"{P2}_{solver}_graph_core"] = lw
+    walls["time_capture"], walls["graphs"] = capture, graphs
+
+    # the V-cycle alone, as the step graphs run it: one apply captured in a
+    # CUDA graph, its replays timed by CUDA events (device time, no host
+    # gaps); its share of the device core's CGMRES busy; and an eager
+    # apply's wall and kernels under the profiler
+    v = torch.randn(P2_N, generator=gen, device=DEVICE, dtype=torch.float64)
+    vc_ms = _graph_ms(lambda: pre(v))
+    vc = _profiled(lambda: pre(v))
+    applies = got["cgmres_while"][1]["steps"]
+    share = vc_ms * applies / walls["cgmres"]["busy_ms"]
+    print(f"{tag} one V-cycle: {vc_ms:.3f} ms of device time as a graph "
+          f"replay; eager wall {1e3 * vc[0]:.3f} ms; kernels with the most "
+          f"device time {_top_kernels(vc[4])}; {applies} applies are "
+          f"{share:.1%} of the device core's CGMRES busy")
+    walls["vcycle_ms"], walls["vcycle_share"] = vc_ms, share
+    # the finest level's ELL product (torch operations, not a kernel): on a
+    # vector, on the (n, 8) view of a (8, n) block (the batched core's and
+    # the block V-cycle's operand), and 8 vector products, each a graph
+    # replay, beside the bytes it must move (values and columns read once,
+    # the vectors read and written once)
+    A0 = pre.levels[0].A
+    Z = torch.randn(P2_B, P2_N, generator=gen, device=DEVICE,
+                    dtype=torch.float64)
+    ell = {"vector_ms": _graph_ms(lambda: A0 @ Z[0]),
+           "block_ms": _graph_ms(lambda: A0 @ Z.T),
+           "vectors_ms": _graph_ms(lambda: [A0 @ z for z in Z])}
+    slots = A0.vals.numel() * 16
+    ell["bound_vector_ms"] = _bound_ms(slots + 2 * P2_N * 8, 2 * slots / 16)[0]
+    ell["bound_block_ms"] = _bound_ms(slots + 2 * P2_B * P2_N * 8,
+                                      P2_B * slots / 8)[0]
+    print(f"{tag} the finest level's ELL product (n={P2_N}, width "
+          f"{A0.row_width}; graph replays): A @ x {ell['vector_ms']:.4f} ms "
+          f"(bound {ell['bound_vector_ms']:.4f}), A @ X at B={P2_B} "
+          f"{ell['block_ms']:.4f} ms (bound {ell['bound_block_ms']:.4f}), "
+          f"{P2_B} products of a vector {ell['vectors_ms']:.4f} ms")
+    walls["ell"] = ell
+
+    # CGMRES with the fused CGS2 update on both loops
+    x0, i0 = got["cgmres_while"][:2]
+    for loop in ("host", "while"):
+        _reset_launches()
+        x5, i5 = cg.cgmres(s.A, s.b, constraints=cons, loop=loop,
+                           ortho="cgs2_fused", **kw)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        if loop == "while":  # the first solve captured: count a replay
+            runner = cg.last_core().runner
+            before = dict(runner.replayed)
+            _reset_launches()
+            x5, i5 = cg.cgmres(s.A, s.b, constraints=cons, loop=loop,
+                               ortho="cgs2_fused", **kw)
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            check(launches == _replayed(runner, before),
+                  f"{tag} cgs2_fused: launches are not the replays'")
+        print(f"[{P2} cgs2_fused {loop}] steps {i5['steps']} (cgs2 "
+              f"{i0['steps']}), constrained {i5['constrained_steps']}, safety "
+              f"{i5['safety']}, KKT deviation {i5['deviation']:.3e}; x "
+              f"against the cgs2 solve {_rel(x5, x0):.3e}; launches of #1, "
+              f"#1b and #5 {[launches[k] for k in P2_KERNELS]}")
+        check(i5["safety"] is True and i5["steps"] == i0["steps"]
+              and i5["deviation"] <= DEVIATION_MAX,
+              f"{P2} cgs2_fused {loop}: {i5['steps']} steps, safety "
+              f"{i5['safety']}")
+        check(_rel(x5, x0) <= 1e-10, f"{P2} cgs2_fused {loop}: x "
+                                     f"{_rel(x5, x0):.3e} from cgs2")
+        check(launches["fused_update_matvec"] == i5["steps"],
+              f"{P2} cgs2_fused {loop}: {launches['fused_update_matvec']} "
+              f"launches of #5 over {i5['steps']} steps")
+        paths[f"{P2}_cgs2_fused_{loop}"] = launches
+    cg.clear_core_cache()
+    return s, pre, {"paths": paths, "walls": walls, "dia_err": dia_err,
+                    "dia_times": dia_times,
+                    "ortho_m": int(i5["steps"]) + 1}
+
+
+def phase_heat_p2_batched(s, pre, shapes):
+    """Phase 29: ``cgmres_many`` on heat P2 M=512 at B = 8
+    (``heat_P2_M512_amg_B8``) with the greedy AMG built on the unperturbed
+    system, item i ``step_update(z0 + 0.02 i·p)``, p the lowest 3 x 3
+    cosine modes at the P2 nodes (``heat_p2_field``, seed 0): every item
+    certified, its steps its single device-core solve's and x within 1e-10
+    of it; the V-cycle on the block's rows (#1b on the DIA levels, none of
+    #1); the counters the replays'; the median wall of 5 beside the median
+    of 5 rounds of the 8 single solves, ``time_capture``, the idle share.
+    Then #1b on every DIA level at the widths the batch gave it
+    (``_check_path_spmm_any``).  Returns the launches, walls and the
+    largest #1b error."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    name = f"{P2}_amg_B{P2_B}"
+    tag = f"[{name}]"
+    ref = _reference_script()
+    field = torch.as_tensor(ref.heat_p2_field(s.prob.fem(),
+                                              s.z0.cpu().numpy()),
+                            device=DEVICE)
+    items = [s.step_update(s.z0 + 0.02 * i * field) for i in range(P2_B)]
+    Bs = torch.stack([t.b for t in items])
+    cons = [t.constraints() for t in items]
+
+    def many():
+        return cgmres_many(s.A, Bs, cons, k=P2_K, tol=P2_TOL, pre=pre)
+
+    shapes.path(name, keep=True)
+    (X, info), first = _timed(many, reps=1)
+    runner = cg.last_core().runner
+    capture = runner.time_capture
+    _, walls = _timed(many)
+    before = dict(runner.replayed)
+    _reset_launches()
+    X2, info2 = many()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    expected = _replayed(runner, before)
+    prof = _profiled(many)
+    shapes.checks()
+    cg.clear_core_cache()
+
+    def singles():
+        return [cg.cgmres(s.A, t.b, k=P2_K, tol=P2_TOL, pre=pre,
+                          constraints=c, loop="while")
+                for t, c in zip(items, cons)]
+
+    singles()  # the first item's solve captures the graphs
+    one, single_walls = _timed(singles)
+    cg.clear_core_cache()
+    med, smed = _median(walls), _median(single_walls)
+    true_res = [float(torch.linalg.norm(t.A @ x - t.b))
+                for t, x in zip(items, X)]
+    x_rel = [_rel(X[i], xs) for i, (xs, _) in enumerate(one)]
+    has_dia = any(f == "DIA" for _, f, _ in _p2_levels(pre))
+    print(f"{tag} B={P2_B}, k={P2_K}: steps {list(map(int, info['steps']))} "
+          f"(single solves {[i1['steps'] for _, i1 in one]}), safety "
+          f"{list(map(int, info['safety']))}, KKT deviation "
+          f"{['%.2e' % d for d in info['deviation']]}, true residual "
+          f"{['%.2e' % r for r in true_res]}; x against each single solve "
+          f"{['%.2e' % r for r in x_rel]}; a second batched solve bit-equal "
+          f"{bool(torch.equal(X, X2))}")
+    print(f"{tag} wall, median of {GRAPH_SOLVES}: batched {1e3 * med:.3f} ms "
+          f"({_ms(walls)}), the {P2_B} single device-core solves "
+          f"{1e3 * smed:.3f} ms ({_ms(single_walls)}); first batched solve "
+          f"(capturing) {1e3 * first[0]:.1f} ms, time_capture "
+          f"{1e3 * capture:.1f} ms ({runner.captures} graphs); profiled busy "
+          f"{prof[1]:.3f} ms, idle {prof[2]:.3f}; unprofiled idle "
+          f"{1.0 - prof[1] / 1e3 / med:.3f}; kernels with the most device "
+          f"time {_top_kernels(prof[4])}")
+    print(f"{tag} launches of #1, #1b and #5 over one batched solve "
+          f"{[launches[k] for k in P2_KERNELS]}")
+    for i, (xs, i1) in enumerate(one):
+        check(int(info["safety"][i]) == 1
+              and info["deviation"][i] <= DEVIATION_MAX,
+              f"{tag} item {i}: safety {info['safety'][i]}, deviation "
+              f"{info['deviation'][i]:.3e}")
+        check(int(info["steps"][i]) == i1["steps"],
+              f"{tag} item {i}: {info['steps'][i]} steps, its single solve "
+              f"{i1['steps']}")
+        check(true_res[i] < P2_TOL, f"{tag} item {i}: true residual "
+                                    f"{true_res[i]:.3e}")
+        check(x_rel[i] <= 1e-10, f"{tag} item {i}: x {x_rel[i]:.3e} from its "
+                                 f"single solve")
+    check(torch.equal(X, X2), f"{tag} a second batched solve differs")
+    check(launches == expected, f"{tag} launches {launches} are not the "
+                                f"replays' {expected}")
+    check(launches["dia_spmv"] == 0 and (launches["dia_spmm"] > 0
+                                         or not has_dia),
+          f"{tag} the batch's DIA levels ran other than #1b: {launches}")
+    check(launches["fused_update_matvec"] == 0, f"{tag} #5 under a batch")
+    err = _check_path_spmm_any(shapes, name, torch.Generator(
+        device=DEVICE).manual_seed(29))
+    return launches, {"wall_ms": 1e3 * med, "single_ms": 1e3 * smed,
+                      "capture_s": capture, "idle": prof[2],
+                      "busy_ms": prof[1]}, err
+
+
+P2_ANCHOR_M = 256  # heat P2 M=256: its third level from_scipy stores as a DIA
+
+
+def phase_heat_p2_dia_anchor(shapes):
+    """The DIA levels of a greedy hierarchy on the card: heat P2 at M=256
+    (n = 263,169), whose third level (n = 1,913, 41 diagonals)
+    ``from_scipy`` stores as a DIA where every level of M=512's is an ELL.
+    Kernel #1 on each DIA level against its plain twin in f64 and f32, and
+    timed; one CGMRES solve on each loop (k=60, tol=1e-7) with the
+    counters of one solve (#1 five times a V-cycle on each DIA level: two
+    sweeps of pre- and post-smoothing and the residual), the device core's
+    ``arnoldi`` graph holding them; ``cgmres_many`` at B = 8 (item i
+    ``step_update(z0 + 0.02 i·p)``), its V-cycle's DIA levels through #1b
+    (five a replay, none of #1), each item certified with its single
+    solve's steps; then #1b on those levels at the widths the batch gave
+    it (``_check_path_spmm``), and timed at B = 8.  Returns the launches
+    by path, the largest f64 errors of #1 and #1b, and the times."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat
+    from structurepreservingiterativesolvers_torch.ops.sparse import DIA
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    name = f"heat_P2_M{P2_ANCHOR_M}"
+    tag = f"[{name}]"
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    t0 = time.perf_counter()
+    s = heat.linforms(M=P2_ANCHOR_M, degree=2, device=DEVICE)
+    t1 = time.perf_counter()
+    pre = default_pre_builder("heat")(s)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    levels = _p2_levels(pre)
+    dia_levels = [lvl for lvl, L in enumerate(pre.levels)
+                  if isinstance(L.A, DIA)]
+    print(f"{tag} assembly {t1 - t0:.2f} s, greedy AMG setup {t2 - t1:.3f} s;"
+          f" levels (n, format, width) {levels}")
+    check(bool(dia_levels) and all(L.P is not None for L in
+                                   (pre.levels[lvl] for lvl in dia_levels)),
+          f"{tag} no DIA level above the coarsest: {levels}")
+    dia_err, times = 0.0, {}
+    for lvl in dia_levels:
+        A = pre.levels[lvl].A
+        label = f"{name}_level{lvl}_A"
+        dia_err = max(dia_err, _check_dia(label, A, gen))
+        x = torch.randn(A.shape[0], generator=gen, device=DEVICE,
+                        dtype=torch.float64)
+        times[label] = _time_dia(A, _dia_csr(A), x, label)
+    cons = s.constraints()
+    kw = dict(k=P2_K, tol=P2_TOL, pre=pre, constraints=cons)
+    paths = {}
+    x_host = None
+    for loop in ("host", "while"):
+        cg.cgmres(s.A, s.b, loop=loop, **kw)  # the device core captures
+        runner = cg.last_core().runner if loop == "while" else None
+        before = dict(runner.replayed) if runner else None
+        _reset_launches()
+        x, info = cg.cgmres(s.A, s.b, loop=loop, **kw)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        per_replay = runner.launches() if runner else None
+        print(f"{tag} cgmres {loop}: steps {info['steps']}, constrained "
+              f"{info['constrained_steps']}, safety {info['safety']}, KKT "
+              f"deviation {info['deviation']:.3e}; launches of #1 "
+              f"{launches['dia_spmv']} (live {launches['dia_spmv_live']}, "
+              f"dense {launches['dia_spmv_dense']})" + (
+                  f"; per arnoldi replay {per_replay.get('arnoldi')}; x against "
+                  f"the host loop {_rel(x, x_host):.3e}" if runner else ""))
+        check(info["safety"] is True and info["deviation"] <= DEVIATION_MAX,
+              f"{tag} cgmres {loop}: safety {info['safety']}")
+        check(launches["dia_spmv"] >= 5 * len(dia_levels) * info["steps"]
+              and launches["dia_spmm"] == 0,
+              f"{tag} cgmres {loop}: {launches['dia_spmv']} launches of #1 "
+              f"over {info['steps']} V-cycles")
+        if runner:
+            check(launches == _replayed(runner, before),
+                  f"{tag} launches are not the replays'")
+            check(per_replay.get("arnoldi", {}).get("dia_spmv") == 5 * len(dia_levels),
+                  f"{tag} an arnoldi graph holds {per_replay.get('arnoldi')}")
+            check(_rel(x, x_host) <= 1e-10, f"{tag} x between the loops")
+        x_host = x
+        paths[f"{name}_{loop}"] = launches
+    cg.clear_core_cache()
+
+    ref = _reference_script()
+    field = torch.as_tensor(ref.heat_p2_field(s.prob.fem(),
+                                              s.z0.cpu().numpy()),
+                            device=DEVICE)
+    items = [s.step_update(s.z0 + 0.02 * i * field) for i in range(P2_B)]
+    Bs = torch.stack([t.b for t in items])
+    bcons = [t.constraints() for t in items]
+    batch = f"{name}_amg_B{P2_B}"
+    shapes.path(batch, keep=True)
+    X, binfo = cgmres_many(s.A, Bs, bcons, k=P2_K, tol=P2_TOL, pre=pre)
+    runner = cg.last_core().runner
+    before = dict(runner.replayed)
+    _reset_launches()
+    X, binfo = cgmres_many(s.A, Bs, bcons, k=P2_K, tol=P2_TOL, pre=pre)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    per_replay = runner.launches()
+    shapes.checks()
+    cg.clear_core_cache()
+    singles = [cg.cgmres(s.A, t.b, k=P2_K, tol=P2_TOL, pre=pre,
+                         constraints=c, loop="while")
+               for t, c in zip(items, bcons)]
+    cg.clear_core_cache()
+    x_rel = [_rel(X[i], xs) for i, (xs, _) in enumerate(singles)]
+    print(f"{tag} cgmres_many B={P2_B}: steps "
+          f"{list(map(int, binfo['steps']))} (single solves "
+          f"{[i1['steps'] for _, i1 in singles]}), safety "
+          f"{list(map(int, binfo['safety']))}; x against each single solve "
+          f"{['%.2e' % r for r in x_rel]}; launches of #1b "
+          f"{launches['dia_spmm']}, of #1 {launches['dia_spmv']}; per "
+          f"arnoldi replay {per_replay.get('arnoldi')}")
+    for i, (_, i1) in enumerate(singles):
+        check(int(binfo["safety"][i]) == 1
+              and int(binfo["steps"][i]) == i1["steps"]
+              and x_rel[i] <= 1e-10,
+              f"{tag} batched item {i}: steps {binfo['steps'][i]} against "
+              f"{i1['steps']}, x {x_rel[i]:.3e}")
+    check(launches == _replayed(runner, before),
+          f"{tag} batched launches are not the replays'")
+    check(launches["dia_spmv"] == 0
+          and per_replay.get("arnoldi", {}).get("dia_spmm") == 5 * len(dia_levels),
+          f"{tag} the batched V-cycle's DIA levels: {per_replay.get('arnoldi')}")
+    paths[batch] = launches
+    spmm_err, _ = _check_path_spmm(shapes, batch, gen)
+    spmm_times = {f"{label}_B{P2_B}": _time_spmm(
+        pre.levels[int(label.split("level")[1].split("_")[0])].A, P2_B,
+        f"{label} (batched V-cycle)", gen) for label in times}
+    return paths, dia_err, times, spmm_err, spmm_times
+
+def phase_native():
+    """Phase 30: the native host kernels (``utils/native.py``, built with
+    g++ into ``build/native/``) against scipy on a tridiagonal matrix: the
+    CSR product and an ILU(0) solve (no fill: the exact LU)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from structurepreservingiterativesolvers_torch.utils import native
+
+    if not native.available():
+        print("[native] no g++ on this machine: the native kernels are not "
+              "built, and their users take scipy")
+        return
+    n = 120
+    A = sp.csr_matrix(sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1], shape=(n, n)))
+    rng = np.random.default_rng(30)
+    x, b = rng.standard_normal(n), rng.standard_normal(n)
+    e_mv = float(np.abs(native.csr_spmv(A, x) - A @ x).max())
+    e_lu = float(np.abs(A @ native.ILU0(A).solve(b) - b).max())
+    print(f"[native] {native.library_path().relative_to(ROOT)}: csr_spmv "
+          f"against scipy {e_mv:.2e}, A @ ILU0.solve(b) - b {e_lu:.2e} "
+          f"(tridiagonal, n={n})")
+    check(e_mv <= 1e-13 and e_lu <= 1e-10, "the native kernels disagree "
+                                           "with scipy")
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -4386,6 +5001,28 @@ def main() -> int:
             block_err[kernel] = max(block_err[kernel], err)
     del heat_sys
     heat11.update({name: row["launches"] for name, row in heat_rows.items()})
+    # the thirteenth slice: heat P2 with the greedy host AMG (phases 28-30)
+    torch.cuda.empty_cache()
+    p2_sys, p2_pre, p2 = phase_heat_p2()
+    torch.cuda.synchronize()
+    p2_batch, p2["walls"]["batched"], err13 = phase_heat_p2_batched(
+        p2_sys, p2_pre, shapes)
+    spmm_err = max(spmm_err, err13)
+    ortho_times[f"{P2}_m{p2['ortho_m']}"] = _time_ortho(
+        f"{P2}_m{p2['ortho_m']}", P2_N, p2["ortho_m"],
+        torch.Generator(device=DEVICE).manual_seed(30))
+    p2_paths = {**p2["paths"], f"{P2}_amg_B{P2_B}": p2_batch}
+    del p2_sys, p2_pre
+    torch.cuda.empty_cache()
+    anchor_paths, err_a, times_a, err_b, spmm_a = phase_heat_p2_dia_anchor(
+        shapes)
+    p2_paths.update(anchor_paths)
+    p2["dia_err"] = max(p2["dia_err"], err_a)
+    p2["dia_times"].update(times_a)
+    spmm_err = max(spmm_err, err_b)
+    spmm_times.update(spmm_a)
+    torch.cuda.synchronize()
+    phase_native()
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
@@ -4401,7 +5038,7 @@ def main() -> int:
     rk_paths = {**{name: row["launches"] for name, row in rk_rows.items()},
                 f"{LKDVRK_ROWS[0]}_cgs2_fused": rk_rows[LKDVRK_ROWS[0]]["fused"],
                 LKDVRK_EVOLVE: rk_evolve_launches,
-                "lkdv_hard_general": general_launches, **rk12}
+                "lkdv_hard_general": general_launches, **rk12, **p2_paths}
 
     def by_path(name, **first):
         """A kernel's launches on each path that ran it."""
@@ -4420,10 +5057,10 @@ def main() -> int:
              **{path: n["dia_spmv"] for path, n in rk_paths.items()}}),
          "launches_by_design": {design: launches[f"dia_spmv_{design}"]
                                 for design in ("live", "dense")},
-         "max_abs_err": max(dia_err, dia_heat_err, dia_rk_err),
+         "max_abs_err": max(dia_err, dia_heat_err, dia_rk_err, p2["dia_err"]),
          "timed_at": f"heat_M{HEAT_M}_A", **dia,
          "times": {f"swe_M{SWE_M}_A": dia_swe, f"heat_M{HEAT_M}_A": dia,
-                   f"{LKDVRK_ROWS[0]}_A": dia_rk}},
+                   f"{LKDVRK_ROWS[0]}_A": dia_rk, **p2["dia_times"]}},
         {"name": "stencil_spmv", "route": "cuda",
          "source": src + "stencil_spmv.cu",
          "replaces": f"{tpu}pallas_spmv.py:165",
@@ -4532,6 +5169,7 @@ def main() -> int:
                                   "time_pre_first", "runtime", "time_gmres",
                                   "cgmres_over_gmres", "wall", "composite")}
         for name, row in rk_rows.items()}))
+    print("[heat_p2] " + json.dumps(p2["walls"]))
     print("[lkdvrk12] " + json.dumps({"walls": rk12_walls, "batched": {
         name: {key: row[key] for key in ("wall_ms", "single_ms", "capture_s",
                                          "idle", "busy_ms")}

@@ -20,7 +20,14 @@ heat with each of them, and ``fused_evolve`` on heat with the AMG) and
 ``evolve`` and ``fused_evolve`` of one small evolution, the chained record
 and the one with the JAX ``fused_evolve``'s state fault; ``cgmres_many``
 with the RAS + Neumann composite and with RAS alone; ``cgmres`` with a
-general constraint and with ``history``):
+general constraint and with ``history``) and ``slice13.json`` (heat P2,
+the unstructured heat operator, with the JAX package's greedy host AMG,
+``SLICE13``: ``time_cgmres`` at M=16, 32 and 64 with the hierarchy's level
+sizes and formats, the greedy aggregate counts per level, ``cgmres_many``
+at M=16 with a batch of 3; and the reporting and oracle modules:
+``tabulator``'s columns on lkdv M=20, ``single_solve("lkdvrk",
+pre="auto")``, and GMRES's steps with the ILU and direct oracles on lkdvRK
+M=50):
 for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
@@ -139,6 +146,27 @@ SLICE12 = {"lkdvrk_M20_evolve", "lkdvrk_M20_fused", "lkdvrk_M20_B3",
            "lkdvrk_M20_ras_B3", "lkdv_M50_general", "lkdv_M50_history"}
 LKDVRK_SMALL = dict(M=20, N=4, degree=3, tstages=2, T=0.4)
 
+# the configurations whose records go to slice13.json.  heat P2 (degree 2,
+# n = (2M+1)², its operator an ELL of width 19) at the TimedSolve row's
+# tol=1e-7 absolute and k=60, preconditioned by the JAX package's greedy
+# host AMG, amg(s.A_csr, dtype=np.float64): the path its amg keeps for
+# unstructured operators (its default pre-builder hands the ELL operator
+# to the structured setup, which raises); name -> M
+P2_TIMED = {"heat_P2_M16": 16, "heat_P2_M32": 32, "heat_P2_M64": 64}
+P2_K, P2_TOL = 60, 1e-7
+# the reporting and oracle records: the greedy aggregates of heat P2 at
+# M=16 and 64; tabulator on lkdv M=20 (degree 1), GMRES and the
+# prototypical CGMRES at k=10 with history; single_solve on lkdvRK M=20
+# with pre="auto"; GMRES (k=60, tol=1e-8) with the ILU and direct oracles
+# on lkdvRK M=50, (3, 2), the configuration of tests/test_ilu_parity.py
+REPORTS = {
+    "heat_P2_aggregates": dict(M=(16, 64)),
+    "lkdv_M20_table": dict(M=20, degree=1, k=10),
+    "lkdvrk_M20_single_auto": dict(M=20),
+    "lkdvrk_M50_ilu": dict(M=50, degree=3, tstages=2, k=60, tol=1e-8),
+}
+SLICE13 = {*P2_TIMED, *REPORTS, "heat_P2_M16_B3"}
+
 # the JAX cgmres on its default loop (the device core): name -> (linforms
 # parameters of lkdv, k, tol, what it records: "general" (the energy as a
 # GeneralConstraint) or "history")
@@ -229,6 +257,11 @@ BATCHED = {
     "lkdvrk_M20_ras_B3": ("lkdvrk", dict(M=20, degree=3, tstages=2, N=4,
                                          T=0.4),
                           3, 50, 1e-8, "ras", "stages"),
+    # the thirteenth slice: heat P2 M=16 at B = 3 with the greedy AMG
+    # built on the unperturbed system, at the P2 rows' k and tol, item i
+    # the stepped z0 + 0.02 i·p with p at the P2 nodes (``heat_p2_field``)
+    "heat_P2_M16_B3": ("heat", dict(M=16, degree=2), 3, P2_K, P2_TOL,
+                       "amg_greedy", "smooth_p2"),
 }
 
 
@@ -277,6 +310,26 @@ def heat_smooth_field(M: int, z0):
     return p * (np.abs(z0).max() / np.abs(p).max())
 
 
+def heat_p2_field(fem, z0):
+    """``heat_smooth_field`` at the nodes of a P2 space (``fem``, either
+    package's ``SpaceP2``, as ``Problem(degree=2).fem()`` gives it): the
+    vertices, then the edge midpoints in the space's numbering of its
+    edges; the lowest 3 x 3 cosine modes cos(pi kx x) cos(pi ky y) with
+    amplitudes drawn N(0, 1) from numpy's generator of seed 0, scaled so
+    that max|p| = max|z0|."""
+    import numpy as np
+
+    amp = np.random.default_rng(0).standard_normal((3, 3))
+    xy = np.asarray(fem.xy, dtype=np.float64)
+    e = np.asarray(fem.edges)
+    xy = np.concatenate([xy, 0.5 * (xy[e[:, 0]] + xy[e[:, 1]])])
+    x, y = xy[:, 0], xy[:, 1]
+    p = sum(amp[kx, ky] * np.cos(np.pi * kx * x) * np.cos(np.pi * ky * y)
+            for kx in range(3) for ky in range(3))
+    z0 = np.asarray(z0, dtype=np.float64)
+    return p * (np.abs(z0).max() / np.abs(p).max())
+
+
 def lkdvrk_field(fem, mlength, u0):
     """A smooth periodic perturbation of an lkdvRK u field: the projection
     onto ``fem`` (either package's ``Space1D``) of the lowest 3 Fourier
@@ -307,11 +360,12 @@ def lkdvrk_stage_states(p, B, ns, n0, dt):
     return Z.reshape(B, -1)
 
 
-def batch_states(name, z0):
+def batch_states(name, z0, fem=None):
     """The states z_i (B, n) whose ``step_update`` gives the items of
     ``BATCHED[name]``, from the system's z0 (numpy, f64): ``scaled``
     z0·(1 + 0.01 i); ``noise`` z0 + 0.05 i·g with g ~ N(0, 1) of numpy's
-    generator of seed 0; ``smooth`` z0 + 0.02 i·p with p = ``smooth_field``."""
+    generator of seed 0; ``smooth`` z0 + 0.02 i·p with p = ``smooth_field``;
+    ``smooth_p2`` z0 + 0.02 i·p with p = ``heat_p2_field`` of ``fem``."""
     import numpy as np
 
     problem, params, B, _, _, _, kind = BATCHED[name]
@@ -325,6 +379,8 @@ def batch_states(name, z0):
     if kind == "smooth":
         return z0[None] + 0.02 * i * smooth_field(params["M"], z0,
                                                   problem)[None]
+    if kind == "smooth_p2":
+        return z0[None] + 0.02 * i * heat_p2_field(fem, z0)[None]
     raise ValueError(f"unknown kind of batch {kind!r}")
 
 
@@ -333,6 +389,8 @@ def out_path(name) -> Path:
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in SLICE13:
+        return REFERENCE / "slice13.json"
     if name in SLICE12:
         return REFERENCE / "slice12.json"
     if name in SLICE11:
@@ -391,6 +449,12 @@ def pre_builder(name):
         default_pre_builder,
     )
 
+    if pre == "amg_greedy":  # the greedy host AMG of the scipy matrix
+        import numpy as np
+
+        from structurepreservingiterativesolvers_tpu.precond.amg import amg
+
+        return lambda s: amg(s.A_csr, dtype=np.float64)
     if pre in ("amg", "snc", "default"):
         return default_pre_builder(problem)
     if pre == "ras":  # the composite's inner RAS alone
@@ -737,7 +801,8 @@ def batch_systems(name, s):
                                               np.asarray(s.z0)[:s.n0])
         states = lkdvrk_stage_states(p, B, s.prob.ns, s.n0, s.prob.dt)
     else:
-        states = batch_states(name, np.asarray(s.z0))
+        fem = s.prob.fem() if BATCHED[name][6] == "smooth_p2" else None
+        states = batch_states(name, np.asarray(s.z0), fem=fem)
     return [s.step_update(jnp.asarray(z)) for z in states]
 
 
@@ -803,8 +868,10 @@ def record_batched(name):
     if problem == "swe":
         out["spread"] = _spread(items, batch_states(name, np.asarray(s.z0)),
                                 k, tol, pre)
-    if pre_spec == "amg":
-        out["config"]["pre"] = "amg"
+    if pre_spec in ("amg", "amg_greedy"):
+        out["config"]["pre"] = pre_spec
+        if pre_spec == "amg_greedy":
+            out["amg_levels"] = amg_levels(pre)
     elif pre_spec in ("default", "ras"):
         out["config"]["pre"] = pre_spec
         out["x"] = [[float(v) for v in x] for x in X]
@@ -854,6 +921,161 @@ def _spread(items, states, k, tol, pre):
     return runs
 
 
+def amg_levels(pre) -> list:
+    """Each level of an AMG hierarchy: its size and ``operator_format``."""
+    return [{"n": int(L.A.shape[0]), **operator_format(L.A)}
+            for L in pre.levels]
+
+
+def record_p2(name):
+    """Run the JAX package's ``time_cgmres`` on heat P2 at ``P2_TIMED[name]``
+    with the greedy host AMG; returns the row's entry: the operator's format
+    and width, the hierarchy's levels, GMRES's and CGMRES's steps, CGMRES's
+    constrained steps and latch, both final residuals, and the deviations
+    of the mass and energy of both iterates."""
+    _jax_cpu()
+    from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
+        time_cgmres,
+    )
+
+    M, seen = P2_TIMED[name], {}
+    build = pre_builder("heat_P2_M16_B3")
+
+    def builder(s):
+        seen["system"], seen["pre"] = s, build(s)
+        return seen["pre"]
+
+    row = time_cgmres("heat", M=M, degree=2, k=P2_K, tol=P2_TOL,
+                      pre_builder=builder)
+    s = seen["system"]
+    return {
+        "config": {"problem": "heat", "params": {"M": M, "degree": 2},
+                   "k": P2_K, "tol": P2_TOL, "pre": "amg_greedy",
+                   "runner": "time_cgmres"},
+        "n": int(s.b.shape[0]),
+        "operator": operator_format(s.A),
+        "amg_levels": amg_levels(seen["pre"]),
+        "gmres_steps": int(row["gmres_steps"]),
+        "steps": int(row["steps"]),
+        "constrained_steps": int(row["constrained_steps"]),
+        "safety": row["safety"],
+        "res_final": float(row["res_final"]),
+        "gmres_res_final": float(row["gmres_res_final"]),
+        "conservation": {kk: (bool(v) if kk.startswith("floor") else float(v))
+                         for kk, v in row["conservation"].items()},
+    }
+
+
+def record_report(name):
+    """The reporting and oracle records of ``REPORTS[name]``, from the JAX
+    package."""
+    _jax_cpu()
+    import hashlib
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    cfg = REPORTS[name]
+    out = {"config": cfg}
+    if name == "heat_P2_aggregates":
+        from structurepreservingiterativesolvers_tpu.models import heat
+        from structurepreservingiterativesolvers_tpu.ops.sparse import (
+            to_scipy,
+        )
+        from structurepreservingiterativesolvers_tpu.precond.amg import (
+            _aggregate,
+            amg,
+        )
+
+        for M in cfg["M"]:
+            s = heat.linforms(M=M, degree=2)
+            pre = amg(s.A_csr, dtype=np.float64)
+            levels = []
+            for L in pre.levels[:-1]:
+                agg = _aggregate(to_scipy(L.A))
+                levels.append({
+                    "n": int(L.A.shape[0]), "aggregates": int(agg.max()) + 1,
+                    "sha256": hashlib.sha256(
+                        agg.astype(np.int64).tobytes()).hexdigest()})
+            out[f"M{M}"] = levels
+        return out
+    if name == "lkdv_M20_table":
+        from structurepreservingiterativesolvers_tpu.experiments import (
+            report,
+            wrappers,
+        )
+        from structurepreservingiterativesolvers_tpu.models import lkdv
+
+        s = lkdv.linforms(M=cfg["M"], degree=cfg["degree"])
+        kw = dict(x0=jnp.zeros_like(s.b), k=cfg["k"], tol=1e-50,
+                  history=True)
+        _, ig = wrappers.gmres_wrapper(s, **kw)
+        _, ic = wrappers.cgmres_wrapper(s, **kw)
+        table = report.tabulator(s, [ig, ic])
+        out["names"] = table["names"]
+        out["columns"] = list(table["df"].columns)
+        out["values"] = {col: [float(v) for v in table["df"][col]]
+                         for col in out["columns"]}
+        return out
+    if name == "lkdvrk_M20_single_auto":
+        from structurepreservingiterativesolvers_tpu.experiments.single_solve import (
+            single_solve,
+        )
+
+        import dataclasses
+
+        from structurepreservingiterativesolvers_tpu.experiments import (
+            wrappers,
+        )
+        from structurepreservingiterativesolvers_tpu.models import lkdvrk
+
+        run = single_solve("lkdvrk", M=cfg["M"], pre="auto", verbose=False)
+        out.update({key: run[key] for key in ("gmres_error", "cgmres_error",
+                                              "deviations")})
+        out["steps"] = {"gmres": int(run["gmres"][1]["steps"]),
+                        "cgmres": int(run["cgmres"][1]["steps"])}
+        x = {label: np.asarray(run[label][0]) for label in ("gmres", "cgmres")}
+        out["x"] = {label: [float(v) for v in xv] for label, xv in x.items()}
+        # the prototypical CGMRES enforces the constraints at every step
+        # and stagnates near a residual of 5e-5 with this preconditioner:
+        # its iterate moves by percents under a change of b at the
+        # rounding level; how far, max|Δx| / max|x| over DRIFT_SEEDS
+        s = run["system"]
+        pre = lkdvrk.element_block_preconditioner(s)
+        kw = dict(x0=jnp.zeros_like(s.b), k=20, tol=1e-50, pre=pre,
+                  history=True)
+        drift = {"gmres": 0.0, "cgmres": 0.0}
+        for seed in DRIFT_SEEDS:
+            noise = np.random.default_rng(seed).standard_normal(
+                s.b.shape[0])
+            sp_ = dataclasses.replace(
+                s, b=s.b * (1.0 + DRIFT_SIZE * jnp.asarray(noise)))
+            for label, solve in (("gmres", wrappers.gmres_wrapper),
+                                 ("cgmres", wrappers.cgmres_wrapper)):
+                xp = np.asarray(solve(sp_, **kw)[0])
+                drift[label] = max(drift[label], float(
+                    np.abs(xp - x[label]).max() / np.abs(x[label]).max()))
+        out["own_drift"] = drift
+        return out
+    if name == "lkdvrk_M50_ilu":
+        from structurepreservingiterativesolvers_tpu.models import lkdvrk
+        from structurepreservingiterativesolvers_tpu.precond.ilu_oracle import (
+            direct_oracle,
+            ilu_oracle,
+        )
+        from structurepreservingiterativesolvers_tpu.solvers import gmres
+
+        s = lkdvrk.linforms(M=cfg["M"], degree=cfg["degree"],
+                            tstages=cfg["tstages"])
+        for label, oracle in (("ilu", ilu_oracle), ("direct", direct_oracle)):
+            _, info = gmres(s.A, s.b, k=cfg["k"], tol=cfg["tol"],
+                            pre=oracle(s.A_csr))
+            out[label] = {"steps": int(info["steps"]),
+                          "res": float(np.asarray(info["res"])[-1])}
+        return out
+    raise ValueError(f"unknown record {name!r}")
+
+
 def load(name):
     """The record file that holds configuration ``name``, as a dict."""
     return json.loads(out_path(name).read_text())
@@ -863,7 +1085,7 @@ def main(names):
     import jax
 
     for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED,
-                          *CORE]:
+                          *CORE, *P2_TIMED, *REPORTS]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
@@ -875,6 +1097,8 @@ def main(names):
                      else record_sweep(name) if name in SWEEPS
                      else record_batched(name) if name in BATCHED
                      else record_core(name) if name in CORE
+                     else record_p2(name) if name in P2_TIMED
+                     else record_report(name) if name in REPORTS
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)

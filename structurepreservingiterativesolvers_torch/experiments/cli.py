@@ -14,12 +14,17 @@
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --device cpu
     python -m structurepreservingiterativesolvers_torch timed --problem lkdvrk --sizes 50 --loop while --device cpu
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --loop while --device cpu
+    python -m structurepreservingiterativesolvers_torch timed --problem heat --degree 2 --sizes 16 32 --k 60 --device cpu
+    python -m structurepreservingiterativesolvers_torch single --problem lkdv --M 20 --plot --device cpu
+    python -m structurepreservingiterativesolvers_torch evolve --problem lkdv --M 20 --N 5 --plot --device cpu
 
 ``--ortho`` picks the Arnoldi orthogonalisation of both solvers: ``cgs2``
 (the default), ``cgs2_fused`` (its middle pair through the fused CGS2
 kernel on the card) or ``mgs``.  ``timed --loop while`` and ``sweep --loop
 while`` run the solvers on the device core, the JAX package's default
-loop.
+loop.  ``single --plot`` tabulates both solvers and draws the convergence
+figure, ``evolve --plot`` runs GMRES and CGMRES evolutions and draws their
+drifts (``plots/``; pandas and matplotlib needed then only).
 """
 
 from __future__ import annotations
@@ -46,12 +51,16 @@ def main(argv=None):
     p.add_argument("--tol", type=float, default=1e-50)
     p.add_argument("--M", type=int, default=50)
     p.add_argument("--degree", type=int, default=1)
+    p.add_argument("--plot", action="store_true",
+                   help="tabulate and plot (needs pandas and matplotlib)")
     device_arg(p)
 
     p = sub.add_parser("timed", help="TimedSolve size sweep with the "
                                      "problem's default preconditioner")
     p.add_argument("--problem", default="heat", choices=problems)
     p.add_argument("--sizes", type=int, nargs="+", default=None)
+    p.add_argument("--degree", type=int, default=1,
+                   help="finite-element degree (heat 2: P2, greedy AMG)")
     p.add_argument("--k", type=int, default=20)
     p.add_argument("--tol", type=float, default=1e-7)
     p.add_argument("--tol-mode", default="abs", choices=["abs", "rhs"])
@@ -68,6 +77,9 @@ def main(argv=None):
     p.add_argument("--degree", type=int, default=1)
     p.add_argument("--k", type=int, default=50)
     p.add_argument("--tol", type=float, default=1e-6)
+    p.add_argument("--plot", action="store_true",
+                   help="GMRES against CGMRES drifts, plotted (needs "
+                        "matplotlib)")
     device_arg(p)
 
     p = sub.add_parser("sweep", help="lkdvRK convergence-order error sweep "
@@ -90,26 +102,34 @@ def main(argv=None):
         from .single_solve import single_solve
 
         single_solve(args.problem, k=args.k, tol=args.tol, M=args.M,
-                     degree=args.degree, device=args.device, ortho=args.ortho)
+                     degree=args.degree, plot=args.plot, device=args.device,
+                     ortho=args.ortho)
     elif args.cmd == "timed":
         from .timed_solve import timed_solve
 
-        timed_solve(args.problem, sizes=args.sizes, tol=args.tol, k=args.k,
-                    tol_mode=args.tol_mode, device=args.device,
+        timed_solve(args.problem, sizes=args.sizes, degree=args.degree,
+                    tol=args.tol, k=args.k, tol_mode=args.tol_mode,
+                    device=args.device,
                     ortho=args.ortho, loop=args.loop)
     elif args.cmd == "evolve":
         import functools
 
         from . import wrappers
-        from .evolve import evolve
+        from .evolve import deviation_plotter, evolve
 
-        out = evolve(args.problem, N=args.N, M=args.M, degree=args.degree,
-                     k=args.k, tol=args.tol, device=args.device,
-                     solver=functools.partial(wrappers.cgmres_wrapper,
-                                              ortho=args.ortho))
-        for key in ("dm", "dmo", "de"):
-            if key in out:
-                print(f"final {key}: {out[key][-1]:.3e}")
+        if args.plot:
+            deviation_plotter(args.problem, tol=args.tol, N=args.N, M=args.M,
+                              degree=args.degree, k=args.k,
+                              device=args.device)
+        else:
+            out = evolve(args.problem, N=args.N, M=args.M,
+                         degree=args.degree, k=args.k, tol=args.tol,
+                         device=args.device,
+                         solver=functools.partial(wrappers.cgmres_wrapper,
+                                                  ortho=args.ortho))
+            for key in ("dm", "dmo", "de"):
+                if key in out:
+                    print(f"final {key}: {out[key][-1]:.3e}")
     elif args.cmd == "sweep":
         from .error_sweep import error_plot, run_sweep
 

@@ -18,7 +18,8 @@ lkdvRK it chains the stepped systems as ``evolve`` does, where the JAX
 ``fused_evolve`` steps every system from the first one's state (ROADMAP.md,
 Queue 3).
 
-Left out: the figure of ``deviation_plotter``.
+``deviation_plotter`` runs GMRES and CGMRES evolutions and draws their
+drifts (``report.deviation_plot``, matplotlib imported only there).
 """
 
 from __future__ import annotations
@@ -211,7 +212,7 @@ def fused_evolve(
     if mesh is not None:
         raise NotImplementedError(
             "a sharded evolution (mesh=) waits for the port of parallel/ "
-            "(ROADMAP.md, Queue 1, item 6)")
+            "(ROADMAP.md, Queue 1, item 2)")
     if loop != "while":
         raise NotImplementedError(
             f"loop={loop!r}: only 'while' is ported ('fori' is a TPU "
@@ -287,13 +288,18 @@ def fused_evolve(
     return out
 
 
-def deviation_plotter(problem: str = "lkdv", tol: float = 1e-6, *, device,
-                      **kwargs):
+def deviation_plotter(problem: str = "lkdv", tol: float = 1e-6,
+                      filename: Optional[str] = None, *, device, **kwargs):
     """GMRES against CGMRES invariant drift (reference DeviationPlotter):
-    both evolutions, ``{"GMRES": ..., "CGMRES": ...}``.  The figure of the
-    JAX package (``report.deviation_plot``) is not ported."""
+    both evolutions and their figure (``report.deviation_plot``, which
+    needs matplotlib; ``filename``, else ``plots/evolve.pdf``),
+    ``{"GMRES": ..., "CGMRES": ..., "figure": path}``."""
+    from . import report
+
     standard = evolve(problem, tol=tol, solver=wrappers.gmres_wrapper,
                       device=device, **kwargs)
     conserved = evolve(problem, tol=tol, solver=wrappers.cgmres_wrapper,
                        device=device, **kwargs)
-    return {"GMRES": standard, "CGMRES": conserved}
+    path = report.deviation_plot(
+        {"GMRES": standard, "CGMRES": conserved}, filename=filename)
+    return {"GMRES": standard, "CGMRES": conserved, "figure": path}

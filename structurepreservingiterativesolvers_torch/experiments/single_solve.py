@@ -3,10 +3,14 @@
 Parity with the reference per-problem scripts (reference
 lkdv/SingleSolve.py:14-64 etc.): run GMRES and (prototypical) CGMRES at an
 unreachably small tolerance with k iterations, compare both against the
-direct solve, and print relative errors and every invariant deviation.
+direct solve, print relative errors and every invariant deviation, then
+optionally tabulate and plot (``report``: pandas and matplotlib, imported
+only then).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -25,15 +29,32 @@ def single_solve(
     k: int = 20,
     tol: float = 1e-50,
     pre=None,
+    plot: bool = False,
+    filename: Optional[str] = None,
     verbose: bool = True,
     *,
     device,
     ortho: str = "cgs2",
     **params,
 ):
+    """One step of ``problem`` on ``device`` by GMRES, CGMRES and the direct
+    solve.  ``pre="auto"`` picks the reference SingleSolve drivers'
+    preconditioner: lkdvRK's element-block preconditioner (the stand-in for
+    its ILU factor, lkdvRK/SingleSolve.py:19-21), none for the other
+    problems (heat's AMG is built but disabled there,
+    heat/SingleSolve.py:33-36).  ``plot`` tabulates both solvers' histories
+    (``report.tabulator``, ``filename`` + ``.tex``/``.csv`` where given)
+    and draws the convergence figure (``filename`` + ``.pdf``, else
+    ``plots/convergence.pdf``)."""
     model = get_model(problem)
     system = model.linforms(device=device, **params)
     x0 = torch.zeros_like(system.b)
+
+    if pre == "auto":
+        if problem.lower() == "lkdvrk":
+            pre = model.element_block_preconditioner(system)
+        else:
+            pre = None
 
     kw = dict(x0=x0, k=k, tol=tol, pre=pre, history=True, ortho=ortho)
     x, solvedict = wrappers.gmres_wrapper(system, **kw)
@@ -65,4 +86,14 @@ def single_solve(
         for label in ("gmres", "cgmres", "direct"):
             for inv, d in devs[label].items():
                 print(f"{label} {inv} deviation = {d:.6e}")
+
+    if plot:
+        table = report.tabulator(system, [solvedict, geodict],
+                                 filename=filename)
+        out["table"] = table
+        report.convergence_plot(
+            table,
+            filename=(filename + ".pdf") if filename else None,
+            title=problem,
+        )
     return out

@@ -29,16 +29,25 @@ def _sync(device: torch.device) -> None:
 
 def default_pre_builder(problem: str):
     """Preconditioner choice per problem, as the JAX package pairs them:
-    heat → structured smoothed-aggregation AMG on the (M+1)×(M+1) vertex
-    grid, built on the operator's device; swe → the skew-normal Chebyshev
-    polynomial of its shifted-skew operator A = I/dt − S/2 (a = 1/dt);
+    heat → smoothed-aggregation AMG built on the operator's device: on a
+    DIA or ``Stencil`` operator (P1) the structured setup on the (M+1)×(M+1)
+    vertex grid; on an ELL operator (P2) the greedy host setup of the
+    system's scipy matrix, the path the JAX ``amg`` keeps for unstructured
+    operators (the JAX package's own default hands the ELL to its
+    structured setup, which cannot convert it and raises); swe → the
+    skew-normal Chebyshev polynomial of its shifted-skew operator
+    A = I/dt − S/2 (a = 1/dt);
     lkdvRK → RAS over about 5 blocks of elements (halo max(2, eb // 5)
     elements a side, inverses built on the host) with a degree-3 Neumann
     acceleration; any other problem (lkdv) → none."""
     if problem == "heat":
+        from ..ops.sparse import ELL
         from ..precond.amg import amg
 
         def build(system):
+            if isinstance(system.A, ELL):
+                return amg(system.A_csr, dtype=system.b.dtype,
+                           device=system.b.device)
             C = system.prob.M + 1
             return amg(system.A, dtype=system.b.dtype, grid=(C, C))
 

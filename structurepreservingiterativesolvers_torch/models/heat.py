@@ -18,8 +18,9 @@ Invariants (heat/heat.py:92-146, heat/LinearSolver.py:26-35):
 ``A`` lands on the device as a ``Stencil`` where the operator decomposes
 into constants plus boundary strips (every even M, and odd M in f32), else
 as a DIA; ``Mmat``, ``Lmat`` and the pre-combined ``Emat`` are DIA.  Degree
-2 assembles into matrices that both packages store as ELL; its structured
-AMG does not apply, and the JAX package's greedy AMG is not ported.
+2 assembles into matrices that both packages store as ELL (width 19); the
+structured AMG does not apply there, and the greedy host AMG
+(``precond/amg.py``, built from ``A_csr``) preconditions it.
 """
 
 from __future__ import annotations

@@ -315,8 +315,21 @@ def ell_spmv(A: ELL, x: torch.Tensor) -> torch.Tensor:
 
 def ell_spmm(A: ELL, X: torch.Tensor) -> torch.Tensor:
     """One slot at a time, as the JAX ``lax.scan`` does, so that no
-    (r, n, m) array is built."""
+    (r, n, m) array is built.  Where X is the (m, B) view of the rows of a
+    block (B, m) (each column contiguous: a batch as the device core hands
+    it over), each slot gathers along the rows and adds its products in
+    place (one multiply-add), and the result is the (n, B) view of a
+    (B, n) block: the same sums in the same order, to the rounding of a
+    fused multiply-add, without gathering a strided view and without a
+    copy."""
     dtype = torch.promote_types(A.dtype, X.dtype)
+    if X.shape[1] > 1 and X.stride(0) == 1:
+        R = X.T
+        Y = torch.zeros((R.shape[0], A.shape[0]), dtype=dtype,
+                        device=X.device)
+        for cols, vals in zip(A.cols, A.vals):
+            Y.addcmul_(vals, torch.index_select(R, 1, cols))
+        return Y.T
     Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dtype, device=X.device)
     for cols, vals in zip(A.cols, A.vals):
         Y = Y + vals[:, None] * X[cols]

@@ -1,50 +1,64 @@
-"""Smoothed-aggregation AMG preconditioner with a structured device setup.
+"""Smoothed-aggregation AMG preconditioner: a structured device setup and
+the greedy host setup.
 
-The port of the JAX package's ``precond/amg.py`` on its structured path,
-which stands in for the reference's PyAMG Ruge–Stüben preconditioner on the
-heat problem (reference heat/TimedSolve.py:30-31).  The apply is device
-code: weighted-Jacobi smoothing, gather-free restriction and prolongation
-(``BoxProlong``/``BoxRestrict``: a DIA smoother plus repeat, pad and box-sum
-reshapes) and a dense coarsest solve.  Every level operator and smoother is
-a DIA, so on the card each of their products is a launch of the DIA kernel.
+The port of the JAX package's ``precond/amg.py``, which stands in for the
+reference's PyAMG Ruge–Stüben preconditioner on the heat problem (reference
+heat/TimedSolve.py:30-31).  The apply is device code: weighted-Jacobi
+smoothing, restriction and prolongation, and a dense coarsest solve.
+
+Setup has two paths, as in the JAX package:
+
+* **Structured, on the device** (``grid=``, heat P1).  Box aggregation of a
+  grid-local stencil operator yields Galerkin coarse operators that are
+  themselves grid-local stencils, so every coarse operator's DIA bands are
+  recovered exactly by probing the composed operator ``R∘A∘P`` with one
+  indicator vector per stencil colour: no host SpGEMM, no host power
+  iteration.  The transfers are gather-free (``BoxProlong``/``BoxRestrict``:
+  a DIA smoother plus repeat, pad and box-sum reshapes), and every level
+  operator and smoother is a DIA, so on the card each of their products is
+  a launch of the DIA kernel.
+* **On the host** (no ``grid=``, ``setup="host"``, or the ``auto``
+  fallback when the structured setup refuses): greedy strength-graph
+  aggregation (``_aggregate``) and scipy SpGEMM Galerkin products, the
+  transfers in the ELL format (``ops/sparse.py::ELL``), each level's
+  operator in the format ``from_scipy`` picks, DIA or ELL, as the JAX
+  package's does.  With ``setup="host"`` and ``grid=`` the host builds the
+  box transfers of the structured path from scipy smoothers.  This is the
+  path of unstructured operators: heat P2, whose operator is an ELL of
+  width 19.  An ELL product is a gather and a weighted sum, plain XLA in
+  the JAX package and torch operations here; a DIA level's product is a
+  launch of the DIA kernel on the card.
 
 The apply takes a vector or a block (n, B), the JAX package's operand under
 ``jax.vmap``: the V-cycle then runs on the B rows of a (B, n) block, the
 layout of the device core's batch, so that every level's product reads the
-(n, B) view of its block without a copy (the batched DIA kernel #1b on the
-card).
-
-The setup runs on the operator's device as plain PyTorch: box aggregation
-of a grid-local stencil operator yields Galerkin coarse operators that are
-themselves grid-local stencils, so every coarse operator's DIA bands are
-recovered exactly by probing the composed operator ``R∘A∘P`` with one
-indicator vector per stencil colour.  No host SpGEMM, no host power
-iteration.
-
-The JAX package's greedy host setup, which it takes without ``grid=`` and
-falls back to when the structured setup refuses, ships its transfers in the
-ELL format, which the port does not have: there the port raises
-``NotImplementedError``.
+(n, B) view of its block without a copy (the batched DIA kernel #1b on a DIA
+level on the card, ``ell_spmm`` on an ELL one).  It reads nothing to the
+host and allocates the same shapes on every call, so the device core
+captures it in its CUDA graphs.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+import warnings
+from typing import List, NamedTuple, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULT_DTYPE
 from ..kernels.dia_spmv import shift
-from ..ops.sparse import DIA, dia_from_scipy
+from ..ops.sparse import DIA, ELL, dia_from_scipy, ell_from_scipy, from_scipy
 from ..ops.stencil import Stencil, as_dia
 
 
-def _mv(A: DIA, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for a vector, or on each row of a block x (B, n): the
-    product with its (n, B) view."""
+def _mv(A, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` (a DIA, an ELL, or a box transfer) for a vector, or on each
+    row of a block x (B, n): the product with its (n, B) view."""
     return A @ x if x.dim() == 1 else (A @ x.T).T
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +68,7 @@ class BoxProlong:
     repeat/reshape on the grid) and S = I − ω_s D⁻¹A the smoothing matrix
     in DIA form."""
 
-    S: DIA  # smoother on the fine level
+    S: Union[DIA, ELL]  # smoother on the fine level
     C1: int  # fine grid rows
     C2: int  # fine grid cols
     b: int  # box size
@@ -82,7 +96,7 @@ class BoxRestrict:
     Sᵣ = I − ω_s A D⁻¹ (the transpose smoother for symmetric A) in DIA form
     and P0ᵀ a pad + box-sum reshape."""
 
-    S: DIA  # transpose smoother on the fine level
+    S: Union[DIA, ELL]  # transpose smoother on the fine level
     C1: int
     C2: int
     b: int
@@ -105,9 +119,11 @@ class BoxRestrict:
 
 @dataclasses.dataclass(frozen=True)
 class _Level:
-    A: DIA  # operator at this level
-    P: Optional[BoxProlong]  # prolongation, None at the coarsest level
-    R: Optional[BoxRestrict]  # restriction = Pᵀ, None at the coarsest level
+    A: Union[DIA, ELL]  # operator at this level
+    # prolongation (box or ELL), None at the coarsest level
+    P: Optional[Union[BoxProlong, ELL]]
+    # restriction = Pᵀ (box or ELL), None at the coarsest level
+    R: Optional[Union[BoxRestrict, ELL]]
     dinv: torch.Tensor  # inverse diagonal (for weighted Jacobi)
     omega: float  # smoothing weight
 
@@ -130,8 +146,8 @@ class AMG:
         for _ in range(self.nu):  # pre-smooth (weighted Jacobi)
             x = x + L.omega * (L.dinv * (b - _mv(L.A, x)))
         r = b - _mv(L.A, x)
-        ec = self._cycle(lvl + 1, L.R.rows(r))
-        x = x + L.P.rows(ec)
+        ec = self._cycle(lvl + 1, _mv(L.R, r))
+        x = x + _mv(L.P, ec)
         for _ in range(self.nu):  # post-smooth
             x = x + L.omega * (L.dinv * (b - _mv(L.A, x)))
         return x
@@ -149,21 +165,93 @@ class _StructuredSetupError(ValueError):
     """The operator is not a grid-local stencil at some level."""
 
 
-def amg(A, omega: float = 0.8, nu: int = 2, coarse_size: int = 200,
-        max_levels: int = 12, dtype=None,
+def _aggregate(A, theta: float = 0.08) -> np.ndarray:
+    """Greedy standard aggregation on the strength graph (the JAX package's
+    ``_aggregate``): an aggregate id per node (≥ 0).
+
+    Node j is a strong neighbour of i where |a_ij| ≥ θ·sqrt(|a_ii a_jj|).
+    Pass 1 visits the nodes in order and makes an aggregate of each free
+    node whose strong neighbours are all free, with those neighbours; pass 2
+    attaches each node left over to the aggregate of its first aggregated
+    strong neighbour, or makes it an aggregate of its own.  Both passes
+    depend on the order of the visits, so they run in the JAX package's
+    order, node by node, over Python lists (the adjacency lists are the
+    sorted rows of the strength graph, as ``tolil().rows`` gives them)."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A)
+    n = A.shape[0]
+    d = np.sqrt(np.abs(A.diagonal()))
+    C = sp.csr_matrix(A, copy=True)
+    C.setdiag(0)
+    C.eliminate_zeros()
+    rows, cols = C.nonzero()
+    strong = np.abs(C[rows, cols]).A1 >= theta * d[rows] * d[cols]
+    S = sp.csr_matrix((np.ones(strong.sum()), (rows[strong], cols[strong])),
+                      shape=(n, n))
+    S.sum_duplicates()
+    S.sort_indices()
+    ptr, nbr = S.indptr.tolist(), S.indices.tolist()
+
+    agg = [-1] * n
+    na = 0
+    # pass 1: aggregates around nodes with fully free strong neighbourhoods
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        nbrs = nbr[ptr[i]:ptr[i + 1]]
+        if all(agg[j] == -1 for j in nbrs):
+            agg[i] = na
+            for j in nbrs:
+                agg[j] = na
+            na += 1
+    # pass 2: attach leftovers to a neighbouring aggregate
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        for j in nbr[ptr[i]:ptr[i + 1]]:
+            if agg[j] != -1:
+                agg[i] = agg[j]
+                break
+        else:
+            agg[i] = na
+            na += 1
+    return np.asarray(agg, dtype=np.int64)
+
+
+def _rho_estimate(M, iters: int = 15) -> float:
+    """ρ(M) by 15 power iterations from a standard normal start of numpy's
+    generator of seed 0 (the JAX package's host estimate)."""
+    rng = np.random.default_rng(0)
+    v = rng.standard_normal(M.shape[0])
+    v /= np.linalg.norm(v)
+    rho = 1.0
+    for _ in range(iters):
+        w = M @ v
+        rho = np.linalg.norm(w)
+        if rho == 0:
+            return 1.0
+        v = w / rho
+    return float(rho)
+
+
+def amg(A, theta: float = 0.08, omega: float = 0.8, nu: int = 2,
+        coarse_size: int = 200, max_levels: int = 12, dtype=None,
         grid: Optional[Tuple[int, int]] = None, box: int = 3,
         setup: str = "auto", *, device=None) -> AMG:
-    """Build a smoothed-aggregation hierarchy on the structured path.
+    """Build a smoothed-aggregation hierarchy, as the JAX package's ``amg``.
 
-    ``A`` is a device ``DIA``/``Stencil`` operator, or a host scipy matrix,
-    which then lands on ``device`` (required for it).  ``grid=(C1, C2)``
-    (rows·cols == n, symmetric A) aggregates by ``box``×``box`` grid boxes
-    and ships the transfers in gather-free structured form.  ``setup``:
-    'device' or 'auto' build on the device; 'host' and a missing ``grid``
-    select the JAX package's greedy host setup, which is not ported.  With a
-    scipy input under 'auto', a refused structured setup raises
-    ``NotImplementedError`` where the JAX package falls back to greedy.
-    """
+    ``A`` is a device ``DIA``/``Stencil`` operator (the structured device
+    setup, which needs ``grid=``), or a host scipy matrix, whose hierarchy
+    lands on ``device`` (required for it).  ``grid=(C1, C2)`` (rows·cols
+    == n, symmetric A) aggregates by ``box``×``box`` grid boxes and ships
+    the transfers in gather-free structured form; without it the greedy
+    host setup aggregates the strength graph (``theta``) and ships ELL
+    transfers.  ``setup``: 'device' (the structured setup on ``device``;
+    needs ``grid``), 'host' (the scipy setup: box transfers with ``grid``,
+    greedy without) or 'auto' (device with ``grid``, greedy without; where
+    the structured setup refuses, a warning and the greedy setup, as the
+    JAX package falls back).  The hierarchy's dtype defaults to f64."""
     if isinstance(A, (DIA, Stencil)):
         A_dia = as_dia(A)
         if grid is None or setup == "host":
@@ -174,24 +262,102 @@ def amg(A, omega: float = 0.8, nu: int = 2, coarse_size: int = 200,
             A_dia = dataclasses.replace(A_dia, data=A_dia.data.to(dtype))
         return _amg_device(A_dia, grid, box=box, omega=omega, nu=nu,
                            coarse_size=coarse_size, max_levels=max_levels)
-    if grid is None or setup == "host":
-        raise NotImplementedError(
-            "the greedy host AMG setup ships ELL transfers; the ELL format "
-            "is not ported (ROADMAP.md, Queue 1, item 5)")
+    if isinstance(A, ELL):
+        raise ValueError(
+            "an ELL operator: the host setup takes its scipy matrix (a "
+            "system's A_csr)")
     if device is None:
         raise ValueError("a scipy matrix input needs device=")
-    A_dia = dia_from_scipy(A, wrap=False, dtype=dtype or DEFAULT_DTYPE,
-                           device=device)
-    try:
-        return _amg_device(A_dia, grid, box=box, omega=omega, nu=nu,
-                           coarse_size=coarse_size, max_levels=max_levels)
-    except _StructuredSetupError as e:
-        if setup == "device":
-            raise
-        raise NotImplementedError(
-            f"device AMG setup unavailable ({e}); the JAX package falls back "
-            "to its greedy host setup, which needs the ELL format the port "
-            "does not have (ROADMAP.md, Queue 1, item 5)") from e
+    dtype = dtype or DEFAULT_DTYPE
+    if grid is not None and setup in ("auto", "device"):
+        A_dia = dia_from_scipy(A, wrap=False, dtype=dtype, device=device)
+        try:
+            return _amg_device(A_dia, grid, box=box, omega=omega, nu=nu,
+                               coarse_size=coarse_size, max_levels=max_levels)
+        except _StructuredSetupError as e:
+            if setup == "device":
+                raise
+            warnings.warn(f"device AMG setup unavailable ({e}); "
+                          "falling back to host GREEDY setup")
+            # greedy, not host-structured: what made the structured setup
+            # refuse (asymmetry, a stencil that is not grid-local) breaks
+            # the host box transfers' assumptions the same way
+            grid = None
+    return _amg_host(A, theta=theta, omega=omega, nu=nu,
+                     coarse_size=coarse_size, max_levels=max_levels,
+                     dtype=dtype, grid=grid, box=box, device=device)
+
+
+def _amg_host(A_csr, theta: float, omega: float, nu: int, coarse_size: int,
+              max_levels: int, dtype: torch.dtype,
+              grid: Optional[Tuple[int, int]], box: int, device) -> AMG:
+    """The JAX package's host setup (``amg.py:243-313`` there): greedy
+    aggregation (box aggregation with ``grid``), the smoothed prolongator
+    P = (I − ω_s D⁻¹A) P0 with ω_s = (2/3)/ρ(D⁻¹A), R = Pᵀ and the Galerkin
+    operator R·A·P by scipy SpGEMM, level by level in f64 on the host; each
+    level on ``device`` in ``dtype``: A through ``from_scipy``, P and R as
+    ELL (box transfers from the scipy smoothers with ``grid``), and the
+    coarsest level's dense inverse."""
+    import scipy.sparse as sp
+
+    def dev(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    levels: List[_Level] = []
+    A = sp.csr_matrix(A_csr, dtype=np.float64)
+    if grid is not None and int(grid[0]) * int(grid[1]) != A.shape[0]:
+        raise ValueError(f"grid {grid} does not tile {A.shape[0]} rows")
+
+    while A.shape[0] > coarse_size and len(levels) < max_levels:
+        n = A.shape[0]
+        structured = (
+            grid is not None and grid[0] >= 2 * box and grid[1] >= 2 * box
+        )
+        if structured:
+            C1, C2 = int(grid[0]), int(grid[1])
+            Cc1, Cc2 = -(-C1 // box), -(-C2 // box)
+            idx = np.arange(n)
+            i, j = idx // C2, idx % C2
+            agg = (i // box) * Cc2 + (j // box)
+            na = Cc1 * Cc2
+        else:
+            agg = _aggregate(A, theta)
+            na = int(agg.max()) + 1
+            if na >= n:  # aggregation stalled
+                break
+        P0 = sp.csr_matrix(
+            (np.ones(n), (np.arange(n), agg)), shape=(n, na),
+        )
+        dinv = 1.0 / A.diagonal()
+        # smoothed prolongator P = (I − ω_s D⁻¹A) P0 with ω_s = 2/3 / ρ̂
+        DinvA = sp.diags(dinv) @ A
+        rho = _rho_estimate(DinvA)
+        SP = sp.csr_matrix(sp.identity(n) - (2.0 / 3.0 / rho) * DinvA)
+        P = sp.csr_matrix(SP @ P0)
+        R = sp.csr_matrix(P.T)
+        if structured:
+            # box transfers: a smoother and the reshape aggregation; for
+            # symmetric A the transpose smoother is I − ω_s A D⁻¹
+            SR = sp.csr_matrix(sp.identity(n) - (2.0 / 3.0 / rho)
+                               * (A @ sp.diags(dinv)))
+            P_dev = BoxProlong(S=from_scipy(SP, dtype=dtype, device=device),
+                               C1=C1, C2=C2, b=int(box), Cc1=Cc1, Cc2=Cc2)
+            R_dev = BoxRestrict(S=from_scipy(SR, dtype=dtype, device=device),
+                                C1=C1, C2=C2, b=int(box), Cc1=Cc1, Cc2=Cc2)
+        else:
+            P_dev = ell_from_scipy(P, dtype=dtype, device=device)
+            R_dev = ell_from_scipy(R, dtype=dtype, device=device)
+        levels.append(_Level(A=from_scipy(A, dtype=dtype, device=device),
+                             P=P_dev, R=R_dev, dinv=dev(dinv),
+                             omega=float(omega)))
+        A = sp.csr_matrix(R @ A @ P)  # Galerkin coarse operator (SpGEMM)
+        grid = (Cc1, Cc2) if structured else None
+
+    levels.append(_Level(A=from_scipy(A, dtype=dtype, device=device), P=None,
+                         R=None, dinv=dev(1.0 / A.diagonal()),
+                         omega=float(omega)))
+    return AMG(levels=tuple(levels), coarse_inv=dev(np.linalg.inv(A.toarray())),
+               nu=int(nu))
 
 
 def _grid_decompose(offsets, C2: int, rmax: int = 4):

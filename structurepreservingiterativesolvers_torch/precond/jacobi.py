@@ -9,10 +9,10 @@ scatter.  Each takes a vector (n,) or a block (n, B), the (n, B) view of a
 batch's rows as the batched device core hands it over: the gather makes
 (nb, bs, B), one ``torch.bmm`` applies every block inverse to the B vectors
 at once (the inverses read once for the block, what ``jax.vmap`` makes of
-the JAX package's apply), and the scatter writes the rows.  ``diagonal`` also feeds the Neumann series and the bound estimate
-of ``chebyshev.py``; the diagonal of an ELL operator is not ported, so any
-operator that is neither a DIA, a ``Stencil`` nor a dense tensor raises
-``NotImplementedError``.
+the JAX package's apply), and the scatter writes the rows.
+``diagonal`` also feeds the Neumann series and the bound estimate of
+``chebyshev.py``; it takes a DIA, a ``Stencil``, an ELL (the slots whose
+column is the row, as the JAX package reads them) and a dense tensor.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_DTYPE
-from ..ops.sparse import DIA
+from ..ops.sparse import DIA, ELL
 from ..ops.stencil import as_dia
 
 
@@ -36,11 +36,17 @@ def diagonal(A) -> torch.Tensor:
         if 0 in A.offsets:
             return A.data[A.offsets.index(0)]
         return torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
+    if isinstance(A, ELL):
+        # the (r, n) transposed layout: slot s of row i at [s, i]; the hit
+        # of cols == row where the value is not 0, as the JAX package
+        rows = torch.arange(A.shape[0], device=A.device)[None, :]
+        hit = (A.cols == rows) & (A.vals != 0)
+        return torch.where(hit, A.vals, 0.0).sum(0)
     if isinstance(A, torch.Tensor):
         return torch.diagonal(A)
     raise NotImplementedError(
-        f"no diagonal of a {type(A).__name__} in the port: the diagonal of "
-        f"an ELL operator is not ported (ROADMAP.md, Queue 1, item 5)")
+        f"no diagonal of a {type(A).__name__}: the port's operators are "
+        "DIA, Stencil, ELL and dense tensors")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """The structured AMG of the PyTorch port against the JAX package's, on
 heat M=64 in f64 (three levels: 4,225 → 484 → 64): the setup, one V-cycle
-on identical levels, the refusals, and the committed JAX record of heat
-M=64, whose solves run with that AMG.
+on identical levels, the refusals and the greedy fallback, and the
+committed JAX record of heat M=64, whose solves run with that AMG.
 
 Tolerances: the setup is the same device program in another framework; the
 power iteration for ρ, the probes and the dense inverse sum in another
@@ -75,14 +75,19 @@ def test_amg_refusals():
         tamg.amg(A, grid=grid, setup="device", device="cpu")
     with pytest.raises(jamg._StructuredSetupError):
         jamg.amg(A, grid=grid, setup="device")
-    # where the JAX package falls back to its greedy ELL setup, the port
-    # has no ELL and says so
+    # where the structured setup refuses, both packages warn and fall back
+    # to the greedy host setup; without grid= both build it directly
     with pytest.warns(UserWarning, match="falling back"):
-        assert len(jamg.amg(A, grid=grid).levels) >= 2
-    with pytest.raises(NotImplementedError):
-        tamg.amg(A, grid=grid, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tamg.amg(A, device="cpu")
+        pj = jamg.amg(A, grid=grid)
+    with pytest.warns(UserWarning, match="falling back"):
+        pt = tamg.amg(A, grid=grid, device="cpu")
+    sizes = [L.A.shape[0] for L in pt.levels]
+    assert len(sizes) >= 2
+    assert sizes == [int(L.A.shape[0]) for L in pj.levels]
+    assert [type(L.A).__name__ for L in pt.levels] == [
+        type(L.A).__name__ for L in pj.levels]
+    assert [L.A.shape[0] for L in tamg.amg(A, device="cpu").levels] == [
+        int(L.A.shape[0]) for L in jamg.amg(A).levels] == sizes
     At = theat.linforms(M=16, device="cpu").A
     with pytest.raises(ValueError):
         tamg.amg(At)  # a device operator needs grid=

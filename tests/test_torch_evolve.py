@@ -128,9 +128,12 @@ def test_evolve_checkpoint_resume(tmp_path):
     torch_parity.close(rest["sol"].numpy(), full["sol"].numpy(), 1e-12)
 
 
-def test_deviation_plotter_returns_both_series():
+def test_deviation_plotter_returns_both_series(tmp_path):
     out = deviation_plotter("lkdv", tol=1e-6, N=3, M=30, degree=2, k=30,
+                            filename=str(tmp_path / "evolve.pdf"),
                             device="cpu")
-    assert set(out) == {"GMRES", "CGMRES"}
+    # both series and, as the JAX package returns it, the figure's path
+    assert set(out) == {"GMRES", "CGMRES", "figure"}
+    assert (tmp_path / "evolve.pdf").stat().st_size
     assert "safety" not in out["GMRES"] and all(out["CGMRES"]["safety"])
     assert out["CGMRES"]["de"][-1] < 1e-3 * out["GMRES"]["de"][-1]

@@ -5,7 +5,10 @@ and swe TimedSolve command lines and the swe Evolve command line (with the
 fused orthogonalisation's plain twin) on the CPU, the device core
 (``cgmres(loop="while")``) and ``fused_evolve`` eagerly on the CPU, and
 imports the lkdvRK modules, the graph runner and the profiling module, and
-runs ``cgmres_many``."""
+runs ``cgmres_many``; and runs heat P2's TimedSolve row
+with the greedy host AMG, the ILU and direct oracles and the native host
+kernels, imports the reporting module, and checks that none of these pulls
+in pandas or matplotlib."""
 
 import re
 import subprocess
@@ -53,6 +56,21 @@ from structurepreservingiterativesolvers_torch.utils import checkpoint, profilin
 from structurepreservingiterativesolvers_torch.experiments import error_sweep
 from structurepreservingiterativesolvers_torch.models import fixtures, lkdvrk
 from structurepreservingiterativesolvers_torch import interop
+from structurepreservingiterativesolvers_torch.experiments import report
+from structurepreservingiterativesolvers_torch.experiments.timed_solve import time_cgmres
+row = time_cgmres("heat", M=8, degree=2, k=60, tol=1e-7, device="cpu")
+print("P2", row["steps"], row["safety"])
+from structurepreservingiterativesolvers_torch.models import lkdvrk as rk
+from structurepreservingiterativesolvers_torch.precond.ilu_oracle import direct_oracle, ilu_oracle
+r = rk.linforms(M=20, degree=3, tstages=2, device="cpu")
+for oracle in (ilu_oracle, direct_oracle):
+    _, ginfo = cgmres(r.A, r.b, k=30, tol=1e-8, pre=oracle(r.A_csr, device="cpu"))
+    print("ORACLE", ginfo["steps"] <= 5)
+from structurepreservingiterativesolvers_torch.utils import native
+if native.available():
+    import numpy as np
+    print("NATIVE", float(np.abs(native.csr_spmv(r.A_csr, r.b.numpy()) - r.A_csr @ r.b.numpy()).max()) < 1e-10)
+assert "pandas" not in sys.modules and "matplotlib" not in sys.modules
 assert not any(m.split(".")[0] in ("jax", "structurepreservingiterativesolvers_tpu")
                for m in sys.modules if sys.modules[m] is not None)
 """
@@ -71,6 +89,10 @@ def test_port_imports_and_solves_without_jax():
     _, steps2, safety2, dx = device[0].split()
     assert steps2 == steps and safety2 == "True" and float(dx) <= 1e-10
     assert "FUSED [1, 1]" in proc.stdout
+    # heat P2 with the greedy AMG, the oracles and the native kernels
+    assert re.search(r"^P2 \d+ True$", proc.stdout, re.M)
+    assert proc.stdout.count("ORACLE True") == 2
+    assert "NATIVE False" not in proc.stdout
     # the batched solve of the JAX package's own test runs without JAX
     assert "BATCHED [18, 18, 18] [1, 1, 1]" in proc.stdout
     # SingleSolve prints every invariant deviation of the three solvers;

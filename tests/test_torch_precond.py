@@ -80,7 +80,7 @@ def test_diagonal_of_heat_and_of_no_main_diagonal(systems):
     At = tsp.dia_from_scipy(A, device="cpu")
     assert not tpre.diagonal(At).any()
     assert bool((tpre.jacobi(At).dinv == 1.0).all())
-    with pytest.raises(NotImplementedError):  # the ELL format is not ported
+    with pytest.raises(NotImplementedError):  # not an operator of the port
         tpre.diagonal(object())
 
 
