@@ -210,7 +210,20 @@ imported.  Phases, each of which raises on a failed check:
     none of #1); then #1b on those levels at the batch's widths, and timed,
     and #5 timed at the row's widest basis;
 30. the native host kernels (``utils/native.py``, g++ into
-    ``build/native/``) against scipy on a tridiagonal matrix.
+    ``build/native/``) against scipy on a tridiagonal matrix;
+31. the row-sharded path (``parallel/``) through NCCL, over a world of
+    this process and its card: kernel #1's windowed launch (and #1b's) on
+    swe M=512's rows against the unsharded launch (bit for bit on one
+    rank) and the plain twin, timed beside #1; swe M=512 (k=60, tol=1e-9)
+    unpreconditioned on both loops, with ``cgs2_fused`` on the device core,
+    and with the skew-normal Chebyshev (k=20, tol=1e-7), each against the
+    unsharded solve in the same call (the same steps and latch, x within
+    1e-10); heat M=1024 with the AMG (the fine levels sharded) on the
+    device core; a 3-step sharded ``fused_evolve`` on swe M=512 against the
+    unsharded one; ``spmv_scaling`` and ``solve_scaling`` at one device;
+    walls (medians of 5), idle shares, the collectives' device time and
+    their count per solve; on a machine with two or more cards, a
+    ``dist-bench`` job of two processes too.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -1037,12 +1050,13 @@ def _launch_counters():
     """The launch counters of every kernel by name, and of each design of
     kernels #1 to #4, #1b and the block forms #2b, #3b and #4b
     (``<name>_<design>``; #1b's by its operator's plan, live or dense, and
-    by its own design): the package's ``kernels.launch_counters``."""
-    from structurepreservingiterativesolvers_torch.kernels import (
-        launch_counters,
+    by its own design), and beside them the collectives of a row-sharded
+    solve: the package's ``utils.counters.all_counters``."""
+    from structurepreservingiterativesolvers_torch.utils.counters import (
+        all_counters,
     )
 
-    return launch_counters()
+    return all_counters()
 
 
 # the design every launch of a kernel on a main path must run, and the other
@@ -2722,9 +2736,6 @@ def phase_batched(record, shapes):
     from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
         default_pre_builder,
     )
-    from structurepreservingiterativesolvers_torch.kernels import (
-        launch_counters,
-    )
     from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
     from structurepreservingiterativesolvers_torch.models import swe
 
@@ -2783,7 +2794,7 @@ def phase_batched(record, shapes):
             walls.append(time.perf_counter() - t0)
         # the launches of one solve: the counters against each graph's
         # launches times its replays in that solve
-        names = {id(fn): nm for nm, fn in launch_counters().items()}
+        names = {id(fn): nm for nm, fn in _launch_counters().items()}
         replayed0 = dict(runner.replayed)
         _reset_launches()
         X2, info2 = many()
@@ -3149,11 +3160,7 @@ def _ms(walls):
 def _replayed(runner, before):
     """The launches by counter name of the replays since ``before`` (the
     runner's ``replayed`` then): each graph's launches times its replays."""
-    from structurepreservingiterativesolvers_torch.kernels import (
-        launch_counters,
-    )
-
-    names = {id(fn): nm for nm, fn in launch_counters().items()}
+    names = {id(fn): nm for nm, fn in _launch_counters().items()}
     out = {nm: 0 for nm in _launch_counters()}
     for key, (_, counts) in runner.graphs.items():
         for counter, nl in counts:
@@ -4792,6 +4799,329 @@ def phase_native():
                                            "with scipy")
 
 
+SHARD_SOLVES = 5
+
+
+def _collectives(prof):
+    """The device time (ms) and the count of the NCCL kernels in a
+    profile."""
+    import torch
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "nccl" in e.key.lower()]
+    return (sum(e.self_device_time_total for e in events) / 1e3,
+            sum(e.count for e in events))
+
+
+def _median_walls(fn, reps=SHARD_SOLVES):
+    """``fn``'s result and its walls over ``reps`` calls, each ended by a
+    device synchronisation."""
+    import torch
+
+    walls, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, walls
+
+
+def _med_ms(walls):
+    return 1e3 * sorted(walls)[len(walls) // 2]
+
+
+def phase_sharded():
+    """Phase 31: the row-sharded path (``parallel/``) through NCCL, in a
+    world of this process (one rank on its card).  Returns the report of
+    the windowed kernel and the launches of each sharded path."""
+    import numpy as np
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import scaling
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.models import heat, swe
+    from structurepreservingiterativesolvers_torch.parallel import (
+        gather,
+        init_distributed,
+        make_mesh,
+        shard_preconditioner,
+        shard_system,
+        shard_vector,
+    )
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        clear_core_cache,
+    )
+
+    t_phase = time.perf_counter()
+    rank, world = init_distributed(device="cuda")
+    mesh = make_mesh()
+    check(mesh.backend == "nccl", f"[sharded] backend {mesh.backend}")
+    print(f"[sharded] mesh: {world} rank(s) of {torch.cuda.device_count()} "
+          f"card(s), backend {mesh.backend}, rank {rank} on {mesh.device}")
+    s = swe.linforms(M=SWE_M, device=DEVICE)
+    A, b, x0, cons = shard_system(s.A, s.b, torch.zeros_like(s.b),
+                                  s.constraints(), mesh)
+    tag = f"[sharded swe_M{SWE_M}]"
+    # the windowed kernel #1 against the unsharded launch and its plain twin
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    x = torch.randn(SWE_N, dtype=torch.float64, device=DEVICE, generator=gen)
+    xs = shard_vector(x, mesh)
+    ext = A.window(xs)
+    _reset_launches()
+    y = A.local(ext)
+    torch.cuda.synchronize()
+    counted = _read_launches()
+    check(counted["dia_spmv_window"] == 1 and counted["dia_spmv"] == 1,
+          f"{tag} a windowed product counted {counted['dia_spmv_window']} "
+          f"windowed of {counted['dia_spmv']} launches")
+    y_twin = kd.dia_spmv_window_torch(A.data, A.offsets, A.lo, ext)
+    y_full = s.A @ x
+    err, rel = _rel_err(y, y_twin)
+    bits = bool(torch.equal(gather(y, mesh), y_full))
+    X = torch.randn((SWE_N, 8), dtype=torch.float64, device=DEVICE,
+                    generator=gen)
+    Xs = shard_vector(X, mesh)
+    Xext = A.window(Xs.T).T
+    Y = A.local(Xext)
+    Y_twin = kd.dia_spmm_window_torch(A.data, A.offsets, A.lo, Xext)
+    err_b, rel_b = _rel_err(Y, Y_twin)
+    bits_b = bool(torch.equal(gather(Y, mesh), s.A @ X))
+    print(f"{tag} windowed #1 (window {A.xchg.width} = {A.lo} + "
+          f"{A.n_local} + {A.hi}, {'live' if A.live().pays else 'dense'} "
+          f"design): max abs error against the plain twin {err:.3e} (rel "
+          f"{rel:.3e}), equal to the unsharded launch's bits {bits}; "
+          f"windowed #1b (B = 8): {err_b:.3e} (rel {rel_b:.3e}), bits {bits_b}")
+    check(rel <= KERNEL_RTOL["float64"] and rel_b <= KERNEL_RTOL["float64"],
+          f"{tag} windowed kernel errors {rel:.3e}, {rel_b:.3e}")
+    if world == 1:
+        check(bits and bits_b, f"{tag} on one rank the windowed products "
+                               "must give the unsharded bits")
+    nnz = int(torch.count_nonzero(A.data))
+    win = {
+        "ms": _time_cold_ms(lambda: A.local(ext)),
+        "sharded_ms": _time_cold_ms(lambda: A @ xs),
+        "exchange_ms": _time_cold_ms(lambda: A.window(xs)),
+        "unsharded_ms": _time_cold_ms(lambda: s.A @ x),
+        "plain_ms": _time_cold_ms(
+            lambda: kd.dia_spmv_window_torch(A.data, A.offsets, A.lo, ext),
+            reps=20),
+    }
+    Acsr = _csr(s.A_csr)
+    win["library_ms"] = _time_cold_ms(lambda: Acsr @ x)
+    # the local rows' stored non-zeros, the window read once, y written once
+    win["bound_ms"], win["bound_by"] = _bound_ms(
+        (nnz + A.xchg.width + A.n_local) * 8, 2 * nnz)
+    win.update(window=A.xchg.width, n_local=A.n_local, lo=A.lo, hi=A.hi,
+               max_abs_err=max(err, err_b), bits=bits and bits_b)
+    print(f"{tag} times (f64, L2 flushed): windowed launch {win['ms']:.4f} "
+          f"ms (bound {win['bound_ms']:.4f} ms, {win['bound_by']}, at "
+          f"{win['bound_ms'] / win['ms']:.1%}), the window's exchange "
+          f"{win['exchange_ms']:.4f} ms, sharded A @ x {win['sharded_ms']:.4f} "
+          f"ms, unsharded #1 {win['unsharded_ms']:.4f} ms (ratio "
+          f"{win['sharded_ms'] / win['unsharded_ms']:.2f}), plain twin "
+          f"{win['plain_ms']:.4f} ms, cuSPARSE CSR {win['library_ms']:.4f} ms")
+    del X, Xs, Xext, Y, Y_twin, Acsr
+
+    paths, walls, report = {}, {}, {}
+
+    def solve_pair(name, full, sharded, check_x=1e-10, all_windowed=True,
+                   **kw):
+        """The unsharded and the sharded solve of one configuration on each
+        loop: steps, latch and x; walls (median of 5) and the profile of
+        one sharded solve; every launch of #1 windowed where
+        ``all_windowed`` (else some: the AMG's levels held whole run the
+        unwindowed launch)."""
+        out = {}
+        for loop in ("host", "while"):
+            label = f"[sharded {name} {loop}]"
+            run_u = lambda: cgmres(*full, loop=loop, **kw)  # noqa: E731
+            run_s = lambda: cgmres(*sharded[:3], loop=loop,  # noqa: E731
+                                   **{**kw, **sharded[3]})
+            run_u()
+            run_s()
+            (xu, iu), wu = _median_walls(run_u)
+            (xsh, ish), wsh = _median_walls(run_s)
+            xg = gather(xsh, mesh)
+            _reset_launches()
+            run_s()
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            prof = _profiled(run_s)
+            coll_ms, coll_n = _collectives(prof[4])
+            d = _rel(xg, xu)
+            print(f"{label} steps {ish['steps']} (unsharded {iu['steps']}), "
+                  f"safety {ish.get('safety')} ({iu.get('safety')}), "
+                  f"deviation {ish.get('deviation', 0.0):.3e} "
+                  f"({iu.get('deviation', 0.0):.3e}), x against the "
+                  f"unsharded solve {d:.3e}; wall, median of {SHARD_SOLVES}: "
+                  f"sharded {_med_ms(wsh):.3f} ms, unsharded "
+                  f"{_med_ms(wu):.3f} ms (ratio "
+                  f"{_med_ms(wsh) / _med_ms(wu):.3f}); sharded profiled: "
+                  f"busy {prof[1]:.3f} ms, idle {prof[2]:.3f}, collectives "
+                  f"{coll_n} NCCL kernels, {coll_ms:.3f} ms; counted per "
+                  f"solve: all_reduce {launches['all_reduce']}, all_gather "
+                  f"{launches['all_gather']}, all_to_all "
+                  f"{launches['all_to_all']}; #1 {launches['dia_spmv']} "
+                  f"({launches['dia_spmv_window']} windowed), #1b "
+                  f"{launches['dia_spmm']} ({launches['dia_spmm_window']} "
+                  f"windowed), #5 {launches['fused_update_matvec']}")
+            check(ish["steps"] == iu["steps"], f"{label} steps {ish['steps']} "
+                                               f"vs {iu['steps']}")
+            check(ish.get("safety") == iu.get("safety"),
+                  f"{label} latch {ish.get('safety')} vs {iu.get('safety')}")
+            if iu.get("safety") is not None:
+                check(ish["deviation"] <= DEVIATION_MAX,
+                      f"{label} deviation {ish['deviation']:.3e}")
+            check(d <= check_x, f"{label} x {d:.3e} from the unsharded solve")
+            check(launches["dia_spmv_window"] > 0 and (
+                launches["dia_spmv"] == launches["dia_spmv_window"]
+                or not all_windowed),
+                  f"{label} #1 launches {launches['dia_spmv']}, windowed "
+                  f"{launches['dia_spmv_window']}")
+            check(launches["dia_spmm"] == launches["dia_spmm_window"],
+                  f"{label} #1b launches {launches['dia_spmm']}, windowed "
+                  f"{launches['dia_spmm_window']}")
+            check(launches["all_reduce"] > 0,
+                  f"{label} no all-reduce counted")
+            if kw.get("ortho") == "cgs2_fused":
+                check(launches["fused_update_matvec"] == ish["steps"],
+                      f"{label} #5 launched {launches['fused_update_matvec']} "
+                      f"times over {ish['steps']} steps")
+            paths[f"{name}_{loop}"] = launches
+            walls[f"{name}_{loop}"] = {
+                "sharded_ms": _med_ms(wsh), "unsharded_ms": _med_ms(wu),
+                "sharded_walls_ms": [1e3 * w for w in wsh],
+                "unsharded_walls_ms": [1e3 * w for w in wu],
+                "idle": prof[2], "busy_ms": prof[1],
+                "collective_ms": coll_ms, "collective_kernels": coll_n,
+                "collectives_counted": {k: launches[k] for k in (
+                    "all_reduce", "all_gather", "all_to_all")},
+                "steps": ish["steps"]}
+            out[loop] = ish
+            clear_core_cache()
+        return out
+
+    kw = dict(k=SWE_K, tol=SWE_TOL)
+    solve_pair(f"swe_M{SWE_M}", (s.A, s.b, None),
+               (A, b, x0, {"constraints": cons}), constraints=s.constraints(),
+               **kw)
+    # the fused CGS2 kernel on the local rows, u2 all-reduced
+    label = f"[sharded swe_M{SWE_M} cgs2_fused while]"
+    xu, iu = cgmres(s.A, s.b, ortho="cgs2_fused", loop="while",
+                    constraints=s.constraints(), **kw)
+    _reset_launches()
+    xsh, ish = cgmres(A, b, x0, ortho="cgs2_fused", loop="while",
+                      constraints=cons, **kw)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    d = _rel(gather(xsh, mesh), xu)
+    print(f"{label} steps {ish['steps']} ({iu['steps']}), safety "
+          f"{ish['safety']}, x {d:.3e}; #5 {launches['fused_update_matvec']}, "
+          f"#1 windowed {launches['dia_spmv_window']}, all_reduce "
+          f"{launches['all_reduce']}")
+    check(ish["steps"] == iu["steps"] and ish["safety"] is True and d <= 1e-10,
+          f"{label} steps {ish['steps']} vs {iu['steps']}, x {d:.3e}")
+    check(launches["fused_update_matvec"] == ish["steps"],
+          f"{label} #5 launched {launches['fused_update_matvec']} times")
+    paths[f"swe_M{SWE_M}_cgs2_fused_while"] = launches
+    clear_core_cache()
+    # the skew-normal Chebyshev, as chained sharded products
+    pre = default_pre_builder("swe")(s)
+    solve_pair(f"swe_M{SWE_M}_snc", (s.A, s.b, None),
+               (A, b, x0, {"constraints": cons,
+                           "pre": shard_preconditioner(pre, mesh)}),
+               constraints=s.constraints(), pre=pre, k=SNC_K, tol=SNC_TOL)
+    del pre, A, b, x0, cons, x, xs, ext
+    torch.cuda.empty_cache()
+    # heat M=1024 with the AMG, its levels of 32,768 rows or more sharded
+    t0 = time.perf_counter()
+    h = heat.linforms(M=HEAT_M, device=DEVICE)
+    hpre = default_pre_builder("heat")(h)
+    hA, hb, hx0, hcons = shard_system(h.A, h.b, torch.zeros_like(h.b),
+                                      h.constraints(), mesh)
+    hpre_sh = shard_preconditioner(hpre, mesh)
+    print(f"[sharded heat_M{HEAT_M}] assembly and AMG "
+          f"{time.perf_counter() - t0:.2f} s; levels (rows, sharded): "
+          + ", ".join(f"({L.A.shape[0]}, {type(L.A).__name__ != 'DIA'})"
+                      for L in hpre_sh.levels))
+    solve_pair(f"heat_M{HEAT_M}_amg", (h.A, h.b, None),
+               (hA, hb, hx0, {"constraints": hcons, "pre": hpre_sh}),
+               check_x=1e-8, all_windowed=False, constraints=h.constraints(),
+               pre=hpre,
+               k=HEAT_K, tol=HEAT_TOL)
+    del h, hpre, hA, hb, hx0, hcons, hpre_sh
+    torch.cuda.empty_cache()
+    # three fused_evolve steps, sharded and not, with the skew-normal
+    # Chebyshev built on the first system
+    params = dict(M=SWE_M, N=3, T=0.3)
+    s3 = swe.linforms(device=DEVICE, **params)
+    pre3 = default_pre_builder("swe")(s3)
+    runs = {}
+    for key, m in (("unsharded", None), ("sharded", mesh)):
+        fused_evolve("swe", k=SNC_K, tol=SNC_TOL, pre=pre3, mesh=m,
+                     device=DEVICE, **params)
+        _reset_launches()
+        runs[key] = fused_evolve("swe", k=SNC_K, tol=SNC_TOL, pre=pre3, mesh=m,
+                                 device=DEVICE, **params)
+        torch.cuda.synchronize()
+        # the steps' walls (a step's start to the next's, the last to the
+        # fetch), captures left out: the system's assembly is set-up
+        t = runs[key]["timings"]
+        runs[key]["step_ms"] = [float(1e3 * (w - c)) for w, c in
+                                zip(t["step_wall"], t["step_capture"])]
+    fu, fs = runs["unsharded"], runs["sharded"]
+    d = _rel(fs["sol"], fu["sol"])
+    label = f"[sharded swe_M{SWE_M}_fused_evolve]"
+    print(f"{label} steps {fs['steps'].tolist()} (unsharded "
+          f"{fu['steps'].tolist()}), safety {fs['safety'].tolist()}, de "
+          f"{fs['de'].tolist()} (unsharded {fu['de'].tolist()}), sol against "
+          f"the unsharded {d:.3e}; step walls, captures left out: sharded "
+          f"{[round(w, 3) for w in fs['step_ms']]} ms, unsharded "
+          f"{[round(w, 3) for w in fu['step_ms']]} ms; launches "
+          f"{fs['timings']['launches']}")
+    check(list(fs["steps"]) == list(fu["steps"]), f"{label} steps")
+    check(all(v == 1 for v in fs["safety"]), f"{label} safety {fs['safety']}")
+    check(d <= 1e-10, f"{label} sol {d:.3e} from the unsharded evolution")
+    check(float(np.max(np.abs(fs["de"] - fu["de"]))) <= 1e-8,
+          f"{label} energy drifts {fs['de']} vs {fu['de']}")
+    paths[f"swe_M{SWE_M}_fused_evolve"] = fs["timings"]["launches"]
+    walls["fused_evolve"] = {"sharded_step_ms": fs["step_ms"],
+                             "unsharded_step_ms": fu["step_ms"]}
+    del s3, pre3, runs, fu, fs
+    clear_core_cache()
+    torch.cuda.empty_cache()
+    # the scaling rows at one device
+    sp = scaling.spmv_scaling("swe", M=SWE_M, device_counts=[1], device="cuda")
+    so = scaling.solve_scaling("swe", M=SWE_M, k=SWE_K, tol=SWE_TOL,
+                               device_counts=[1], device="cuda")
+    print("[sharded scaling] spmv_scaling\n" + scaling.report(sp))
+    print("[sharded scaling] solve_scaling\n" + scaling.report(so))
+    check(len(sp) == len(so) == 1 and sp[0]["devices"] == 1,
+          "[sharded scaling] rows")
+    report["scaling"] = {"spmv": sp, "solve": so}
+    if torch.cuda.device_count() >= 2:
+        rows = scaling.dist_efficiency("swe", M=SWE_M, k=SWE_K, tol=SWE_TOL,
+                                       process_counts=(1, 2), device="cuda")
+        check(rows[0]["steps"] == rows[1]["steps"]
+              and rows[1]["safety"] is True,
+              f"[sharded dist-bench] {rows}")
+        report["dist_bench"] = rows
+    report.update(walls=walls, window=win)
+    print("[sharded] " + json.dumps(report))
+    print(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s")
+    return win, paths
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -5023,6 +5353,12 @@ def main() -> int:
     spmm_times.update(spmm_a)
     torch.cuda.synchronize()
     phase_native()
+    torch.cuda.synchronize()
+    # the fourteenth slice: the row-sharded path (phase 31)
+    win, shard_paths = phase_sharded()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
@@ -5160,6 +5496,31 @@ def main() -> int:
         if source != "stencil_spmv.cu":
             entry["flat_source"] = src + "poly_apply.cu"
         kernels.append(entry)
+    # kernel #1's windowed launch on the sharded paths (#1b's beside it)
+    by_name = {k["name"]: k for k in kernels}
+    by_name["dia_spmv"]["launches_by_path"].update({
+        f"sharded_{path}": n["dia_spmv"] for path, n in shard_paths.items()
+        if n.get("dia_spmv")})
+    by_name["fused_update_matvec"]["launches_by_path"].update({
+        f"sharded_{path}": n["fused_update_matvec"]
+        for path, n in shard_paths.items() if n.get("fused_update_matvec")})
+    kernels.append(
+        {"name": "dia_spmv_window", "route": "cuda",
+         "source": src + "dia_spmv.cu", "block_source": src + "dia_spmm.cu",
+         "replaces": f"{tpu}pallas_spmv.py:91",
+         "launch_of": "dia_spmv",
+         "launches": sum(n.get("dia_spmv_window", 0)
+                         for n in shard_paths.values()),
+         "launches_by_path": {path: n["dia_spmv_window"]
+                              for path, n in shard_paths.items()
+                              if n.get("dia_spmv_window")},
+         "block_launches_by_path": {path: n["dia_spmm_window"]
+                                    for path, n in shard_paths.items()
+                                    if n.get("dia_spmm_window")},
+         "max_abs_err": win["max_abs_err"], "timed_at": f"swe_M{SWE_M}_A",
+         **{key: win[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+         "times": win})
     print("[heat11] " + json.dumps({"walls": heat11_walls, "batched": {
         name: {key: row[key] for key in ("wall_ms", "single_ms", "capture_s",
                                          "idle")}

@@ -27,7 +27,9 @@ sizes and formats, the greedy aggregate counts per level, ``cgmres_many``
 at M=16 with a batch of 3; and the reporting and oracle modules:
 ``tabulator``'s columns on lkdv M=20, ``single_solve("lkdvrk",
 pre="auto")``, and GMRES's steps with the ILU and direct oracles on lkdvRK
-M=50):
+M=50) and ``slice14.json`` (the row-sharded solves of the JAX package's
+``tests/test_parallel.py`` on an 8-device CPU mesh, ``SLICE14``: each
+configuration single-device and sharded, with x in full):
 for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
@@ -384,11 +386,188 @@ def batch_states(name, z0, fem=None):
     raise ValueError(f"unknown kind of batch {kind!r}")
 
 
+# the configurations whose records go to slice14.json: the cases of the JAX
+# package's tests/test_parallel.py at their sizes, each run on one device
+# and row-sharded over an 8-device CPU mesh (XLA's host platform forced to
+# 8 devices): swe M=8 unpreconditioned and with the skew-normal Chebyshev,
+# the ELL tridiagonal under GMRES, the halo SpMV (offsets +-2 wrapped, and
+# the tridiagonal unwrapped) and the halo operator under GMRES, heat M=31
+# with the structured AMG (replicate_below=512), and fused_evolve on swe M=8
+SLICE14 = {"swe_M8_sharded", "swe_M8_snc_sharded", "ell_tridiag_n128",
+           "halo_n256", "halo_gmres_n256", "heat_M31_amg_sharded",
+           "swe_M8_fused_sharded"}
+MESH_DEVICES = 8
+
+
+def halo_matrices(n: int = 256):
+    """The halo SpMV's two operators and its x, as the JAX test builds them
+    (numpy seeds 5 and 6): five wrapped random diagonals at offsets -2..2,
+    and the unwrapped tridiagonal (-1, 2, -1)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(5)
+    rows, cols, vals = [], [], []
+    for off in (-2, -1, 0, 1, 2):
+        rows.append(np.arange(n))
+        cols.append((np.arange(n) + off) % n)
+        vals.append(rng.standard_normal(n))
+    Ah = sp.csr_matrix((np.concatenate(vals),
+                        (np.concatenate(rows), np.concatenate(cols))),
+                       shape=(n, n))
+    Ah2 = sp.csr_matrix(sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(n, n)))
+    x = np.random.default_rng(6).standard_normal(n)
+    return Ah, Ah2, x
+
+
+def tridiag(n: int, diag: float = 4.0):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix(sp.diags([-1.0, diag, -1.0], [-1, 0, 1],
+                                  shape=(n, n)))
+
+
+def _vec(v):
+    import numpy as np
+
+    return [float(t) for t in np.asarray(v)]
+
+
+def _solve_info(info):
+    out = {"steps": int(info["steps"])}
+    for key in ("safety", "deviation", "constrained_steps"):
+        if key in info:
+            v = info[key]
+            out[key] = None if v is None else (
+                bool(v) if key == "safety" else float(v) if key == "deviation"
+                else int(v))
+    return out
+
+
+def record_parallel(name):
+    """Run one case of the JAX package's tests/test_parallel.py single-device
+    and row-sharded over ``MESH_DEVICES`` CPU devices; returns its entry:
+    the configuration, each run's x (n <= 1,024) and solver info, or the
+    halo products, or the fused evolutions' steps, latch and drifts."""
+    _jax_cpu()
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu import precond
+    from structurepreservingiterativesolvers_tpu.models import heat, swe
+    from structurepreservingiterativesolvers_tpu.ops import (
+        dia_from_scipy,
+        ell_from_scipy,
+    )
+    from structurepreservingiterativesolvers_tpu.parallel import (
+        HaloDia,
+        dia_spmv_halo,
+        make_mesh,
+        shard_matrix,
+        shard_preconditioner,
+        shard_system,
+        shard_vector,
+    )
+    from structurepreservingiterativesolvers_tpu.solvers import cgmres, gmres
+
+    if len(jax.devices()) < MESH_DEVICES:
+        raise RuntimeError(f"{len(jax.devices())} JAX devices; the record "
+                           f"needs {MESH_DEVICES} (XLA_FLAGS "
+                           "--xla_force_host_platform_device_count)")
+    mesh = make_mesh(MESH_DEVICES)
+    rec = {"mesh_devices": MESH_DEVICES}
+    if name in ("swe_M8_sharded", "swe_M8_snc_sharded", "heat_M31_amg_sharded"):
+        if name == "heat_M31_amg_sharded":
+            from structurepreservingiterativesolvers_tpu.precond.amg import amg
+
+            M, k, tol = 31, 25, 1e-8
+            s = heat.linforms(M=M)
+            pre = amg(s.A, grid=(M + 1, M + 1))
+            rec["config"] = {"problem": "heat", "params": {"M": M}, "k": k,
+                             "tol": tol, "pre": "amg(grid=(M+1, M+1))",
+                             "replicate_below": 512}
+            rec["amg_levels"] = [int(L.A.shape[0]) for L in pre.levels]
+            pre_sh = lambda m: shard_preconditioner(pre, m, replicate_below=512)
+        else:
+            k, tol = 15, 1e-8
+            s = swe.linforms(M=8, N=100)
+            pre = (precond.skew_normal_chebyshev(s.A, a=1.0 / s.prob.dt)
+                   if name == "swe_M8_snc_sharded" else None)
+            rec["config"] = {"problem": "swe", "params": {"M": 8, "N": 100},
+                             "k": k, "tol": tol,
+                             "pre": None if pre is None else "snc"}
+            if pre is not None:
+                rec["snc"] = {"degree": int(pre.degree), "lmin": float(pre.lmin),
+                              "lmax": float(pre.lmax)}
+            pre_sh = lambda m: None if pre is None else shard_preconditioner(pre, m)
+        x1, i1 = cgmres(s.A, s.b, k=k, tol=tol, constraints=s.constraints(),
+                        pre=pre)
+        A, b, x0, cons = shard_system(s.A, s.b, jnp.zeros_like(s.b),
+                                      s.constraints(), mesh)
+        x8, i8 = cgmres(A, b, x0, k=k, tol=tol, constraints=cons,
+                        pre=pre_sh(mesh))
+        rec.update(n=int(s.b.shape[0]), single={"x": _vec(x1), **_solve_info(i1)},
+                   sharded={"x": _vec(x8), **_solve_info(i8)})
+    elif name == "ell_tridiag_n128":
+        n, k, tol = 128, 60, 1e-10
+        Ah = tridiag(n)
+        b = np.random.default_rng(0).standard_normal(n)
+        x1, i1 = gmres(ell_from_scipy(Ah), jnp.asarray(b), k=k, tol=tol)
+        x8, i8 = gmres(shard_matrix(ell_from_scipy(Ah), mesh),
+                       shard_vector(jnp.asarray(b), mesh), k=k, tol=tol)
+        rec.update(n=n, config={"matrix": "tridiag(-1, 4, -1)", "b": "rng(0)",
+                                "k": k, "tol": tol, "solver": "gmres"},
+                   single={"x": _vec(x1), **_solve_info(i1)},
+                   sharded={"x": _vec(x8), **_solve_info(i8)})
+    elif name == "halo_n256":
+        Ah, Ah2, x = halo_matrices()
+        xs = shard_vector(jnp.asarray(x), mesh)
+        y = dia_spmv_halo(shard_matrix(dia_from_scipy(Ah), mesh), xs, mesh)
+        y2 = dia_spmv_halo(shard_matrix(dia_from_scipy(Ah2), mesh), xs, mesh)
+        rec.update(n=256, config={"wrapped": "offsets -2..2, rng(5)",
+                                  "unwrapped": "tridiag(-1, 2, -1)",
+                                  "x": "rng(6)"},
+                   wrapped={"y": _vec(y), "y_scipy": _vec(Ah @ x)},
+                   unwrapped={"y": _vec(y2), "y_scipy": _vec(Ah2 @ x)})
+    elif name == "halo_gmres_n256":
+        import scipy.sparse.linalg as spla
+
+        n, k, tol = 256, 80, 1e-10
+        Ah = tridiag(n)
+        b = np.random.default_rng(2).standard_normal(n)
+        A_halo = HaloDia(shard_matrix(dia_from_scipy(Ah), mesh), mesh)
+        x8, i8 = gmres(A_halo, shard_vector(jnp.asarray(b), mesh), k=k, tol=tol)
+        rec.update(n=n, config={"matrix": "tridiag(-1, 4, -1)", "b": "rng(2)",
+                                "k": k, "tol": tol, "solver": "gmres"},
+                   sharded={"x": _vec(x8), **_solve_info(i8)},
+                   spsolve=_vec(spla.spsolve(Ah, b)))
+    elif name == "swe_M8_fused_sharded":
+        from structurepreservingiterativesolvers_tpu.experiments.evolve import (
+            fused_evolve,
+        )
+
+        params = dict(N=4, M=8, k=20, tol=1e-7, T=1.0)
+        rec["config"] = {"problem": "swe", **params}
+        for key, m in (("single", None), ("sharded", mesh)):
+            out = fused_evolve("swe", mesh=m, **params)
+            rec[key] = {"steps": [int(i) for i in out["steps"]],
+                        "safety": [int(i) for i in out["safety"]],
+                        "de": [float(v) for v in out["de"]],
+                        "dm": [float(v) for v in out["dm"]],
+                        "sol": _vec(out["sol"])}
+    else:
+        raise ValueError(f"no parallel record {name!r}")
+    return rec
+
+
 def out_path(name) -> Path:
     """The record file that holds configuration ``name``: by its
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in SLICE14:
+        return REFERENCE / "slice14.json"
     if name in SLICE13:
         return REFERENCE / "slice13.json"
     if name in SLICE12:
@@ -1085,7 +1264,7 @@ def main(names):
     import jax
 
     for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED,
-                          *CORE, *P2_TIMED, *REPORTS]:
+                          *CORE, *P2_TIMED, *REPORTS, *sorted(SLICE14)]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
@@ -1099,6 +1278,7 @@ def main(names):
                      else record_core(name) if name in CORE
                      else record_p2(name) if name in P2_TIMED
                      else record_report(name) if name in REPORTS
+                     else record_parallel(name) if name in SLICE14
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1106,5 +1286,13 @@ def main(names):
 
 
 if __name__ == "__main__":
+    if not sys.argv[1:] or SLICE14 & set(sys.argv[1:]):
+        # the sharded records need the 8-device CPU mesh, set before JAX
+        # starts; no other record reads past the first device
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + f" --xla_force_host_platform_device_count={MESH_DEVICES}"
+            ).strip()
     _jax_cpu()
     main(sys.argv[1:])

@@ -29,5 +29,5 @@ def require_f64(*tensors: torch.Tensor) -> None:
         if t is not None and t.dtype != torch.float64:
             raise NotImplementedError(
                 f"solver storage dtype {t.dtype} is not supported; the port "
-                "solves in float64"
+                "solves in float64 (f32 storage: ROADMAP.md, Queue 1, item 2)"
             )

@@ -27,6 +27,12 @@ Hessenberg matrix and the KKT solve that consume them; for the device core
 (``solvers/cgmres.py::DeviceCore``) they live on the basis' device and are
 updated in place under a mask (``fold_column``, ``catch_up``), as the JAX
 package keeps them.
+
+On row-sharded data (``parallel/mesh.py::shard_constraint``) a constraint
+carries the mesh, and each of its n-length reductions is all-reduced over
+it (``parallel/comm.py::psum``), the products of one fold or catch-up in
+one all-reduce; without a mesh the reductions are the unsharded ones, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 
 from ..config import HOST
 from ..ops.rows import basis_mv as rows_mv, dot as rows_dot, rows
+from ..parallel.comm import pdot, psum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +80,11 @@ class StageKron:
     dt: float
     ns: int
 
+    @property
+    def shape(self):
+        n = self.ns * self.inner.shape[0]
+        return (n, n)
+
     def __matmul__(self, X):
         Xs = X.reshape(self.ns, -1, *X.shape[1:])
         PX = self.dt * torch.tensordot(self.b, Xs, dims=1)
@@ -90,31 +102,36 @@ class StageKron:
 @dataclasses.dataclass(frozen=True)
 class QuadraticConstraint:
     """g(x) = ½ xᵀ M x + vᵀ x + c.  ``M``/``v`` may be None (zero); ``c`` is
-    a 0-dim tensor on the device of x."""
+    a 0-dim tensor on the device of x.  ``mesh``: the mesh of row-sharded
+    M, v and x, over which the inner products are all-reduced (None:
+    unsharded)."""
 
     M: Optional[Any]
     v: Optional[torch.Tensor]
     c: torch.Tensor
     name: str = "constraint"
+    mesh: Any = dataclasses.field(default=None, compare=False)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         out = self.c.to(x.dtype)
         if self.v is not None:
-            out = out + torch.dot(self.v, x)
+            out = out + pdot(self.v, x, self.mesh)
         if self.M is not None:
-            out = out + 0.5 * torch.dot(x, self.M @ x)
+            out = out + 0.5 * pdot(x, self.M @ x, self.mesh)
         return out
 
     def value_and_scale(self, x: torch.Tensor):
         """g(x) and its roundoff scale, the sum of the magnitudes of its
         three terms: near a point where g vanishes the value is a
         cancellation and cannot be certified below O(eps)·scale."""
-        terms = [self.c.to(x.dtype)]
+        terms = []
         if self.v is not None:
             terms.append(torch.dot(self.v, x))
         if self.M is not None:
             terms.append(0.5 * torch.dot(x, self.M @ x))
-        terms = torch.stack(terms)
+        terms = torch.stack([self.c.to(x.dtype),
+                             *(psum(torch.stack(terms), self.mesh)
+                               if terms else ())])
         return terms.sum(), terms.abs().sum()
 
     def grad(self, x: torch.Tensor) -> torch.Tensor:
@@ -135,10 +152,12 @@ def stage_mapped(inner: QuadraticConstraint, b: torch.Tensor, dt: float,
     Mz0 = inner.M @ z0 if inner.M is not None else torch.zeros_like(z0)
     v_in = inner.v if inner.v is not None else torch.zeros_like(z0)
     Pt_w = (dt * torch.outer(b, Mz0 + v_in)).reshape(-1)
-    c = inner.c + torch.dot(v_in, z0) + 0.5 * torch.dot(z0, Mz0)
+    c = (inner.c + pdot(v_in, z0, inner.mesh)
+         + 0.5 * pdot(z0, Mz0, inner.mesh))
     M = (StageKron(inner.M, b, float(dt), int(ns))
          if inner.M is not None else None)
-    return QuadraticConstraint(M=M, v=Pt_w, c=c, name=inner.name)
+    return QuadraticConstraint(M=M, v=Pt_w, c=c, name=inner.name,
+                               mesh=inner.mesh)
 
 
 class ReducedBuffers(NamedTuple):
@@ -186,8 +205,10 @@ def update_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
         if not x0_zero:
             t1j = t1j + torch.dot(u, x0)
         w = 0.5 * (Z[: j + 1] @ u)
-    # one device→host copy for the scalar and the new column
-    host = torch.cat([t1j.reshape(1)] + ([w] if w is not None else [])).to(HOST)
+    # one all-reduce (under a mesh) and one device→host copy for the scalar
+    # and the new column
+    host = psum(torch.cat([t1j.reshape(1)] + ([w] if w is not None else [])),
+                con.mesh).to(HOST)
     t1 = buf.t1.clone()
     t1[j] = host[0]
     T2 = buf.T2
@@ -214,12 +235,17 @@ def catchup_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
     t1_dev = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
     if con.v is not None:
         t1_dev = t1_dev + Zc @ con.v
+    parts = [t1_dev[:, None]]
     if con.M is not None:
         U = con.M @ Zc.T  # (n, jmax)
         if not x0_zero:
             t1_dev = t1_dev + U.T @ x0
-        T2[:jmax, :jmax] = (0.5 * (Zc @ U)).to(HOST)
-    t1[:jmax] = t1_dev.to(HOST)
+        parts = [t1_dev[:, None], 0.5 * (Zc @ U)]
+    # one all-reduce under a mesh: t1 beside T2's columns
+    red = psum(torch.cat(parts, dim=1), con.mesh).to(HOST)
+    t1[:jmax] = red[:, 0]
+    if con.M is not None:
+        T2[:jmax, :jmax] = red[:, 1:]
     return ReducedBuffers(t0=buf.t0, t1=t1, T2=T2)
 
 
@@ -242,12 +268,14 @@ def device_buffers(k: int, like: torch.Tensor, batch: int = 1) -> ReducedBuffers
 def value_and_scale_rows(con: QuadraticConstraint, X: torch.Tensor):
     """``value_and_scale`` at each row of X (B, n), for a constraint whose
     v (B, n) and c (B,) are per row: the values and scales, (B,) each."""
-    terms = [con.c.to(X.dtype)]
+    terms = []
     if con.v is not None:
         terms.append(rows_dot(con.v, X))
     if con.M is not None:
         terms.append(0.5 * rows_dot(X, rows(con.M.__matmul__, X)))
-    terms = torch.stack(terms, dim=-1)
+    terms = torch.stack([con.c.to(X.dtype),
+                         *(psum(torch.stack(terms), con.mesh)
+                           if terms else ())], dim=-1)
     return terms.sum(-1), terms.abs().sum(-1)
 
 
@@ -261,11 +289,17 @@ def fold_column(con: QuadraticConstraint, buf: ReducedBuffers,
     t1j = torch.zeros(Z.shape[0], dtype=Z.dtype, device=Z.device)
     if con.v is not None:
         t1j = t1j + rows_dot(con.v, zj)
-    if con.M is not None:
+    if con.M is None:
+        t1j = psum(t1j, con.mesh)
+    else:
         u = rows(con.M.__matmul__, zj)
         if not x0_zero:
             t1j = t1j + rows_dot(u, x0)
         w = 0.5 * rows_mv(Z[:, : j + 1], u)
+        if con.mesh is not None:
+            # one all-reduce: t1[:, j] beside the new column
+            red = psum(torch.cat([t1j[:, None], w], dim=1), con.mesh)
+            t1j, w = red[:, 0], red[:, 1:]
         lv = live[:, None]
         buf.T2[:, j, : j + 1] = torch.where(lv, w, buf.T2[:, j, : j + 1])
         buf.T2[:, : j + 1, j] = torch.where(lv, w, buf.T2[:, : j + 1, j])
@@ -286,11 +320,17 @@ def catch_up(con: QuadraticConstraint, buf: ReducedBuffers, Z: torch.Tensor,
         t1 = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
         if con.v is not None:
             t1 = t1 + Zc @ con.v[b]
-        if con.M is not None:
+        if con.M is None:
+            t1 = psum(t1, con.mesh)
+        else:
             U = con.M @ Zc.T  # (n, jmax)
             if not x0_zero:
                 t1 = t1 + U.T @ x0[b]
             T2 = 0.5 * (Zc @ U)
+            if con.mesh is not None:
+                # one all-reduce: t1 beside T2's columns
+                red = psum(torch.cat([t1[:, None], T2], dim=1), con.mesh)
+                t1, T2 = red[:, 0], red[:, 1:]
             buf.T2[b, :jmax, :jmax] = torch.where(live[b], T2,
                                                   buf.T2[b, :jmax, :jmax])
         buf.t1[b, :jmax] = torch.where(live[b], t1, buf.t1[b, :jmax])

@@ -1,7 +1,7 @@
 // The row code that the DIA kernels share (csrc/dia_spmv.cu, one vector;
 // csrc/dia_spmm.cu, a block of vectors): the offsets as a kernel argument,
 // the 16-byte vectors of a thread's rows, and x at a column of a row,
-// wrapped or zero-filled.
+// wrapped, zero-filled or read from a window.
 
 #pragma once
 
@@ -10,6 +10,15 @@
 
 #define DIA_MAX_DIAGS 64
 #define DIA_THREADS 256
+
+// what a column outside [0, n) reads (the `wrap` argument of the entry
+// points): 0 zero, 1 the column mod n (periodic meshes), 2 the window, x
+// then being a window of the columns a shard's rows read (its rows' own and
+// the halos), held from the caller's base, so that every column a row reads
+// lies in it (parallel/sharded.py builds the window; no test per element)
+#define DIA_EDGE_ZERO 0
+#define DIA_EDGE_WRAP 1
+#define DIA_EDGE_WINDOW 2
 
 struct DiaOffsets {
   long long off[DIA_MAX_DIAGS];
@@ -43,13 +52,15 @@ struct Vec16<float> {
   }
 };
 
-// x at column j of a row of the operator: wrapped mod n, or 0 outside [0, n)
-template <typename T, bool WRAP>
+// x at column j of a row of the operator: wrapped mod n, 0 outside [0, n),
+// or read from the window as it is
+template <typename T, int EDGE>
 __device__ __forceinline__ T x_at(const T* __restrict__ x, long long j,
                                   long long n) {
   // |off| < n is checked by the caller, so one add or subtract brings a
   // wrapped column back into range
-  if (WRAP) {
+  if (EDGE == DIA_EDGE_WINDOW) return __ldg(x + j);
+  if (EDGE == DIA_EDGE_WRAP) {
     if (j < 0) j += n;
     else if (j >= n) j -= n;
     return __ldg(x + j);

@@ -62,6 +62,10 @@
 // fused multiply-adds, as kernel #1 does, in both designs, so column b of
 // the product is kernel #1's product of vector b bit for bit.  A null plan
 // reads every diagonal (the dense design).  Index arithmetic is 64-bit.
+// With wrap = DIA_EDGE_WINDOW (a row-sharded operator's local product, as
+// in csrc/dia_spmv.cu) each vector's row of x is a window of ldx >= n +
+// lo + hi columns, held from its column 0 (x points there): every warp
+// takes the one-address path.
 
 #include "dia_row.cuh"
 
@@ -91,7 +95,7 @@ __device__ __forceinline__ void block_span(long long bid, long long R,
 // VEC: thread t of a warp holds rows w0 + RPT t + k (n % RPT == 0, so all
 // or none of them exist); otherwise rows w0 + t + 32 k.  Block column
 // blockIdx.y takes vectors [blockIdx.y * group, + group).
-template <typename T, bool WRAP, bool VEC, int TB, int DB>
+template <typename T, int EDGE, bool VEC, int TB, int DB>
 __global__ void __launch_bounds__(DIA_THREADS)
     dia_spmm_kernel(const T* __restrict__ data, const T* __restrict__ x,
                   T* __restrict__ y, long long n, long long nvec,
@@ -160,10 +164,11 @@ __global__ void __launch_bounds__(DIA_THREADS)
             a[u][k] = in[k] ? (last ? __ldcs(drow + row[k]) : __ldg(drow + row[k]))
                             : T(0);
         }
-        if (full && w0 + off >= 0 && w0 + off + WARP_ROWS <= n) {
-          // the warp's columns lie in [0, n): no wrap, no fill, and the
-          // loads of a vector share one address (the k-th at a constant
-          // offset from it)
+        if (full && (EDGE == DIA_EDGE_WINDOW ||
+                     (w0 + off >= 0 && w0 + off + WARP_ROWS <= n))) {
+          // the warp's columns lie in [0, n), or in the window: no wrap, no
+          // fill, and the loads of a vector share one address (the k-th at
+          // a constant offset from it)
           const T* xp = xt + row[0] + off;
 #pragma unroll
           for (int t = 0; t < TB; ++t) {
@@ -178,7 +183,7 @@ __global__ void __launch_bounds__(DIA_THREADS)
 #pragma unroll
             for (int k = 0; k < RPT; ++k)
               xv[u][t][k] = (t < nb && in[k])
-                                ? x_at<T, WRAP>(xt + t * ldx, row[k] + off, n)
+                                ? x_at<T, EDGE>(xt + t * ldx, row[k] + off, n)
                                 : T(0);
         }
       }
@@ -223,22 +228,25 @@ struct SpmmArgs {
   cudaStream_t s;
 };
 
-template <typename T, bool WRAP, bool VEC, int TB, int DB>
+template <typename T, int EDGE, bool VEC, int TB, int DB>
 static void run(const SpmmArgs& a, const DiaOffsets& offs, dim3 grid) {
-  dia_spmm_kernel<T, WRAP, VEC, TB, DB><<<grid, DIA_THREADS, 0, a.s>>>(
+  dia_spmm_kernel<T, EDGE, VEC, TB, DB><<<grid, DIA_THREADS, 0, a.s>>>(
       (const T*)a.data, (const T*)a.x, (T*)a.y, a.n, a.nvec, a.ldx, a.ldy,
       a.ndiag, a.live, a.chunk_shift, a.group, a.strip, offs);
 }
 
 template <typename T, int TB, int DB>
-static void dispatch(bool wrap, bool vec, const SpmmArgs& a,
+static void dispatch(int wrap, bool vec, const SpmmArgs& a,
                      const DiaOffsets& offs, dim3 grid) {
-  if (wrap) {
-    if (vec) run<T, true, true, TB, DB>(a, offs, grid);
-    else run<T, true, false, TB, DB>(a, offs, grid);
+  if (wrap == DIA_EDGE_WRAP) {
+    if (vec) run<T, DIA_EDGE_WRAP, true, TB, DB>(a, offs, grid);
+    else run<T, DIA_EDGE_WRAP, false, TB, DB>(a, offs, grid);
+  } else if (wrap == DIA_EDGE_WINDOW) {
+    if (vec) run<T, DIA_EDGE_WINDOW, true, TB, DB>(a, offs, grid);
+    else run<T, DIA_EDGE_WINDOW, false, TB, DB>(a, offs, grid);
   } else {
-    if (vec) run<T, false, true, TB, DB>(a, offs, grid);
-    else run<T, false, false, TB, DB>(a, offs, grid);
+    if (vec) run<T, DIA_EDGE_ZERO, true, TB, DB>(a, offs, grid);
+    else run<T, DIA_EDGE_ZERO, false, TB, DB>(a, offs, grid);
   }
 }
 
@@ -246,7 +254,7 @@ static void dispatch(bool wrap, bool vec, const SpmmArgs& a,
 // diagonal in flight) and the spread design's (1 or 2 vectors, four);
 // anything else is refused
 template <typename T>
-static bool dispatch_tile(int tile, int depth, bool wrap, bool vec,
+static bool dispatch_tile(int tile, int depth, int wrap, bool vec,
                           const SpmmArgs& a, const DiaOffsets& offs,
                           dim3 grid) {
   switch (tile * 16 + depth) {
@@ -276,7 +284,8 @@ static int launch(const void* data, const void* x, void* y, long long n,
   if (ndiag < 0 || ndiag > DIA_MAX_DIAGS || n < 1 || nvec < 1 ||
       (nvec > 1 && (ldx < n || ldy < n)) || group < 1 ||
       (nvec + group - 1) / group > 65535 || strip < 1 ||
-      (strip < n && strip % (32 * RPT) != 0))
+      (strip < n && strip % (32 * RPT) != 0) || wrap < DIA_EDGE_ZERO ||
+      wrap > DIA_EDGE_WINDOW)
     return (int)cudaErrorInvalidValue;
   if (live && (chunk_shift < 0 || chunk_shift > 40 ||
                (1LL << chunk_shift) % (32 * RPT) != 0))

@@ -53,6 +53,12 @@
 // coefficients read no longer reaches y, as in a CSR product; the plain
 // PyTorch twin multiplies every diagonal.  Index arithmetic is 64-bit and
 // offsets are signed.
+//
+// The windowed launch (wrap = DIA_EDGE_WINDOW) is the local product of a
+// row-sharded operator (parallel/sharded.py): n is the shard's rows, x a
+// window of the columns they read, assembled by the exchange with the other
+// ranks, and each row sums the same live diagonals in the same order as the
+// unsharded launch, so on one rank it gives the unsharded product's bits.
 
 #include "dia_row.cuh"
 
@@ -63,7 +69,7 @@
 
 // VEC: thread t of a warp holds rows w0 + RPT t + k (n % RPT == 0, so all
 // or none of them exist); otherwise rows w0 + t + 32 k
-template <typename T, bool WRAP, bool VEC>
+template <typename T, int EDGE, bool VEC>
 __global__ void __launch_bounds__(DIA_THREADS)
     dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
                     T* __restrict__ y, long long n, int ndiag,
@@ -111,7 +117,7 @@ __global__ void __launch_bounds__(DIA_THREADS)
       }
 #pragma unroll
       for (int k = 0; k < RPT; ++k)
-        xv[u][k] = in[k] ? x_at<T, WRAP>(x, row[k] + off, n) : T(0);
+        xv[u][k] = in[k] ? x_at<T, EDGE>(x, row[k] + off, n) : T(0);
     }
 #pragma unroll
     for (int u = 0; u < DIA_BATCH; ++u) {
@@ -131,16 +137,18 @@ __global__ void __launch_bounds__(DIA_THREADS)
   }
 }
 
-template <typename T, bool WRAP, bool VEC>
+template <typename T, int EDGE, bool VEC>
 static void run(const void* data, const void* x, void* y, long long n,
                 int ndiag, const unsigned long long* live, int chunk_shift,
                 const DiaOffsets& offs, long long blocks, cudaStream_t s) {
-  dia_spmv_kernel<T, WRAP, VEC><<<(unsigned)blocks, DIA_THREADS, 0, s>>>(
+  dia_spmv_kernel<T, EDGE, VEC><<<(unsigned)blocks, DIA_THREADS, 0, s>>>(
       (const T*)data, (const T*)x, (T*)y, n, ndiag, live, chunk_shift, offs);
 }
 
 // live: one word per chunk of 2^chunk_shift rows, or null for every
-// diagonal; a chunk holds whole warps (checked here)
+// diagonal; a chunk holds whole warps (checked here).  wrap: DIA_EDGE_*;
+// with DIA_EDGE_WINDOW, x points at the window's column 0 (the caller's
+// base), and columns -lo .. n + hi - 1 of it are read
 template <typename T>
 static int launch(const void* data, const void* x, void* y, long long n,
                   int ndiag, const long long* offsets, int wrap,
@@ -163,12 +171,21 @@ static int launch(const void* data, const void* x, void* y, long long n,
                    (uintptr_t)y % 16 == 0;
   const auto* words = (const unsigned long long*)live;
   cudaStream_t s = (cudaStream_t)stream;
-  if (wrap) {
-    if (vec) run<T, true, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
-    else run<T, true, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
-  } else {
-    if (vec) run<T, false, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
-    else run<T, false, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+  switch (wrap) {
+    case DIA_EDGE_ZERO:
+      if (vec) run<T, DIA_EDGE_ZERO, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      else run<T, DIA_EDGE_ZERO, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      break;
+    case DIA_EDGE_WRAP:
+      if (vec) run<T, DIA_EDGE_WRAP, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      else run<T, DIA_EDGE_WRAP, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      break;
+    case DIA_EDGE_WINDOW:
+      if (vec) run<T, DIA_EDGE_WINDOW, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      else run<T, DIA_EDGE_WINDOW, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

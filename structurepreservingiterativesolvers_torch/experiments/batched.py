@@ -156,7 +156,7 @@ def cgmres_many(
     if mixed:
         raise NotImplementedError(
             "mixed=True: f32 storage is not ported (ROADMAP.md, Queue 1, "
-            "item 3)")
+            "item 2)")
     if Bs.dim() != 2:
         raise ValueError(f"Bs is (batch, n), got {tuple(Bs.shape)}")
     _check_pre(pre)

@@ -17,6 +17,7 @@
     python -m structurepreservingiterativesolvers_torch timed --problem heat --degree 2 --sizes 16 32 --k 60 --device cpu
     python -m structurepreservingiterativesolvers_torch single --problem lkdv --M 20 --plot --device cpu
     python -m structurepreservingiterativesolvers_torch evolve --problem lkdv --M 20 --N 5 --plot --device cpu
+    python -m structurepreservingiterativesolvers_torch dist-bench --spawn 2 --problem swe --M 16 --device cpu
 
 ``--ortho`` picks the Arnoldi orthogonalisation of both solvers: ``cgs2``
 (the default), ``cgs2_fused`` (its middle pair through the fused CGS2
@@ -25,6 +26,11 @@ while`` run the solvers on the device core, the JAX package's default
 loop.  ``single --plot`` tabulates both solvers and draws the convergence
 figure, ``evolve --plot`` runs GMRES and CGMRES evolutions and draws their
 drifts (``plots/``; pandas and matplotlib needed then only).
+``dist-bench`` is one process of a row-sharded benchmark job (the
+``SPIS_COORDINATOR``, ``SPIS_NUM_PROCESSES`` and ``SPIS_PROCESS_ID``
+variables say which), or, with ``--spawn N``, spawns local jobs of 1 and N
+processes (one device each: gloo ranks with ``--device cpu``, one card
+each with ``--device cuda``) and prints their scaling-efficiency table.
 """
 
 from __future__ import annotations
@@ -96,6 +102,23 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda)")
 
+    p = sub.add_parser(
+        "dist-bench",
+        help="row-sharded benchmark: one process of a job (env "
+             "SPIS_COORDINATOR/SPIS_NUM_PROCESSES/SPIS_PROCESS_ID), or "
+             "--spawn N to run local jobs of 1 and N processes and print the "
+             "scaling-efficiency table")
+    p.add_argument("--problem", default="swe",
+                   choices=["lkdv", "lkdvrk", "heat", "swe"])
+    p.add_argument("--M", type=int, default=32)
+    p.add_argument("--k", type=int, default=20)
+    p.add_argument("--tol", type=float, default=1e-6)
+    p.add_argument("--spawn", type=int, default=None, metavar="N",
+                   help="spawn jobs with 1 and N processes locally, one "
+                        "device each, and print the efficiency table")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (NCCL, one card a process) or cpu (gloo)")
+
     args = parser.parse_args(argv)
 
     if args.cmd == "single":
@@ -141,6 +164,18 @@ def main(argv=None):
                   f"de {run['de'][-1]:.3e}")
         if args.plot:
             error_plot()
+    elif args.cmd == "dist-bench":
+        if args.spawn:
+            from .scaling import dist_efficiency
+
+            dist_efficiency(args.problem, M=args.M, k=args.k, tol=args.tol,
+                            process_counts=sorted({1, args.spawn}),
+                            device=args.device)
+        else:
+            from .scaling import dist_bench_worker
+
+            dist_bench_worker(args.problem, M=args.M, k=args.k, tol=args.tol,
+                              device=args.device)
 
 
 if __name__ == "__main__":

@@ -208,27 +208,61 @@ def fused_evolve(
     and its invariants are taken on that system.  (The JAX ``fused_evolve``
     steps ``sys0`` by each stage vector, so from the third step on it
     restarts from the initial state plus the last step's increment.)
-    ``mesh`` (a sharded evolution) and ``loop="fori"`` are not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded evolution (mesh=) waits for the port of parallel/ "
-            "(ROADMAP.md, Queue 1, item 2)")
+
+    ``mesh`` (``parallel/``): the evolution runs row-sharded over it, as
+    the JAX package's (``evolve.py:177-189`` there), with ``pre``, built on
+    the whole first system, through ``shard_preconditioner``, and ``sol``
+    the whole last solution.  On a row-local system (swe, heat) every DIA,
+    ELL and Stencil field of the system goes through ``shard_matrix``,
+    every 1-D tensor longer than 16 through ``shard_vector`` and swe's
+    energy matrix by its rows, and the invariants and targets are
+    all-reduced sums.  A system
+    whose ``step_update`` and invariants are not row-local (its class's
+    ``row_local``: lkdv's and lkdvRK's split the state into its fields u,
+    v, w, which a row split cuts) is held whole on every rank: the solve
+    runs sharded (A, b, x and the constraints by their rows), the prologue
+    and the epilogue on the gathered solution.
+    ``loop="fori"`` is not ported."""
     if loop != "while":
         raise NotImplementedError(
             f"loop={loop!r}: only 'while' is ported ('fori' is a TPU "
             "workaround, not ported on purpose)")
+    from ..parallel import gather, shard_constraint, shard_matrix, shard_vector
     from ..solvers.cgmres import DeviceCore
 
     sys0 = get_model(problem).linforms(N=N, M=M, degree=degree, device=device,
                                        **params)
-    core = DeviceCore(sys0.A, pre, k, sys0.constraints(), like=sys0.b,
+    # the mesh of a sharded solve on a system every rank holds whole
+    whole = None
+    if mesh is not None and not type(sys0).row_local:
+        whole = mesh
+    elif mesh is not None:
+        sys0 = _shard_fields(sys0, mesh)
+    if mesh is not None:
+        from ..parallel import shard_preconditioner
+
+        pre = shard_preconditioner(pre, mesh)
+
+    def local(v):
+        return v if whole is None else shard_vector(v, whole)
+
+    def full(v):
+        return v if whole is None else gather(v, whole)
+
+    def constraints(s):
+        cons = s.constraints()
+        return cons if whole is None else [shard_constraint(c, whole)
+                                           for c in cons]
+
+    A = sys0.A if whole is None else shard_matrix(sys0.A, whole)
+    core = DeviceCore(A, pre, k, constraints(sys0), like=local(sys0.b),
                       tol=tol, contol=contol, ctol=ctol, ortho=ortho)
     runner = core.runner
     names = [nm for nm, attr in TARGETS.items() if hasattr(sys0, attr)]
     is_rk = problem.lower() == "lkdvrk"
     # the solution: lkdvRK's stage vector from zeros, every other model's
     # state from the initial one; lkdvRK's state, the stepped system's z0
-    z = torch.zeros_like(sys0.b) if is_rk else sys0.z0.clone()
+    z = torch.zeros_like(local(sys0.b)) if is_rk else local(sys0.z0).clone()
     state = sys0.z0.clone()
     row = torch.zeros(1, dtype=torch.long, device=z.device)
     inv = torch.zeros((N, len(names)), dtype=z.dtype, device=z.device)
@@ -241,26 +275,26 @@ def fused_evolve(
         return dataclasses.replace(sys0, z0=state) if is_rk else sys0
 
     def prologue():
-        s = stepped().step_update(z)
+        s = stepped().step_update(full(z))
         if is_rk:
             state.copy_(s.z0)
-        core.load(s.b, z if warm_start else torch.zeros_like(z),
-                  s.constraints())
+        core.load(local(s.b), z if warm_start else torch.zeros_like(z),
+                  constraints(s))
 
     def epilogue():
         # the core's buffers of its one solve (its batch axis is 1); z still
         # holds the step's previous solution, which heat's dissipation
         # identity reads (the JAX step evaluates it on the stepped system)
         x = core.x[0]
-        values = stepped().compute_invariants(x, zold=z)
+        values = stepped().compute_invariants(full(x), zold=full(z))
         inv.index_copy_(0, row, torch.stack([values[nm] for nm in names])[None])
         counts.index_copy_(0, row, torch.stack(
             [core.steps[0], core.safety[0], core.nfb[0]])[None])
         z.copy_(x)
         row.add_(1)
 
-    runner.warmup(lambda: (sys0.step_update(z),
-                           sys0.compute_invariants(z, zold=z)))
+    runner.warmup(lambda: (sys0.step_update(full(z)),
+                           sys0.compute_invariants(full(z), zold=full(z))))
     starts, captured = [], []
     with span("fused_evolve steps", z.device):
         for _ in range(N):
@@ -274,6 +308,8 @@ def fused_evolve(
     starts.append(time.perf_counter())
     captured.append(runner.time_capture)
     targets = torch.stack([getattr(sys0, TARGETS[nm]) for nm in names]).tolist()
+    if mesh is not None:
+        z = gather(z, mesh)
     out = {"time": np.linspace(0.0, float(sys0.prob.T), N + 1)[1:],
            "steps": counts[:, 0], "safety": counts[:, 1],
            "fallbacks": counts[:, 2], "sol": z,
@@ -286,6 +322,26 @@ def fused_evolve(
         out[DRIFT_KEYS[nm]] = np.abs(series[:, i] - target)
         out[nm] = series[:, i]
     return out
+
+
+def _shard_fields(sys0, mesh):
+    """The first system of a sharded row-local evolution (swe, heat): the
+    operators (DIA, ELL, Stencil, and swe's diagonal energy matrix) by their
+    rows, the vectors longer than 16 by their rows, the scalars whole."""
+    from ..ops.sparse import DIA, ELL
+    from ..ops.stencil import Stencil
+    from ..parallel.mesh import _shard_operator, shard_matrix, shard_vector
+
+    updates = {}
+    for f in dataclasses.fields(sys0):
+        val = getattr(sys0, f.name)
+        if isinstance(val, (DIA, ELL, Stencil)):
+            updates[f.name] = shard_matrix(val, mesh)
+        elif isinstance(val, torch.Tensor) and val.dim() == 1 and val.numel() > 16:
+            updates[f.name] = shard_vector(val, mesh)
+        elif dataclasses.is_dataclass(val) and hasattr(val, "__matmul__"):
+            updates[f.name] = _shard_operator(val, mesh)
+    return dataclasses.replace(sys0, **updates)
 
 
 def deviation_plotter(problem: str = "lkdv", tol: float = 1e-6,

@@ -20,15 +20,20 @@ def launch_counters() -> dict:
     the card adds one to its ``launches`` (a design's wrapper and its
     kernel's both); ``<name>_<design>`` for the designs of kernels #1-#4
     and of the batched #1 (``dia_spmm``: ``_live`` and ``_dense`` by its
-    operator's plan, ``_tile`` and ``_spread`` by its design)."""
+    operator's plan, ``_tile`` and ``_spread`` by its design;
+    ``dia_spmv_window`` and ``dia_spmm_window`` the windowed launches of a
+    row-sharded operator).  ``utils.counters.all_counters`` adds the
+    collectives' counters to these."""
     from . import dia_spmv, ortho, poly_apply, stencil_spmv
 
     return {"dia_spmv": dia_spmv.dia_spmv_cuda,
             "dia_spmv_live": dia_spmv.dia_spmv_live_cuda,
             "dia_spmv_dense": dia_spmv.dia_spmv_dense_cuda,
+            "dia_spmv_window": dia_spmv.dia_spmv_window_cuda,
             "dia_spmm": dia_spmv.dia_spmm_cuda,
             "dia_spmm_live": dia_spmv.dia_spmm_live_cuda,
             "dia_spmm_dense": dia_spmv.dia_spmm_dense_cuda,
+            "dia_spmm_window": dia_spmv.dia_spmm_window_cuda,
             "dia_spmm_tile": dia_spmv.dia_spmm_tile_cuda,
             "dia_spmm_spread": dia_spmv.dia_spmm_spread_cuda,
             "stencil_spmv": stencil_spmv.stencil_spmv_cuda,

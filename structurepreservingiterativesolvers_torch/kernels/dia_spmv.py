@@ -62,6 +62,9 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 MAX_DIAGS = 64  # DIA_MAX_DIAGS in csrc/dia_spmv.cu; from_scipy caps ndiag here
+# the entry points' ``wrap`` argument of a windowed launch (DIA_EDGE_WINDOW in
+# csrc/dia_row.cuh; 0 and 1 are the zero-filled and the wrapped operator)
+EDGE_WINDOW = 2
 # rows of a chunk of the live plan, measured on an H100 at the swe M=512
 # operator (chip_smoke.py): at least a warp's rows, 32 x (16 / itemsize)
 LIVE_CHUNK = 64
@@ -252,6 +255,32 @@ def dia_spmm_torch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
     return Y
 
 
+def dia_spmv_window_torch(data: torch.Tensor, offsets: Sequence[int], lo: int,
+                          x_ext: torch.Tensor) -> torch.Tensor:
+    """The plain version of the windowed product: ``y[i] = sum_d data[d, i]
+    * x_ext[lo + i + offsets[d]]``, summed in diagonal order (as the JAX
+    package's ``parallel/halo_spmv.py`` sums its window)."""
+    n = data.shape[1]
+    y = torch.zeros(n, dtype=torch.promote_types(data.dtype, x_ext.dtype),
+                    device=x_ext.device)
+    for d, off in enumerate(offsets):
+        y = y + data[d] * x_ext[lo + int(off): lo + int(off) + n]
+    return y
+
+
+def dia_spmm_window_torch(data: torch.Tensor, offsets: Sequence[int], lo: int,
+                          X_ext: torch.Tensor) -> torch.Tensor:
+    """The plain version of the windowed product with a block: X_ext (W, B)
+    holds each vector's window as a column; (n, B)."""
+    n = data.shape[1]
+    Y = torch.zeros((n, X_ext.shape[1]),
+                    dtype=torch.promote_types(data.dtype, X_ext.dtype),
+                    device=X_ext.device)
+    for d, off in enumerate(offsets):
+        Y = Y + data[d][:, None] * X_ext[lo + int(off): lo + int(off) + n]
+    return Y
+
+
 def _check(data: torch.Tensor, offsets: Sequence[int], x: torch.Tensor) -> None:
     if data.device != x.device:
         raise ValueError(f"data on {data.device} but x on {x.device}")
@@ -345,9 +374,22 @@ class DiaLaunch:
     args: tuple
     keep: tuple
     many: tuple
+    # a windowed launch: x is a window of ``width`` columns, read from
+    # ``base`` (window_launch); else x has the operator's n columns
+    window: bool = False
+    base: int = 0
+    width: int = 0
 
     def takes(self, x: torch.Tensor) -> bool:
         return x.dtype == self.dtype and x.device == self.device
+
+    @property
+    def cols(self) -> int:
+        """The length of the x this launch reads."""
+        return self.width if self.window else self.n
+
+    def x_ptr(self, x: torch.Tensor) -> int:
+        return x.data_ptr() + self.base * x.element_size()
 
 
 def dia_launch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
@@ -372,19 +414,46 @@ def dia_launch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
                      x.dtype, x.device, data.data_ptr(), args, keep, many)
 
 
+def window_launch(data: torch.Tensor, offsets: Sequence[int], lo: int,
+                  hi: int, x_ext: torch.Tensor,
+                  live: Optional[LivePlan] = None) -> DiaLaunch:
+    """Check a shard's rows of an operator, ``data`` (ndiag, n), against a
+    CUDA window x_ext of ``lo + n + hi`` columns, and resolve its windowed
+    launch: the live design with ``live`` (the shard's own plan), the dense
+    one without.  Every offset lies in [-lo, hi]."""
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"the DIA kernel needs CUDA tensors, got {x_ext.device}")
+    ndiag, n = data.shape
+    if offsets and (min(offsets) < -lo or max(offsets) > hi):
+        raise ValueError(f"offsets {tuple(offsets)} reach outside the window "
+                         f"[-{lo}, {hi}]")
+    width = lo + n + hi
+    if x_ext.dim() != 1 or x_ext.shape[0] != width:
+        raise ValueError(f"a window of {width} columns, got {tuple(x_ext.shape)}")
+    # the checks of an unwindowed launch on the shard's rows
+    rec = dia_launch(data, [0] * ndiag, False, x_ext.new_empty(n), live)
+    offs = (ctypes.c_longlong * max(ndiag, 1))(*map(int, offsets))
+    args = (n, ndiag, offs, EDGE_WINDOW) + rec.args[4:]
+    many = (ndiag, offs, EDGE_WINDOW) + rec.many[3:]
+    return dataclasses.replace(
+        rec, args=args, many=many, window=True, base=int(lo), width=width,
+        strip=spmm_strip(n, offsets, x_ext.dtype))
+
+
 def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
     """Launch the kernel as ``rec`` resolved it, on PyTorch's current
     stream; does not synchronise.  The launch counts in its design's counter
-    and in ``dia_spmv_cuda``'s."""
-    if (not rec.takes(x) or x.dim() != 1 or x.shape[0] != rec.n
+    and in ``dia_spmv_cuda``'s (a windowed one in ``dia_spmv_window_cuda``'s
+    too)."""
+    if (not rec.takes(x) or x.dim() != 1 or x.shape[0] != rec.cols
             or not x.is_contiguous()):
         raise ValueError(f"the launch takes a contiguous {rec.dtype} vector "
-                         f"of {rec.n} on {rec.device}; got {x.dtype} "
+                         f"of {rec.cols} on {rec.device}; got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
-    y = torch.empty_like(x)
+    y = x.new_empty(rec.n)
     if rec.n:
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry(rec.dtype)(rec.data_ptr, x.data_ptr(), y.data_ptr(),
+        err = _entry(rec.dtype)(rec.data_ptr, rec.x_ptr(x), y.data_ptr(),
                                 *rec.args, stream)
         if err != 0:
             raise RuntimeError(
@@ -393,6 +462,8 @@ def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
                else dia_spmv_dense_cuda)
     counter.launches += 1
     dia_spmv_cuda.launches += 1
+    if rec.window:
+        dia_spmv_window_cuda.launches += 1
     return y
 
 
@@ -406,13 +477,14 @@ def launch_many(rec: DiaLaunch, X: torch.Tensor,
     layout is copied into that one first.  ``plan``: the launch,
     ``spmm_plan``'s by default; a launch the kernel refuses raises.  The
     launch counts in ``dia_spmm_cuda``'s counter, its plan's and its
-    design's; does not synchronise."""
-    if (not rec.takes(X) or X.dim() != 2 or X.shape[0] != rec.n):
+    design's (a windowed one, whose X holds each vector's window, in
+    ``dia_spmm_window_cuda``'s too); does not synchronise."""
+    if (not rec.takes(X) or X.dim() != 2 or X.shape[0] != rec.cols):
         raise ValueError(f"the batched launch takes a {rec.dtype} block of "
-                         f"{rec.n} rows on {rec.device}; got {X.dtype} "
+                         f"{rec.cols} rows on {rec.device}; got {X.dtype} "
                          f"{tuple(X.shape)} on {X.device}")
     nvec = X.shape[1]
-    if X.stride(0) != 1 and rec.n > 1:
+    if X.stride(0) != 1 and rec.cols > 1:
         X = X.T.contiguous().T
     Y = torch.empty((nvec, rec.n), dtype=X.dtype, device=X.device)
     if nvec == 0:
@@ -423,7 +495,7 @@ def launch_many(rec: DiaLaunch, X: torch.Tensor,
         raise ValueError(f"no batched design {plan.design!r}")
     stream = torch.cuda.current_stream(X.device).cuda_stream
     err = _entry_many(rec.dtype)(
-        rec.data_ptr, X.data_ptr(), Y.data_ptr(), rec.n, nvec, X.stride(1),
+        rec.data_ptr, rec.x_ptr(X), Y.data_ptr(), rec.n, nvec, X.stride(1),
         rec.n, *rec.many, int(plan.tile), int(plan.split), int(plan.strip),
         int(plan.depth), rec.args[-1], stream)
     if err != 0:
@@ -435,6 +507,8 @@ def launch_many(rec: DiaLaunch, X: torch.Tensor,
     counter.launches += 1
     _DESIGN_COUNTERS[plan.design].launches += 1
     dia_spmm_cuda.launches += 1
+    if rec.window:
+        dia_spmm_window_cuda.launches += 1
     return Y.T
 
 
@@ -506,6 +580,24 @@ def _forced(design: str):
     return launch_design
 
 
+def dia_spmv_window_cuda(data: torch.Tensor, offsets: Sequence[int], lo: int,
+                         hi: int, x_ext: torch.Tensor,
+                         live: Optional[LivePlan] = None) -> torch.Tensor:
+    """Launch the kernel on a window (``window_launch``) on PyTorch's
+    current stream; does not synchronise."""
+    return launch(window_launch(data, offsets, lo, hi, x_ext, live), x_ext)
+
+
+def dia_spmm_window_cuda(data: torch.Tensor, offsets: Sequence[int], lo: int,
+                         hi: int, X_ext: torch.Tensor,
+                         live: Optional[LivePlan] = None,
+                         plan: Optional[SpmmPlan] = None) -> torch.Tensor:
+    """Launch the batched kernel on a block of windows X_ext (W, B) on
+    PyTorch's current stream; does not synchronise."""
+    rec = window_launch(data, offsets, lo, hi, _column(X_ext), live)
+    return launch_many(rec, X_ext, plan)
+
+
 dia_spmm_tile_cuda = _forced("tile")
 dia_spmm_spread_cuda = _forced("spread")
 _DESIGN_COUNTERS = {"tile": dia_spmm_tile_cuda, "spread": dia_spmm_spread_cuda}
@@ -518,6 +610,7 @@ dia_spmv_cuda.launches = 0
 dia_spmm_live_cuda.launches = dia_spmm_dense_cuda.launches = 0
 dia_spmm_tile_cuda.launches = dia_spmm_spread_cuda.launches = 0
 dia_spmm_cuda.launches = 0
+dia_spmv_window_cuda.launches = dia_spmm_window_cuda.launches = 0
 
 
 def dia_spmv(data: torch.Tensor, offsets: Sequence[int], wrap: bool,

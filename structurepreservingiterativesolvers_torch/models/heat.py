@@ -26,7 +26,7 @@ structured AMG does not apply there, and the greedy host AMG
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -36,6 +36,7 @@ from ..config import DEFAULT_DTYPE
 from ..constraints.quadratic import QuadraticConstraint
 from ..ops.sparse import from_scipy
 from ..ops.stencil import maybe_stencil
+from ..parallel.comm import mesh_of, pdot
 from .fem2d import SpaceP1
 
 
@@ -79,10 +80,15 @@ class System:
     old_energy: torch.Tensor
     prob: Problem
     A_csr: sp.csr_matrix = dataclasses.field(repr=False, default=None)
+    # step_update and the invariants act row by row on the state (a row
+    # split of the system keeps them local; fused_evolve(mesh=) reads it)
+    row_local: ClassVar[bool] = True
 
     def constraints(self):
         dt = self.prob.dt
-        mass = QuadraticConstraint(M=None, v=self.omega, c=-self.m0, name="mass")
+        mesh = mesh_of(self.A)
+        mass = QuadraticConstraint(M=None, v=self.omega, c=-self.m0,
+                                   name="mass", mesh=mesh)
         # M + ½dt·K pre-combined on the host in f64 (M and K share their
         # sparsity pattern): one SpMV per constraint product, not two
         energy = QuadraticConstraint(
@@ -90,6 +96,7 @@ class System:
             v=0.5 * dt * self.Lz0,
             c=-self.old_energy,
             name="energy",
+            mesh=mesh,
         )
         return [mass, energy]
 
@@ -97,11 +104,13 @@ class System:
                            zold: Optional[torch.Tensor] = None) -> dict:
         zold = self.z0 if zold is None else zold
         zmid = 0.5 * (z + zold)
-        mass = torch.dot(self.omega, z)
+        # on a row-sharded system each sum is all-reduced
+        mesh = mesh_of(self.A)
+        mass = pdot(self.omega, z, mesh)
         energy = (
-            0.5 * torch.dot(z, self.Mmat @ z)
-            - 0.5 * torch.dot(zold, self.Mmat @ zold)
-            + self.prob.dt * torch.dot(zmid, self.Lmat @ zmid)
+            0.5 * pdot(z, self.Mmat @ z, mesh)
+            - 0.5 * pdot(zold, self.Mmat @ zold, mesh)
+            + self.prob.dt * pdot(zmid, self.Lmat @ zmid, mesh)
         )
         return {"mass": mass, "energy": energy}
 
@@ -112,14 +121,15 @@ class System:
         dt_step = self.prob.dt
         Lz0 = self.Lmat @ z_prev
         Mu0 = self.Mmat @ z_prev
+        mesh = mesh_of(self.A)
         return dataclasses.replace(
             self,
             b=Mu0 / dt_step - 0.5 * Lz0,
             z0=z_prev,
             Lz0=Lz0,
-            m0=torch.dot(self.omega, z_prev),
-            old_energy=0.5 * torch.dot(z_prev, Mu0)
-            - 0.25 * dt_step * torch.dot(z_prev, Lz0),
+            m0=pdot(self.omega, z_prev, mesh),
+            old_energy=0.5 * pdot(z_prev, Mu0, mesh)
+            - 0.25 * dt_step * pdot(z_prev, Lz0, mesh),
         )
 
 

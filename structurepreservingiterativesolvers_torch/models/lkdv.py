@@ -17,7 +17,7 @@ land on the given device as DIA matrices.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -57,6 +57,9 @@ class Problem:
 class System:
     """Assembled linear system and invariant data on one device."""
 
+    # step_update and the invariants split the state into its fields (u, v,
+    # w), which a row split cuts (fused_evolve(mesh=) reads it)
+    row_local: ClassVar[bool] = False
     A: object
     b: torch.Tensor
     z0: torch.Tensor
@@ -129,6 +132,11 @@ class _BlockDiag3:
 
     Mmat: object
     coeffs: tuple
+
+    @property
+    def shape(self):
+        n = 3 * self.Mmat.shape[0]
+        return (n, n)
 
     def __matmul__(self, x):
         parts = torch.tensor_split(x, 3, dim=0)

@@ -26,7 +26,7 @@ count.  The DG mass inverse ``Minv`` is a BSR of the element blocks.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -74,6 +74,9 @@ class Problem:
 class System:
     """The stage system and its invariant data on one device."""
 
+    # step_update and the invariants split the state into its fields (u, v,
+    # w), which a row split cuts (fused_evolve(mesh=) reads it)
+    row_local: ClassVar[bool] = False
     A: object
     b: torch.Tensor
     z0: torch.Tensor  # (3n0,) the step's initial mixed vector

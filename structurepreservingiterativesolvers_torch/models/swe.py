@@ -18,7 +18,7 @@ System:  A = I/dt − ½S,   b = (I/dt + ½S) z0   (identity mass matrix).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -27,6 +27,7 @@ import torch
 from ..config import DEFAULT_DTYPE
 from ..constraints.quadratic import QuadraticConstraint
 from ..ops.sparse import from_scipy
+from ..parallel.comm import mesh_of, pdot
 
 MLENGTH = 40.0
 
@@ -91,18 +92,27 @@ class System:
     prob: Problem
     n0: int  # per-field dim (M²)
     A_csr: sp.csr_matrix = dataclasses.field(repr=False, default=None)
+    # step_update and the invariants act row by row on the state (a row
+    # split of the system keeps them local; fused_evolve(mesh=) reads it)
+    row_local: ClassVar[bool] = True
 
     def constraints(self):
-        mass = QuadraticConstraint(M=None, v=self.omega, c=-self.m0, name="mass")
-        energy = QuadraticConstraint(M=self.Lfull, v=None, c=-self.e0, name="energy")
+        mesh = mesh_of(self.A)
+        mass = QuadraticConstraint(M=None, v=self.omega, c=-self.m0,
+                                   name="mass", mesh=mesh)
+        energy = QuadraticConstraint(M=self.Lfull, v=None, c=-self.e0,
+                                     name="energy", mesh=mesh)
         return [mass, energy]
 
     def compute_invariants(self, z: torch.Tensor,
                            zold: Optional[torch.Tensor] = None) -> dict:
-        """The invariants of z; ``zold`` is unread (heat's read it)."""
+        """The invariants of z; ``zold`` is unread (heat's read it).  On a
+        row-sharded system (``experiments/evolve.py::fused_evolve(mesh=)``)
+        z is this rank's rows and the sums are all-reduced."""
+        mesh = mesh_of(self.A)
         return {
-            "mass": torch.dot(self.omega, z),
-            "energy": 0.5 * torch.dot(z, self.Lfull @ z),
+            "mass": pdot(self.omega, z, mesh),
+            "energy": 0.5 * pdot(z, self.Lfull @ z, mesh),
         }
 
     def step_update(self, z_prev: torch.Tensor) -> "System":
@@ -113,8 +123,8 @@ class System:
             self,
             b=2.0 * z_prev / self.prob.dt - (self.A @ z_prev),
             z0=z_prev,
-            m0=torch.dot(self.omega, z_prev),
-            e0=0.5 * torch.dot(z_prev, self.Lfull @ z_prev),
+            m0=pdot(self.omega, z_prev, mesh_of(self.A)),
+            e0=0.5 * pdot(z_prev, self.Lfull @ z_prev, mesh_of(self.A)),
         )
 
 

@@ -23,6 +23,12 @@ nothing on the host and can be captured in a CUDA graph
 (the JAX package's state under ``jax.vmap``); its steps write every entry
 under a mask ``live`` per solve: a step taken after a solve is done changes
 nothing of it.
+
+Under a mesh (row-sharded A and vectors, ``parallel/``) the basis rows are
+this rank's rows, and every n-length reduction (the projections, the norm)
+is all-reduced over the operator's mesh (``parallel/comm.py::psum``); the
+k-sized work runs the same on every rank.  Without a mesh the reductions
+are the unsharded ones, bit for bit.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 from ..config import HOST
 from ..kernels.ortho import fused_update_matvec
 from ..ops.rows import basis_mv as rows_mv, basis_rmv as rows_rmv, rows
+from ..parallel.comm import mesh_of, pnorm, psum
 
 # the orthogonalisations of ``arnoldi_step``; "cgs2_xla" is the JAX
 # package's name of the plain form
@@ -82,34 +89,39 @@ def init_state(r0: torch.Tensor, beta: float, k: int) -> ArnoldiState:
     )
 
 
-def _mgs(Q: torch.Tensor, w: torch.Tensor, j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _mgs(Q: torch.Tensor, w: torch.Tensor, j: int,
+         mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Modified Gram-Schmidt of w against rows Q[0..j]; returns (w⊥, h[:j+1]).
     Sequential; kept for strict reference parity (reference
-    solvers.py:97-99)."""
+    solvers.py:97-99).  Each projection is all-reduced over ``mesh``."""
     hs = []
     for i in range(j + 1):
-        hij = torch.dot(Q[i], w)
+        hij = psum(torch.dot(Q[i], w), mesh)
         w = w - hij * Q[i]
         hs.append(hij)
     return w, torch.stack(hs)
 
 
 def _cgs2(Q: torch.Tensor, w: torch.Tensor, j: int,
-          fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+          fused: bool = False, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Classical Gram-Schmidt with reorthogonalisation (CGS2) against rows
     Q[0..j]: two passes of two tall matvecs; returns (w⊥, h[:j+1]).
 
     With ``fused`` the middle pair (the first update and the second
     projection) runs as one read of the basis, ``kernels/ortho.py`` (the
     kernel on a CUDA basis, its plain twin on the CPU); the outer two stay
-    matrix products, as in the JAX package."""
+    matrix products, as in the JAX package.  Under ``mesh`` both
+    projections are all-reduced: the fused kernel runs on the local rows
+    and its ``u2`` is all-reduced before the second update (the JAX
+    package does not use its kernel on sharded operands)."""
     Qa = Q[: j + 1]
-    h1 = Qa @ w
+    h1 = psum(Qa @ w, mesh)
     if fused:
         w1, h2 = fused_update_matvec(Qa, w, h1)
+        h2 = psum(h2, mesh)
     else:
         w1 = w - h1 @ Qa
-        h2 = Qa @ w1
+        h2 = psum(Qa @ w1, mesh)
     w2 = w1 - h2 @ Qa
     return w2, h1 + h2
 
@@ -134,14 +146,15 @@ def arnoldi_step(
     """
     if ortho not in ORTHO:
         raise ValueError(f"unknown ortho {ortho!r}; use one of {ORTHO}")
+    mesh = mesh_of(A)
     z = prefunc(st.Q[j])
     w = A @ z
     if ortho == "mgs":
-        w, h = _mgs(st.Q, w, j)
+        w, h = _mgs(st.Q, w, j, mesh)
     else:
-        w, h = _cgs2(st.Q, w, j, fused=ortho == "cgs2_fused")
+        w, h = _cgs2(st.Q, w, j, fused=ortho == "cgs2_fused", mesh=mesh)
     # one device→host copy per step: the Hessenberg column and its last entry
-    host = torch.cat([h, torch.linalg.norm(w).reshape(1)]).to(HOST)
+    host = torch.cat([h, pnorm(w, mesh).reshape(1)]).to(HOST)
     hlast = float(host[-1])
     hcol = torch.zeros(st.H.shape[0], dtype=st.H.dtype)
     hcol[: j + 1] = host[:-1]
@@ -248,15 +261,16 @@ def start(st: DeviceArnoldi, r0: torch.Tensor, beta: torch.Tensor) -> None:
                          device=st.G.device).expand_as(st.G))
 
 
-def _cgs2_block(Q: torch.Tensor, w: torch.Tensor,
-                j: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _cgs2_block(Q: torch.Tensor, w: torch.Tensor, j: int,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_cgs2`` for each solve of a batch: Q (B, k+1, n), w (B, n); its
     four tall products as batched matrix products over the (B, j+1, n)
-    active basis, outside any kernel, as in the JAX package."""
+    active basis, outside any kernel, as in the JAX package; both
+    projections all-reduced over ``mesh``."""
     Qa = Q[:, : j + 1]
-    h1 = rows_mv(Qa, w)
+    h1 = psum(rows_mv(Qa, w), mesh)
     w1 = w - rows_rmv(h1, Qa)
-    h2 = rows_mv(Qa, w1)
+    h2 = psum(rows_mv(Qa, w1), mesh)
     w2 = w1 - rows_rmv(h2, Qa)
     return w2, h1 + h2
 
@@ -277,16 +291,18 @@ def arnoldi_step_masked(A, prefunc, st: DeviceArnoldi, j: int, ortho: str,
         raise NotImplementedError(
             f"ortho={ortho!r} under a batch: the batched core runs 'cgs2', as "
             "the JAX package's cgmres_many builds its core")
+    mesh = mesh_of(A)
     z = rows(prefunc, st.Q[:, j])
     w = rows(A.__matmul__, z)
     if B > 1:
-        w, h = _cgs2_block(st.Q, w, j)
+        w, h = _cgs2_block(st.Q, w, j, mesh)
     elif ortho == "mgs":
-        w, h = (t[None] for t in _mgs(st.Q[0], w[0], j))
+        w, h = (t[None] for t in _mgs(st.Q[0], w[0], j, mesh))
     else:
         w, h = (t[None] for t in _cgs2(st.Q[0], w[0], j,
-                                       fused=ortho == "cgs2_fused"))
-    hlast = torch.linalg.norm(w, dim=-1)
+                                       fused=ortho == "cgs2_fused",
+                                       mesh=mesh))
+    hlast = pnorm(w, mesh, dim=-1)
     k1 = st.H.shape[1]
     hcol = torch.cat([h, hlast[:, None], h.new_zeros(B, k1 - j - 2)], dim=1)
     safe = torch.where(hlast == 0, 1.0, hlast)[:, None]

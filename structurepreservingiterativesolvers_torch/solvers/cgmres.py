@@ -47,6 +47,14 @@ accepted coefficients (JAX ``solvers/cgmres.py:157-158``, ``:288-293``,
 Solvers take f64 storage only; the JAX package's f32 storage path
 (mixed-precision reduction, double-f32 arithmetic, invariant snap) is not
 ported.
+
+Both loops take row-sharded operands (``parallel/``): the solver finds the
+mesh on A, every n-length reduction is all-reduced over it
+(``parallel/comm.py``), and the host's flags, tolerance tests and latch,
+all derived from all-reduced values, take the same branch on every rank.
+The device core's graphs capture the collectives: one all-reduce runs on
+the capture stream before the first capture (``_first_use``), which
+creates the communicator.
 """
 
 from __future__ import annotations
@@ -82,6 +90,7 @@ from ..constraints.quadratic import (
     value_scale,
 )
 from ..ops.rows import basis_mv as rows_mv, basis_rmv as rows_rmv, rows
+from ..parallel.comm import mesh_of, pnorm, psum
 from ..precond.base import as_preconditioner
 from .arnoldi import (
     arnoldi_step,
@@ -156,6 +165,7 @@ class _Solve:
     def __init__(self, A, b, x0, k, tol, contol, cons, pre, ctol, history,
                  prototypical, ortho):
         self.A, self.b, self.k = A, b, int(k)
+        self.mesh = mesh_of(A)
         self.tol, self.contol, self.ctol = float(tol), float(contol), float(ctol)
         self.cons = tuple(cons)
         self.m = len(self.cons)
@@ -272,7 +282,7 @@ class _Solve:
         dev = b.device
         t_start = time.perf_counter()
         r0 = b - A @ x0
-        self.beta = beta = float(torch.linalg.norm(r0))
+        self.beta = beta = float(pnorm(r0, self.mesh))
         st = init_state(r0, beta, k)
         bufs = tuple(init_buffers(c, x0, k, x0_zero=self.x0_zero)
                      for c in self.quad)
@@ -287,7 +297,7 @@ class _Solve:
 
         def step_residual(y, j):
             x = iterate(st, y, j, x0)
-            r = float(torch.linalg.norm(A @ x - b))
+            r = float(pnorm(A @ x - b, self.mesh))
             res[j] = r
             if self.history:
                 xs[j + 1] = x
@@ -519,6 +529,11 @@ class DeviceCore:
                 "package's cgmres_many builds its core with quadratic "
                 "constraints only (kinds ('q',) * m) and without history")
         self.A, self.pre, self.prefunc = A, pre, as_preconditioner(pre)
+        self.mesh = mesh_of(A)
+        if self.mesh is not None and any(self.general):
+            raise NotImplementedError(
+                "a GeneralConstraint under a mesh: the JAX package's "
+                "shard_constraint builds QuadraticConstraints only")
         self.B, self.k, self.m = B, int(k), len(cons)
         self.tol, self.contol, self.ctol = float(tol), float(contol), float(ctol)
         self.ortho, self.x0_zero = ortho, bool(x0_zero)
@@ -534,7 +549,8 @@ class DeviceCore:
         # general one is its function, which the steps call
         self.cons = tuple(
             c if g else QuadraticConstraint(
-                M=c.M, v=None if c.v is None else z(n), c=z(), name=c.name)
+                M=c.M, v=None if c.v is None else z(n), c=z(), name=c.name,
+                mesh=c.mesh)
             for c, g in zip(cons, self.general))
         self.st = device_state(n, k, dt, like.device, B)
         self.bufs = tuple(device_buffers(k, like, B) for _ in cons)
@@ -567,8 +583,12 @@ class DeviceCore:
         plans and shared-memory attribute, the cuBLAS handles on the
         capture stream, and the fused CGS2 kernel's per-m attribute and
         occupancy; and one Taylor model of each general constraint, which
-        builds the transposes, plans and launches its derivatives take."""
+        builds the transposes, plans and launches its derivatives take.
+        Under a mesh, first one all-reduce, which creates the collectives'
+        communicator on this stream: a communicator is not created inside a
+        capture."""
         V = torch.ones_like(self.b)
+        psum(V.new_ones(1), self.mesh)
         rows(self.A.__matmul__, rows(self.prefunc, V))
         for c, g in zip(self.cons, self.general):
             if g:
@@ -579,7 +599,7 @@ class DeviceCore:
                 c.M @ torch.ones((V.shape[1], 2), dtype=V.dtype, device=V.device)
         basis = torch.ones((self.B, 2, V.shape[1]), dtype=V.dtype,
                            device=V.device)
-        torch.linalg.norm(rows_rmv(rows_mv(basis, V), basis))
+        pnorm(rows_rmv(psum(rows_mv(basis, V), self.mesh), basis), self.mesh)
         if self.ortho == "cgs2_fused":
             from ..kernels.ortho import fused_update_matvec
 
@@ -727,7 +747,7 @@ class DeviceCore:
 
     def _init(self) -> None:
         r0 = self.b - rows(self.A.__matmul__, self.x0)
-        beta = torch.linalg.norm(r0, dim=-1)
+        beta = pnorm(r0, self.mesh, dim=-1)
         start(self.st, r0, beta)
         self.beta.copy_(beta)
         self.r_prev.copy_(beta)
@@ -778,7 +798,7 @@ class DeviceCore:
         flags."""
         if x is None:
             x = self._iterate(j, y)
-        r = torch.linalg.norm(rows(self.A.__matmul__, x) - self.b, dim=-1)
+        r = pnorm(rows(self.A.__matmul__, x) - self.b, self.mesh, dim=-1)
         mk = mask[:, None]
         self.x.copy_(torch.where(mk, x, self.x))
         if self.xs is not None:

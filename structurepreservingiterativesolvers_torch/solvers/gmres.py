@@ -25,6 +25,7 @@ import torch
 
 from ..config import CTOL, require_f64
 from ..precond.base import as_preconditioner
+from ..parallel.comm import mesh_of, pnorm
 from .arnoldi import arnoldi_step, init_state, iterate, lsq_coeffs
 
 
@@ -85,8 +86,9 @@ def gmres(
     if x0 is None:
         x0 = torch.zeros_like(b)
     prefunc = as_preconditioner(pre)
+    mesh = mesh_of(A)
     r0 = b - A @ x0
-    beta = float(torch.linalg.norm(r0))
+    beta = float(pnorm(r0, mesh))
     st = init_state(r0, beta, k)
     res = np.full(k, np.inf)
     xs = None
@@ -99,7 +101,7 @@ def gmres(
         hlast = arnoldi_step(A, prefunc, st, j, ortho)
         brk_now = hlast == 0
         x = iterate(st, lsq_coeffs(st, j), j, x0)
-        r = float(torch.linalg.norm(A @ x - b))
+        r = float(pnorm(A @ x - b, mesh))
         res[j] = r
         if history:
             xs[j + 1] = x

@@ -22,8 +22,9 @@ caller does it in ``warmup``, on scratch tensors, before the first capture.
 The kernel wrappers count their launches in Python, which a replay does not
 run.  So a capture records how many launches of each kernel it holds and
 puts the counters back; each replay then adds those numbers to them
-(``kernels.launch_counters``).  The warm-up's launches, on scratch tensors,
-are put back too: the counters count the replays' launches only.
+(``utils.counters.all_counters``: the kernels' and the collectives').  The
+warm-up's launches, on scratch tensors, are put back too: the counters
+count the replays' launches only.
 
 Every graph of one runner allocates from one memory pool.  The steps leave
 their results in the static buffers only, so no tensor of the pool outlives
@@ -38,7 +39,7 @@ from typing import Callable, Dict, Hashable, Optional
 
 import torch
 
-from ..kernels import launch_counters
+from ..utils.counters import all_counters
 from ..utils.profiling import span
 
 
@@ -71,7 +72,7 @@ class GraphRunner:
         captured."""
         if not self.capture:
             return
-        counters = launch_counters().values()
+        counters = all_counters().values()
         before = [c.launches for c in counters]
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
@@ -101,8 +102,9 @@ class GraphRunner:
     def launches(self) -> Dict[str, Dict[str, int]]:
         """Kernel launches per replay of each kind of graph (a key's first
         part: ``arnoldi``, ``advance``, ...), by counter name
-        (``kernels.launch_counters``), the most over the graphs of a kind."""
-        names = {id(fn): name for name, fn in launch_counters().items()}
+        (``utils.counters.all_counters``), the most over the graphs of a
+        kind."""
+        names = {id(fn): name for name, fn in all_counters().items()}
         out: Dict[str, Dict[str, int]] = {}
         for key, (_, counts) in self.graphs.items():
             per = out.setdefault(key if isinstance(key, str) else key[0], {})
@@ -114,7 +116,7 @@ class GraphRunner:
     def replayed_launches(self) -> Dict[str, int]:
         """The kernel launches of all replays so far, by counter name: each
         graph's captured launches times its replays."""
-        names = {id(fn): name for name, fn in launch_counters().items()}
+        names = {id(fn): name for name, fn in all_counters().items()}
         out: Dict[str, int] = {}
         for key, (_, counts) in self.graphs.items():
             for counter, n in counts:
@@ -129,7 +131,7 @@ class GraphRunner:
             return flags.tolist()
 
     def _capture(self, fn):
-        counters = launch_counters().values()
+        counters = all_counters().values()
         before = [c.launches for c in counters]
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()

@@ -1,2 +1,3 @@
 """Utilities of the port: checkpointing of long evolutions, profiling
-ranges, and the native host kernels (``native.py``)."""
+ranges, the launch counters of the kernels and the collectives
+(``counters.py``), and the native host kernels (``native.py``)."""

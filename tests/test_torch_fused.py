@@ -232,11 +232,9 @@ def test_profiling_counters_match_jax():
 
 
 def test_fused_evolve_refusals():
-    for kw in (dict(mesh=object()), dict(loop="fori")):
-        with pytest.raises(NotImplementedError):
-            tevolve.fused_evolve("swe", N=1, M=8, device="cpu", **kw)
     # heat and lkdvRK run (tests/test_torch_heat_graph.py,
-    # tests/test_torch_lkdvrk_graph.py); a sharded evolution waits for
-    # ROADMAP.md's item
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tevolve.fused_evolve("heat", N=1, M=8, device="cpu", mesh=object())
+    # tests/test_torch_lkdvrk_graph.py), and every model sharded (mesh=,
+    # tests/test_torch_parallel.py, tests/test_torch_distributed.py): the
+    # TPU's loop="fori" is the one refusal left
+    with pytest.raises(NotImplementedError):
+        tevolve.fused_evolve("swe", N=1, M=8, device="cpu", loop="fori")

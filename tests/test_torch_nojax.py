@@ -8,7 +8,10 @@ imports the lkdvRK modules, the graph runner and the profiling module, and
 runs ``cgmres_many``; and runs heat P2's TimedSolve row
 with the greedy host AMG, the ILU and direct oracles and the native host
 kernels, imports the reporting module, and checks that none of these pulls
-in pandas or matplotlib."""
+in pandas or matplotlib; and imports the distribution layer (``parallel/``,
+with every public name of the JAX package's ``parallel/__init__.py``) and
+``experiments/scaling.py``, and runs a sharded solve's scaling row in a
+world of one gloo process."""
 
 import re
 import subprocess
@@ -70,6 +73,18 @@ from structurepreservingiterativesolvers_torch.utils import native
 if native.available():
     import numpy as np
     print("NATIVE", float(np.abs(native.csr_spmv(r.A_csr, r.b.numpy()) - r.A_csr @ r.b.numpy()).max()) < 1e-10)
+from structurepreservingiterativesolvers_torch import parallel
+from structurepreservingiterativesolvers_torch.experiments import scaling
+names = ["ROWS", "make_mesh", "replicated", "shard_constraint", "shard_matrix",
+         "shard_preconditioner", "shard_system", "shard_vector", "HaloDia",
+         "dia_spmv_halo", "CHIPS", "HOSTS", "global_mesh", "host_chip_mesh",
+         "init_distributed", "is_coordinator", "spawn_local"]
+assert all(hasattr(parallel, nm) for nm in names)
+assert all(hasattr(scaling, nm) for nm in ("spmv_scaling", "solve_scaling",
+           "report", "dist_bench_worker", "dist_efficiency"))
+srows = scaling.solve_scaling("swe", M=8, k=15, tol=1e-8, device_counts=[1],
+                              device="cpu")
+print("SCALING", [r["devices"] for r in srows], srows[0]["efficiency"])
 assert "pandas" not in sys.modules and "matplotlib" not in sys.modules
 assert not any(m.split(".")[0] in ("jax", "structurepreservingiterativesolvers_tpu")
                for m in sys.modules if sys.modules[m] is not None)
@@ -93,6 +108,8 @@ def test_port_imports_and_solves_without_jax():
     assert re.search(r"^P2 \d+ True$", proc.stdout, re.M)
     assert proc.stdout.count("ORACLE True") == 2
     assert "NATIVE False" not in proc.stdout
+    # the distribution layer: the sharded solve's one-device row
+    assert "SCALING [1] 1.0" in proc.stdout
     # the batched solve of the JAX package's own test runs without JAX
     assert "BATCHED [18, 18, 18] [1, 1, 1]" in proc.stdout
     # SingleSolve prints every invariant deviation of the three solvers;
