@@ -223,7 +223,28 @@ imported.  Phases, each of which raises on a failed check:
     unsharded one; ``spmv_scaling`` and ``solve_scaling`` at one device;
     walls (medians of 5), idle shares, the collectives' device time and
     their count per solve; on a machine with two or more cards, a
-    ``dist-bench`` job of two processes too.
+    ``dist-bench`` job of two processes too;
+32. the f32 storage mode (``phase_f32``), each row beside its f64 twin in
+    this call: the mixed #1 (f32 in, f64 out) against its plain version on
+    swe M=512's A and heat M=1024's energy matrix (1e-14 relative); the
+    f32 instantiations of #1, the mixed #1, #1b (B = 8), #2, #2b and #5 (m
+    = 21) timed at their path shapes with L2 flushed against f32 bounds,
+    cuSPARSE f32 beside #1, #1b, #2 and #2b; CGS2's f32 cuBLAS products
+    against an f64 product (an f32 error, not TF32's); the swe M=512 row
+    with the skew-normal Chebyshev (tol 4e-7·||b||) on both loops with
+    ``cgs2`` and ``cgs2_fused``, the heat M=1024 row with the f32 AMG (tol
+    1e-6·||b||) on both loops and at tol 1e-7 absolute, each f32 row held
+    to the JAX f32 record of its size (``reference/slice15.json``: the
+    latch, steps within 2, the certified deviation within max(10x the
+    record's, 1e-10 of the invariant's scale), the residual where the
+    record's meets tol), launching only f32 instantiations (and, on heat,
+    the mixed #1 for the certificates of its energy matrix); a profiled
+    device-core solve of each beside its twin and the projection's graph
+    alone; a 3-step f32 ``fused_evolve`` on swe M=512; ``cgmres_many`` in
+    f32 on the items of ``swe_M512_snc_B8`` and ``heat_M1024_amg_B8``,
+    each item's steps its single solve's; the polynomial anchors (heat
+    M=256 cheb8, M=64 neu4) in f32 on the device core; an ``[f32]`` JSON
+    line of it all.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -5122,6 +5143,602 @@ def phase_sharded():
     return win, paths
 
 
+# the fifteenth slice: f32 storage (phase 32).  The chip rows' tolerances
+# (rhs-relative: tol·||b||, as the JAX package's f32 TimedSolve rows take
+# them; heat's absolute row beside), k, and the bars: a certified deviation
+# within max(10x the JAX f32 record's, F32_DEV_SCALE of the invariant's
+# scale), steps within F32_STEPS of the record's, the mixed #1 within
+# F32_MIXED_RTOL of its plain version, and CGS2's f32 products within
+# F32_PRODUCT_BAR of an f64 product relative to |Q| |w| (an f32 sum errs
+# ~1e-6 there, a TF32 product ~1e-3)
+F32_SWE_RTOL, F32_HEAT_RTOL, F32_HEAT_ABS, F32_K = 4e-7, 1e-6, 1e-7, 20
+F32_DEV_SCALE, F32_STEPS, F32_MIXED_RTOL = 1e-10, 2, 1e-14
+F32_PRODUCT_BAR = 1e-5
+F32_SOLVES = 3
+# NVIDIA H100 SXM data sheet: the f32 rate outside the tensor cores
+F32_FLOP_PER_S = 67e12
+# the kernels whose f32 instantiations have a counter of their own
+F32_KERNELS = ("dia_spmv", "dia_spmm", "stencil_spmv", "stencil_spmm",
+               "cheb_apply", "neumann_apply", "fused_update_matvec")
+
+
+def _bound32_ms(nbytes, nflop):
+    """``_bound_ms`` for f32 work: bytes over the memory rate or f32
+    operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nflop / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _csr_dtype(A_csr, dtype):
+    """``_csr`` in ``dtype``: cuSPARSE's operand at the kernel's precision."""
+    import torch
+
+    A = _csr(A_csr)
+    return torch.sparse_csr_tensor(A.crow_indices(), A.col_indices(),
+                                   A.values().to(dtype), size=A.shape,
+                                   device=DEVICE)
+
+
+def _f32_time(label, fn, plain, nbytes, nflop, library=None, note=""):
+    """An f32 kernel at a path's shape with L2 flushed, beside its plain
+    version, its f32 bound and, where there is one, the library call."""
+    t = {"ms": _time_cold_ms(fn), "plain_ms": _time_cold_ms(plain, reps=10),
+         "library_ms": None if library is None else _time_cold_ms(library)}
+    t["bound_ms"], t["bound_by"] = _bound32_ms(nbytes, nflop)
+    lib = ("none" if library is None
+           else f"{t['library_ms']:.4f} ms{note}")
+    print(f"[f32] {label}: kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f}"
+          f" ms ({t['bound_by']}, {nbytes / 1e6:.1f} MB; kernel at "
+          f"{t['bound_ms'] / t['ms']:.1%} of it), plain {t['plain_ms']:.4f} "
+          f"ms, library {lib}")
+    return t
+
+
+def _f32_kernels(swe32, heat32):
+    """The f32 instantiations at their f32 paths' shapes: the mixed #1
+    checked on swe M=512's A and heat M=1024's energy matrix (``Emat``)
+    against its plain version, then #1 (swe A live, heat A's DIA dense),
+    the mixed #1, #1b (swe A, B = 8), #2 and #2b (heat, B = 8) and #5 (m =
+    21 at swe's n) timed (``_f32_time``), and CGS2's f32 cuBLAS products
+    held to an f32 (not TF32) error bound against an f64 product.  Returns
+    the times by label and the mixed #1's largest absolute error."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.kernels import ortho
+    from structurepreservingiterativesolvers_torch.kernels import (
+        stencil_spmv as ks,
+    )
+    from structurepreservingiterativesolvers_torch.ops.sparse import matvec_f64
+
+    gen = torch.Generator(device=DEVICE).manual_seed(32)
+    f32 = torch.float32
+    mixed_err, times = 0.0, {}
+    A, E, S = swe32.A, heat32.Emat, heat32.A
+    for label, M in ((f"swe M={SWE_M} A", A), (f"heat M={HEAT_M} Emat", E)):
+        x = torch.randn(M.shape[0], generator=gen, device=DEVICE, dtype=f32)
+        before = kd.dia_spmv_mixed_cuda.launches
+        y = matvec_f64(M, x)
+        again = matvec_f64(M, x)
+        torch.cuda.synchronize()
+        ref = kd.dia_spmv_mixed_torch(M.data, M.offsets, M.wrap, x)
+        abs_err, rel = _rel_err(y, ref)
+        check(y.dtype == torch.float64
+              and kd.dia_spmv_mixed_cuda.launches == before + 2,
+              f"mixed #1 {label}: not the mixed launch ({y.dtype})")
+        print(f"[f32] mixed #1 (f32 in, f64 out) on {label} ({M.live().share:.4f} "
+              f"live, {'live' if M.live().pays else 'dense'} design): "
+              f"max|dy|/max|y| = {rel:.3e} against the upcast f64 product "
+              f"(bound {F32_MIXED_RTOL:.0e}), a second launch equal "
+              f"{torch.equal(y, again)}")
+        check(math.isfinite(rel) and rel <= F32_MIXED_RTOL
+              and torch.equal(y, again),
+              f"mixed #1 disagrees with its plain version on {label}: {rel:.3e}")
+        mixed_err = max(mixed_err, abs_err)
+        nnz = int(torch.count_nonzero(M.data))
+        n = M.shape[0]
+        csr64 = _csr_dtype(swe32.A_csr if M is A else _dia_csr(M),
+                           torch.float64)
+        x64 = x.double()
+        times[f"mixed_{label}"] = _f32_time(
+            f"mixed #1 {label}", lambda: matvec_f64(M, x),
+            lambda: kd.dia_spmv_mixed_torch(M.data, M.offsets, M.wrap, x),
+            4 * nnz + 4 * n + 8 * n, 2 * nnz, lambda: csr64 @ x64,
+            " (cuSPARSE f64 CSR on the upcast x, the upcast not timed)")
+    for label, M, A_csr in ((f"swe M={SWE_M} A", A, swe32.A_csr),
+                            (f"heat M={HEAT_M} A (DIA)", S.dia,
+                             heat32.A_csr)):
+        x = torch.randn(M.shape[0], generator=gen, device=DEVICE, dtype=f32)
+        nnz, n = int(torch.count_nonzero(M.data)), M.shape[0]
+        csr = _csr_dtype(A_csr, f32)
+        times[f"dia_spmv_{label}"] = _f32_time(
+            f"#1 {label} ({'live' if M.live().pays else 'dense'})",
+            lambda: M @ x,
+            lambda: kd.dia_spmv_torch(M.data, M.offsets, M.wrap, x),
+            4 * (nnz + 2 * n), 2 * nnz, lambda: csr @ x,
+            " (cuSPARSE f32 CSR)")
+    n, B = A.shape[0], 8
+    X = torch.randn(B, n, generator=gen, device=DEVICE, dtype=f32).T
+    Xc, csr = X.contiguous(), _csr_dtype(swe32.A_csr, f32)
+    nnz = int(torch.count_nonzero(A.data))
+    times[f"dia_spmm_swe M={SWE_M} A B=8"] = _f32_time(
+        f"#1b swe M={SWE_M} A, B = 8", lambda: A @ X,
+        lambda: kd.dia_spmm_torch(A.data, A.offsets, A.wrap, X),
+        4 * (nnz + 2 * B * n), 2 * nnz * B,
+        lambda: torch.sparse.mm(csr, Xc), " (cuSPARSE f32 SpMM)")
+    n = S.shape[0]
+    x = torch.randn(n, generator=gen, device=DEVICE, dtype=f32)
+    csr = _csr_dtype(heat32.A_csr, f32)
+    S @ x
+    plain = (S.const, S.offsets, S.wrap, S.grid_c, S.strips)
+    times[f"stencil_spmv_heat M={HEAT_M}"] = _f32_time(
+        f"#2 heat M={HEAT_M} ({S._launch.design} design)", lambda: S @ x,
+        lambda: ks.stencil_spmv_torch(*plain, x),
+        4 * 2 * n, 2 * 7 * n, lambda: csr @ x, " (cuSPARSE f32 CSR)")
+    X = _heat_block(n, B, gen, f32)
+    Xc = X.contiguous()
+    times[f"stencil_spmm_heat M={HEAT_M} B=8"] = _f32_time(
+        f"#2b heat M={HEAT_M}, B = 8", lambda: S @ X,
+        lambda: ks.stencil_spmm_torch(*plain, X),
+        4 * 2 * B * n, 2 * 7 * n * B, lambda: torch.sparse.mm(csr, Xc),
+        " (cuSPARSE f32 SpMM)")
+    m, n = 21, A.shape[0]
+    Q = torch.randn(m, n, generator=gen, device=DEVICE, dtype=f32)
+    w = torch.randn(n, generator=gen, device=DEVICE, dtype=f32)
+    h = Q @ w
+    times[f"fused_update_matvec_swe M={SWE_M} m=21"] = _f32_time(
+        f"#5 swe M={SWE_M}, m = 21", lambda: ortho.fused_update_matvec(Q, w, h),
+        lambda: ortho.fused_update_matvec_torch(Q, w, h),
+        4 * (m * n + 2 * n), 4 * m * n)
+    # CGS2's f32 products through cuBLAS: f32 sums, not TF32
+    h64 = Q.double() @ w.double()
+    scale = Q.double().abs() @ w.double().abs()
+    err_h = float(((h.double() - h64).abs() / scale).max())
+    y32 = h @ Q
+    y64 = h.double() @ Q.double()
+    err_y = float(((y32.double() - y64).abs()
+                   / (h.double().abs() @ Q.double().abs())).max())
+    print(f"[f32] CGS2 products in f32 (cuBLAS, allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}): Q @ w max|dh|/(|Q||w|) "
+          f"{err_h:.3e}, h @ Q {err_y:.3e} against f64 (bar "
+          f"{F32_PRODUCT_BAR:.0e}; a TF32 product errs ~1e-3)")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and max(err_h, err_y) <= F32_PRODUCT_BAR,
+          f"CGS2's f32 products are not f32-accurate: {err_h:.3e}, {err_y:.3e}")
+    return times, mixed_err
+
+
+def _f32_launch_gate(tag, launches, dtype):
+    """An f32 row launched the f32 instantiation of every kernel it ran (and
+    at least one); an f64 row none."""
+    import torch
+
+    ran = {k: launches[k] for k in F32_KERNELS if launches[k]}
+    f32 = {k: launches[f"{k}_f32"] for k in F32_KERNELS}
+    if dtype == torch.float32:
+        check(ran and all(f32[k] == n for k, n in ran.items()),
+              f"{tag} not every launch ran the f32 instantiation: {ran}, "
+              f"f32 {f32}")
+    else:
+        check(not any(f32.values()) and launches["dia_spmv_mixed"] == 0,
+              f"{tag} an f64 row launched f32 kernels: {f32}")
+    print(f"{tag} launches {ran}; of them f32 "
+          f"{ {k: f32[k] for k in ran} }; mixed #1 {launches['dia_spmv_mixed']}")
+
+
+def _f32_record_gate(tag, out, rec):
+    """A TimedSolve row's CGMRES against the JAX f32 record of its size: the
+    latch equal, steps within ``F32_STEPS`` (or fewer where the row
+    certified below tol: where the f32 reduction's constrained residual
+    sits at the tolerance, as on swe M=512, whether a step lands below it
+    is a matter of f32 rounding), the certified deviation within max(10x
+    the record's, ``F32_DEV_SCALE`` of the invariant's scale), and the true
+    residual below tol where the record's is."""
+    con = out["conservation"]
+    dev = max(con[f"cgmres_{nm}"] for nm in out["invariant_names"])
+    rec_c = rec["cgmres"]
+    rec_dev = max(rec_c["certified"].values())
+    scale = max([abs(v) for v in rec["targets"].values()] + [1.0])
+    bar = max(10.0 * rec_dev, F32_DEV_SCALE * scale)
+    print(f"{tag} against the JAX f32 record: steps {out['steps']} (record "
+          f"{rec_c['steps']}), safety {out['safety']} ({rec_c['safety']}), "
+          f"certified deviation {dev:.3e} (record {rec_dev:.3e}, bar "
+          f"{bar:.3e}), residual {out['res_final']:.4e} (record "
+          f"{rec_c['true_residual']:.4e}, tol {out['tol_effective']:.4e})")
+    check(out["safety"] == rec_c["safety"],
+          f"{tag} safety {out['safety']} vs record {rec_c['safety']}")
+    early = (out["steps"] < rec_c["steps"] and out["safety"] is True
+             and out["res_final"] < out["tol_effective"])
+    check(abs(out["steps"] - rec_c["steps"]) <= F32_STEPS or early,
+          f"{tag} steps {out['steps']} vs record {rec_c['steps']}")
+    check(dev <= bar, f"{tag} certified deviation {dev:.3e} above {bar:.3e}")
+    if rec_c["true_residual"] < rec["tol_abs"]:
+        check(out["res_final"] < out["tol_effective"],
+              f"{tag} true residual {out['res_final']:.3e} not below tol")
+
+
+def _f32_timed_rows(record):
+    """The TimedSolve rows in f32 and their f64 twins, through
+    ``time_cgmres(dtype=...)``: swe M=512 with the skew-normal Chebyshev
+    (tol 4e-7·||b||) on both loops with ``cgs2`` and ``cgs2_fused``, heat
+    M=1024 with the AMG (tol 1e-6·||b||) on both loops and at tol 1e-7
+    absolute on the device core.  Each f32 row is held to the JAX f32
+    record of its size and launches only f32 instantiations (the mixed #1
+    on heat, whose energy matrix is a DIA); each f64 twin none.  Then one
+    CGMRES solve of each f32 device-core row profiled beside its twin (busy,
+    idle) and the projection's graph replayed alone (CUDA events).
+    Returns the rows by name and their launches."""
+    import importlib
+
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+        time_cgmres,
+    )
+
+    cg = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    specs = []
+    for loop in ("host", "while"):
+        for ortho in ("cgs2", "cgs2_fused"):
+            specs.append((f"swe_M{SWE_M}_snc_{loop}_{ortho}", "swe", SWE_M,
+                          F32_SWE_RTOL, "rhs", loop, ortho,
+                          f"swe_M{SWE_M}_snc_f32"))
+        specs.append((f"heat_M{HEAT_M}_amg_{loop}", "heat", HEAT_M,
+                      F32_HEAT_RTOL, "rhs", loop, "cgs2",
+                      f"heat_M{HEAT_M}_amg_f32"))
+    specs.append((f"heat_M{HEAT_M}_amg_abs_while", "heat", HEAT_M,
+                  F32_HEAT_ABS, "abs", "while", "cgs2",
+                  f"heat_M{HEAT_M}_amg_abs_f32"))
+    rows, launches, profiles = {}, {}, {}
+    for name, problem, M, tol, mode, loop, ortho, rec_name in specs:
+        for dtype in (torch.float32, torch.float64):
+            key = f"{name}_{str(dtype)[6:]}"
+            tag = f"[f32 {key}]"
+            seen = {}
+
+            def pre_builder(system, problem=problem, seen=seen):
+                seen["system"] = system
+                seen["pre"] = default_pre_builder(problem)(system)
+                return seen["pre"]
+
+            _reset_launches()
+            t0 = time.perf_counter()
+            out = time_cgmres(problem, M=M, k=F32_K, tol=tol, tol_mode=mode,
+                              pre_builder=pre_builder, device=DEVICE,
+                              loop=loop, ortho=ortho, dtype=dtype)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[key] = _read_launches()
+            con = out["conservation"]
+            print(f"{tag} time_cgmres wall {wall:.2f} s; gmres {out['gmres_steps']}"
+                  f" steps {1e3 * out['time_gmres']:.3f} ms; cgmres "
+                  f"{out['steps']} steps ({out['constrained_steps']} "
+                  f"constrained) {1e3 * out['runtime']:.3f} ms, safety "
+                  f"{out['safety']}, snap {1e3 * out.get('time_snap', 0.0):.3f}"
+                  f" ms, residual {out['res_final']:.4e} (tol "
+                  f"{out['tol_effective']:.4e}); certified deviations "
+                  + ", ".join(f"{nm} gmres {con[f'gmres_{nm}']:.3e} cgmres "
+                              f"{con[f'cgmres_{nm}']:.3e}"
+                              for nm in out["invariant_names"]))
+            _f32_launch_gate(tag, launches[key], dtype)
+            if dtype == torch.float32:
+                if rec_name in record:
+                    _f32_record_gate(tag, out, record[rec_name])
+                if problem == "heat":
+                    check(launches[key]["dia_spmv_mixed"] > 0,
+                          f"{tag} the certificates did not run the mixed #1")
+            else:
+                check(out["safety"] is True, f"{tag} f64 twin not certified")
+            rows[key] = {k: out[k] for k in (
+                "steps", "gmres_steps", "constrained_steps", "safety",
+                "runtime", "time_gmres", "res_final", "tol_effective",
+                "constraint_building", "iter_time_unconstrained",
+                "iter_time_constrained")}
+            rows[key]["time_snap"] = out.get("time_snap", 0.0)
+            rows[key]["deviations"] = {nm: con[f"cgmres_{nm}"]
+                                       for nm in out["invariant_names"]}
+            rows[key]["gmres_deviations"] = {nm: con[f"gmres_{nm}"]
+                                             for nm in out["invariant_names"]}
+            if loop == "while" and ortho == "cgs2" and mode == "rhs":
+                s, pre = seen["system"], seen["pre"]
+
+                def solve(s=s, pre=pre, tol=out["tol_effective"]):
+                    return wrappers.cgmres_wrapper(s, k=F32_K, tol=tol,
+                                                   pre=pre, loop="while")
+
+                wall_p, busy, idle, _, _ = _profiled(solve)
+                core = cg.last_core()
+                snap_ms = None
+                if "snap" in core.runner.graphs:
+                    graph = core.runner.graphs["snap"][0]
+                    snap_ms = _time_ms(graph.replay, reps=10)
+                profiles[key] = {"wall_ms": 1e3 * wall_p, "busy_ms": busy,
+                                 "idle": idle, "snap_graph_ms": snap_ms}
+                print(f"{tag} one profiled CGMRES solve on the device core: "
+                      f"wall {1e3 * wall_p:.3f} ms, busy {busy:.3f} ms, idle "
+                      f"{idle:.3f}; the projection's graph alone "
+                      + ("none" if snap_ms is None else f"{snap_ms:.3f} ms"))
+                del s, pre, seen
+            torch.cuda.empty_cache()
+    return rows, launches, profiles
+
+
+def _f32_fused(record):
+    """A 3-step ``fused_evolve`` on swe M=512 in f32 and its f64 twin, T=0.3,
+    the skew-normal Chebyshev built once, tol 4e-7·||b|| of the first
+    system: per step the steps, the latch, the drifts, the step walls and
+    the launches (the projection inside the core's solve, one graph a
+    step).  The f64 twin certifies every step; the f32 run is held to the
+    JAX f32 record (steps within ``F32_STEPS``, certified where the
+    record's step is).  Warm-started f32 steps trip the latch in the JAX
+    package as here: each step's targets are the previous f32 state's
+    invariants summed in f32, off that state's own f64 values by ~1e-3,
+    and a warm start's Krylov vectors carry no mass to close the gap."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_torch.models import swe
+    from structurepreservingiterativesolvers_torch.precond import (
+        skew_normal_chebyshev,
+    )
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        key = f"swe_M{SWE_M}_fused_evolve_{str(dtype)[6:]}"
+        tag = f"[f32 {key}]"
+        s0 = swe.linforms(M=SWE_M, N=EVOLVE_N, T=EVOLVE_T, device=DEVICE,
+                          dtype=dtype)
+        pre = skew_normal_chebyshev(s0.A, a=1.0 / s0.prob.dt)
+        tol = F32_SWE_RTOL * float(torch.linalg.norm(s0.b.double()))
+        del s0
+        _reset_launches()
+        run = fused_evolve("swe", N=EVOLVE_N, M=SWE_M, k=F32_K, tol=tol,
+                           T=EVOLVE_T, pre=pre, device=DEVICE, dtype=dtype)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        walls = run["timings"]["step_wall"]
+        print(f"{tag} steps {run['steps'].tolist()}, safety "
+              f"{run['safety'].tolist()}, fallbacks {run['fallbacks'].tolist()},"
+              f" dm {run['dm'].tolist()}, de {run['de'].tolist()}; step walls "
+              f"{_ms(walls)} ms (capture {run['timings']['time_capture']:.3f} "
+              f"s); per replay {run['timings']['launches_per_replay']}")
+        _f32_launch_gate(tag, launches, dtype)
+        check(bool(torch.isfinite(run["sol"]).all()), f"{tag} not finite")
+        rec = record.get(f"swe_M{SWE_M}_fused_f32")
+        if dtype == torch.float64:
+            check(all(int(sf) == 1 for sf in run["safety"]),
+                  f"{tag} safety {run['safety']}")
+        else:
+            check("snap" in run["timings"]["launches_per_replay"],
+                  f"{tag} the projection did not run as a graph")
+        if dtype == torch.float32 and rec is not None:
+            print(f"{tag} record: steps {rec['steps']}, safety {rec['safety']}")
+            check(all(abs(int(a) - b) <= F32_STEPS
+                      for a, b in zip(run["steps"], rec["steps"]))
+                  and all(int(a) == 1 or b != 1
+                          for a, b in zip(run["safety"], rec["safety"])),
+                  f"{tag} off the JAX f32 record")
+        out[key] = {"steps": run["steps"].tolist(),
+                    "safety": run["safety"].tolist(),
+                    "dm": run["dm"].tolist(), "de": run["de"].tolist(),
+                    "step_wall_ms": [1e3 * w for w in walls],
+                    "launches": launches}
+        del pre, run
+        torch.cuda.empty_cache()
+    return out
+
+
+def _f32_batched_rows():
+    """``cgmres_many`` in f32 (mixed by default, as the JAX package's) and its
+    f64 twin on the items of ``swe_M512_snc_B8`` (the ninth slice's row) and
+    of ``heat_M1024_amg_B8`` (the eleventh slice's), at k=20 and the chip rows' tolerances
+    (swe 4e-7·||b||, heat 1e-6·||b|| of the unperturbed system): every f32
+    item's steps its own single device-core solve's in the same modes, the
+    block forms' f32 instantiations launched, the median wall of
+    ``F32_SOLVES`` batched solves beside the twin's."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat, swe
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+
+    ref = _reference_script()
+    out = {}
+    for problem, M, rtol in (("swe", SWE_M, F32_SWE_RTOL),
+                             ("heat", HEAT_M, F32_HEAT_RTOL)):
+        for dtype in (torch.float32, torch.float64):
+            key = (f"{problem}_M{M}_{'snc' if problem == 'swe' else 'amg'}"
+                   f"_B8_{str(dtype)[6:]}")
+            tag = f"[f32 {key}]"
+            model = swe if problem == "swe" else heat
+            s = model.linforms(M=M, device=DEVICE, dtype=dtype)
+            pre = default_pre_builder(problem)(s)
+            z0 = s.z0.double().cpu().numpy()
+            if problem == "swe":
+                states = ref.batch_states("swe_M512_snc_B8", z0)
+            else:
+                field = ref.heat_smooth_field(M, z0)
+                states = [z0 + 0.02 * i * field for i in range(HEAT_B)]
+            items = [s.step_update(torch.as_tensor(z, dtype=dtype,
+                                                   device=DEVICE))
+                     for z in states]
+            Bs = torch.stack([t.b for t in items])
+            cons = [t.constraints() for t in items]
+            tol = rtol * float(torch.linalg.norm(s.b.double()))
+
+            def many():
+                return cgmres_many(s.A, Bs, cons, k=F32_K, tol=tol, pre=pre)
+
+            _timed(many, reps=1)
+            (X, info), walls = _timed(many, reps=F32_SOLVES)
+            _reset_launches()
+            many()
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            singles = [cgmres(s.A, t.b, k=F32_K, tol=tol,
+                              constraints=t.constraints(), pre=pre,
+                              loop="while", snap=False, f32_reduce=False)[1]
+                       for t in items]
+            print(f"{tag} steps {info['steps'].tolist()} (single solves "
+                  f"{[i['steps'] for i in singles]}), safety "
+                  f"{info['safety'].tolist()}, deviation max "
+                  f"{float(info['deviation'].max()):.3e}; walls {_ms(walls)} ms"
+                  f" (median {1e3 * _median(walls):.3f})")
+            _f32_launch_gate(tag, launches, dtype)
+            block = "dia_spmm" if problem == "swe" else "stencil_spmm"
+            check(launches[block] > 0, f"{tag} no launch of {block}")
+            check([int(v) for v in info["steps"]]
+                  == [i["steps"] for i in singles]
+                  and [int(v) for v in info["safety"]]
+                  == [{None: 0, True: 1, False: 2}[i["safety"]]
+                      for i in singles],
+                  f"{tag} items' steps or latch differ from their single "
+                  f"solves'")
+            check(bool(torch.isfinite(X).all()), f"{tag} not finite")
+            out[key] = {"steps": info["steps"].tolist(),
+                        "wall_ms": 1e3 * _median(walls),
+                        "walls_ms": [1e3 * w for w in walls],
+                        "deviation_max": float(info["deviation"].max()),
+                        "launches": launches}
+            del s, pre, items, Bs, cons, X
+            torch.cuda.empty_cache()
+    return out
+
+
+def _f32_anchors(record):
+    """The polynomial anchors in f32 on the device core, beside their f64
+    twins: heat M=256 with cheb8 and heat M=64 with neu4, k=60, tol 1e-7
+    absolute (the third slice's certified anchors), so that kernels #3 and #4 run in
+    f32 on a solve; each f32 solve held to the JAX f32 record of its
+    configuration; median walls of ``F32_SOLVES`` solves."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.models import heat
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+
+    builders = _poly_builders()
+    out = {}
+    for M, short, kernel in ((256, "cheb8", "cheb_apply"),
+                             (64, "neu4", "neumann_apply")):
+        for dtype in (torch.float32, torch.float64):
+            key = f"heat_M{M}_{short}_{str(dtype)[6:]}"
+            tag = f"[f32 {key}]"
+            s = heat.linforms(M=M, device=DEVICE, dtype=dtype)
+            pre = builders[short](s)
+
+            def solve(s=s, pre=pre):
+                return cgmres(s.A, s.b, k=60, tol=HEAT_TOL,
+                              constraints=s.constraints(), pre=pre,
+                              loop="while")
+
+            _timed(solve, reps=1)
+            (x, info), walls = _timed(solve, reps=F32_SOLVES)
+            _reset_launches()
+            solve()
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            print(f"{tag} steps {info['steps']}, safety {info['safety']}, "
+                  f"deviation {info['deviation']:.3e}; walls {_ms(walls)} ms")
+            _f32_launch_gate(tag, launches, dtype)
+            check(launches[kernel] > 0, f"{tag} no launch of {kernel}")
+            entry = record.get(f"heat_M{M}_{short}_f32")
+            if dtype == torch.float32 and entry is not None:
+                rec = entry["cgmres"]
+                scale = max([abs(v) for v in entry["targets"].values()]
+                            + [1.0])
+                bar = max(10.0 * max(rec["certified"].values()),
+                          F32_DEV_SCALE * scale)
+                print(f"{tag} record: steps {rec['steps']}, safety "
+                      f"{rec['safety']}, certified {rec['certified']} (bar "
+                      f"{bar:.3e})")
+                check(info["safety"] == rec["safety"]
+                      and abs(info["steps"] - rec["steps"]) <= F32_STEPS
+                      and info["deviation"] <= bar,
+                      f"{tag} off the JAX f32 record")
+            out[key] = {"steps": info["steps"], "safety": info["safety"],
+                        "deviation": info["deviation"],
+                        "wall_ms": 1e3 * _median(walls), "launches": launches}
+            del s, pre
+    return out
+
+
+def phase_f32(record):
+    """The fifteenth slice: the port's f32 storage mode at full width on the
+    card, each row beside its f64 twin in this call (``_f32_kernels``,
+    ``_f32_timed_rows``, ``_f32_fused``, ``_f32_batched_rows``,
+    ``_f32_anchors``), held to ``reference/slice15.json``.  Prints the
+    ``[f32]`` JSON line and returns the kernels' f32 times, the mixed #1's
+    entry of the kernel line and its launches by path."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.models import heat, swe
+
+    t0 = time.perf_counter()
+    swe32 = swe.linforms(M=SWE_M, device=DEVICE, dtype=torch.float32)
+    heat32 = heat.linforms(M=HEAT_M, device=DEVICE, dtype=torch.float32)
+    times, mixed_err = _f32_kernels(swe32, heat32)
+    del swe32, heat32
+    torch.cuda.empty_cache()
+    rows, launches, profiles = _f32_timed_rows(record)
+    fused = _f32_fused(record)
+    batched = _f32_batched_rows()
+    anchors = _f32_anchors(record)
+    paths = {**launches, **{k: v["launches"] for k, v in fused.items()},
+             **{k: v["launches"] for k, v in batched.items()},
+             **{k: v["launches"] for k, v in anchors.items()}}
+    mixed_paths = {k: n["dia_spmv_mixed"] for k, n in paths.items()
+                   if n["dia_spmv_mixed"]}
+    check(mixed_paths, "no f32 path launched the mixed #1")
+
+    def ratio(key):
+        a, b = rows[f"{key}_float32"], rows[f"{key}_float64"]
+        return {"runtime": a["runtime"] / b["runtime"],
+                "gmres": a["time_gmres"] / b["time_gmres"]}
+
+    summary = {
+        "rows": rows, "profiles": profiles,
+        "ratios": {key[:-len("_float32")]: ratio(key[:-len("_float32")])
+                   for key in rows if key.endswith("_float32")},
+        "fused": {k: {kk: v[kk] for kk in ("steps", "safety", "dm", "de",
+                                           "step_wall_ms")}
+                  for k, v in fused.items()},
+        "batched": {k: {kk: v[kk] for kk in ("steps", "wall_ms", "walls_ms",
+                                             "deviation_max")}
+                    for k, v in batched.items()},
+        "anchors": {k: {kk: v[kk] for kk in ("steps", "safety", "deviation",
+                                             "wall_ms")}
+                    for k, v in anchors.items()},
+        "kernels": times, "seconds": time.perf_counter() - t0}
+    print("[f32] " + json.dumps(summary))
+    key = f"mixed_swe M={SWE_M} A"
+    entry = {"name": "dia_spmv_mixed", "route": "cuda",
+             "source": "structurepreservingiterativesolvers_torch/csrc/"
+                       "dia_spmv.cu",
+             "replaces": "structurepreservingiterativesolvers_tpu/ops/dd.py:213",
+             "replaces_note": "ops/dd.py::spmv_dia, the double-f32 DIA product "
+                              "of the JAX package's f32 certificates (plain "
+                              "XLA there; its TPU kernel for f32 A @ x is "
+                              "ops/pallas_spmv.py:91)",
+             "launches": sum(mixed_paths.values()),
+             "launches_by_path": mixed_paths,
+             "max_abs_err": mixed_err, "timed_at": key,
+             **{k: times[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+             "times": {k: v for k, v in times.items()
+                       if k.startswith("mixed_")}}
+    return times, entry, paths
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -5149,7 +5766,7 @@ def main() -> int:
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
                for name in ("slice1.json", "slice2.json", "slice3.json",
                             "slice4.json", "slice7.json", "slice8.json",
-                            "slice9.json")}
+                            "slice9.json", "slice15.json")}
     t_start = time.perf_counter()
     phase_build()
     shapes = SpmmShapes()
@@ -5359,6 +5976,9 @@ def main() -> int:
     import torch.distributed as dist
 
     dist.destroy_process_group()
+    # the fifteenth slice: f32 storage (phase 32)
+    torch.cuda.empty_cache()
+    f32_times, mixed_entry, f32_paths = phase_f32(records["slice15.json"])
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
@@ -5521,6 +6141,23 @@ def main() -> int:
          **{key: win[key] for key in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
          "times": win})
+    # the f32 instantiations' times beside each kernel's f64 entry, their
+    # launches on the f32 paths, and the mixed #1's own entry
+    for name, labels in (
+            ("dia_spmv", (f"dia_spmv_swe M={SWE_M} A",
+                          f"dia_spmv_heat M={HEAT_M} A (DIA)")),
+            ("dia_spmm", (f"dia_spmm_swe M={SWE_M} A B=8",)),
+            ("stencil_spmv", (f"stencil_spmv_heat M={HEAT_M}",)),
+            ("stencil_spmm", (f"stencil_spmm_heat M={HEAT_M} B=8",)),
+            ("fused_update_matvec",
+             (f"fused_update_matvec_swe M={SWE_M} m=21",))):
+        by_name[name]["f32"] = {label: f32_times[label] for label in labels}
+    for name in ("dia_spmv", "dia_spmm", "stencil_spmv", "stencil_spmm",
+                 "cheb_apply", "neumann_apply", "fused_update_matvec"):
+        by_name[name]["f32_launches_by_path"] = {
+            path: n[f"{name}_f32"] for path, n in f32_paths.items()
+            if n[f"{name}_f32"]}
+    kernels.append(mixed_entry)
     print("[heat11] " + json.dumps({"walls": heat11_walls, "batched": {
         name: {key: row[key] for key in ("wall_ms", "single_ms", "capture_s",
                                          "idle")}

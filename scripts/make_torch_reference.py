@@ -29,7 +29,10 @@ at M=16 with a batch of 3; and the reporting and oracle modules:
 pre="auto")``, and GMRES's steps with the ILU and direct oracles on lkdvRK
 M=50) and ``slice14.json`` (the row-sharded solves of the JAX package's
 ``tests/test_parallel.py`` on an 8-device CPU mesh, ``SLICE14``: each
-configuration single-device and sharded, with x in full):
+configuration single-device and sharded, with x in full) and
+``slice15.json`` (the JAX package's f32 storage mode, ``SLICE15``: solves,
+TimedSolve pairs, a ``fused_evolve`` and ``cgmres_many`` with f32 vectors,
+``record_f32``):
 for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
@@ -561,11 +564,189 @@ def record_parallel(name):
     return rec
 
 
+# the fifteenth slice: the JAX package in its f32 storage mode (the models'
+# dtype=float32: mixed, the snap, the reduction mode of its wrappers).  name
+# -> (kind, problem, linforms parameters, k, tol, tol mode, start or batch,
+# preconditioner).  "solve": cgmres on its default loop from zero or from
+# the warm start of tests/test_solver_options.py:35-60; "timed": the
+# TimedSolve pair (the wrappers, x0=None); "fused": a 3-step fused_evolve;
+# "batched": cgmres_many on the items of ``batch_states`` (kind "smooth").
+# tol mode "rhs" scales tol by ||b|| (of the first system for "fused" and
+# "batched").  The M=512 and M=1024 rows are the chip rows' sizes.
+SLICE15 = {
+    "lkdv_M50_f32": ("solve", "lkdv", dict(M=50, degree=1), 20, 1e-5, "abs",
+                     "zero", None),
+    "lkdv_M50_f32_warm": ("solve", "lkdv", dict(M=50, degree=1), 20, 1e-5,
+                          "abs", "warm", None),
+    "swe_M64_snc_f32": ("timed", "swe", dict(M=64), 20, 4e-7, "rhs", "zero",
+                        "snc"),
+    "heat_M32_amg_f32": ("timed", "heat", dict(M=32), 20, 1e-6, "rhs", "zero",
+                         "amg"),
+    "swe_M16_fused_f32": ("fused", "swe", dict(M=16, N=3, T=0.3), 20, 4e-7,
+                          "rhs", "zero", "snc"),
+    "swe_M16_B3_f32": ("batched", "swe", dict(M=16), 20, 4e-7, "rhs", 3,
+                       "snc"),
+    "heat_M32_B3_f32": ("batched", "heat", dict(M=32), 20, 1e-6, "rhs", 3,
+                        "amg"),
+    "heat_M256_cheb8_f32": ("solve", "heat", dict(M=256), 60, 1e-7, "abs",
+                            "zero", CHEB8),
+    "heat_M64_neu4_f32": ("solve", "heat", dict(M=64), 60, 1e-7, "abs",
+                          "zero", NEU4),
+    "swe_M512_snc_f32": ("timed", "swe", dict(M=512), 20, 4e-7, "rhs", "zero",
+                         "snc"),
+    "heat_M1024_amg_f32": ("timed", "heat", dict(M=1024), 20, 1e-6, "rhs",
+                           "zero", "amg"),
+    "heat_M1024_amg_abs_f32": ("timed", "heat", dict(M=1024), 20, 1e-7,
+                               "abs", "zero", "amg"),
+    "swe_M512_fused_f32": ("fused", "swe", dict(M=512, N=3, T=0.3), 20, 4e-7,
+                           "rhs", "zero", "snc"),
+}
+
+
+# the largest n whose iterate a f32 record keeps whole
+X_KEEP = 20_000
+
+
+def record_f32(name):
+    """Run the JAX package in f32 storage on ``SLICE15[name]``.  For each
+    solve: steps, constrained steps, safety, the reported deviation, the
+    residual trace, the certified (double-f32) deviations of the returned
+    iterate, x's max-norm and sum, and the JAX package's own drift: max|Δx|
+    / max|x| when b is moved by one f32 ulp (b·(1 + eps32·g), g ~ N(0, 1)
+    of numpy's generator of seed 0).  "timed" adds GMRES's steps and
+    certified deviations; "fused" the per-step steps, latch and drifts;
+    "batched" the per-item steps, latch, deviation and x's max-norm and
+    sum.  Where n ≤ ``X_KEEP`` a CGMRES solve's iterate is kept whole."""
+    _jax_cpu()
+    import dataclasses
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments import wrappers
+    from structurepreservingiterativesolvers_tpu.experiments.single_solve import (
+        get_model,
+    )
+    from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
+        certified_deviations,
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_tpu.solvers import cgmres
+
+    kind, problem, params, k, tol, tol_mode, start, pre_spec = SLICE15[name]
+    f32 = jnp.float32
+    eps32 = float(np.finfo(np.float32).eps)
+    s = get_model(problem).linforms(dtype=f32, **params)
+    if pre_spec is None:
+        build = None
+    elif pre_spec in ("amg", "snc"):
+        build = default_pre_builder(problem)
+    else:
+        from structurepreservingiterativesolvers_tpu import precond
+
+        builder, kwargs = pre_spec
+        build = lambda t: getattr(precond, builder)(t.A, **kwargs)  # noqa: E731
+    pre = None if build is None else build(s)
+    beta = float(np.linalg.norm(np.asarray(s.b, np.float64)))
+    tol_abs = tol * beta if tol_mode == "rhs" else tol
+    out = {"config": {"kind": kind, "problem": problem, "params": params,
+                      "k": k, "tol": tol, "tol_mode": tol_mode,
+                      "start": start, "pre": pre_spec, "dtype": "float32"},
+           "n": int(s.b.shape[0]), "beta": beta, "tol_abs": tol_abs,
+           "targets": {kk: float(getattr(s, a)) for kk, a in
+                       (("mass", "m0"), ("momentum", "mo0"),
+                        ("energy", "e0")) if hasattr(s, a)}}
+
+    def stats(x, keep=False):
+        """x's max-norm and sum, and, with ``keep``, x itself where n is
+        small (the CPU tests' sizes)."""
+        x = np.asarray(x, np.float64)
+        out = {"x_max": float(np.abs(x).max()), "x_sum": float(x.sum())}
+        if keep and x.shape[0] <= X_KEEP:
+            out["x"] = [float(v) for v in x]
+        return out
+
+    def solve_info(info):
+        return {"steps": int(info["steps"]),
+                "constrained_steps": int(info.get("constrained_steps", 0)),
+                "safety": info.get("safety"),
+                "deviation": float(info.get("deviation", np.nan)),
+                "res": [float(v) for v in np.asarray(info["res"])]}
+
+    if kind in ("solve", "timed"):
+        x0 = None
+        if start == "warm":
+            rng = np.random.default_rng(3)
+            x0 = jnp.asarray(np.asarray(s.b, np.float64)
+                             + 1e-3 * rng.standard_normal(s.b.shape[0]), f32)
+
+        def run(sys_):
+            if kind == "timed":
+                return wrappers.cgmres_wrapper(sys_, k=k, tol=tol_abs,
+                                               pre=pre)
+            return cgmres(sys_.A, sys_.b, x0=x0, k=k, tol=tol_abs,
+                          constraints=sys_.constraints(), pre=pre)
+
+        x, info = run(s)
+        xv = np.asarray(x, np.float64)
+        noise = np.random.default_rng(0).standard_normal(s.b.shape[0])
+        sp_ = dataclasses.replace(
+            s, b=(s.b * (1.0 + eps32 * jnp.asarray(noise))).astype(f32))
+        xp = np.asarray(run(sp_)[0], np.float64)
+        out["cgmres"] = {**solve_info(info), **stats(x, keep=True),
+                         "certified": certified_deviations(s, x),
+                         "true_residual": float(np.linalg.norm(
+                             np.asarray(s.A @ x - s.b, np.float64)))}
+        out["own_drift"] = float(np.abs(xp - xv).max() / np.abs(xv).max())
+        if kind == "timed":
+            xg, ig = wrappers.gmres_wrapper(s, k=k, tol=tol_abs, pre=pre)
+            out["gmres"] = {**solve_info(ig), **stats(xg),
+                            "certified": certified_deviations(s, xg)}
+            out["reduction_mode"] = wrappers.reduction_mode(s, tol_abs)
+        return out
+    if kind == "fused":
+        from structurepreservingiterativesolvers_tpu.experiments.evolve import (
+            fused_evolve,
+        )
+
+        run = fused_evolve(problem, k=k, tol=tol_abs, pre=pre, dtype=f32,
+                           **params)
+        out["steps"] = [int(v) for v in run["steps"]]
+        out["safety"] = [int(v) for v in run["safety"]]
+        for key in ("dm", "de", "mass", "energy"):
+            out[key] = [float(v) for v in run[key]]
+        out.update(stats(run["sol"]))
+        return out
+    if kind == "batched":
+        from structurepreservingiterativesolvers_tpu.experiments.batched import (
+            cgmres_many,
+        )
+
+        B = start
+        z0 = np.asarray(s.z0, np.float64)
+        states = z0[None] + 0.02 * np.arange(B)[:, None] * smooth_field(
+            params["M"], z0, problem)[None]
+        items = [s.step_update(jnp.asarray(z, f32)) for z in states]
+        X, info = cgmres_many(s.A, jnp.stack([t.b for t in items]),
+                              [t.constraints() for t in items], k=k,
+                              tol=tol_abs, pre=pre)
+        out["items"] = [{"steps": int(info["steps"][i]),
+                         "safety": int(info["safety"][i]),
+                         "deviation": float(info["deviation"][i]),
+                         **stats(X[i]),
+                         "certified": certified_deviations(items[i], X[i])}
+                        for i in range(B)]
+        return out
+    raise ValueError(f"unknown f32 record {name!r}")
+
+
 def out_path(name) -> Path:
     """The record file that holds configuration ``name``: by its
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in SLICE15:
+        return REFERENCE / "slice15.json"
     if name in SLICE14:
         return REFERENCE / "slice14.json"
     if name in SLICE13:
@@ -1264,11 +1445,14 @@ def main(names):
     import jax
 
     for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED,
-                          *CORE, *P2_TIMED, *REPORTS, *sorted(SLICE14)]:
+                          *CORE, *P2_TIMED, *REPORTS, *sorted(SLICE14),
+                          *SLICE15]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
-            "JAX package on the CPU in f64 (jax " + jax.__version__ + "); "
+            "JAX package on the CPU in "
+            + ("f32 storage" if name in SLICE15 else "f64")
+            + " (jax " + jax.__version__ + "); "
             "written by scripts/make_torch_reference.py"
         )
         rec[name] = (record_evolve(name) if name in EVOLVES
@@ -1279,6 +1463,7 @@ def main(names):
                      else record_p2(name) if name in P2_TIMED
                      else record_report(name) if name in REPORTS
                      else record_parallel(name) if name in SLICE14
+                     else record_f32(name) if name in SLICE15
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -28,6 +28,16 @@ Hessenberg matrix and the KKT solve that consume them; for the device core
 updated in place under a mask (``fold_column``, ``catch_up``), as the JAX
 package keeps them.
 
+With f32 storage (the JAX package's TPU mode) the buffers are f64 (the
+solver's ``cdtype``) and the n-sized work runs in one of two arithmetics,
+the JAX package's reduction modes: the f64 reduction (``f64=True``: f32
+loads, f64 products and sums, ``ops/sparse.py::matvec_f64``, where the JAX
+package computes in double-f32 pairs) or the snap-first plain f32 one
+(``f64=False``), whose small results are cast to f64.  ``value_f64`` is
+the f64 value of g at an f32 point: the certificate (the JAX package's
+``dd_constraint_value``).  With f64 storage both modes are the plain f64
+reduction.
+
 On row-sharded data (``parallel/mesh.py::shard_constraint``) a constraint
 carries the mesh, and each of its n-length reductions is all-reduced over
 it (``parallel/comm.py::psum``), the products of one fold or catch-up in
@@ -43,6 +53,7 @@ from typing import Any, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..config import HOST
+from ..ops.sparse import f64_supported, matvec_f64
 from ..ops.rows import basis_mv as rows_mv, dot as rows_dot, rows
 from ..parallel.comm import pdot, psum
 
@@ -59,6 +70,18 @@ class MatComb:
         for c, A in zip(self.coeffs[1:], self.mats[1:]):
             out = out + c * (A @ x)
         return out
+
+    def matvec_f64(self, x):
+        """The product in f64 from f32 storage, a term at a time
+        (``ops/sparse.py::matvec_f64``)."""
+        out = None
+        for c, A in zip(self.coeffs, self.mats):
+            term = float(c) * matvec_f64(A, x)
+            out = term if out is None else out + term
+        return out
+
+    def f64_supported(self) -> bool:
+        return all(f64_supported(A) for A in self.mats)
 
     def todense(self):
         out = self.coeffs[0] * self.mats[0].todense()
@@ -91,6 +114,17 @@ class StageKron:
         MPX = self.inner @ PX
         bw = self.b.reshape(-1, *([1] * MPX.dim()))
         return (self.dt * bw * MPX[None]).reshape(X.shape)
+
+    def matvec_f64(self, X):
+        """The product in f64 from f32 storage: P, the inner product and Pᵀ
+        each in f64 (``ops/sparse.py::matvec_f64``)."""
+        bd = self.b.double() * self.dt
+        Xs = X.double().reshape(self.ns, -1, *X.shape[1:])
+        w = matvec_f64(self.inner, torch.tensordot(bd, Xs, dims=1))
+        return (bd.reshape(-1, *([1] * w.dim())) * w[None]).reshape(X.shape)
+
+    def f64_supported(self) -> bool:
+        return f64_supported(self.inner)
 
     def todense(self):
         # (PᵀMP)[(s,i),(t,j)] = dt² b_s b_t M[i,j] (stage-major stacking)
@@ -169,42 +203,91 @@ class ReducedBuffers(NamedTuple):
     T2: torch.Tensor  # (k, k)
 
 
+def _arith(f64: bool):
+    """A reduction's upcast and product with M: in f64 from f32 storage
+    (``matvec_f64``), else in the storage dtype."""
+    if f64:
+        return (lambda t: t.double()), matvec_f64
+    return (lambda t: t), (lambda M, z: M @ z)
+
+
+def value_and_scale_f64(con: QuadraticConstraint, x: torch.Tensor):
+    """``value_and_scale`` in f64 from f32 storage: each term from f32 loads
+    with f64 products and sums (``matvec_f64``), the terms summed in f64.
+    With f64 storage it is ``value_and_scale``."""
+    terms = []
+    if con.v is not None:
+        terms.append(torch.dot(con.v.double(), x.double()))
+    if con.M is not None:
+        terms.append(0.5 * torch.dot(x.double(), matvec_f64(con.M, x)))
+    terms = torch.stack([con.c.double(),
+                         *(psum(torch.stack(terms), con.mesh)
+                           if terms else ())])
+    return terms.sum(), terms.abs().sum()
+
+
+def value_f64(con: QuadraticConstraint, x: torch.Tensor) -> torch.Tensor:
+    """g(x) in f64 at an f32 (or f64) x: the certified value, the
+    counterpart of the JAX package's ``dd_constraint_value``
+    (``quadratic.py:467-483`` there).  The constraint is the stored one:
+    its f32 c, v and M."""
+    return value_and_scale_f64(con, x)[0]
+
+
 def init_buffers(con: QuadraticConstraint, x0: torch.Tensor, k: int,
-                 x0_zero: bool = False) -> ReducedBuffers:
-    """``x0_zero`` skips the g(x0) evaluation: t0 = c exactly."""
-    t0 = con.c if x0_zero else con(x0)
-    dt = x0.dtype
+                 x0_zero: bool = False, cdtype=None,
+                 f64_value: bool = False) -> ReducedBuffers:
+    """``x0_zero`` skips the g(x0) evaluation: t0 = c exactly.  ``cdtype``:
+    the buffers' dtype (x0's by default); ``f64_value`` evaluates g(x0) in
+    f64 from f32 x0 (``value_f64``; the JAX package's ``dd_value``)."""
+    if x0_zero:
+        t0 = con.c
+    elif f64_value:
+        t0 = value_f64(con, x0)
+    else:
+        t0 = con(x0)
+    cd = cdtype or x0.dtype
     return ReducedBuffers(
-        t0=t0.to(HOST, dt), t1=torch.zeros(k, dtype=dt),
-        T2=torch.zeros((k, k), dtype=dt),
+        t0=t0.to(HOST, cd), t1=torch.zeros(k, dtype=cd),
+        T2=torch.zeros((k, k), dtype=cd),
     )
 
 
 def value_scale(con: QuadraticConstraint, x0: torch.Tensor,
-                x0_zero: bool = False) -> torch.Tensor:
+                x0_zero: bool = False, cdtype=None,
+                f64_value: bool = False) -> torch.Tensor:
     """The roundoff scale of t0 = g(x0) on the host, the sum of its terms'
-    magnitudes (``value_and_scale``): from a warm start t0 is a
-    cancellation (swe's mass, 9e3, to 0.0), and |t0| would put the floor
-    below the roundoff of every evaluation of g; from x0 = 0 it is |c|."""
-    s0 = con.c.abs() if x0_zero else con.value_and_scale(x0)[1]
-    return s0.to(HOST, x0.dtype)
+    magnitudes (``value_and_scale``; in f64 with ``f64_value``): from a warm
+    start t0 is a cancellation (swe's mass, 9e3, to 0.0), and |t0| would put
+    the floor below the roundoff of every evaluation of g; from x0 = 0 it is
+    |c|."""
+    if x0_zero:
+        s0 = con.c.abs()
+    elif f64_value:
+        s0 = value_and_scale_f64(con, x0)[1]
+    else:
+        s0 = con.value_and_scale(x0)[1]
+    return s0.to(HOST, cdtype or x0.dtype)
 
 
 def update_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
                    Z: torch.Tensor, x0: torch.Tensor, j: int,
-                   x0_zero: bool = False) -> ReducedBuffers:
+                   x0_zero: bool = False, f64: bool = False) -> ReducedBuffers:
     """Fold the new basis vector Z[j] into the reduced constraint.  Rows of Z
-    beyond j are zero, so only the prefix Z[:j+1] is read."""
+    beyond j are zero, so only the prefix Z[:j+1] is read.  ``f64``: the f64
+    reduction from f32 storage (the JAX package's ``dd_reduce``); else the
+    storage dtype's, cast to the buffers' (``f32_reduce`` there)."""
+    up, mv = _arith(f64)
     zj = Z[j]
-    t1j = torch.zeros((), dtype=Z.dtype, device=Z.device)
+    t1j = torch.zeros((), dtype=up(zj).dtype, device=Z.device)
     if con.v is not None:
-        t1j = t1j + torch.dot(con.v, zj)
+        t1j = t1j + torch.dot(up(con.v), up(zj))
     w = None
     if con.M is not None:
-        u = con.M @ zj
+        u = mv(con.M, zj)
         if not x0_zero:
-            t1j = t1j + torch.dot(u, x0)
-        w = 0.5 * (Z[: j + 1] @ u)
+            t1j = t1j + torch.dot(u, up(x0))
+        w = 0.5 * (up(Z[: j + 1]) @ u)
     # one all-reduce (under a mesh) and one device→host copy for the scalar
     # and the new column
     host = psum(torch.cat([t1j.reshape(1)] + ([w] if w is not None else [])),
@@ -221,25 +304,28 @@ def update_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
 
 def catchup_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
                     Z: torch.Tensor, x0: torch.Tensor, jmax: int,
-                    x0_zero: bool = False) -> ReducedBuffers:
+                    x0_zero: bool = False, f64: bool = False) -> ReducedBuffers:
     """Recompute the full reduction over the first ``jmax`` basis vectors in
     one batched pass (phase-entry catch-up): one SpMM and one (j, n)·(n, j)
-    matmul.  Rows of Z from ``jmax`` on are zero, so they reduce to zero."""
+    matmul.  Rows of Z from ``jmax`` on are zero, so they reduce to zero.
+    ``f64`` as in ``update_buffers`` (its product with M a column at a
+    time, ``matvec_f64``: once a solve)."""
     k = buf.t1.shape[0]
     dt = buf.t1.dtype
     t1 = torch.zeros(k, dtype=dt)
     T2 = torch.zeros((k, k), dtype=dt)
     if jmax == 0:
         return ReducedBuffers(t0=buf.t0, t1=t1, T2=T2)
-    Zc = Z[:jmax]
-    t1_dev = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
+    up, mv = _arith(f64)
+    Zc = up(Z[:jmax])
+    t1_dev = torch.zeros(jmax, dtype=Zc.dtype, device=Z.device)
     if con.v is not None:
-        t1_dev = t1_dev + Zc @ con.v
+        t1_dev = t1_dev + Zc @ up(con.v)
     parts = [t1_dev[:, None]]
     if con.M is not None:
-        U = con.M @ Zc.T  # (n, jmax)
+        U = mv(con.M, Z[:jmax].T)  # (n, jmax)
         if not x0_zero:
-            t1_dev = t1_dev + U.T @ x0
+            t1_dev = t1_dev + U.T @ up(x0)
         parts = [t1_dev[:, None], 0.5 * (Zc @ U)]
     # one all-reduce under a mesh: t1 beside T2's columns
     red = psum(torch.cat(parts, dim=1), con.mesh).to(HOST)
@@ -256,24 +342,29 @@ def catchup_buffers(con: QuadraticConstraint, buf: ReducedBuffers,
 # v (B, n) and c (B,); ``live`` (B,) masks the writes per solve.
 
 
-def device_buffers(k: int, like: torch.Tensor, batch: int = 1) -> ReducedBuffers:
-    """Zeroed reduced buffers of ``batch`` solves on the device and in the
-    dtype of ``like``: t0 (B,), t1 (B, k), T2 (B, k, k)."""
+def device_buffers(k: int, like: torch.Tensor, batch: int = 1,
+                   dtype=None) -> ReducedBuffers:
+    """Zeroed reduced buffers of ``batch`` solves on the device of ``like``,
+    in ``dtype`` (like's by default): t0 (B,), t1 (B, k), T2 (B, k, k)."""
     def z(*shape):
-        return torch.zeros((batch, *shape), dtype=like.dtype, device=like.device)
+        return torch.zeros((batch, *shape), dtype=dtype or like.dtype,
+                           device=like.device)
 
     return ReducedBuffers(t0=z(), t1=z(k), T2=z(k, k))
 
 
-def value_and_scale_rows(con: QuadraticConstraint, X: torch.Tensor):
+def value_and_scale_rows(con: QuadraticConstraint, X: torch.Tensor,
+                         f64: bool = False):
     """``value_and_scale`` at each row of X (B, n), for a constraint whose
-    v (B, n) and c (B,) are per row: the values and scales, (B,) each."""
+    v (B, n) and c (B,) are per row: the values and scales, (B,) each; in
+    f64 from f32 storage with ``f64`` (``value_and_scale_f64``)."""
+    up, mv = _arith(f64)
     terms = []
     if con.v is not None:
-        terms.append(rows_dot(con.v, X))
+        terms.append(rows_dot(up(con.v), up(X)))
     if con.M is not None:
-        terms.append(0.5 * rows_dot(X, rows(con.M.__matmul__, X)))
-    terms = torch.stack([con.c.to(X.dtype),
+        terms.append(0.5 * rows_dot(up(X), rows(lambda z: mv(con.M, z), X)))
+    terms = torch.stack([up(con.c).to(up(X).dtype),
                          *(psum(torch.stack(terms), con.mesh)
                            if terms else ())], dim=-1)
     return terms.sum(-1), terms.abs().sum(-1)
@@ -281,21 +372,23 @@ def value_and_scale_rows(con: QuadraticConstraint, X: torch.Tensor):
 
 def fold_column(con: QuadraticConstraint, buf: ReducedBuffers,
                 Z: torch.Tensor, x0: torch.Tensor, j: int, live: torch.Tensor,
-                x0_zero: bool = False) -> None:
+                x0_zero: bool = False, f64: bool = False) -> None:
     """``update_buffers`` in place on the device, where ``live``: the new
     basis vectors Z[:, j] (of Z (B, k, n)) folded into t1[:, j] and row and
-    column j of T2; one product with M for the batch."""
+    column j of T2; one product with M for the batch (``f64``: the f64
+    reduction from f32 storage, a vector at a time)."""
+    up, mv = _arith(f64)
     zj = Z[:, j]
-    t1j = torch.zeros(Z.shape[0], dtype=Z.dtype, device=Z.device)
+    t1j = torch.zeros(Z.shape[0], dtype=up(zj).dtype, device=Z.device)
     if con.v is not None:
-        t1j = t1j + rows_dot(con.v, zj)
+        t1j = t1j + rows_dot(up(con.v), up(zj))
     if con.M is None:
         t1j = psum(t1j, con.mesh)
     else:
-        u = rows(con.M.__matmul__, zj)
+        u = rows(lambda z: mv(con.M, z), zj)
         if not x0_zero:
-            t1j = t1j + rows_dot(u, x0)
-        w = 0.5 * rows_mv(Z[:, : j + 1], u)
+            t1j = t1j + rows_dot(u, up(x0))
+        w = 0.5 * rows_mv(up(Z[:, : j + 1]), u)
         if con.mesh is not None:
             # one all-reduce: t1[:, j] beside the new column
             red = psum(torch.cat([t1j[:, None], w], dim=1), con.mesh)
@@ -308,24 +401,25 @@ def fold_column(con: QuadraticConstraint, buf: ReducedBuffers,
 
 def catch_up(con: QuadraticConstraint, buf: ReducedBuffers, Z: torch.Tensor,
              x0: torch.Tensor, jmax: int, live: torch.Tensor,
-             x0_zero: bool = False) -> None:
+             x0_zero: bool = False, f64: bool = False) -> None:
     """``catchup_buffers`` in place on the device, where ``live``: the
     reduction over the first ``jmax`` basis vectors of each solve in one
     batched pass, one product with M for a solve's ``jmax`` vectors (the
     (n, jmax) view of its basis rows).  Only the leading ``jmax`` entries
     are written; the endgame reads no further than the columns folded in
-    since."""
+    since.  ``f64`` as in ``fold_column``."""
+    up, mv = _arith(f64)
     for b in range(Z.shape[0]):
-        Zc = Z[b, :jmax]
-        t1 = torch.zeros(jmax, dtype=Z.dtype, device=Z.device)
+        Zc = up(Z[b, :jmax])
+        t1 = torch.zeros(jmax, dtype=Zc.dtype, device=Z.device)
         if con.v is not None:
-            t1 = t1 + Zc @ con.v[b]
+            t1 = t1 + Zc @ up(con.v[b])
         if con.M is None:
             t1 = psum(t1, con.mesh)
         else:
-            U = con.M @ Zc.T  # (n, jmax)
+            U = mv(con.M, Z[b, :jmax].T)  # (n, jmax)
             if not x0_zero:
-                t1 = t1 + U.T @ x0[b]
+                t1 = t1 + U.T @ up(x0[b])
             T2 = 0.5 * (Zc @ U)
             if con.mesh is not None:
                 # one all-reduce: t1 beside T2's columns

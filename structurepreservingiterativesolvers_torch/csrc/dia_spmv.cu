@@ -3,6 +3,12 @@
 //
 //   y[i] = sum_d data[d, i] * x[i + off_d]
 //
+// A third, mixed instantiation reads f32 data and x and forms f64 products
+// and sums into an f64 y (dia_spmv_mixed): the f32 storage mode's
+// certificates and f64 constraint reductions, where the JAX package
+// evaluates the same sum in double-f32 pairs (ops/dd.py::spmv_dia).  An f32
+// by f32 product is exact in f64, so each term is exact and only the f64
+// sum rounds.
 // with the column taken mod n (periodic meshes, `wrap`) or treated as a
 // structural zero when it falls outside [0, n).  `data` is row-aligned:
 // data[d, i] holds A[i, i + off_d], stored (ndiag, n) row-major.
@@ -67,12 +73,26 @@
 // (swe M=512, heat M=1024), the registers of eight costing resident warps
 #define DIA_BATCH 4
 
+// a thread's RPT consecutive rows of y as 16-byte stores: one vector of T,
+// or, for the mixed form (RPT = 4 f32 rows, 32 bytes of f64), two double2
+template <typename T, int RPT>
+__device__ __forceinline__ void store_rows(T* y, const T (&acc)[RPT]) {
+  *reinterpret_cast<typename Vec16<T>::type*>(y) = Vec16<T>::join(acc);
+}
+template <>
+__device__ __forceinline__ void store_rows<double, 4>(double* y,
+                                                      const double (&acc)[4]) {
+  reinterpret_cast<double2*>(y)[0] = make_double2(acc[0], acc[1]);
+  reinterpret_cast<double2*>(y)[1] = make_double2(acc[2], acc[3]);
+}
+
 // VEC: thread t of a warp holds rows w0 + RPT t + k (n % RPT == 0, so all
-// or none of them exist); otherwise rows w0 + t + 32 k
-template <typename T, int EDGE, bool VEC>
+// or none of them exist); otherwise rows w0 + t + 32 k.  Acc: the type of
+// the products, the sums and y (T, or double for f32 T: the mixed form)
+template <typename T, typename Acc, int EDGE, bool VEC>
 __global__ void __launch_bounds__(DIA_THREADS)
     dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
-                    T* __restrict__ y, long long n, int ndiag,
+                    Acc* __restrict__ y, long long n, int ndiag,
                     const unsigned long long* __restrict__ live,
                     int chunk_shift, const __grid_constant__ DiaOffsets offs) {
   constexpr int RPT = 16 / sizeof(T);
@@ -92,9 +112,9 @@ __global__ void __launch_bounds__(DIA_THREADS)
   const unsigned long long all =
       ndiag >= 64 ? ~0ULL : ((1ULL << ndiag) - 1ULL);
   unsigned long long m = live ? (__ldg(live + (w0 >> chunk_shift)) & all) : all;
-  T acc[RPT];
+  Acc acc[RPT];
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) acc[k] = T(0);
+  for (int k = 0; k < RPT; ++k) acc[k] = Acc(0);
   while (m) {
     int dd[DIA_BATCH];
 #pragma unroll
@@ -123,13 +143,11 @@ __global__ void __launch_bounds__(DIA_THREADS)
     for (int u = 0; u < DIA_BATCH; ++u) {
       if (dd[u] < 0) continue;
 #pragma unroll
-      for (int k = 0; k < RPT; ++k) acc[k] += a[u][k] * xv[u][k];
+      for (int k = 0; k < RPT; ++k) acc[k] += Acc(a[u][k]) * Acc(xv[u][k]);
     }
   }
   if (VEC) {
-    if (in[0])
-      *reinterpret_cast<typename Vec16<T>::type*>(y + row[0]) =
-          Vec16<T>::join(acc);
+    if (in[0]) store_rows(y + row[0], acc);
   } else {
 #pragma unroll
     for (int k = 0; k < RPT; ++k)
@@ -137,19 +155,19 @@ __global__ void __launch_bounds__(DIA_THREADS)
   }
 }
 
-template <typename T, int EDGE, bool VEC>
+template <typename T, typename Acc, int EDGE, bool VEC>
 static void run(const void* data, const void* x, void* y, long long n,
                 int ndiag, const unsigned long long* live, int chunk_shift,
                 const DiaOffsets& offs, long long blocks, cudaStream_t s) {
-  dia_spmv_kernel<T, EDGE, VEC><<<(unsigned)blocks, DIA_THREADS, 0, s>>>(
-      (const T*)data, (const T*)x, (T*)y, n, ndiag, live, chunk_shift, offs);
+  dia_spmv_kernel<T, Acc, EDGE, VEC><<<(unsigned)blocks, DIA_THREADS, 0, s>>>(
+      (const T*)data, (const T*)x, (Acc*)y, n, ndiag, live, chunk_shift, offs);
 }
 
 // live: one word per chunk of 2^chunk_shift rows, or null for every
 // diagonal; a chunk holds whole warps (checked here).  wrap: DIA_EDGE_*;
 // with DIA_EDGE_WINDOW, x points at the window's column 0 (the caller's
 // base), and columns -lo .. n + hi - 1 of it are read
-template <typename T>
+template <typename T, typename Acc = T>
 static int launch(const void* data, const void* x, void* y, long long n,
                   int ndiag, const long long* offsets, int wrap,
                   const void* live, int chunk_shift, int device,
@@ -173,16 +191,16 @@ static int launch(const void* data, const void* x, void* y, long long n,
   cudaStream_t s = (cudaStream_t)stream;
   switch (wrap) {
     case DIA_EDGE_ZERO:
-      if (vec) run<T, DIA_EDGE_ZERO, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
-      else run<T, DIA_EDGE_ZERO, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      if (vec) run<T, Acc, DIA_EDGE_ZERO, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      else run<T, Acc, DIA_EDGE_ZERO, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
       break;
     case DIA_EDGE_WRAP:
-      if (vec) run<T, DIA_EDGE_WRAP, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
-      else run<T, DIA_EDGE_WRAP, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      if (vec) run<T, Acc, DIA_EDGE_WRAP, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      else run<T, Acc, DIA_EDGE_WRAP, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
       break;
     case DIA_EDGE_WINDOW:
-      if (vec) run<T, DIA_EDGE_WINDOW, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
-      else run<T, DIA_EDGE_WINDOW, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      if (vec) run<T, Acc, DIA_EDGE_WINDOW, true>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
+      else run<T, Acc, DIA_EDGE_WINDOW, false>(data, x, y, n, ndiag, words, chunk_shift, offs, blocks, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -206,6 +224,15 @@ int dia_spmv_f32(const void* data, const void* x, void* y, long long n,
                  void* stream) {
   return launch<float>(data, x, y, n, ndiag, offsets, wrap, live,
                        chunk_shift, device, stream);
+}
+
+// f32 data and x, f64 y: the mixed form
+int dia_spmv_mixed(const void* data, const void* x, void* y, long long n,
+                   int ndiag, const long long* offsets, int wrap,
+                   const void* live, int chunk_shift, int device,
+                   void* stream) {
+  return launch<float, double>(data, x, y, n, ndiag, offsets, wrap, live,
+                               chunk_shift, device, stream);
 }
 
 }  // extern "C"

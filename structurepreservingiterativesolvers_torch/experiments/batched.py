@@ -34,7 +34,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import CTOL, require_f64
+from ..config import CTOL, check_storage
 from ..constraints.general import GeneralConstraint
 from ..constraints.quadratic import QuadraticConstraint
 from ..precond.amg import AMG
@@ -45,7 +45,7 @@ from ..precond.chebyshev import (
     SkewNormalChebyshev,
 )
 from ..precond.jacobi import RAS, BlockJacobi, Jacobi
-from ..solvers.cgmres import _core_for
+from ..solvers.cgmres import _core_for, resolve_modes
 from ..utils.profiling import span
 
 # the preconditioners the batched core takes: each applies to a block (a
@@ -146,24 +146,27 @@ def cgmres_many(
     """Solve A x_i = b_i for a batch of right-hand sides with per-item
     constraint targets, as one device program: the batched device core,
     each step a CUDA graph on the card (eager on the CPU), on the device of
-    ``Bs``, in f64.  Returns ``(Xs, info)``: Xs (B, n) on the device, and
+    ``Bs``, in its dtype: f64, or f32 storage with ``mixed`` (default: f32
+    storage) the constraint and KKT state in f64 and the in-loop reduction
+    in f64, without the projection, as the JAX package's ``cgmres_many``
+    builds its core (``batched.py:64-84`` there).  Returns ``(Xs, info)``:
+    Xs (B, n) on the device, and
     ``steps``, ``deviation``, ``safety`` (0 none, 1 certified, 2 tripped)
     and ``res`` (B, k; inf beyond a solve's steps) as numpy arrays, fetched
     in one device-to-host copy.  The last batched core is kept, as
     ``cgmres(loop="while")`` keeps its core, so a second call with new
     right-hand sides or targets replays the first one's graphs."""
-    require_f64(Bs)
-    if mixed:
-        raise NotImplementedError(
-            "mixed=True: f32 storage is not ported (ROADMAP.md, Queue 1, "
-            "item 2)")
+    check_storage(Bs)
     if Bs.dim() != 2:
         raise ValueError(f"Bs is (batch, n), got {tuple(Bs.shape)}")
     _check_pre(pre)
     if X0s is not None:
         X0s = torch.as_tensor(X0s, dtype=Bs.dtype, device=Bs.device)
     cons, _ = batch_constraints(list(constraints_list))
-    core = _core_for(A, Bs, X0s, k, tol, contol, cons, pre, ctol, "cgs2")
+    mixed, _, _ = resolve_modes(Bs.dtype, cons, mixed, snap=False,
+                                f32_reduce=False)
+    core = _core_for(A, Bs, X0s, k, tol, contol, cons, pre, ctol, "cgs2",
+                     modes=(mixed, False, False))
     core.load(Bs, X0s, cons)
     with span("cgmres_many", Bs.device):
         core.solve()

@@ -18,6 +18,7 @@
     python -m structurepreservingiterativesolvers_torch single --problem lkdv --M 20 --plot --device cpu
     python -m structurepreservingiterativesolvers_torch evolve --problem lkdv --M 20 --N 5 --plot --device cpu
     python -m structurepreservingiterativesolvers_torch dist-bench --spawn 2 --problem swe --M 16 --device cpu
+    python -m structurepreservingiterativesolvers_torch timed --problem swe --sizes 16 32 --tol 4e-7 --tol-mode rhs --dtype float32 --device cpu
 
 ``--ortho`` picks the Arnoldi orthogonalisation of both solvers: ``cgs2``
 (the default), ``cgs2_fused`` (its middle pair through the fused CGS2
@@ -26,6 +27,9 @@ while`` run the solvers on the device core, the JAX package's default
 loop.  ``single --plot`` tabulates both solvers and draws the convergence
 figure, ``evolve --plot`` runs GMRES and CGMRES evolutions and draws their
 drifts (``plots/``; pandas and matplotlib needed then only).
+``--dtype float32`` (``single``, ``timed``, ``evolve``) stores the vectors
+in f32, the JAX package's TPU mode (its ``SPIS_FORCE_DTYPE``): the models'
+``dtype=``, the solvers' f32 modes (``solvers/cgmres.py::resolve_modes``).
 ``dist-bench`` is one process of a row-sharded benchmark job (the
 ``SPIS_COORDINATOR``, ``SPIS_NUM_PROCESSES`` and ``SPIS_PROCESS_ID``
 variables say which), or, with ``--spawn N``, spawns local jobs of 1 and N
@@ -45,6 +49,10 @@ def main(argv=None):
     def device_arg(p):
         p.add_argument("--device", default="cuda",
                        help="torch device to solve on (default cuda)")
+        p.add_argument("--dtype", default="float64",
+                       choices=["float64", "float32"],
+                       help="storage dtype of the vectors (default float64; "
+                            "float32: the f32 storage mode)")
         p.add_argument("--ortho", default="cgs2",
                        choices=["cgs2", "cgs2_fused", "mgs"],
                        help="Arnoldi orthogonalisation (default cgs2)")
@@ -120,20 +128,24 @@ def main(argv=None):
                    help="cuda (NCCL, one card a process) or cpu (gloo)")
 
     args = parser.parse_args(argv)
+    if args.cmd in ("single", "timed", "evolve"):
+        import torch
+
+        dtype = getattr(torch, args.dtype)
 
     if args.cmd == "single":
         from .single_solve import single_solve
 
         single_solve(args.problem, k=args.k, tol=args.tol, M=args.M,
                      degree=args.degree, plot=args.plot, device=args.device,
-                     ortho=args.ortho)
+                     ortho=args.ortho, dtype=dtype)
     elif args.cmd == "timed":
         from .timed_solve import timed_solve
 
         timed_solve(args.problem, sizes=args.sizes, degree=args.degree,
                     tol=args.tol, k=args.k, tol_mode=args.tol_mode,
                     device=args.device,
-                    ortho=args.ortho, loop=args.loop)
+                    ortho=args.ortho, loop=args.loop, dtype=dtype)
     elif args.cmd == "evolve":
         import functools
 
@@ -143,11 +155,11 @@ def main(argv=None):
         if args.plot:
             deviation_plotter(args.problem, tol=args.tol, N=args.N, M=args.M,
                               degree=args.degree, k=args.k,
-                              device=args.device)
+                              device=args.device, dtype=dtype)
         else:
             out = evolve(args.problem, N=args.N, M=args.M,
                          degree=args.degree, k=args.k, tol=args.tol,
-                         device=args.device,
+                         device=args.device, dtype=dtype,
                          solver=functools.partial(wrappers.cgmres_wrapper,
                                                   ortho=args.ortho))
             for key in ("dm", "dmo", "de"):

@@ -195,7 +195,10 @@ def fused_evolve(
     of all replays (``launches``).  The steps and the fetch run
     inside the span ``fused_evolve steps``.  ``ortho``
     is the Arnoldi orthogonalisation (``arnoldi_step``); the JAX package
-    runs ``cgs2`` there.  lkdv, swe, heat and lkdvRK run; no model's
+    runs ``cgs2`` there.  With f32 storage (``dtype=torch.float32``
+    through ``params``) the core runs the JAX package's f32 mode: mixed,
+    the projection of each step's solution as one more graph of the core's
+    solve, the reduction in f64.  lkdv, swe, heat and lkdvRK run; no model's
     operator changes with ``step_update``, so a preconditioner built on the
     first system (``pre``: the AMG, a polynomial, Jacobi, lkdvRK's RAS +
     Neumann composite) serves every step, as in the JAX package.
@@ -228,7 +231,8 @@ def fused_evolve(
             f"loop={loop!r}: only 'while' is ported ('fori' is a TPU "
             "workaround, not ported on purpose)")
     from ..parallel import gather, shard_constraint, shard_matrix, shard_vector
-    from ..solvers.cgmres import DeviceCore
+    from ..solvers.cgmres import DeviceCore, resolve_modes
+    from ..solvers.gmres import refuse_f32_mesh
 
     sys0 = get_model(problem).linforms(N=N, M=M, degree=degree, device=device,
                                        **params)
@@ -255,8 +259,15 @@ def fused_evolve(
                                            for c in cons]
 
     A = sys0.A if whole is None else shard_matrix(sys0.A, whole)
-    core = DeviceCore(A, pre, k, constraints(sys0), like=local(sys0.b),
-                      tol=tol, contol=contol, ctol=ctol, ortho=ortho)
+    refuse_f32_mesh(A, sys0.b)
+    # f32 storage: mixed, with the projection inside the core's solve, the
+    # in-loop reduction in f64 (x0 is a tensor every step, as the JAX
+    # package's scan passes it: evolve.py:192-206 there)
+    cons0 = constraints(sys0)
+    mixed, snap, f32_reduce = resolve_modes(sys0.b.dtype, cons0)
+    core = DeviceCore(A, pre, k, cons0, like=local(sys0.b),
+                      tol=tol, contol=contol, ctol=ctol, ortho=ortho,
+                      mixed=mixed, snap=snap, f32_reduce=f32_reduce)
     runner = core.runner
     names = [nm for nm, attr in TARGETS.items() if hasattr(sys0, attr)]
     is_rk = problem.lower() == "lkdvrk"

@@ -74,9 +74,15 @@ def default_pre_builder(problem: str):
 
 
 def certified_deviations(system, x) -> dict:
-    """|g(x)| per constraint, evaluated in f64 (the port stores f64 only, so
-    the plain evaluation is the certificate)."""
-    return {con.name: abs(float(con(x))) for con in system.constraints()}
+    """|g(x)| per constraint, evaluated without f32 noise (JAX
+    ``timed_solve.py:76-95``): with f32 storage in f64 from the f32 loads
+    (``value_f64``, the solver's certificate; the constraint is the stored
+    one), with f64 storage the plain evaluation."""
+    from ..constraints.quadratic import value_f64
+
+    return {con.name: abs(float(value_f64(con, x) if x.dtype == torch.float32
+                                else con(x)))
+            for con in system.constraints()}
 
 
 def time_cgmres(
@@ -98,13 +104,20 @@ def time_cgmres(
     (``solvers.arnoldi.arnoldi_step``); ``loop`` both solvers' loop:
     ``"host"`` (the default, every earlier record's) or ``"while"``, the
     device core, the JAX package's default (its ``time_cgmres`` runs
-    both solvers there).  On the device core the warm-up captures the
-    graphs, so the timed solves replay them; the row's ``time_capture`` is
-    the timed CGMRES solve's (0 after the warm-up)."""
+    both solvers there).  ``dtype=torch.float32`` (through ``params`` to the
+    model) runs the row in f32 storage: CGMRES takes its reduction mode
+    from ``wrappers.reduction_mode`` and projects its iterate
+    (``resolve_modes``), and the deviations are the f64 certificates.  On
+    the device core the warm-up captures the graphs, so the timed solves
+    replay them; the row's ``time_capture`` is the timed CGMRES solve's (0
+    after the warm-up)."""
     model = get_model(problem)
     system = model.linforms(M=M, degree=degree, device=device, **params)
     dev = system.b.device
-    x0 = None  # the zero start (reference heat/TimedSolve.py:43)
+    # the zero start (reference heat/TimedSolve.py:43) as None, so that the
+    # solvers know it: with f32 storage the snap-first reduction applies
+    # from a zero start only (JAX timed_solve.py:183-189)
+    x0 = None
     if tol_mode == "rhs":
         tol = tol * float(torch.linalg.norm(system.b))
     elif tol_mode != "abs":

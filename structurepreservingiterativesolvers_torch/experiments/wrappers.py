@@ -8,8 +8,8 @@ lkdv/LinearSolver.py:50-59).  ``exact`` is the direct-solver oracle
 (SuperLU in the reference, lkdv/LinearSolver.py:76-83) — host scipy, for
 validation only.
 
-The JAX package's ``reduction_mode`` picks the in-loop reduction arithmetic
-for f32 storage; the port stores f64 only, so it has no counterpart.
+``reduction_mode`` picks the in-loop reduction arithmetic for f32 storage,
+as the JAX package's; ``cgmres_wrapper`` applies it.
 
 Both wrappers pass ``**solver_opts`` (``ortho`` among them) to the solver.
 The JAX ``gmres_wrapper`` takes none: its fused orthogonalisation is
@@ -28,13 +28,44 @@ from ..solvers import cgmres, cgmres_p, gmres
 PROTOTYPICAL_TOL = 1e-20
 
 
+def reduction_mode(system, tol) -> dict:
+    """Solver options for the in-loop constraint reduction's arithmetic
+    (JAX ``wrappers.py:24-55``).
+
+    The f32 (snap-first) reduction perturbs the constraint manifold by
+    ~eps32·|c|, raising the attainable constrained residual; where ``tol``
+    lies between the plain f32 residual floor (≈ eps32·‖A‖·‖x‖, below which
+    nothing terminates and the choice is only speed) and that elevation
+    (≈ 100·eps32·max|c|; swe's |e0| ≈ 2.9e4 puts it at ~5e-3), the f32
+    reduction blocks termination and the solver runs to k: switch to the
+    f64 reduction there.  With f64 storage there is nothing to choose."""
+    if system.b.dtype != torch.float32:
+        return {}
+    from ..ops.stencil import as_dia
+
+    scale = max([abs(float(c.c)) for c in system.constraints()
+                 if c.c is not None] or [0.0])
+    eps32 = float(np.finfo(np.float32).eps)
+    elevation = 100.0 * eps32 * scale
+    try:
+        anorm = float(as_dia(system.A).data.abs().sum(0).max())
+        xnorm = float(torch.linalg.norm(system.z0))
+        floor = eps32 * anorm * xnorm
+    except (AttributeError, TypeError):
+        floor = 0.0  # no DIA view or no z0: allow the f64 reduction
+    if floor < tol < elevation:
+        return {"f32_reduce": False}
+    return {}
+
+
 def cgmres_wrapper(system, x0=None, k=20, tol=1e-50, contol=10.0, pre=None,
                    timing=None, history=False, **solver_opts):
     cons = system.constraints()
     if tol > PROTOTYPICAL_TOL:
+        opts = {**reduction_mode(system, tol), **solver_opts}
         return cgmres(system.A, system.b, x0, k=k, tol=tol, contol=contol,
                       constraints=cons, pre=pre, timing=bool(timing),
-                      history=history, **solver_opts)
+                      history=history, **opts)
     if timing:
         raise NotImplementedError(
             "Timings are not available for the prototypical solver"

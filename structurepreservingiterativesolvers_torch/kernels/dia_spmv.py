@@ -50,6 +50,14 @@ counts in ``dia_spmm_cuda``, in its plan's counter (``dia_spmm_live_cuda``
 or ``dia_spmm_dense_cuda``) and in its design's (``dia_spmm_tile_cuda``,
 ``dia_spmm_spread_cuda``).  Column b of its product is kernel #1's product
 of column b in both designs.  Its plain twin is ``dia_spmm_torch``.
+
+The mixed form (``dia_spmv_mixed``) is kernel #1 on f32 data and x with f64
+products and sums, and an f64 y: the f32 storage mode's constraint values
+and f64 reductions (``ops/sparse.py::matvec_f64``), the counterpart of the
+JAX package's double-f32 ``ops/dd.py::spmv_dia``.  It launches in the
+operator's live or dense design through the same resolved launch, and
+counts in ``dia_spmv_mixed_cuda`` alone.  Its plain twin
+(``dia_spmv_mixed_torch``) upcasts, then takes the f64 product.
 """
 
 from __future__ import annotations
@@ -60,6 +68,8 @@ import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+
+from . import count_f32
 
 MAX_DIAGS = 64  # DIA_MAX_DIAGS in csrc/dia_spmv.cu; from_scipy caps ndiag here
 # the entry points' ``wrap`` argument of a windowed launch (DIA_EDGE_WINDOW in
@@ -244,6 +254,13 @@ def dia_spmv_torch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
     return y
 
 
+def dia_spmv_mixed_torch(data: torch.Tensor, offsets: Sequence[int],
+                         wrap: bool, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of the mixed form: data and x upcast to f64, then
+    the f64 product."""
+    return dia_spmv_torch(data.double(), offsets, wrap, x.double())
+
+
 def dia_spmm_torch(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
                    X: torch.Tensor) -> torch.Tensor:
     """The plain version of the product with a block X (n, B): one shifted
@@ -322,12 +339,15 @@ def _check_plan(live: LivePlan, x: torch.Tensor) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    """The C entry point for ``dtype``, built and loaded on first use."""
+def _entry(dtype: torch.dtype, mixed: bool = False):
+    """The C entry point for ``dtype`` (the mixed form's for f32 data with
+    ``mixed``), built and loaded on first use."""
     from .build import load
 
     lib = load("dia_spmv.cu")
-    fn = lib.dia_spmv_f64 if dtype == torch.float64 else lib.dia_spmv_f32
+    fn = (lib.dia_spmv_mixed if mixed
+          else lib.dia_spmv_f64 if dtype == torch.float64
+          else lib.dia_spmv_f32)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_int,
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
@@ -462,8 +482,32 @@ def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
                else dia_spmv_dense_cuda)
     counter.launches += 1
     dia_spmv_cuda.launches += 1
+    count_f32("dia_spmv", rec.dtype)
     if rec.window:
         dia_spmv_window_cuda.launches += 1
+    return y
+
+
+def launch_mixed(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
+    """Launch the mixed form as ``rec`` resolved it (an operator of f32 data,
+    in its design) on the f32 vector x, on PyTorch's current stream; returns
+    the f64 product.  Counts in ``dia_spmv_mixed_cuda``; does not
+    synchronise."""
+    if (rec.dtype != torch.float32 or not rec.takes(x) or x.dim() != 1
+            or x.shape[0] != rec.cols or not x.is_contiguous()):
+        raise ValueError(f"the mixed launch takes f32 data and a contiguous "
+                         f"f32 vector of {rec.cols} on {rec.device}; got "
+                         f"data {rec.dtype}, x {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    y = torch.empty(rec.n, dtype=torch.float64, device=x.device)
+    if rec.n:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry(rec.dtype, True)(rec.data_ptr, rec.x_ptr(x),
+                                      y.data_ptr(), *rec.args, stream)
+        if err != 0:
+            raise RuntimeError(f"dia_spmv_mixed kernel launch failed "
+                               f"({rec.design}): cudaError {err}")
+    dia_spmv_mixed_cuda.launches += 1
     return y
 
 
@@ -507,6 +551,7 @@ def launch_many(rec: DiaLaunch, X: torch.Tensor,
     counter.launches += 1
     _DESIGN_COUNTERS[plan.design].launches += 1
     dia_spmm_cuda.launches += 1
+    count_f32("dia_spmm", rec.dtype)
     if rec.window:
         dia_spmm_window_cuda.launches += 1
     return Y.T
@@ -532,6 +577,14 @@ def dia_spmv_cuda(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
     """Launch the kernel: the live design with a plan, the dense one
     without."""
     return launch(dia_launch(data, offsets, wrap, x, live), x)
+
+
+def dia_spmv_mixed_cuda(data: torch.Tensor, offsets: Sequence[int],
+                        wrap: bool, x: torch.Tensor,
+                        live: Optional[LivePlan] = None) -> torch.Tensor:
+    """Launch the mixed form (f32 data and x, f64 y): the live design with a
+    plan, the dense one without; does not synchronise."""
+    return launch_mixed(dia_launch(data, offsets, wrap, x, live), x)
 
 
 def _column(X: torch.Tensor) -> torch.Tensor:
@@ -611,6 +664,7 @@ dia_spmm_live_cuda.launches = dia_spmm_dense_cuda.launches = 0
 dia_spmm_tile_cuda.launches = dia_spmm_spread_cuda.launches = 0
 dia_spmm_cuda.launches = 0
 dia_spmv_window_cuda.launches = dia_spmm_window_cuda.launches = 0
+dia_spmv_mixed_cuda.launches = 0
 
 
 def dia_spmv(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
@@ -626,3 +680,17 @@ def dia_spmv(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
         return dia_spmv_torch(data, offsets, wrap, x)
     raise ValueError(f"no DIA SpMV for device {x.device}")
 
+
+
+def dia_spmv_mixed(data: torch.Tensor, offsets: Sequence[int], wrap: bool,
+                   x: torch.Tensor,
+                   live: Optional[LivePlan] = None) -> torch.Tensor:
+    """The mixed form's wrapper, f32 data and x to an f64 y: CUDA tensors go
+    through the kernel, CPU tensors through the plain version."""
+    if data.device != x.device:
+        raise ValueError(f"data on {data.device} but x on {x.device}")
+    if x.device.type == "cuda":
+        return dia_spmv_mixed_cuda(data, offsets, wrap, x, live)
+    if x.device.type == "cpu":
+        return dia_spmv_mixed_torch(data, offsets, wrap, x)
+    raise ValueError(f"no DIA SpMV for device {x.device}")

@@ -26,6 +26,8 @@ from typing import Tuple
 
 import torch
 
+from . import count_f32
+
 MAX_ROWS = 128  # ORTHO_MAX_ROWS in csrc/ortho_fused.cu: a basis of k ≤ 127
 # the largest grid of the kernel: the scratch of per-block partial sums of
 # u2 is (MAX_BLOCKS, m); the kernel launches as many blocks as stay resident
@@ -100,6 +102,7 @@ def fused_update_matvec_cuda(Q: torch.Tensor, w: torch.Tensor,
         raise RuntimeError(
             f"fused_update_matvec kernel launch failed: cudaError {err}")
     fused_update_matvec_cuda.launches += 1
+    count_f32("fused_update_matvec", Q.dtype)
     return w1, u2
 
 

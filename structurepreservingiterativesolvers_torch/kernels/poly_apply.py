@@ -52,6 +52,7 @@ from typing import Optional
 
 import torch
 
+from . import count_f32
 from .dia_spmv import dia_spmm_torch, dia_spmv_torch
 from .stencil_spmv import (  # noqa: F401
     in_box,
@@ -443,6 +444,7 @@ def _launch(kind: str, design: str, A, plan: Optional[TilePlan], degree: int,
             raise RuntimeError(f"{who} kernel launch failed: cudaError {err}")
     for counter in counters:
         counter.launches += 1
+    count_f32(f"{kind}_apply", v.dtype)
     return y if v.dim() == 1 else y.T
 
 

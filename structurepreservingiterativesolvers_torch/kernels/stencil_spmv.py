@@ -50,6 +50,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import count_f32
 from .dia_spmv import shift
 
 MAX_DIAGS = 64  # STENCIL_MAX_DIAGS in csrc/stencil_spmv.cu
@@ -323,6 +324,7 @@ def launch(rec: StencilLaunch, x: torch.Tensor) -> torch.Tensor:
                else stencil_spmv_flat_cuda)
     counter.launches += 1
     stencil_spmv_cuda.launches += 1
+    count_f32("stencil_spmv", rec.dtype)
     return y
 
 
@@ -360,6 +362,7 @@ def launch_many(rec: StencilLaunch, X: torch.Tensor) -> torch.Tensor:
                else stencil_spmm_flat_cuda)
     counter.launches += 1
     stencil_spmm_cuda.launches += 1
+    count_f32("stencil_spmm", rec.dtype)
     return Y.T
 
 

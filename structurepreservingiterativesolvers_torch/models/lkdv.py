@@ -146,6 +146,24 @@ class _BlockDiag3:
             dim=0,
         )
 
+    def matvec_f64(self, x):
+        """The product in f64 from f32 x (``ops/sparse.py::matvec_f64``), a
+        field at a time, as the JAX package's ``dd_matvec``."""
+        from ..ops.sparse import matvec_f64
+
+        parts = torch.tensor_split(x, 3, dim=0)
+        return torch.cat(
+            [c * matvec_f64(self.Mmat, p) if c
+             else torch.zeros_like(p, dtype=torch.float64)
+             for c, p in zip(self.coeffs, parts)],
+            dim=0,
+        )
+
+    def f64_supported(self) -> bool:
+        from ..ops.sparse import f64_supported
+
+        return f64_supported(self.Mmat)
+
     def todense(self):
         Md = self.Mmat.todense()
         n0 = Md.shape[0]

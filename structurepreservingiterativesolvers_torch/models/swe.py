@@ -140,6 +140,13 @@ class _EnergyDiag:
         parts = torch.tensor_split(x, 3, dim=0)
         return torch.cat([s * p for s, p in zip(self.scales, parts)], dim=0)
 
+    def matvec_f64(self, x):
+        """The product in f64 from f32 x (``ops/sparse.py::matvec_f64``):
+        the f64 scales times the upcast fields, as the JAX package's
+        ``dd_matvec`` splits the scales exactly."""
+        parts = torch.tensor_split(x.double(), 3, dim=0)
+        return torch.cat([s * p for s, p in zip(self.scales, parts)], dim=0)
+
     def todense(self):
         diag = np.concatenate([np.full(self.n0, s) for s in self.scales])
         return torch.as_tensor(np.diag(diag))

@@ -37,8 +37,10 @@ from ..kernels.dia_spmv import (
     dia_launch,
     dia_spmm_torch,
     dia_spmv as _dia_spmv,
+    dia_spmv_mixed_torch,
     launch,
     launch_many,
+    launch_mixed,
     live_chunk,
     live_plan,
     shift as _shift,
@@ -355,6 +357,55 @@ def bsr_spmm(A: BSR, X: torch.Tensor) -> torch.Tensor:
 def spmv(A, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for any format of the port, or a dense matrix."""
     return A @ x
+
+
+# --- f64 products from f32 storage ---------------------------------------------
+
+
+def matvec_f64(M, x: torch.Tensor) -> torch.Tensor:
+    """``M @ x`` in f64 from f32 storage (f32 M and x): f32 loads, f64
+    products and f64 sums, the counterpart of the JAX package's double-f32
+    ``constraints/quadratic.py::_dd_matvec``.  An f32 by f32 product is
+    exact in f64, so this is at least as accurate as the pairs (unit
+    roundoff 2^-53 against 2^-48).  The operator is the stored one: its
+    f32-rounded entries are the operator the certificate holds.
+
+    A DIA takes the mixed kernel #1 on the card (``launch_mixed``, in the
+    design its live plan picks), its plain twin on the CPU; an ELL an
+    upcast gather; a dense matrix an upcast product; an operator with a
+    ``matvec_f64`` method (``MatComb``, ``StageKron``, the models' block
+    operators) its own, a term at a time.  A tall x (n, B) is taken a column
+    at a time.  With f64 storage it is the plain product."""
+    if x.dim() == 2:
+        return torch.stack([matvec_f64(M, c) for c in x.unbind(1)], dim=1)
+    if hasattr(M, "matvec_f64"):
+        return M.matvec_f64(x)
+    if isinstance(M, DIA):
+        if M.dtype == torch.float64:
+            return M @ x.double()
+        if x.dtype == torch.float64:
+            # an f64 vector (a stage map's P x): the upcast operator
+            return _dia_spmv(M.data.double(), M.offsets, M.wrap, x)
+        if x.device.type != "cuda":
+            return dia_spmv_mixed_torch(M.data, M.offsets, M.wrap, x)
+        return launch_mixed(_resolved(M, x), x)
+    if isinstance(M, ELL):
+        return (M.vals.double() * x.double()[M.cols]).sum(0)
+    if isinstance(M, torch.Tensor) and M.dim() == 2:
+        return M.double() @ x.double()
+    raise TypeError(f"no f64 product for operator type {type(M).__name__}; "
+                    "gate with f64_supported()")
+
+
+def f64_supported(M) -> bool:
+    """``matvec_f64`` takes M (None, the zero operator, included): the
+    counterpart of the JAX package's ``dd_supported``."""
+    if M is None or isinstance(M, (DIA, ELL)):
+        return True
+    if hasattr(M, "matvec_f64"):
+        ok = getattr(M, "f64_supported", None)
+        return True if ok is None else ok()
+    return isinstance(M, torch.Tensor) and M.dim() == 2
 
 
 def spmm(A, X: torch.Tensor) -> torch.Tensor:

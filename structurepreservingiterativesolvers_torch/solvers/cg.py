@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import require_f64
+from ..config import check_storage
 from ..precond.base import as_preconditioner
-from .gmres import as_operand
+from .gmres import as_operand, refuse_f32_mesh
 
 
 def cg(A, b: torch.Tensor, x0=None, k: int = 100, tol: float = 1e-8,
@@ -26,7 +26,8 @@ def cg(A, b: torch.Tensor, x0=None, k: int = 100, tol: float = 1e-8,
     The residuals follow the CG recurrence (r is b − A x up to roundoff);
     the last entry is replaced by the recomputed true residual, as the JAX
     package does, without an extra product per iteration."""
-    require_f64(b)
+    check_storage(b)
+    refuse_f32_mesh(A, b)
     x0 = as_operand(x0, b)
     x = torch.zeros_like(b) if x0 is None else x0
     prefunc = as_preconditioner(pre)

@@ -44,9 +44,17 @@ constrained iteration; the safety latch then checks the true g at the
 accepted coefficients (JAX ``solvers/cgmres.py:157-158``, ``:288-293``,
 ``:410``).
 
-Solvers take f64 storage only; the JAX package's f32 storage path
-(mixed-precision reduction, double-f32 arithmetic, invariant snap) is not
-ported.
+Storage is f64 (the default) or f32, the JAX package's TPU mode
+(``resolve_modes``, JAX ``cgmres.py:567-627``): with f32 vectors and basis
+the constraint reduction, the KKT endgame and the latch run in f64
+(``mixed``, the k-sized ``cdtype``); the in-loop reduction is the f64 one
+(f32 loads, f64 products and sums: where the JAX package computes in
+double-f32 pairs) or, from a zero start, the plain f32 one (``f32_reduce``,
+the snap-first mode, whose latch floor is eps32's); and the returned
+iterate is projected onto the invariants (``snap``,
+``constraints/projection.py``) where the latch is OK, its ``deviation``
+then the certified f64 value at the returned x.  With f64 storage all three
+resolve off and nothing changes.
 
 Both loops take row-sharded operands (``parallel/``): the solver finds the
 mesh on A, every n-length reduction is all-reduced over it
@@ -69,15 +77,18 @@ from typing import NamedTuple, Sequence, Union
 import numpy as np
 import torch
 
-from ..config import CTOL, require_f64
+from ..config import CTOL, cdtype, check_storage
 from ..constraints.general import (
     GeneralConstraint,
     taylor_buffers,
     taylor_model,
     true_value,
 )
+from ..constraints.projection import snap as snap_iterate, snap_supported
 from ..constraints.quadratic import (
+    MatComb,
     QuadraticConstraint,
+    StageKron,
     catch_up,
     catchup_buffers,
     device_buffers,
@@ -89,6 +100,7 @@ from ..constraints.quadratic import (
     value_and_scale_rows,
     value_scale,
 )
+from ..ops.sparse import matvec_f64
 from ..ops.rows import basis_mv as rows_mv, basis_rmv as rows_rmv, rows
 from ..parallel.comm import mesh_of, pnorm, psum
 from ..precond.base import as_preconditioner
@@ -103,7 +115,7 @@ from .arnoldi import (
     lsq_residual_estimate,
     start,
 )
-from .gmres import as_operand, warn_breakdown
+from .gmres import as_operand, refuse_f32_mesh, warn_breakdown
 from .graphs import GraphRunner
 from .kkt import (
     constrained_lsq,
@@ -154,6 +166,64 @@ def _take_fresh(warm, fresh, r_warm: float, r_fresh: float, scale_fb: float,
     return take and not nan_b
 
 
+def resolve_modes(dt: torch.dtype, cons, mixed=None, snap=None,
+                  f32_reduce=None, prototypical: bool = False):
+    """The f32 storage modes of a solve as the JAX package's ``_run``
+    resolves them (``cgmres.py:567-627`` there): ``(mixed, snap,
+    f32_reduce)``.
+
+    * ``mixed`` (default: storage f32): the k-sized constraint and KKT state
+      in f64 (``config.cdtype``);
+    * ``snap`` (default: f32 storage, not prototypical, and every constraint
+      quadratic with an f64 product, ``snap_supported``): project the
+      returned iterate onto the invariants.  An explicit ``snap=True`` with
+      a general constraint, or one ``matvec_f64`` does not take, raises
+      ``ValueError`` naming it;
+    * ``f32_reduce`` (default: mixed and snap): the in-loop reduction in
+      plain f32 (the snap-first mode); it applies from a zero start only
+      (the caller's ``x0 is None``).
+
+    With f64 storage all three are off.  f32 storage is refused, naming its
+    ROADMAP.md item, for what the slice leaves out: a general constraint or
+    a stage-mapped or combined operator (lkdvRK) and an ELL operator (heat
+    P2)."""
+    from ..ops.sparse import ELL
+
+    cons = tuple(cons)
+    f32 = dt == torch.float32
+    general = [c.name for c in cons if isinstance(c, GeneralConstraint)]
+    if snap:
+        if general:
+            raise ValueError(
+                f"snap=True requires quadratic constraints; {general[0]!r} "
+                "is a general (callable) constraint")
+        bad = [c.name for c in cons if not snap_supported((c,))]
+        if bad:
+            raise ValueError(
+                f"snap=True but constraint operator(s) {bad} have no f64 "
+                "product (constraints/projection.py::snap_supported)")
+    if f32:
+        for c in cons:
+            if isinstance(c, GeneralConstraint) or isinstance(
+                    c.M, (StageKron, MatComb)):
+                raise NotImplementedError(
+                    f"f32 storage with constraint {c.name!r} (a general "
+                    "constraint or a stage-mapped or combined operator, "
+                    "lkdvRK): ROADMAP.md, Queue 1, item 2")
+            if isinstance(c.M, ELL):
+                raise NotImplementedError(
+                    f"f32 storage with constraint {c.name!r} on an ELL "
+                    "operator (heat P2): ROADMAP.md, Queue 1, item 3")
+    mixed = f32 if mixed is None else bool(mixed) and f32
+    if snap is None:
+        snap = (f32 and not prototypical and len(cons) > 0 and not general
+                and snap_supported(cons))
+    snap = bool(snap) and f32
+    if f32_reduce is None:
+        f32_reduce = mixed and snap
+    return mixed, snap, bool(f32_reduce) and mixed and snap
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -163,7 +233,7 @@ class _Solve:
     """The state of one CGMRES solve; ``run`` drives it to the end."""
 
     def __init__(self, A, b, x0, k, tol, contol, cons, pre, ctol, history,
-                 prototypical, ortho):
+                 prototypical, ortho, modes=(False, False, False)):
         self.A, self.b, self.k = A, b, int(k)
         self.mesh = mesh_of(A)
         self.tol, self.contol, self.ctol = float(tol), float(contol), float(ctol)
@@ -180,22 +250,31 @@ class _Solve:
         self.x0_zero = x0 is None
         self.x0 = torch.zeros_like(b) if x0 is None else x0
         self.dt = b.dtype
+        mixed, self.snap, f32_reduce = modes
+        # the k-sized constraint and KKT state's dtype; the f32 reduction
+        # from a zero start only; else, with f32 storage, the f64 one
+        self.cd = cdtype(self.dt, mixed)
+        self.f32r = f32_reduce and self.x0_zero
+        self.f64 = self.dt == torch.float32 and mixed and not self.f32r
+        self.f64_value = self.dt == torch.float32 and mixed
 
     # --- coefficient solves -------------------------------------------------
 
     def _constrained(self, st, j, yk, y_unc, bufs, safety, lamc, Kinvc, haveK):
         """The endgame at step j: returns (y, safety, deviation, kkt iters,
         fell back, multipliers, KKT inverse, warm start valid)."""
-        k, m, dt = self.k, self.m, self.dt
+        k, m, dt, cd = self.k, self.m, self.dt, self.cd
         if m == 0:
             # no constraints: the constrained solve IS the LSQ and the latch
             # is vacuously satisfied
             return y_unc, _SAFETY_OK, 0.0, 0, 0, lamc, Kinvc, haveK
         active = torch.arange(k) <= j
         con_mask = ((torch.arange(m) < j) if self.prototypical
-                    else torch.ones(m, dtype=torch.bool)).to(dt)
-        kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(dt).eps)
-        beta, H = self.beta, st.H
+                    else torch.ones(m, dtype=torch.bool)).to(cd)
+        kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(cd).eps)
+        # the KKT in cdtype: f64 over f32 storage (JAX cgmres.py:285)
+        beta, H = self.beta, st.H.to(cd)
+        yk, y_unc = yk.to(cd), y_unc.to(cd)
         # the kept reductions of the quadratic constraints, and a Taylor
         # model about the warm coefficients for each general one
         quad = iter(bufs)
@@ -220,7 +299,7 @@ class _Solve:
             lam_ws=lamc, Kinv_ws=Kinvc,
             have_ws=False if self.prototypical else haveK, pin=pin, s0=s0,
         )
-        e1 = (torch.arange(k + 1) == 0).to(dt)
+        e1 = (torch.arange(k + 1) == 0).to(cd)
 
         def residual(kk):
             return float(torch.linalg.norm(beta * e1 - H @ kk.y))
@@ -241,7 +320,7 @@ class _Solve:
             kkt_f = constrained_lsq(H, beta, bufs, y_unc, active, con_mask,
                                     kkt_tol=kkt_tol, pin=pin, s0=s0)
             if _take_fresh(kkt, kkt_f, residual(kkt), residual(kkt_f),
-                           scale_fb, self.ctol, dt):
+                           scale_fb, self.ctol, cd):
                 kkt = kkt_f
         bad = bool(torch.any(torch.isnan(kkt.y)))
         # far-branch rejection: the Newton-KKT iteration can converge to a
@@ -259,7 +338,7 @@ class _Solve:
         elif far:
             # the roundoff scale must describe the KEPT point
             deviation, scale = dev_fb, scale_fb
-        y = y_unc if (bad or far) else kkt.y
+        y = (y_unc if (bad or far) else kkt.y).to(dt)
         # the Taylor model is exact for a quadratic g; a general g is checked
         # at the accepted coefficients
         for c, g, on in zip(self.cons, self.general, con_mask.tolist()):
@@ -268,8 +347,10 @@ class _Solve:
                                 abs(float(true_value(c, y, st.Z, self.x0))))
         # NaN fallback leaves the latch untouched; success sets it; a
         # deviation above the tolerance trips it.  The tolerance is floored
-        # at the evaluation-roundoff scale of the constraint
-        floor = max(self.ctol, 32.0 * torch.finfo(dt).eps * scale)
+        # at the evaluation-roundoff scale of the constraint: eps32's under
+        # the f32 reduction, cdtype's else (JAX cgmres.py:426-428)
+        eps = torch.finfo(torch.float32 if self.f32r else cd).eps
+        floor = max(self.ctol, 32.0 * eps * scale)
         if not bad:
             safety = _SAFETY_BAD if deviation > floor else _SAFETY_OK
         return (y, safety, deviation, kkt.iters, int(bad), kkt.lam, kkt.Kinv,
@@ -284,9 +365,11 @@ class _Solve:
         r0 = b - A @ x0
         self.beta = beta = float(pnorm(r0, self.mesh))
         st = init_state(r0, beta, k)
-        bufs = tuple(init_buffers(c, x0, k, x0_zero=self.x0_zero)
+        bufs = tuple(init_buffers(c, x0, k, x0_zero=self.x0_zero,
+                                  cdtype=self.cd, f64_value=self.f64_value)
                      for c in self.quad)
-        self.s0 = [value_scale(c, x0, x0_zero=self.x0_zero) for c in self.quad]
+        self.s0 = [value_scale(c, x0, x0_zero=self.x0_zero, cdtype=self.cd,
+                               f64_value=self.f64_value) for c in self.quad]
         res = np.full(k, np.inf)
         xs = None
         if self.history:
@@ -318,7 +401,7 @@ class _Solve:
             # one-time batched catch-up over the phase-1 basis; the loop
             # below only folds in fresh columns
             bufs = tuple(catchup_buffers(c, bf, st.Z, x0, j1,
-                                         x0_zero=self.x0_zero)
+                                         x0_zero=self.x0_zero, f64=self.f64)
                          for c, bf in zip(self.quad, bufs))
             if timing:
                 _sync(dev)
@@ -326,8 +409,8 @@ class _Solve:
 
         safety, ncon, done = _SAFETY_NONE, 0, brk
         dev_j, kkt_it, nfb = np.inf, 0, 0
-        lamc = torch.zeros(m, dtype=self.dt)
-        Kinvc = torch.zeros((k + m, k + m), dtype=self.dt)
+        lamc = torch.zeros(m, dtype=self.cd)
+        Kinvc = torch.zeros((k + m, k + m), dtype=self.cd)
         haveK = False
         while j < k and not done:
             hlast = arnoldi_step(A, self.prefunc, st, j, self.ortho)
@@ -343,7 +426,7 @@ class _Solve:
                             and safety == _SAFETY_NONE)
             if gate:
                 bufs = tuple(update_buffers(c, bf, st.Z, x0, j,
-                                            x0_zero=self.x0_zero)
+                                            x0_zero=self.x0_zero, f64=self.f64)
                              for c, bf in zip(self.quad, bufs))
                 (y, safety, dev_j, kit, fb, lamc, Kinvc,
                  haveK) = self._constrained(st, j, yk, y_unc, bufs, safety,
@@ -361,6 +444,16 @@ class _Solve:
                 done = (r_prev < self.tol and safety == _SAFETY_OK) or brk_now
             brk = brk or brk_now
             j += 1
+        t_snap = 0.0
+        if self.snap and m > 0 and safety == _SAFETY_OK:
+            # the projection epilogue (JAX cgmres.py:544-560): the returned
+            # iterate onto the invariants, its deviation the certified f64
+            # value there
+            _sync(dev)
+            t_snap = time.perf_counter()
+            x, g = snap_iterate(x, self.quad)
+            dev_j = float(g.abs().max())
+            t_snap = time.perf_counter() - t_snap
         _sync(dev)
         t_end = time.perf_counter()
 
@@ -381,6 +474,9 @@ class _Solve:
                           "constraint catch-up and the endgame loop, with a "
                           "device synchronisation at each boundary",
             }
+            if self.snap:
+                # the projection epilogue's wall (f32 storage)
+                info["timings"]["time_snap"] = t_snap
         else:
             info["timings"] = None
         return x, info
@@ -507,14 +603,24 @@ class DeviceCore:
     at x0 (``value_and_scale``; |t0| is a cancellation there), and
     ``kkt_start`` pins a linear constraint that every iterate satisfies
     (swe's mass, whose Krylov vectors carry none), so the KKT matrix stays
-    regular.  From x0 = 0 neither changes a bit."""
+    regular.  From x0 = 0 neither changes a bit.
+
+    With f32 storage (``like`` f32) the core takes the modes of
+    ``resolve_modes``: the reduced buffers, the KKT's state and work, the
+    roundoff scales and the deviations in ``cdtype`` (f64 when ``mixed``),
+    the reduction in f64 or, from a zero start with ``f32_reduce``, in f32,
+    and, with ``snap``, one more step after the loop, ``snap``: the
+    projection of each solve's iterate whose latch is OK, its deviation the
+    certified value there (a CUDA graph of its own on the card)."""
 
     def __init__(self, A, pre, k: int, constraints, *, like: torch.Tensor,
                  tol: float, contol: float = 10.0, ctol: float = CTOL,
                  ortho: str = "cgs2", x0_zero: bool = False,
-                 history: bool = False, runner: GraphRunner = None):
+                 history: bool = False, runner: GraphRunner = None,
+                 mixed: bool = False, snap: bool = False,
+                 f32_reduce: bool = False):
         cons = tuple(constraints)
-        require_f64(like)
+        check_storage(like)
         self.batched = like.dim() == 2
         B = like.shape[0] if self.batched else 1
         # each constraint's kind, as the JAX core's ``kinds``
@@ -539,7 +645,14 @@ class DeviceCore:
         self.ortho, self.x0_zero = ortho, bool(x0_zero)
         self.runner = GraphRunner(like.device) if runner is None else runner
         n, dt, k, m = like.shape[-1], like.dtype, self.k, self.m
-        self.kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(dt).eps)
+        # the k-sized constraint and KKT state's dtype; the reduction's
+        # arithmetic (as the host loop's ``_Solve``)
+        self.cd = cd = cdtype(dt, mixed)
+        self.snap = bool(snap) and m > 0
+        self.f32r = bool(f32_reduce) and self.x0_zero
+        self.f64 = dt == torch.float32 and mixed and not self.f32r
+        self.f64_value = dt == torch.float32 and mixed
+        self.kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(cd).eps)
 
         def z(*shape, dtype=dt):
             return torch.zeros((B, *shape), dtype=dtype, device=like.device)
@@ -553,10 +666,10 @@ class DeviceCore:
                 mesh=c.mesh)
             for c, g in zip(cons, self.general))
         self.st = device_state(n, k, dt, like.device, B)
-        self.bufs = tuple(device_buffers(k, like, B) for _ in cons)
+        self.bufs = tuple(device_buffers(k, like, B, dtype=cd) for _ in cons)
         self.x, self.yk, self.y_unc, self.res = z(n), z(k), z(k), z(k)
         self.xs = z(k + 1, n) if history else None
-        self.beta, self.r_prev, self.dev = z(), z(), z()
+        self.beta, self.r_prev, self.dev = z(), z(), z(dtype=cd)
         (self.safety, self.steps, self.ncon, self.kkt_it,
          self.nfb) = (z(dtype=torch.long) for _ in range(5))
         # the gate of the running step; whether a solve has entered its
@@ -564,12 +677,16 @@ class DeviceCore:
         (self.done, self.brk, self.brk_now, self.haveK, self.gate,
          self.started) = (z(dtype=torch.bool) for _ in range(6))
         # the roundoff scale of each constraint's value at x0
-        self.lamc, self.Kinvc, self.s0 = z(m), z(m + k, m + k), z(m)
+        self.lamc, self.Kinvc, self.s0 = (z(m, dtype=cd),
+                                          z(m + k, m + k, dtype=cd),
+                                          z(m, dtype=cd))
         # [the gates of the next step, done], B each; [a KKT start goes on,
         # a start asks for a re-factorisation], over the batch
         self.flags = torch.zeros(2 * B, dtype=torch.long, device=like.device)
         self.kflags = torch.zeros(2, dtype=torch.long, device=like.device)
-        self.work = kkt_work(B, 2, k, m, like) if m else None
+        self.work = (kkt_work(B, 2, k, m, torch.empty(0, dtype=cd,
+                                                      device=like.device))
+                     if m else None)
         self.linear = torch.tensor(
             [not g and c.M is None for c, g in zip(cons, self.general)],
             dtype=torch.bool, device=like.device)
@@ -597,6 +714,10 @@ class DeviceCore:
             elif c.M is not None:
                 rows(c.M.__matmul__, V)
                 c.M @ torch.ones((V.shape[1], 2), dtype=V.dtype, device=V.device)
+                if self.f64_value:
+                    # the f64 products of the reduction and the projection
+                    # (the mixed kernel #1 for a DIA)
+                    matvec_f64(c.M, V[0])
         basis = torch.ones((self.B, 2, V.shape[1]), dtype=V.dtype,
                            device=V.device)
         pnorm(rows_rmv(psum(rows_mv(basis, V), self.mesh), basis), self.mesh)
@@ -695,6 +816,11 @@ class DeviceCore:
                 started = [st or o for st, o in zip(started, opened)]
             gate, done = self._read_flags()
             j += 1
+        t_loop, cap_loop = time.perf_counter(), R.time_capture - cap0
+        if self.snap:
+            # the projection epilogue, and a read that waits for it
+            R.run("snap", self._snap)
+            R.read(self.flags)
         t_end = time.perf_counter()
         cap = R.time_capture - cap0
         if j1 is None:
@@ -706,6 +832,7 @@ class DeviceCore:
             "phase1": t_phase1 - t_start - cap_phase1,
             "constraint_building": t_build - t_phase1 - (cap_build - cap_phase1),
             "endgame": t_end - t_build - (cap - cap_build),
+            "snap": t_end - t_loop - (cap - cap_loop),
             "gated_steps": gated,
         }
 
@@ -772,7 +899,8 @@ class DeviceCore:
                 buf.t0.copy_(con.c)
                 self.s0[:, i] = con.c.abs()
             else:
-                t0, self.s0[:, i] = value_and_scale_rows(con, self.x0)
+                t0, self.s0[:, i] = value_and_scale_rows(
+                    con, self.x0, f64=self.f64_value)
                 buf.t0.copy_(t0)
             buf.t1.zero_()
             buf.T2.zero_()
@@ -835,7 +963,8 @@ class DeviceCore:
         mask = ~self.done & self.flags[: self.B].bool() & ~self.started
         for con, buf, g in zip(self.cons, self.bufs, self.general):
             if not g:
-                catch_up(con, buf, self.st.Z, self.x0, j1, mask, self.x0_zero)
+                catch_up(con, buf, self.st.Z, self.x0, j1, mask, self.x0_zero,
+                         f64=self.f64)
 
     def _model(self, j: int):
         return kkt_model(self.st.H, self.beta, self.bufs, j + 1, self.s0)
@@ -851,7 +980,7 @@ class DeviceCore:
                                               self.general)):
             if not g:
                 fold_column(con, buf, self.st.Z, self.x0, j, mask,
-                            self.x0_zero)
+                            self.x0_zero, f64=self.f64)
                 continue
             # a fresh Taylor model about the warm coefficients, which both
             # starts share (B = 1), with |t0| as its value's scale
@@ -863,7 +992,8 @@ class DeviceCore:
                                               buf.T2[:, :ka, :ka])
             self.s0[:, i] = torch.where(mask, t0.abs(), self.s0[:, i])
         self.started.copy_(self.started | mask)
-        y0 = torch.stack([self.yk[:, :ka], self.y_unc[:, :ka]], dim=1)
+        y0 = torch.stack([self.yk[:, :ka], self.y_unc[:, :ka]],
+                         dim=1).to(self.cd)
         have = torch.stack([self.haveK, torch.zeros_like(self.haveK)], dim=1)
         kkt_start(self._model(j), self.work, y0, have, self.lamc,
                   self.Kinvc[:, :na, :na], self.kkt_tol, self.linear, mask)
@@ -878,10 +1008,12 @@ class DeviceCore:
 
     def _kkt_finish(self, j: int) -> None:
         mask = self._open()
-        mod, w, dt = self._model(j), self.work, self.b.dtype
+        mod, w, dt, cd = self._model(j), self.work, self.b.dtype, self.cd
         ka, na, k, B = j + 1, self.m + j + 1, self.k, self.B
-        eps, tiny = torch.finfo(dt).eps, torch.finfo(dt).tiny
-        Y, y_unc, beta = w.y[..., :ka], self.y_unc[:, :ka], self.beta
+        # the dual start's floor at cdtype's eps (JAX cgmres.py:335)
+        eps, tiny = torch.finfo(cd).eps, torch.finfo(cd).tiny
+        Y, y_unc, beta = (w.y[..., :ka], self.y_unc[:, :ka].to(cd),
+                          self.beta.to(cd))
         dev_c = kkt_values(mod, Y)[0].abs().amax(-1)
         scale_c = kkt_scale(mod, Y)
         # the roundoff scale and deviation at the fallback (unconstrained)
@@ -890,7 +1022,7 @@ class DeviceCore:
         dev_fb = kkt_values(mod, y_unc[:, None])[0].abs().amax(-1)[:, 0]
         scale_fb = kkt_scale(mod, y_unc[:, None])[:, 0]
         be1 = torch.cat([beta[:, None], Y.new_zeros(B, ka)], dim=-1)
-        Ha = self.st.H[:, : ka + 1, :ka]
+        Ha = self.st.H[:, : ka + 1, :ka].to(cd)
         resid = torch.linalg.norm(be1[:, None] - Y @ Ha.mT, dim=-1)
         # the dual start's choice (``_take_fresh``): feasible first, then the
         # smaller Hessenberg residual, against one floor; never a NaN
@@ -916,14 +1048,17 @@ class DeviceCore:
         deviation = torch.where(far, dev_fb, chosen(dev_c))
         scale = torch.where(far, scale_fb, chosen(scale_c))
         y = torch.cat([torch.where((bad | far)[:, None], y_unc, y_kkt),
-                       Y.new_zeros(B, k - ka)], dim=-1)
+                       Y.new_zeros(B, k - ka)], dim=-1).to(dt)
         x = self._iterate(j, y)
         for con, g in zip(self.cons, self.general):
             if g:
                 # the Taylor model is exact for a quadratic g; a general g
                 # is checked at the accepted coefficients (B = 1)
                 deviation = torch.maximum(deviation, con.func(x[0]).abs())
-        floor = torch.clamp(32.0 * eps * scale, min=self.ctol)
+        # the latch's floor: eps32's under the f32 reduction (JAX
+        # cgmres.py:426-428)
+        eps_latch = torch.finfo(torch.float32 if self.f32r else cd).eps
+        floor = torch.clamp(32.0 * eps_latch * scale, min=self.ctol)
         safety = torch.where(bad, self.safety, torch.where(
             deviation > floor, _SAFETY_BAD, _SAFETY_OK))
         self.safety.copy_(torch.where(mask, safety, self.safety))
@@ -936,6 +1071,21 @@ class DeviceCore:
             self.Kinvc[:, :na, :na])
         self.haveK.copy_(torch.where(mask, ~bad & ~far, self.haveK))
         self._finish(j, y, mask, gated=True, x=x)
+
+
+    def _snap(self) -> None:
+        """The projection epilogue of each solve whose latch is OK (JAX
+        ``cgmres.py:544-560``): its iterate onto the invariants of its
+        loaded targets, its deviation the certified f64 value at the
+        returned x; the others keep theirs."""
+        ok = self.safety == _SAFETY_OK
+        for b in range(self.B):
+            cons = [QuadraticConstraint(
+                M=c.M, v=None if c.v is None else c.v[b], c=c.c[b],
+                name=c.name) for c in self.cons]
+            x_sn, g = snap_iterate(self.x[b], cons)
+            self.x[b] = torch.where(ok[b], x_sn, self.x[b])
+            self.dev[b] = torch.where(ok[b], g.abs().amax(), self.dev[b])
 
 
 def _con_key(c):
@@ -987,30 +1137,33 @@ def last_core() -> DeviceCore:
 
 
 def _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho,
-              history=False) -> DeviceCore:
-    """The cached device core for these operators and options, built (and
-    cached, dropping the oldest past ``CORE_CACHE``) if none is."""
+              history=False, modes=(False, False, False)) -> DeviceCore:
+    """The cached device core for these operators and options (``modes``:
+    ``resolve_modes``'s), built (and cached, dropping the oldest past
+    ``CORE_CACHE``) if none is."""
     key = (_key(A), _key(pre), int(k), float(tol), float(contol), float(ctol),
            ortho, x0 is None, bool(history), tuple(b.shape), b.dtype,
-           str(b.device), tuple(_con_key(c) for c in cons))
+           str(b.device), tuple(_con_key(c) for c in cons), tuple(modes))
     core = _CORES.get(key)
     if core is None:
         while len(_CORES) >= CORE_CACHE:
             # the oldest core's buffers go before the new ones come
             _CORES.popitem(last=False)
+        mixed, snap, f32_reduce = modes
         core = _CORES[key] = DeviceCore(
             A, pre, k, cons, like=b, tol=tol, contol=contol, ctol=ctol,
-            ortho=ortho, x0_zero=x0 is None, history=bool(history))
+            ortho=ortho, x0_zero=x0 is None, history=bool(history),
+            mixed=mixed, snap=snap, f32_reduce=f32_reduce)
     _CORES.move_to_end(key)
     return core
 
 
 def _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
-                timing, ortho):
+                timing, ortho, modes=(False, False, False)):
     cons = tuple(constraints)
     t0 = time.perf_counter()
     core = _core_for(A, b, x0, k, tol, contol, cons, pre, ctol, ortho,
-                     history)
+                     history, modes)
     core.load(b, x0, cons)
     t_setup = time.perf_counter() - t0
     times = core.solve()
@@ -1043,26 +1196,34 @@ def _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
                       "the catch-up and the endgame, each ending in a flag "
                       "read; captures left out (time_capture)",
         }
+        if core.snap:
+            # the projection's graph and the read that waits for it
+            info["timings"]["time_snap"] = times["snap"]
     else:
         info["timings"] = None
     return out.x, info
 
 
 def _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history, timing,
-         prototypical, ortho="cgs2", loop="host"):
-    require_f64(b)
+         prototypical, ortho="cgs2", loop="host", mixed=None, snap=None,
+         f32_reduce=None):
+    check_storage(b)
+    refuse_f32_mesh(A, b)
     x0 = as_operand(x0, b)
+    constraints = tuple(constraints)
+    modes = resolve_modes(b.dtype, constraints, mixed, snap, f32_reduce,
+                          prototypical)
     if timing and prototypical:
         raise NotImplementedError("timing is measured for cgmres only")
     if loop == "while" and not prototypical:
         return _run_device(A, b, x0, k, tol, contol, constraints, pre, ctol,
-                           history, timing, ortho)
+                           history, timing, ortho, modes)
     if loop != "host":
         raise ValueError(
             f"loop={loop!r}: use 'host' or, for cgmres, 'while' (the JAX "
             "package's 'fori' is not ported)")
     solve = _Solve(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
-                   prototypical, ortho)
+                   prototypical, ortho, modes)
     return solve.run(bool(timing))
 
 
@@ -1080,6 +1241,9 @@ def cgmres(
     timing: bool = False,
     ortho: str = "cgs2",
     loop: str = "host",
+    mixed=None,
+    snap=None,
+    f32_reduce=None,
 ):
     """Constraint-satisfying FGMRES; returns ``(x, info)``.
 
@@ -1098,9 +1262,14 @@ def cgmres(
     targets replays the first one's graphs; its ``timings`` add
     ``time_capture``, the seconds spent capturing, which ``runtime`` leaves
     out.
+
+    ``mixed``, ``snap`` and ``f32_reduce`` are the f32 storage modes
+    (``resolve_modes``; None: the JAX package's defaults, all off with f64
+    storage).
     """
     return _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history,
-                timing, prototypical=False, ortho=ortho, loop=loop)
+                timing, prototypical=False, ortho=ortho, loop=loop,
+                mixed=mixed, snap=snap, f32_reduce=f32_reduce)
 
 
 def cgmres_p(
@@ -1116,7 +1285,8 @@ def cgmres_p(
 ):
     """Prototypical CGMRES: fixed ``k`` iterations, constraints enforced
     cumulatively (iteration j enforces the first j), no stopping tolerance
-    (reference solvers.py:328-445; info name 'geosolve')."""
+    (reference solvers.py:328-445; info name 'geosolve').  With f32 storage
+    it runs mixed, without the projection, as the JAX package's."""
     return _run(A, b, x0, k, tol=0.0, contol=0.0, constraints=constraints,
                 pre=pre, ctol=ctol, history=history, timing=False,
                 prototypical=True, ortho=ortho)

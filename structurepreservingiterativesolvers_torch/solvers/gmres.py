@@ -23,7 +23,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import CTOL, require_f64
+from ..config import CTOL, check_storage
 from ..precond.base import as_preconditioner
 from ..parallel.comm import mesh_of, pnorm
 from .arnoldi import arnoldi_step, init_state, iterate, lsq_coeffs
@@ -34,6 +34,14 @@ def as_operand(x0, b: torch.Tensor):
     if x0 is None:
         return None
     return torch.as_tensor(x0, dtype=b.dtype, device=b.device)
+
+
+def refuse_f32_mesh(A, b: torch.Tensor) -> None:
+    """f32 storage on row-sharded operands is not ported yet."""
+    if b.dtype == torch.float32 and mesh_of(A) is not None:
+        raise NotImplementedError(
+            "f32 storage under a mesh (parallel/): ROADMAP.md, Queue 1, "
+            "item 5")
 
 
 def warn_breakdown() -> None:
@@ -77,7 +85,8 @@ def gmres(
     solvers.py:75-80).  ``loop``: ``"host"`` or ``"while"`` (the device
     core).
     """
-    require_f64(b)
+    check_storage(b)
+    refuse_f32_mesh(A, b)
     x0 = as_operand(x0, b)
     if loop == "while":
         return _gmres_device(A, b, x0, k, tol, pre, history, ortho)

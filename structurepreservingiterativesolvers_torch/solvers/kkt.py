@@ -12,6 +12,11 @@ host, beside the Hessenberg matrix it reads.  ``torch.linalg.inv`` of the
 (k+m)² KKT matrix replaces the JAX package's Gauss–Jordan, which exists
 there only because XLA:TPU has no f64 LU.
 
+With f32 storage the Hessenberg matrix and the starts come in f32 and the
+reduced constraints in f64 (the solver's ``cdtype``): the KKT runs in the
+buffers' dtype, its inputs upcast (JAX ``kkt.py:60``), and every floor and
+tolerance here takes that dtype's eps.
+
 Masking: coefficients beyond the active Arnoldi prefix and constraints not
 yet enforced (the prototypical solver enforces them one by one, reference
 ``solvers.py:413``) are pinned via unit diagonal rows, so every solve has
@@ -102,7 +107,9 @@ def constrained_lsq(
     """
     k = H.shape[1]
     m = len(bufs)
-    dt = H.dtype
+    # the constraints' dtype (f64 over f32 storage): the KKT's
+    dt = bufs[0].t1.dtype if bufs else H.dtype
+    H, y0 = H.to(dt), y0.to(dt)
     act = active.to(dt)
     alphas = torch.as_tensor(_ALPHAS, dtype=dt)
     judged = bufs
@@ -223,6 +230,7 @@ def pins(bufs: Tuple[ReducedBuffers, ...], s0: Sequence,
     smallest of the starts' entry floors is satisfied by every iterate near
     them, and its Jacobian row is zero to roundoff (from a warm start swe's
     Krylov vectors carry no mass)."""
+    starts = starts.to(bufs[0].t1.dtype)
     eps = torch.finfo(starts.dtype).eps
     floor0 = min(
         max(10.0 * kkt_tol, 32.0 * eps * float(torch.max(torch.stack(
@@ -298,8 +306,10 @@ def kkt_model(H: torch.Tensor, beta: torch.Tensor,
     """The model on the first ``ka`` coefficients of each of B solves: H
     (B, k+1, k), beta (B,), the device buffers of ``device_buffers``, and
     ``s0`` (B, m) the roundoff scales of the constraints' values at x0
-    (``value_and_scale``)."""
-    Ha = H[:, : ka + 1, :ka]
+    (``value_and_scale``).  The model is in the buffers' dtype (f64 over
+    f32 storage), H and beta upcast."""
+    cd = bufs[0].t1.dtype
+    Ha, beta = H[:, : ka + 1, :ka].to(cd), beta.to(cd)
     return KKTModel(
         G2=2.0 * (Ha.mT @ Ha)[:, None], bf=(2.0 * beta[:, None] * Ha[:, 0])[:, None],
         t0=torch.stack([b.t0 for b in bufs], dim=-1)[:, None],

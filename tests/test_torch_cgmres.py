@@ -200,12 +200,16 @@ def test_ortho_and_preconditioner_spellings(systems):
 
 
 def test_solvers_refuse_f32_storage(systems):
+    """The solvers take f32 storage (``tests/test_torch_f32*.py``); a
+    storage dtype other than f64 and f32 is refused, on both loops."""
     _, ts = systems("easy")
-    b32 = ts.b.to(torch.float32)
-    with pytest.raises(NotImplementedError):
-        tsol.gmres(ts.A, b32, k=5)
-    with pytest.raises(NotImplementedError):
-        tsol.cgmres(ts.A, b32, k=5, constraints=ts.constraints())
+    b16 = ts.b.to(torch.float16)
+    for loop in ("host", "while"):
+        with pytest.raises(NotImplementedError):
+            tsol.gmres(ts.A, b16, k=5, loop=loop)
+        with pytest.raises(NotImplementedError):
+            tsol.cgmres(ts.A, b16, k=5, constraints=ts.constraints(),
+                        loop=loop)
 
 
 def _same_summary(new, rec, beta):

@@ -85,6 +85,11 @@ assert all(hasattr(scaling, nm) for nm in ("spmv_scaling", "solve_scaling",
 srows = scaling.solve_scaling("swe", M=8, k=15, tol=1e-8, device_counts=[1],
                               device="cpu")
 print("SCALING", [r["devices"] for r in srows], srows[0]["efficiency"])
+from structurepreservingiterativesolvers_torch.constraints import projection
+s32 = lkdv.linforms(M=50, degree=1, device="cpu", dtype=torch.float32)
+x32, info32 = cgmres(s32.A, s32.b, k=20, tol=1e-5, constraints=s32.constraints(),
+                     loop="while")
+print("F32", info32["safety"], x32.dtype, projection.snap_supported(s32.constraints()))
 assert "pandas" not in sys.modules and "matplotlib" not in sys.modules
 assert not any(m.split(".")[0] in ("jax", "structurepreservingiterativesolvers_tpu")
                for m in sys.modules if sys.modules[m] is not None)
@@ -110,6 +115,8 @@ def test_port_imports_and_solves_without_jax():
     assert "NATIVE False" not in proc.stdout
     # the distribution layer: the sharded solve's one-device row
     assert "SCALING [1] 1.0" in proc.stdout
+    # the f32 storage mode and its projection run without JAX
+    assert "F32 True torch.float32 True" in proc.stdout
     # the batched solve of the JAX package's own test runs without JAX
     assert "BATCHED [18, 18, 18] [1, 1, 1]" in proc.stdout
     # SingleSolve prints every invariant deviation of the three solvers;
