@@ -92,7 +92,7 @@ def _kind(name: str) -> str:
         return "fused polynomial kernel, tiled"
     if "cheb_kernel" in name or "neumann_kernel" in name:
         return "fused polynomial kernel, flat"
-    if "fused_update_matvec_kernel" in name or "sum_partials_kernel" in name:
+    if "fused_update_matvec_kernel" in name:
         return "fused CGS2 kernel"
     if "gemv" in name or "gemm" in name or "dot_kernel" in name:
         return "matrix-vector products (cuBLAS)"

@@ -37,7 +37,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops.sparse import f64_supported
-from .quadratic import QuadraticConstraint, value_f64
+from .quadratic import QuadraticConstraint, value_and_scale_f64, value_f64
 
 # Shrinking-window ladder of the JAX package (measured there, swe M=64..256
 # f32): two dense stages (0) remove any above-roundoff deviation; each
@@ -177,3 +177,31 @@ def snap(x: torch.Tensor, cons: Sequence[QuadraticConstraint],
         # a fresh f64 evaluation: the next round's entry and the certificate
         g = _deviations(cons, x)
     return x, g
+
+
+def certified_floor(cons: Sequence[QuadraticConstraint], x: torch.Tensor,
+                    ctol: float) -> torch.Tensor:
+    """(m,) f64: the deviation to which ``snap`` certifies each constraint
+    at the f32 iterate x it returns, the largest of ``ctol``, the f64
+    evaluation's roundoff 32·eps64·s (s the sum of the magnitudes of g's
+    terms, ``value_and_scale_f64``) and the rounding of a trim stage: a
+    stage over a window of w components moves each to a nearest f32, which
+    moves g by up to eps32·|x_i ∂g/∂x_i|/2 a component, so by up to
+    (w/2)·eps32·max_i |x_i ∂g/∂x_i(x)|, taken at the ladder's second
+    narrowest window (w = 32): the guard keeps the narrowest stage (8) only
+    where it improves, and with three constraints on a few hundred
+    unknowns (lkdv) it can end above its own bound.  An iterate the
+    projection did not move keeps the assembly's rounding, the sum of n
+    such moves.  No host read (the device core's ``snap`` graph calls
+    it)."""
+    eps64 = torch.finfo(torch.float64).eps
+    eps32 = torch.finfo(torch.float32).eps
+    xd = x.double()
+    out = []
+    for c in cons:
+        s = value_and_scale_f64(c, x)[1]
+        trim = (0.5 * _LADDER[-2] * eps32
+                * (xd * c.grad(x).double()).abs().amax())
+        out.append(torch.clamp(torch.maximum(32.0 * eps64 * s, trim),
+                               min=ctol))
+    return torch.stack(out)

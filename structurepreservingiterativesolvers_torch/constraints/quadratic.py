@@ -186,8 +186,10 @@ def stage_mapped(inner: QuadraticConstraint, b: torch.Tensor, dt: float,
     Mz0 = inner.M @ z0 if inner.M is not None else torch.zeros_like(z0)
     v_in = inner.v if inner.v is not None else torch.zeros_like(z0)
     Pt_w = (dt * torch.outer(b, Mz0 + v_in)).reshape(-1)
-    c = (inner.c + pdot(v_in, z0, inner.mesh)
-         + 0.5 * pdot(z0, Mz0, inner.mesh))
+    # g(z0): in f64 from an f32 z0 (``target_dot``), so that X = 0 meets
+    # the inner constraint's f64 target
+    c = (inner.c + target_dot(v_in, z0, inner.mesh)
+         + 0.5 * target_quad(inner.M, z0, inner.mesh, Mz=Mz0))
     M = (StageKron(inner.M, b, float(dt), int(ns))
          if inner.M is not None else None)
     return QuadraticConstraint(M=M, v=Pt_w, c=c, name=inner.name,
@@ -224,6 +226,29 @@ def value_and_scale_f64(con: QuadraticConstraint, x: torch.Tensor):
                          *(psum(torch.stack(terms), con.mesh)
                            if terms else ())])
     return terms.sum(), terms.abs().sum()
+
+
+def target_dot(a: torch.Tensor, z: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``a·z`` for an invariant target taken from the state z: from f32
+    storage the f64 sum of the upcast vectors, as ``value_f64`` evaluates
+    a linear term, so that the next step's warm start z meets its own
+    target to f64 roundoff; from f64 storage ``pdot``, bit for bit."""
+    if z.dtype == torch.float32:
+        return pdot(a.double(), z.double(), mesh)
+    return pdot(a, z, mesh)
+
+
+def target_quad(M, z: torch.Tensor, mesh=None,
+                Mz: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``z·(M z)`` for an invariant target taken from the state z: from f32
+    storage in f64 (``matvec_f64``, an f64 sum), as ``value_f64``
+    evaluates a quadratic term (zero for M None); from f64 storage
+    ``pdot(z, Mz)``, with ``Mz`` the product where the caller has it."""
+    if z.dtype == torch.float32:
+        if M is None:
+            return torch.zeros((), dtype=torch.float64, device=z.device)
+        return pdot(z.double(), matvec_f64(M, z), mesh)
+    return pdot(z, M @ z if Mz is None else Mz, mesh)
 
 
 def value_f64(con: QuadraticConstraint, x: torch.Tensor) -> torch.Tensor:

@@ -45,7 +45,7 @@ from .config import DEFAULT_DTYPE
 from .models import heat, lkdv, lkdvrk, swe
 from .ops.sparse import BSR, DIA, from_scipy
 from .ops.stencil import maybe_stencil
-from .precond import amg as _amg
+from .precond.amg import AMG, BoxProlong, BoxRestrict, _Level
 from .precond.jacobi import RAS, BlockJacobi
 
 
@@ -159,7 +159,7 @@ def ras_from_arrays(idx, inv, own, *, device) -> RAS:
                own=torch.tensor(np.asarray(own, dtype=bool), device=device))
 
 
-def amg_hierarchy(levels, coarse_inv, nu: int, *, device) -> _amg.AMG:
+def amg_hierarchy(levels, coarse_inv, nu: int, *, device) -> AMG:
     """The port's AMG on the exported levels of a JAX hierarchy, so the
     V-cycle can be compared apart from the setup."""
     out = []
@@ -167,19 +167,19 @@ def amg_hierarchy(levels, coarse_inv, nu: int, *, device) -> _amg.AMG:
         A = dia(lv["A"][0], lv["A"][1], False, device=device)
         dinv = _tensor(lv["dinv"], device)
         if "SP" not in lv:
-            out.append(_amg._Level(A=A, P=None, R=None, dinv=dinv,
+            out.append(_Level(A=A, P=None, R=None, dinv=dinv,
                                    omega=float(lv["omega"])))
             continue
         grid = dict(C1=int(lv["C1"]), C2=int(lv["C2"]), b=int(lv["box"]),
                     Cc1=int(lv["Cc1"]), Cc2=int(lv["Cc2"]))
-        out.append(_amg._Level(
+        out.append(_Level(
             A=A,
-            P=_amg.BoxProlong(S=dia(lv["SP"], A.offsets, False, device=device),
+            P=BoxProlong(S=dia(lv["SP"], A.offsets, False, device=device),
                               **grid),
-            R=_amg.BoxRestrict(S=dia(lv["SR"], A.offsets, False, device=device),
+            R=BoxRestrict(S=dia(lv["SR"], A.offsets, False, device=device),
                                **grid),
             dinv=dinv,
             omega=float(lv["omega"]),
         ))
-    return _amg.AMG(levels=tuple(out), coarse_inv=_tensor(coarse_inv, device),
+    return AMG(levels=tuple(out), coarse_inv=_tensor(coarse_inv, device),
                     nu=int(nu))

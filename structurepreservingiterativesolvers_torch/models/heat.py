@@ -33,7 +33,7 @@ import scipy.sparse as sp
 import torch
 
 from ..config import DEFAULT_DTYPE
-from ..constraints.quadratic import QuadraticConstraint
+from ..constraints.quadratic import QuadraticConstraint, target_dot, target_quad
 from ..ops.sparse import from_scipy
 from ..ops.stencil import maybe_stencil
 from ..parallel.comm import mesh_of, pdot
@@ -117,7 +117,8 @@ class System:
     def step_update(self, z_prev: torch.Tensor) -> "System":
         """The next step's system from a solution, on the system's device:
         b, the energy constraint's linear term and the invariant targets
-        re-seeded, the operators reused."""
+        re-seeded, the operators reused.  The targets are f64 sums from an
+        f32 state (``target_dot``)."""
         dt_step = self.prob.dt
         Lz0 = self.Lmat @ z_prev
         Mu0 = self.Mmat @ z_prev
@@ -127,9 +128,9 @@ class System:
             b=Mu0 / dt_step - 0.5 * Lz0,
             z0=z_prev,
             Lz0=Lz0,
-            m0=pdot(self.omega, z_prev, mesh),
-            old_energy=0.5 * pdot(z_prev, Mu0, mesh)
-            - 0.25 * dt_step * pdot(z_prev, Lz0, mesh),
+            m0=target_dot(self.omega, z_prev, mesh),
+            old_energy=0.5 * target_quad(self.Mmat, z_prev, mesh, Mz=Mu0)
+            - 0.25 * dt_step * target_quad(self.Lmat, z_prev, mesh, Mz=Lz0),
         )
 
 

@@ -24,7 +24,7 @@ import scipy.sparse as sp
 import torch
 
 from ..config import DEFAULT_DTYPE
-from ..constraints.quadratic import QuadraticConstraint
+from ..constraints.quadratic import QuadraticConstraint, target_dot, target_quad
 from ..ops.sparse import from_scipy
 from .fem1d import Space1D
 
@@ -106,7 +106,8 @@ class System:
         """The next step's system from a solution: b and the invariant
         targets re-seeded on the system's device, the operators reused (the
         reference reassembles the whole system every step,
-        lkdv/Evolve.py:57-59)."""
+        lkdv/Evolve.py:57-59).  The targets are f64 sums from an f32 state
+        (``target_dot``)."""
         dt_step = self.prob.T / self.prob.N
         u0, _, w0 = torch.split(z_prev, self.n0)
         Mu0 = self.Mmat @ u0
@@ -119,9 +120,10 @@ class System:
             self,
             b=b,
             z0=z_prev,
-            m0=torch.dot(self.omega, u0),
-            mo0=0.5 * torch.dot(u0, Mu0),
-            e0=0.5 * torch.dot(w0, self.Mmat @ w0) - 0.5 * torch.dot(u0, Mu0),
+            m0=target_dot(self.omega, u0),
+            mo0=0.5 * target_quad(self.Mmat, u0, Mz=Mu0),
+            e0=0.5 * target_quad(self.Mmat, w0)
+            - 0.5 * target_quad(self.Mmat, u0, Mz=Mu0),
         )
 
 

@@ -34,7 +34,12 @@ import scipy.sparse.linalg as spla
 import torch
 
 from ..config import DEFAULT_DTYPE
-from ..constraints.quadratic import QuadraticConstraint, stage_mapped
+from ..constraints.quadratic import (
+    QuadraticConstraint,
+    stage_mapped,
+    target_dot,
+    target_quad,
+)
 from ..ops.sparse import bsr_from_scipy, from_scipy
 from ..ops.stencil import maybe_stencil
 from .fem1d import Space1D
@@ -169,13 +174,15 @@ class System:
                              torch.zeros(2 * n0, dtype=u1.dtype,
                                          device=u1.device)])
         Mu = self.Mmat @ u1
+        # the targets: f64 sums from an f32 state (``target_dot``)
         return dataclasses.replace(
             self,
             b=b_stage.repeat(self.prob.ns),
             z0=torch.cat([u1, v0, w0]),
-            m0=torch.dot(self.omega, u1),
-            mo0=0.5 * torch.dot(u1, Mu),
-            e0=0.5 * torch.dot(w0, self.Mmat @ w0) - 0.5 * torch.dot(u1, Mu),
+            m0=target_dot(self.omega, u1),
+            mo0=0.5 * target_quad(self.Mmat, u1, Mz=Mu),
+            e0=0.5 * target_quad(self.Mmat, w0)
+            - 0.5 * target_quad(self.Mmat, u1, Mz=Mu),
         )
 
     def compute_error(self, zbig: torch.Tensor, t: float) -> float:

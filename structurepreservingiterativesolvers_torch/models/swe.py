@@ -25,7 +25,7 @@ import scipy.sparse as sp
 import torch
 
 from ..config import DEFAULT_DTYPE
-from ..constraints.quadratic import QuadraticConstraint
+from ..constraints.quadratic import QuadraticConstraint, target_dot, target_quad
 from ..ops.sparse import from_scipy
 from ..parallel.comm import mesh_of, pdot
 
@@ -118,13 +118,15 @@ class System:
     def step_update(self, z_prev: torch.Tensor) -> "System":
         """The next step's system on the system's device.  Since
         A = I/dt − S/2, b = (I/dt + S/2) z = 2z/dt − A z: one product, no
-        reassembly."""
+        reassembly.  The targets are f64 sums from an f32 state
+        (``target_dot``)."""
+        mesh = mesh_of(self.A)
         return dataclasses.replace(
             self,
             b=2.0 * z_prev / self.prob.dt - (self.A @ z_prev),
             z0=z_prev,
-            m0=pdot(self.omega, z_prev, mesh_of(self.A)),
-            e0=0.5 * pdot(z_prev, self.Lfull @ z_prev, mesh_of(self.A)),
+            m0=target_dot(self.omega, z_prev, mesh),
+            e0=0.5 * target_quad(self.Lfull, z_prev, mesh),
         )
 
 

@@ -1,4 +1,8 @@
-from .base import apply_preconditioner, as_preconditioner  # noqa: F401
+from .base import (  # noqa: F401
+    IdentityPreconditioner,
+    apply_preconditioner,
+    as_preconditioner,
+)
 from .chebyshev import (  # noqa: F401
     Chebyshev,
     Neumann,
@@ -20,3 +24,5 @@ from .jacobi import (  # noqa: F401
     jacobi,
     ras,
 )
+from .amg import AMG, amg  # noqa: F401
+from .ilu_oracle import DenseApply, direct_oracle, ilu_oracle  # noqa: F401

@@ -31,3 +31,14 @@ def as_preconditioner(pre) -> Callable:
 def apply_preconditioner(pre, v):
     """Apply any accepted preconditioner spelling to a vector."""
     return as_preconditioner(pre)(v)
+
+
+class IdentityPreconditioner:
+    """Explicit identity (for API symmetry with the reference's
+    ``sps.identity`` placeholder, solvers.py:62)."""
+
+    def __call__(self, v):
+        return v
+
+    def solve(self, v):
+        return v

@@ -53,8 +53,10 @@ double-f32 pairs) or, from a zero start, the plain f32 one (``f32_reduce``,
 the snap-first mode, whose latch floor is eps32's); and the returned
 iterate is projected onto the invariants (``snap``,
 ``constraints/projection.py``) where the latch is OK, its ``deviation``
-then the certified f64 value at the returned x.  With f64 storage all three
-resolve off and nothing changes.
+then the certified f64 value at the returned x.  From a given start with
+the projection (``floor_eps``), the endgame's floors are eps32's and that
+certificate, against ``certified_floor``, sets the latch.  With f64
+storage all three resolve off and nothing changes.
 
 Both loops take row-sharded operands (``parallel/``): the solver finds the
 mesh on A, every n-length reduction is all-reduced over it
@@ -72,7 +74,7 @@ import dataclasses
 import functools
 import time
 import warnings
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,7 +86,11 @@ from ..constraints.general import (
     taylor_model,
     true_value,
 )
-from ..constraints.projection import snap as snap_iterate, snap_supported
+from ..constraints.projection import (
+    certified_floor,
+    snap as snap_iterate,
+    snap_supported,
+)
 from ..constraints.quadratic import (
     MatComb,
     QuadraticConstraint,
@@ -140,7 +146,7 @@ DIVERGED_SCALE = 1e8
 
 
 def _take_fresh(warm, fresh, r_warm: float, r_fresh: float, scale_fb: float,
-                ctol: float, dt: torch.dtype) -> bool:
+                ctol: float, dt: torch.dtype, eps: float = None) -> bool:
     """The dual start's choice: whether the candidate from the fresh LSQ
     start replaces the one from the previous coefficients.  Feasible first,
     then the smaller Hessenberg residual; a NaN candidate is never taken.
@@ -151,8 +157,10 @@ def _take_fresh(warm, fresh, r_warm: float, r_fresh: float, scale_fb: float,
     ``DIVERGED_SCALE`` times that or more is infeasible.  The JAX package
     judges each candidate against its own scale (``cgmres.py:331-337``), so
     there a diverged candidate, whose inflated scale inflates its floor past
-    its deviation, counts as feasible and can displace a sane one."""
-    floor = max(ctol, 32.0 * torch.finfo(dt).eps * scale_fb)
+    its deviation, counts as feasible and can displace a sane one.
+    ``eps``: the floor's (None: ``dt``'s; ``floor_eps``)."""
+    eps = torch.finfo(dt).eps if eps is None else eps
+    floor = max(ctol, 32.0 * eps * scale_fb)
     cap = DIVERGED_SCALE * max(scale_fb, torch.finfo(dt).tiny)
 
     def merit(kk, r):
@@ -229,6 +237,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def floor_eps(cd: torch.dtype, f32r: bool,
+              warm32: bool) -> Tuple[float, float]:
+    """The eps of the endgame's roundoff floors (32·eps·scale): the Newton's
+    entry floor, the pins and the dual start's, then the latch's.  cdtype's
+    with f64 storage and from a zero start; under the f32 reduction
+    (``f32r``, zero starts only) the JAX package's (the latch at eps32, the
+    rest at cdtype's: ``cgmres.py:426-428`` there); and, the port's, every
+    one at eps32 over f32 storage with the projection from a given start
+    (``warm32``): an f32 Krylov basis carries the invariants to f32 roundoff
+    only (a warm start's vectors leak swe's mass at eps32), so no
+    coefficients meet an f64 floor there.  The latch then says only that
+    the reduced problem was solved to f32 roundoff: the solve judges the
+    returned iterate after the projection instead, by its f64 certificate
+    (``constraints/projection.py::certified_floor``)."""
+    e32, e = torch.finfo(torch.float32).eps, torch.finfo(cd).eps
+    return (e32 if warm32 else e), (e32 if warm32 or f32r else e)
+
+
 class _Solve:
     """The state of one CGMRES solve; ``run`` drives it to the end."""
 
@@ -257,6 +283,10 @@ class _Solve:
         self.f32r = f32_reduce and self.x0_zero
         self.f64 = self.dt == torch.float32 and mixed and not self.f32r
         self.f64_value = self.dt == torch.float32 and mixed
+        self.warm32 = (self.dt == torch.float32 and self.snap
+                       and not self.x0_zero)
+        self.kkt_eps, self.latch_eps = floor_eps(self.cd, self.f32r,
+                                                 self.warm32)
 
     # --- coefficient solves -------------------------------------------------
 
@@ -290,12 +320,13 @@ class _Solve:
         pin = None
         if not self.prototypical:
             pin = pins(bufs, s0, self.linear, torch.stack([yk, y_unc]),
-                       con_mask, kkt_tol)
+                       con_mask, kkt_tol, eps=self.kkt_eps)
         # multipliers and the KKT inverse are carried across gated
         # iterations; prototypical mode re-factors because its enforced set
         # changes every iteration
         kkt = constrained_lsq(
             H, beta, bufs, yk, active, con_mask, kkt_tol=kkt_tol,
+            eps=self.kkt_eps,
             lam_ws=lamc, Kinv_ws=Kinvc,
             have_ws=False if self.prototypical else haveK, pin=pin, s0=s0,
         )
@@ -318,9 +349,10 @@ class _Solve:
             # feasible basins and neither start dominates, so solve from the
             # fresh LSQ start too and keep the better candidate
             kkt_f = constrained_lsq(H, beta, bufs, y_unc, active, con_mask,
-                                    kkt_tol=kkt_tol, pin=pin, s0=s0)
+                                    kkt_tol=kkt_tol, pin=pin, s0=s0,
+                                    eps=self.kkt_eps)
             if _take_fresh(kkt, kkt_f, residual(kkt), residual(kkt_f),
-                           scale_fb, self.ctol, cd):
+                           scale_fb, self.ctol, cd, eps=self.kkt_eps):
                 kkt = kkt_f
         bad = bool(torch.any(torch.isnan(kkt.y)))
         # far-branch rejection: the Newton-KKT iteration can converge to a
@@ -347,10 +379,8 @@ class _Solve:
                                 abs(float(true_value(c, y, st.Z, self.x0))))
         # NaN fallback leaves the latch untouched; success sets it; a
         # deviation above the tolerance trips it.  The tolerance is floored
-        # at the evaluation-roundoff scale of the constraint: eps32's under
-        # the f32 reduction, cdtype's else (JAX cgmres.py:426-428)
-        eps = torch.finfo(torch.float32 if self.f32r else cd).eps
-        floor = max(self.ctol, 32.0 * eps * scale)
+        # at the evaluation-roundoff scale of the constraint (``floor_eps``)
+        floor = max(self.ctol, 32.0 * self.latch_eps * scale)
         if not bad:
             safety = _SAFETY_BAD if deviation > floor else _SAFETY_OK
         return (y, safety, deviation, kkt.iters, int(bad), kkt.lam, kkt.Kinv,
@@ -453,6 +483,10 @@ class _Solve:
             t_snap = time.perf_counter()
             x, g = snap_iterate(x, self.quad)
             dev_j = float(g.abs().max())
+            if self.warm32:
+                # the latch's floors were eps32's: the certificate decides
+                held = g.abs() <= certified_floor(self.quad, x, self.ctol)
+                safety = _SAFETY_OK if bool(held.all()) else _SAFETY_BAD
             t_snap = time.perf_counter() - t_snap
         _sync(dev)
         t_end = time.perf_counter()
@@ -652,6 +686,8 @@ class DeviceCore:
         self.f32r = bool(f32_reduce) and self.x0_zero
         self.f64 = dt == torch.float32 and mixed and not self.f32r
         self.f64_value = dt == torch.float32 and mixed
+        self.warm32 = dt == torch.float32 and self.snap and not self.x0_zero
+        self.kkt_eps, self.latch_eps = floor_eps(cd, self.f32r, self.warm32)
         self.kkt_tol = max(self.ctol * 0.1, 100.0 * torch.finfo(cd).eps)
 
         def z(*shape, dtype=dt):
@@ -659,11 +695,14 @@ class DeviceCore:
 
         self.b, self.x0 = z(n), z(n)
         # a quadratic constraint's c and v are loaded into static buffers; a
-        # general one is its function, which the steps call
+        # general one is its function, which the steps call.  Over f32
+        # storage c is held in f64: a target the models sum in f64 from an
+        # f32 state (``constraints/quadratic.py::target_dot``) keeps its bits
+        cdt = torch.float64 if dt == torch.float32 else dt
         self.cons = tuple(
             c if g else QuadraticConstraint(
-                M=c.M, v=None if c.v is None else z(n), c=z(), name=c.name,
-                mesh=c.mesh)
+                M=c.M, v=None if c.v is None else z(n), c=z(dtype=cdt),
+                name=c.name, mesh=c.mesh)
             for c, g in zip(cons, self.general))
         self.st = device_state(n, k, dt, like.device, B)
         self.bufs = tuple(device_buffers(k, like, B, dtype=cd) for _ in cons)
@@ -698,8 +737,9 @@ class DeviceCore:
         resolved launch (the AMG's levels and smoothers among them: one
         preconditioner apply on the core's block), the polynomial kernels'
         plans and shared-memory attribute, the cuBLAS handles on the
-        capture stream, and the fused CGS2 kernel's per-m attribute and
-        occupancy; and one Taylor model of each general constraint, which
+        capture stream, and the fused CGS2 kernel's scratch (its blocks'
+        partials and ticket counter, allocated once a device and dtype) and
+        shared-memory attribute at every basis size; and one Taylor model of each general constraint, which
         builds the transposes, plans and launches its derivatives take.
         Under a mesh, first one all-reduce, which creates the collectives'
         communicator on this stream: a communicator is not created inside a
@@ -996,7 +1036,8 @@ class DeviceCore:
                          dim=1).to(self.cd)
         have = torch.stack([self.haveK, torch.zeros_like(self.haveK)], dim=1)
         kkt_start(self._model(j), self.work, y0, have, self.lamc,
-                  self.Kinvc[:, :na, :na], self.kkt_tol, self.linear, mask)
+                  self.Kinvc[:, :na, :na], self.kkt_tol, self.linear, mask,
+                  eps=self.kkt_eps)
         self._set_kflags()
 
     def _kkt_step(self, j: int) -> None:
@@ -1010,8 +1051,8 @@ class DeviceCore:
         mask = self._open()
         mod, w, dt, cd = self._model(j), self.work, self.b.dtype, self.cd
         ka, na, k, B = j + 1, self.m + j + 1, self.k, self.B
-        # the dual start's floor at cdtype's eps (JAX cgmres.py:335)
-        eps, tiny = torch.finfo(cd).eps, torch.finfo(cd).tiny
+        # the dual start's floor (JAX cgmres.py:335; ``floor_eps``)
+        eps, tiny = self.kkt_eps, torch.finfo(cd).tiny
         Y, y_unc, beta = (w.y[..., :ka], self.y_unc[:, :ka].to(cd),
                           self.beta.to(cd))
         dev_c = kkt_values(mod, Y)[0].abs().amax(-1)
@@ -1055,10 +1096,8 @@ class DeviceCore:
                 # the Taylor model is exact for a quadratic g; a general g
                 # is checked at the accepted coefficients (B = 1)
                 deviation = torch.maximum(deviation, con.func(x[0]).abs())
-        # the latch's floor: eps32's under the f32 reduction (JAX
-        # cgmres.py:426-428)
-        eps_latch = torch.finfo(torch.float32 if self.f32r else cd).eps
-        floor = torch.clamp(32.0 * eps_latch * scale, min=self.ctol)
+        # the latch's floor (``floor_eps``)
+        floor = torch.clamp(32.0 * self.latch_eps * scale, min=self.ctol)
         safety = torch.where(bad, self.safety, torch.where(
             deviation > floor, _SAFETY_BAD, _SAFETY_OK))
         self.safety.copy_(torch.where(mask, safety, self.safety))
@@ -1077,7 +1116,9 @@ class DeviceCore:
         """The projection epilogue of each solve whose latch is OK (JAX
         ``cgmres.py:544-560``): its iterate onto the invariants of its
         loaded targets, its deviation the certified f64 value at the
-        returned x; the others keep theirs."""
+        returned x; the others keep theirs.  From a given start
+        (``warm32``) the certificate then sets the latch
+        (``certified_floor``)."""
         ok = self.safety == _SAFETY_OK
         for b in range(self.B):
             cons = [QuadraticConstraint(
@@ -1086,6 +1127,11 @@ class DeviceCore:
             x_sn, g = snap_iterate(self.x[b], cons)
             self.x[b] = torch.where(ok[b], x_sn, self.x[b])
             self.dev[b] = torch.where(ok[b], g.abs().amax(), self.dev[b])
+            if self.warm32:
+                held = (g.abs() <= certified_floor(cons, x_sn,
+                                                   self.ctol)).all()
+                self.safety[b] = torch.where(ok[b] & ~held, _SAFETY_BAD,
+                                             self.safety[b])
 
 
 def _con_key(c):

@@ -87,6 +87,7 @@ def constrained_lsq(
     max_refacts: int = 4,
     pin: torch.Tensor = None,  # (m,) bool — constraints pinned (``pins``)
     s0: Sequence = None,  # (m,) roundoff scales of g(x0), or None each
+    eps: float = None,  # the entry floor's eps (None: the buffers' dtype's)
 ) -> KKTResult:
     """Modified-Newton SQP on the KKT conditions.
 
@@ -141,7 +142,7 @@ def constrained_lsq(
         K = torch.cat([torch.cat([W, Jm.T], dim=1), torch.cat([Jm, D], dim=1)])
         return torch.linalg.inv_ex(K).inverse
 
-    eps = torch.finfo(dt).eps
+    eps = torch.finfo(dt).eps if eps is None else eps
 
     s0 = [None] * m if s0 is None else list(s0)
 
@@ -223,15 +224,16 @@ def constrained_lsq(
 
 def pins(bufs: Tuple[ReducedBuffers, ...], s0: Sequence,
          linear: torch.Tensor, starts: torch.Tensor, con_mask: torch.Tensor,
-         kkt_tol: float) -> torch.Tensor:
+         kkt_tol: float, eps: float = None) -> torch.Tensor:
     """The constraints a modified Newton from the starts (S, k) pins, as
     ``kkt_start`` pins them on the device: a ``linear`` (m,) constraint
     whose value at every start, summand by summand, lies within the
     smallest of the starts' entry floors is satisfied by every iterate near
     them, and its Jacobian row is zero to roundoff (from a warm start swe's
-    Krylov vectors carry no mass)."""
+    Krylov vectors carry no mass).  ``eps``: the floors' (None: the
+    buffers' dtype's)."""
     starts = starts.to(bufs[0].t1.dtype)
-    eps = torch.finfo(starts.dtype).eps
+    eps = torch.finfo(starts.dtype).eps if eps is None else eps
     floor0 = min(
         max(10.0 * kkt_tol, 32.0 * eps * float(torch.max(torch.stack(
             [reduced_scale(b, y, s) for b, s in zip(bufs, s0)]) * con_mask)))
@@ -428,7 +430,7 @@ def _going(mod, work, na, m, kkt_tol, maxiter):
 def kkt_start(mod: KKTModel, work: KKTWork, y0: torch.Tensor,
               have: torch.Tensor, lam_ws: torch.Tensor, Kinv_ws: torch.Tensor,
               kkt_tol: float, linear: torch.Tensor, live: torch.Tensor,
-              maxiter: int = 40) -> None:
+              maxiter: int = 40, eps: float = None) -> None:
     """Set up the modified Newton of each of B solves from its starts y0
     (B, S, ka): the least-squares multiplier estimate, the residual and the
     factorisation, or, where ``have`` (B, S), the solve's warm multipliers
@@ -444,11 +446,12 @@ def kkt_start(mod: KKTModel, work: KKTWork, y0: torch.Tensor,
     matrix singular, so the Newton stalls and the solve runs to k.)  A
     pinned constraint leaves the Newton (``pinned``); ``kkt_step`` and
     ``kkt_refactor`` take the model with ``work.pin``, and the caller judges
-    the result on the unpinned values."""
+    the result on the unpinned values.  ``eps``: the entry floor's (None:
+    y0's dtype's)."""
     B, S, ka = y0.shape
     m = mod.t0.shape[-1]
     na = m + ka
-    eps = torch.finfo(y0.dtype).eps
+    eps = torch.finfo(y0.dtype).eps if eps is None else eps
     work.floor0.copy_(torch.clamp(32.0 * eps * kkt_scale(mod, y0),
                                   min=10.0 * kkt_tol))
     reach = mod.t0.abs() + (mod.t1.abs() @ y0.abs().amax(1)[:, None, :, None])[..., 0]

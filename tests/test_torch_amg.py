@@ -20,9 +20,17 @@ import torch
 
 import torch_parity
 from structurepreservingiterativesolvers_torch import interop
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.models import heat as theat
-from structurepreservingiterativesolvers_torch.precond import amg as tamg
+
+# the module (the precond package exports a function of the same name,
+# as the JAX package's does)
+tamg = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.precond.amg")
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 # the JAX package's precond namespace exports a function of this name
 jamg = importlib.import_module("structurepreservingiterativesolvers_tpu.precond.amg")

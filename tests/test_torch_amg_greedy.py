@@ -25,9 +25,13 @@ import torch
 
 import torch_parity
 from structurepreservingiterativesolvers_torch.ops import sparse as tsp
-from structurepreservingiterativesolvers_torch.precond import amg as tamg
 from structurepreservingiterativesolvers_tpu.models import heat as jheat
 from structurepreservingiterativesolvers_tpu.ops.sparse import to_scipy
+
+# the module (the precond package exports a function of the same name,
+# as the JAX package's does)
+tamg = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.precond.amg")
 
 # each package's precond namespace exports functions of these names
 jamg = importlib.import_module("structurepreservingiterativesolvers_tpu.precond.amg")

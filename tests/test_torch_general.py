@@ -11,6 +11,7 @@ which the JAX package runs unpreconditioned, is held against the JAX
 record (``reference/slice7.json``): steps within one, the same safety.
 """
 
+import importlib
 import json
 
 import numpy as np
@@ -19,10 +20,14 @@ import torch
 
 import torch_parity
 from structurepreservingiterativesolvers_torch.constraints import GeneralConstraint
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.experiments.cli import main
 from structurepreservingiterativesolvers_torch.models import lkdv, lkdvrk
 from structurepreservingiterativesolvers_torch.solvers import cgmres, cgmres_p
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 RECORD = (torch_parity.ROOT / "structurepreservingiterativesolvers_torch"
           / "reference" / "slice7.json")

@@ -23,11 +23,15 @@ import torch
 
 import torch_parity
 from structurepreservingiterativesolvers_torch import solvers as tsol
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.models import heat as theat
 from structurepreservingiterativesolvers_torch.ops.stencil import Stencil
 from structurepreservingiterativesolvers_tpu import solvers as jsol
 from structurepreservingiterativesolvers_tpu.models import heat as jheat
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 # the JAX package's experiments namespace exports a function of this name
 jts = importlib.import_module(

@@ -31,7 +31,6 @@ import torch
 import torch_parity
 from structurepreservingiterativesolvers_torch import interop
 from structurepreservingiterativesolvers_torch import precond as tprecond
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.experiments.batched import (
     cgmres_many,
 )
@@ -40,6 +39,11 @@ from structurepreservingiterativesolvers_torch.kernels import stencil_spmv as tk
 from structurepreservingiterativesolvers_torch.models import heat as theat
 from structurepreservingiterativesolvers_tpu import precond as jprecond
 from structurepreservingiterativesolvers_tpu.models import heat as jheat
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 # the module (the solvers package exports a function of the same name)
 tcgmres = importlib.import_module(

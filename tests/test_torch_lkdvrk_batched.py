@@ -29,7 +29,6 @@ import torch
 import torch_parity
 from structurepreservingiterativesolvers_torch import interop
 from structurepreservingiterativesolvers_torch.constraints import GeneralConstraint
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.experiments.batched import (
     batch_constraints,
     cgmres_many,
@@ -39,6 +38,11 @@ from structurepreservingiterativesolvers_torch.precond.chebyshev import (
     neumann_composite,
 )
 from structurepreservingiterativesolvers_tpu.models import lkdvrk as jlkdvrk
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 # the modules (their packages export functions of the same names)
 tcgmres = importlib.import_module(

@@ -36,11 +36,15 @@ import torch
 import torch_parity
 from structurepreservingiterativesolvers_torch.constraints import GeneralConstraint
 from structurepreservingiterativesolvers_torch.experiments import error_sweep
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.experiments.evolve import (
     fused_evolve,
 )
 from structurepreservingiterativesolvers_torch.models import lkdv, lkdvrk
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 # the module (the solvers package exports a function of its name)
 tcgmres = importlib.import_module(

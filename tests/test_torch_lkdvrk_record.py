@@ -12,6 +12,7 @@ b) relative of the record's, and its mass drift at most 1e-9.  At degree
 five steps in, and the next step's system is built from its iterate.
 """
 
+import importlib
 import dataclasses
 import os
 import pickle
@@ -23,10 +24,14 @@ import torch
 
 import torch_parity
 from structurepreservingiterativesolvers_torch.experiments import error_sweep
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.experiments import wrappers
 from structurepreservingiterativesolvers_torch.experiments.evolve import evolve
 from structurepreservingiterativesolvers_torch.models import lkdvrk
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 RECORD = torch_parity.slice7()
 check_runs = torch_parity.check_lkdvrk_runs

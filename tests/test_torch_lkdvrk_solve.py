@@ -11,6 +11,7 @@ safety, a KKT deviation of at most 1e-10 and iterates within 1e-8
 relative.
 """
 
+import importlib
 import math
 
 import jax.numpy as jnp
@@ -23,7 +24,6 @@ import torch_parity
 from structurepreservingiterativesolvers_torch import interop
 from structurepreservingiterativesolvers_torch import precond as tpre
 from structurepreservingiterativesolvers_torch import solvers as tsol
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.models import lkdvrk as tlkdvrk
 from structurepreservingiterativesolvers_tpu import precond as jpre
 from structurepreservingiterativesolvers_tpu import solvers as jsol
@@ -34,6 +34,11 @@ from structurepreservingiterativesolvers_tpu.models import lkdvrk as jlkdvrk
 from structurepreservingiterativesolvers_tpu.precond.base import (
     apply_preconditioner as j_apply,
 )
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 PARAMS = dict(N=10, M=50, degree=3, tstages=2)
 K, TOL = 60, 1e-8  # tests/test_ilu_parity.py's solves

@@ -11,7 +11,8 @@ kernels, imports the reporting module, and checks that none of these pulls
 in pandas or matplotlib; and imports the distribution layer (``parallel/``,
 with every public name of the JAX package's ``parallel/__init__.py``) and
 ``experiments/scaling.py``, and runs a sharded solve's scaling row in a
-world of one gloo process."""
+world of one gloo process.  The package's surface is the JAX package's,
+importable without JAX, matplotlib or pandas."""
 
 import re
 import subprocess
@@ -130,6 +131,60 @@ def test_port_imports_and_solves_without_jax():
     # the Evolve drifts of mass and energy, at roundoff
     drifts = re.findall(r"^final d(?:m|e): (\S+)$", proc.stdout, re.M)
     assert len(drifts) == 2 and max(float(d) for d in drifts) <= 1e-9
+
+
+SURFACE = r"""
+import sys
+for name in ("jax", "structurepreservingiterativesolvers_tpu", "matplotlib",
+             "pandas"):
+    sys.modules[name] = None  # any import of these now raises ImportError
+import structurepreservingiterativesolvers_torch as spt
+from structurepreservingiterativesolvers_torch.kernels import build
+for sub in ("config", "ops", "solvers", "constraints", "precond", "models",
+            "parallel", "experiments", "utils", "kernels"):
+    assert sub in spt.__all__ and hasattr(spt, sub), sub
+for sub in ("fem1d", "fem2d", "fixtures", "heat", "lkdv", "lkdvrk", "swe",
+            "tableaux"):
+    assert hasattr(spt.models, sub), sub
+for name in ("error_sweep", "report", "wrappers", "deviation_plotter",
+             "evolve", "single_solve", "time_cgmres", "timed_solve",
+             "scaling", "batched"):
+    assert hasattr(spt.experiments, name), name
+for name in ("IdentityPreconditioner", "AMG", "amg", "DenseApply",
+             "direct_oracle", "ilu_oracle", "as_preconditioner"):
+    assert hasattr(spt.precond, name), name
+for name in ("checkpoint", "native", "profiling"):
+    assert hasattr(spt.utils, name), name
+ident = spt.precond.IdentityPreconditioner()
+import torch
+v = torch.arange(3.0)
+assert ident(v) is v and ident.solve(v) is v
+# the quick start's spelling, on the CPU
+s = spt.models.lkdv.linforms(M=20, degree=1, device="cpu")
+x, info = spt.solvers.cgmres(s.A, s.b, k=20, tol=1e-8,
+                             constraints=s.constraints())
+assert info["safety"] is True
+# importing built and loaded no kernel and started no process group
+assert build.build.cache_info().currsize == 0
+assert build.load.cache_info().currsize == 0
+import torch.distributed as dist
+assert not (dist.is_available() and dist.is_initialized())
+print("SURFACE OK")
+"""
+
+
+def test_package_surface_without_jax():
+    """``import structurepreservingiterativesolvers_torch as spt`` binds the
+    JAX package's subpackages (``models``, ``parallel``, ``experiments``,
+    ``utils``) and exports its names of ``experiments``, ``models`` and
+    ``precond`` (``IdentityPreconditioner``, ``AMG``, ``amg``, the
+    oracles), where neither JAX, the JAX package, matplotlib nor pandas
+    can be imported; the quick start runs as written, and the import
+    builds no kernel and starts no process group."""
+    proc = subprocess.run([sys.executable, "-c", SURFACE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "SURFACE OK" in proc.stdout
 
 
 def test_port_sources_never_import_jax():

@@ -24,7 +24,11 @@ import scipy.sparse as sp
 import torch
 
 import torch_parity
-from structurepreservingiterativesolvers_torch.precond import ilu_oracle as toracle
+
+# the module (the precond package exports a function of the same name,
+# as the JAX package's does)
+toracle = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.precond.ilu_oracle")
 
 REC = json.loads((torch_parity.ROOT / "structurepreservingiterativesolvers_torch"
                   / "reference" / "slice13.json").read_text())

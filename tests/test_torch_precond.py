@@ -27,7 +27,6 @@ import torch
 import torch_parity
 from structurepreservingiterativesolvers_torch import precond as tpre
 from structurepreservingiterativesolvers_torch import solvers as tsol
-from structurepreservingiterativesolvers_torch.experiments import timed_solve as tts
 from structurepreservingiterativesolvers_torch.experiments import wrappers as twr
 from structurepreservingiterativesolvers_torch.ops import sparse as tsp
 from structurepreservingiterativesolvers_tpu import precond as jpre
@@ -37,6 +36,11 @@ from structurepreservingiterativesolvers_tpu.ops import sparse as jsp
 from structurepreservingiterativesolvers_tpu.precond.chebyshev import (
     power_bounds as jpower_bounds,
 )
+
+# the module (the experiments package exports a function of the same name,
+# as the JAX package's does)
+tts = importlib.import_module(
+    "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
 # the JAX package's experiments namespace exports a function of this name
 jts = importlib.import_module(

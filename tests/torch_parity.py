@@ -211,9 +211,10 @@ def check_lkdvrk_row(name, loop="host"):
     to roundoff and its Krylov vectors carry none, so the JAX package's KKT
     matrix is singular there and its endgame takes more steps (5 against
     2 at M=50, (3, 2))."""
-    from structurepreservingiterativesolvers_torch.experiments import (
-        timed_solve as tts,
-    )
+    # the module (the experiments package exports a function of the same
+    # name, as the JAX package's does)
+    tts = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.experiments.timed_solve")
 
     rec = slice7()[name]
     cfg = rec["config"]
