@@ -251,6 +251,29 @@ imported.  Phases, each of which raises on a failed check:
     line of it all.  The f32 ``fused_evolve`` certifies every step, each
     warm-started, in at most one step more than the JAX f32 record's, and
     a warm-started f32 ``evolve`` (host loop) every step.
+33. f32 storage on the paths the fifteenth slice left out
+    (``phase_f32_rest``), each row beside its f64 twin in this call and,
+    where one exists, the JAX f32 record (``reference/slice17.json``):
+    lkdvRK M=400 (3, 2) at tol 1e-3 through ``time_cgmres`` on both loops
+    with ``cgs2`` and ``cgs2_fused``, (5, 4) at 1e-7 on the device core,
+    the systems and RAS + Neumann composites cast from phase 14's f64
+    builds; the lkdv hard general solve on both loops; a 10-step f32
+    ``fused_evolve("lkdvrk")`` and the error sweep's ``run_single`` in f32
+    beside its f64 run; heat P2 M=512 with the greedy AMG cast from phase
+    28's, at 1e-4·||b||, on both loops and with ``cgs2_fused``;
+    ``cgmres_many`` in f32 on the (3, 2) and heat P2 rows at B = 8; every
+    f32 row launching only f32 or mixed instantiations, plus kernel #1 in
+    f64 on the StageKron inner's kept upcast mass matrix, counted apart
+    (``dia_spmv_upcast``); the kernels at this slice's shapes against their
+    plain versions and timed (#1 live and dense and #1b on lkdvRK A, the
+    f64 #1 on the upcast mass matrix, #1 and #1b on heat P2 M=256's DIA
+    level, the mixed #1 on lkdv M=100's mass matrix, #5 at n = 9,600, m =
+    8 and n = 1,050,625, m = 31); an ``[f32-rest]`` JSON line.  Phase 31
+    runs the f32 rows of the sharded path (``_sharded_f32``): the windowed
+    mixed #1 on swe M=512's A and heat M=1024's energy matrix against its
+    plain version and timed, swe M=512 with the skew-normal Chebyshev on
+    both loops, heat M=1024 with the AMG on the device core and a 3-step
+    f32 ``fused_evolve``, each beside its unsharded f32 solve.
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -4759,6 +4782,8 @@ def phase_heat_p2_dia_anchor(shapes):
     levels = _p2_levels(pre)
     dia_levels = [lvl for lvl, L in enumerate(pre.levels)
                   if isinstance(L.A, DIA)]
+    # the DIA levels, for phase 33's f32 checks
+    KEEP17["p2_m256_dia"] = [pre.levels[lvl].A for lvl in dia_levels]
     print(f"{tag} assembly {t1 - t0:.2f} s, greedy AMG setup {t2 - t1:.3f} s;"
           f" levels (n, format, width) {levels}")
     check(bool(dia_levels) and all(L.P is not None for L in
@@ -5203,7 +5228,7 @@ def phase_sharded():
     report.update(walls=walls, window=win)
     print("[sharded] " + json.dumps(report))
     print(f"[sharded] phase took {time.perf_counter() - t_phase:.1f} s")
-    return win, paths
+    return win, paths, _sharded_f32(mesh)
 
 
 # the fifteenth slice: f32 storage (phase 32).  The chip rows' tolerances
@@ -5884,6 +5909,928 @@ def phase_f32(record):
     return times, entry, paths
 
 
+# the seventeenth slice: f32 storage on every path the JAX package takes it
+# (phase 33; phase 31's f32 rows in ``_sharded_f32``).  Each f32 row beside
+# its f64 twin in this call and, where one exists, the JAX f32 record of its
+# size (``reference/slice17.json``): lkdvRK M=400 (3, 2) at tol 1e-3 and
+# (5, 4) at 1e-7 (k=50, the RAS + Neumann composite cast from phase 14's
+# f64 build), the lkdv hard general solve, the f32 evolutions, heat P2
+# M=512 with the greedy AMG at ``P2_F32_RTOL``·||b|| (the tolerance at which
+# the JAX f32 records at M=16, 32 and 64 certify: at 1e-5 and 1e-6 they run
+# to k), the batched rows.  The certified deviation of an lkdvRK row within
+# max(10x the JAX M=20 record's, ``F32_DEV_SCALE`` of the invariants'
+# scale), of a heat P2 row within max(10x the largest of the M=16, 32 and
+# 64 records', ``F32_DEV_SCALE`` of its scale), the sweep's per-step errors within ``SWEEP_GAP`` times the JAX
+# package's own f32-f64 gap at the record's size of the f64 sweep run here.
+# ``KEEP17`` holds, between the phases, the operators this phase reuses.
+KEEP17 = {}
+P2_F32_RTOL, RK_F32_K, SWEEP_GAP = 1e-4, 50, 10.0
+F32_KERNEL_RTOL, SHARD_F32_X = 1e-5, 1e-5
+RK17 = (LKDVRK_ROWS[0], LKDVRK_ROWS[2])
+
+
+def _gate17(tag, launches, upcast_ok=False, kernels=True):
+    """An f32 row launched only the f32 and mixed instantiations (every
+    launch of each kernel with an f32 counter is f32), plus, where
+    ``upcast_ok``, kernel #1's f64 launches on a stage map's kept upcast
+    operator (``dia_spmv_upcast``), counted apart; and, where ``kernels``
+    (every path but heat P2 M=512 with ``cgs2``: its operators and levels
+    are all ELL, torch ops), at least one f32 launch.  On a CUDA tensor no
+    wrapper has a plain path."""
+    launches = {k: launches.get(k, 0) for k in _launch_counters()}
+    ran = {k: launches[k] for k in F32_KERNELS if launches[k]}
+    f32 = {k: launches[f"{k}_f32"] for k in F32_KERNELS}
+    up = launches["dia_spmv_upcast"]
+    other = {k: n - f32[k] - (up if k == "dia_spmv" else 0)
+             for k, n in ran.items()}
+    print(f"{tag} launches {ran}; f32 { {k: f32[k] for k in ran} }; mixed #1 "
+          f"{launches['dia_spmv_mixed']} (windowed "
+          f"{launches['dia_spmv_mixed_window']}); f64 #1 on an upcast "
+          f"operator {up}")
+    check(any(f32.values()) or not kernels, f"{tag} no f32 launch")
+    check(not any(other.values()), f"{tag} launches that are neither f32 nor "
+                                   f"a counted upcast: {other}")
+    check(upcast_ok or up == 0, f"{tag} {up} f64 launches on an upcast "
+                                "operator")
+
+
+def _scale17(s):
+    """The invariants' scale of an lkdvRK or lkdv system: its largest
+    target's magnitude, at least 1."""
+    return max([abs(float(getattr(s, a))) for a in ("m0", "mo0", "e0")
+                if hasattr(s, a)] + [1.0])
+
+
+def _f32_rk_rows(record7, record17, rk):
+    """(a) lkdvRK (3, 2) through ``time_cgmres`` on both loops with ``cgs2``
+    and ``cgs2_fused``, and (b) (5, 4) on the device core, each f32 row
+    beside its f64 twin: both certified, the f32 certified deviation within
+    max(10x the JAX M=20 f32 record's, ``F32_DEV_SCALE`` of the scale), the
+    true residual below tol (at (5, 4) where the JAX M=20 record's is), the
+    f32 launches only f32 or mixed, or f64 on the StageKron inner's kept
+    upcast mass matrix.  Returns the rows and their launches."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        certified_deviations,
+        time_cgmres,
+    )
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        clear_core_cache,
+    )
+
+    f32, f64 = torch.float32, torch.float64
+    rows, paths = {}, {}
+    name = RK17[0]
+    cfg = record7[name]["config"]
+    rec = record17["lkdvrk_M20_f32"]["cgmres"]
+    for loop in ("host", "while"):
+        for ortho in ("cgs2", "cgs2_fused"):
+            out = {}
+            for dtype in (f32, f64):
+                s, pre = rk[name][dtype]
+                key = f"{name}_{loop}_{ortho}_{str(dtype)[6:]}"
+                tag = f"[f32-rest {key}]"
+                _reset_launches()
+                t0 = time.perf_counter()
+                o = time_cgmres("lkdvrk", k=RK_F32_K, tol=cfg["tol"],
+                                pre_builder=lambda system, pre=pre: pre,
+                                device=DEVICE, loop=loop, ortho=ortho,
+                                dtype=dtype, **cfg["params"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _read_launches()
+                devs = {nm: o["conservation"][f"cgmres_{nm}"]
+                        for nm in o["invariant_names"]}
+                print(f"{tag} time_cgmres wall {wall:.2f} s; gmres "
+                      f"{o['gmres_steps']} steps {1e3 * o['time_gmres']:.3f} "
+                      f"ms; cgmres {o['steps']} steps "
+                      f"({o['constrained_steps']} constrained) "
+                      f"{1e3 * o['runtime']:.3f} ms, safety {o['safety']}, "
+                      f"snap {1e3 * o.get('time_snap', 0.0):.3f} ms, residual"
+                      f" {o['res_final']:.4e} (tol {o['tol_effective']:.1e});"
+                      f" certified deviations {devs}")
+                out[dtype] = o
+                if dtype == f32:
+                    _gate17(tag, launches, upcast_ok=True)
+                    check(launches["dia_spmv_upcast"] > 0,
+                          f"{tag} the StageKron inner never ran f64")
+                    if ortho == "cgs2_fused":
+                        check(launches["fused_update_matvec_f32"] > 0,
+                              f"{tag} #5 in f32 never launched")
+                    paths[key] = launches
+                rows[key] = {k: o[k] for k in (
+                    "steps", "gmres_steps", "constrained_steps", "safety",
+                    "runtime", "time_gmres", "res_final")}
+                rows[key].update(deviations=devs,
+                                 time_snap=o.get("time_snap", 0.0))
+                clear_core_cache()
+            o32, o64 = out[f32], out[f64]
+            s32 = rk[name][f32][0]
+            dev = max(rows[f"{name}_{loop}_{ortho}_float32"][
+                "deviations"].values())
+            bar = max(10.0 * max(rec["certified"].values()),
+                      F32_DEV_SCALE * _scale17(s32))
+            tag = f"[f32-rest {name}_{loop}_{ortho}]"
+            print(f"{tag} f32 against its f64 twin: steps {o32['steps']} "
+                  f"({o64['steps']}), safety {o32['safety']} "
+                  f"({o64['safety']}), wall ratio "
+                  f"{o32['runtime'] / o64['runtime']:.3f}; certified "
+                  f"deviation {dev:.3e} (bar {bar:.3e}); JAX M=20 f32 record:"
+                  f" {rec['steps']} steps, safety {rec['safety']}")
+            check(o32["safety"] is o64["safety"] is True,
+                  f"{tag} safety f32 {o32['safety']}, f64 {o64['safety']}")
+            check(dev <= bar, f"{tag} certified deviation {dev:.3e} > {bar:.3e}")
+            check(o32["res_final"] < o32["tol_effective"],
+                  f"{tag} residual {o32['res_final']:.3e}")
+    # (b) (5, 4) on the device core
+    name = RK17[1]
+    cfg = record7[name]["config"]
+    rec = record17.get("lkdvrk_M20_deg5_s4_f32", {}).get("cgmres")
+    tol = cfg["tol"]
+    out = {}
+    for dtype in (f32, f64):
+        s, pre = rk[name][dtype]
+        key = f"{name}_while_{str(dtype)[6:]}"
+        tag = f"[f32-rest {key}]"
+
+        def solve(s=s, pre=pre):
+            return wrappers.cgmres_wrapper(s, k=RK_F32_K, tol=tol, pre=pre,
+                                           loop="while")
+
+        solve()
+        (x, info), walls = _timed(solve, reps=3)
+        _reset_launches()
+        solve()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        devs = certified_deviations(s, x)
+        res = float(torch.linalg.norm((s.A @ x - s.b).double()))
+        print(f"{tag} steps {info['steps']} ({info['constrained_steps']} "
+              f"constrained), safety {info['safety']}, residual {res:.3e} "
+              f"(tol {tol:.0e}), certified deviations {devs}; wall, median "
+              f"of 3: {1e3 * _median(walls):.3f} ms ({_ms(walls)})")
+        out[dtype] = (info, devs, res, _median(walls))
+        if dtype == f32:
+            _gate17(tag, launches, upcast_ok=True)
+            paths[key] = launches
+        rows[key] = {"steps": info["steps"], "safety": info["safety"],
+                     "constrained_steps": info["constrained_steps"],
+                     "res_final": res, "deviations": devs,
+                     "wall_ms": 1e3 * _median(walls)}
+        clear_core_cache()
+    (i32, d32, r32, w32), (i64, _, _, w64) = out[f32], out[f64]
+    tag = f"[f32-rest {name}_while]"
+    bar = max(10.0 * max(rec["certified"].values()) if rec else 0.0,
+              F32_DEV_SCALE * _scale17(rk[name][f32][0]))
+    print(f"{tag} f32 against its f64 twin: steps {i32['steps']} "
+          f"({i64['steps']}), safety {i32['safety']} ({i64['safety']}), "
+          f"wall ratio {w32 / w64:.3f}; certified deviation "
+          f"{max(d32.values()):.3e} (bar {bar:.3e}); JAX M=20 f32 record: "
+          + ("none" if rec is None else
+             f"{rec['steps']} steps, safety {rec['safety']}, residual "
+             f"{rec['true_residual']:.3e}"))
+    check(i64["safety"] is True, f"{tag} f64 twin not certified")
+    check(i32["safety"] is (rec["safety"] if rec else True),
+          f"{tag} f32 safety {i32['safety']}")
+    if i32["safety"]:
+        check(max(d32.values()) <= bar, f"{tag} certified deviation "
+                                        f"{max(d32.values()):.3e}")
+    if rec is not None and rec["true_residual"] < tol:
+        check(r32 < tol, f"{tag} residual {r32:.3e} not below {tol:.0e}")
+    return rows, paths
+
+
+def _f32_general(record17):
+    """(c) The lkdv hard general solve (M=100, degree 3, the energy a
+    ``GeneralConstraint``) in f32 on both loops and its f64 twin: the f64
+    twin certified, the f32 loops' latches alike and equal to the JAX f32
+    record's (lkdv M=50: an f32 evaluation of a callable g is noisy at
+    eps32 of its terms, over the f64 latch's floor), the f32 launches f32
+    or mixed only (#1 and the Hessian's #1b in f32, the quadratic
+    constraints' f64 reduction through the mixed #1).  Returns the rows and
+    the launches."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.constraints import (
+        GeneralConstraint,
+    )
+    from structurepreservingiterativesolvers_torch.models import lkdv
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        clear_core_cache,
+    )
+
+    rec = record17["lkdv_M50_general_f32"]["cgmres"]
+    rows, paths = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        s = lkdv.linforms(M=100, degree=3, device=DEVICE, dtype=dtype)
+        mass, mom, _ = s.constraints()
+
+        def energy(x, s=s):
+            u, _, w = torch.split(x, s.n0)
+            return (0.5 * torch.dot(w, s.Mmat @ w)
+                    - 0.5 * torch.dot(u, s.Mmat @ u) - s.e0)
+
+        cons = [mass, mom, GeneralConstraint(func=energy, name="energy")]
+        for loop in ("host", "while"):
+            key = f"lkdv_hard_general_{loop}_{str(dtype)[6:]}"
+            tag = f"[f32-rest {key}]"
+            cgmres(s.A, s.b, k=50, tol=1e-6, constraints=cons, loop=loop)
+            _reset_launches()
+            t0 = time.perf_counter()
+            x, info = cgmres(s.A, s.b, k=50, tol=1e-6, constraints=cons,
+                             loop=loop)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read_launches()
+            print(f"{tag} steps {info['steps']} ({info['constrained_steps']} "
+                  f"constrained), safety {info['safety']}, deviation "
+                  f"{info['deviation']:.3e}, residual {info['res'][-1]:.3e}, "
+                  f"wall {1e3 * wall:.1f} ms")
+            if dtype == torch.float32:
+                _gate17(tag, launches)
+                check(launches["dia_spmm_f32"] > 0,
+                      f"{tag} the Hessian's #1b in f32 never launched")
+                paths[key] = launches
+            rows[key] = {"steps": info["steps"], "safety": info["safety"],
+                         "deviation": info["deviation"],
+                         "constrained_steps": info["constrained_steps"],
+                         "wall_ms": 1e3 * wall}
+            clear_core_cache()
+    tag = "[f32-rest lkdv_hard_general]"
+    h, w = (rows[f"lkdv_hard_general_{lp}_float32"] for lp in ("host", "while"))
+    print(f"{tag} f32 latches: host {h['safety']}, device core {w['safety']};"
+          f" the JAX f32 record (M=50): {rec['safety']} after {rec['steps']} "
+          f"steps, deviation {rec['deviation']:.3e}")
+    check(rows["lkdv_hard_general_host_float64"]["safety"] is True
+          and rows["lkdv_hard_general_while_float64"]["safety"] is True,
+          f"{tag} the f64 twins did not certify")
+    check(h["safety"] == w["safety"] == rec["safety"],
+          f"{tag} f32 latches {h['safety']}, {w['safety']} against the "
+          f"record's {rec['safety']}")
+    return rows, paths
+
+
+def _f32_rk_evolutions(record17, rk):
+    """(d) A 10-step f32 ``fused_evolve("lkdvrk")`` at (3, 2) (every step
+    certified), and the error sweep's ``run_single(loop="while")`` in f32
+    beside its f64 run in this call: every step certified, each step's L2
+    error within ``SWEEP_GAP`` times the JAX package's largest f32-f64 gap
+    at the record's size of the f64 run's.  Returns the rows and launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.error_sweep import (
+        run_single,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        clear_core_cache,
+    )
+
+    f32 = torch.float32
+    name = RK17[0]
+    params = dict(N=10, M=400, degree=3, tstages=2)
+    pre = rk[name][f32][1]
+    rows, paths = {}, {}
+    tag = f"[f32-rest {name}_fused_evolve]"
+    fused_evolve("lkdvrk", k=RK_F32_K, tol=1e-3, pre=pre, dtype=f32,
+                 device=DEVICE, **params)
+    _reset_launches()
+    t0 = time.perf_counter()
+    r = fused_evolve("lkdvrk", k=RK_F32_K, tol=1e-3, pre=pre, dtype=f32,
+                     device=DEVICE, **params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = r["timings"]["launches"]
+    print(f"{tag} steps {r['steps'].tolist()}, safety {r['safety'].tolist()},"
+          f" dm {r['dm'][-1]:.3e}, de {r['de'][-1]:.3e}; wall {wall:.3f} s")
+    _gate17(tag, launches, upcast_ok=True)
+    check(all(int(v) == 1 for v in r["safety"]), f"{tag} safety {r['safety']}")
+    rows["fused_evolve"] = {"steps": r["steps"].tolist(),
+                            "safety": r["safety"].tolist(), "wall_s": wall}
+    paths[f"{name}_fused_evolve_f32"] = launches
+    clear_core_cache()
+    sweep = record17["lkdvrk_M20_sweep_f32"]
+    key = next(iter(sweep["f32"]))
+    gap_rec = float(np.max(np.abs(np.asarray(sweep["f32"][key]["err"])
+                                  - np.asarray(sweep["f64"][key]["err"]))))
+    runs = {}
+    for dtype in (f32, torch.float64):
+        _reset_launches()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            runs[dtype] = run_single("CGMRES", 3, 2, 1e-3, N=10, M=400,
+                                     k=RK_F32_K, tmpdir=tmp, loop="while",
+                                     dtype=dtype, device=DEVICE)
+        torch.cuda.synchronize()
+        runs[dtype]["wall"] = time.perf_counter() - t0
+        if dtype == f32:
+            launches = _read_launches()
+            _gate17(f"[f32-rest {name}_sweep]", launches, upcast_ok=True)
+            paths[f"{name}_sweep_f32"] = launches
+        clear_core_cache()
+    a, b = runs[f32], runs[torch.float64]
+    gap = np.abs(np.asarray(a["err"]) - np.asarray(b["err"]))
+    tag = f"[f32-rest {name}_sweep]"
+    print(f"{tag} run_single(loop='while'): f32 steps {a['steps']}, safety "
+          f"{a['safety']}, wall {a['wall']:.2f} s; f64 steps {b['steps']}, "
+          f"wall {b['wall']:.2f} s; errors f32 "
+          f"{['%.6e' % e for e in a['err']]}, f64 "
+          f"{['%.6e' % e for e in b['err']]}; largest gap {gap.max():.3e} "
+          f"(the JAX package's at M=20, N=3: {gap_rec:.3e}, bar "
+          f"{SWEEP_GAP * gap_rec:.3e})")
+    check(all(v is True for v in a["safety"]), f"{tag} safety {a['safety']}")
+    check(float(gap.max()) <= SWEEP_GAP * gap_rec,
+          f"{tag} f32 errors {gap.max():.3e} from the f64 run's")
+    rows["sweep"] = {"steps": a["steps"], "steps_f64": b["steps"],
+                     "err": list(map(float, a["err"])),
+                     "err_f64": list(map(float, b["err"])),
+                     "gap": float(gap.max()), "gap_record": gap_rec,
+                     "wall_s": a["wall"], "wall_f64_s": b["wall"]}
+    return rows, paths
+
+
+def _f32_p2(record17, p2):
+    """(e) heat P2 M=512 with the greedy AMG cast from phase 28's f64 build
+    (the levels' sizes equal), k=60, tol ``P2_F32_RTOL``·||b||, on both
+    loops and with ``cgs2_fused``, beside the f64 device-core twin: the f32
+    rows held to the JAX f32 records' latch at that tolerance (certified),
+    running to k where the records at M=32 and 64 do (the f32 residual
+    floor relative to ||b|| grows with M), each certified deviation at most
+    max(10x the largest of the records', ``F32_DEV_SCALE`` of the
+    invariants' scale) (no record of this size); launches f32 only.
+    Returns the rows and launches."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        certified_deviations,
+    )
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        clear_core_cache,
+    )
+    from structurepreservingiterativesolvers_torch.utils.cast import astype
+
+    s64, pre64 = p2
+    s32, pre32 = astype((s64, pre64), torch.float32)
+    sizes = [L.A.shape[0] for L in pre32.levels]
+    check(sizes == [L.A.shape[0] for L in pre64.levels]
+          and all(L.A.dtype == torch.float32 for L in pre32.levels),
+          f"[f32-rest {P2}] the cast hierarchy's levels {sizes}")
+    recs = [record17[f"heat_P2_M{m}_f32"]["solves"][repr(P2_F32_RTOL)]
+            for m in (16, 32, 64) if f"heat_P2_M{m}_f32" in record17]
+    scale = max(abs(float(s64.m0)), abs(float(s64.old_energy)), 1.0)
+    bar = max(10.0 * max(r["deviation"] for r in recs),
+              F32_DEV_SCALE * scale)
+    print(f"[f32-rest {P2}] levels {sizes}; the JAX f32 records at tol "
+          f"{P2_F32_RTOL:.0e}·||b||: steps {[r['steps'] for r in recs]}, "
+          f"safety {[r['safety'] for r in recs]}, deviations "
+          f"{[r['deviation'] for r in recs]}; the bar {bar:.3e}")
+    rows, paths = {}, {}
+    for s, pre, dtype, runs in ((s32, pre32, "float32",
+                                 (("host", "cgs2"), ("while", "cgs2"),
+                                  ("host", "cgs2_fused"),
+                                  ("while", "cgs2_fused"))),
+                                (s64, pre64, "float64",
+                                 (("while", "cgs2"),))):
+        tol = P2_F32_RTOL * float(torch.linalg.norm(s.b.double()))
+        for loop, ortho in runs:
+            key = f"{P2}_{loop}_{ortho}_{dtype}"
+            tag = f"[f32-rest {key}]"
+
+            def solve(s=s, pre=pre, loop=loop, ortho=ortho, tol=tol):
+                return wrappers.cgmres_wrapper(s, k=P2_K, tol=tol, pre=pre,
+                                               loop=loop, ortho=ortho)
+
+            solve()
+            (x, info), walls = _timed(solve, reps=3)
+            _reset_launches()
+            solve()
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            devs = certified_deviations(s, x)
+            res = float(torch.linalg.norm((s.A @ x - s.b).double()))
+            print(f"{tag} steps {info['steps']} ({info['constrained_steps']}"
+                  f" constrained), safety {info['safety']}, residual "
+                  f"{res:.3e} (tol {tol:.3e}), certified deviations {devs}; "
+                  f"wall, median of 3: {1e3 * _median(walls):.3f} ms")
+            if dtype == "float32":
+                _gate17(tag, launches, kernels=ortho == "cgs2_fused")
+                if ortho == "cgs2_fused":
+                    check(launches["fused_update_matvec_f32"]
+                          == info["steps"] > 0,
+                          f"{tag} #5 in f32 {launches['fused_update_matvec_f32']}"
+                          f" over {info['steps']} steps")
+                check(info["safety"] is all(r["safety"] for r in recs),
+                      f"{tag} safety {info['safety']} against the records'")
+                # where the records above M=16 run to k at this tolerance
+                # (the f32 residual floor), the row does too
+                if all(r["steps"] == P2_K for r in recs[1:]):
+                    check(info["steps"] == P2_K,
+                          f"{tag} {info['steps']} steps; the records run to "
+                          f"k={P2_K}")
+                paths[key] = launches
+            else:
+                check(info["safety"] is True, f"{tag} f64 twin not certified")
+            check(max(abs(v) for v in devs.values()) <= bar,
+                  f"{tag} certified deviations {devs} (bar {bar:.3e})")
+            rows[key] = {"steps": info["steps"], "safety": info["safety"],
+                         "constrained_steps": info["constrained_steps"],
+                         "res_final": res, "tol": tol, "deviations": devs,
+                         "wall_ms": 1e3 * _median(walls)}
+            clear_core_cache()
+    return rows, paths, (s32, pre32)
+
+
+def _f32_batched17(rk, p2_32):
+    """(f) ``cgmres_many`` in f32 on ``lkdvrk_M400_deg3_s2_B8`` and
+    ``heat_P2_M512_amg_B8``: every item certified, its steps its single
+    f32 device-core solve's (the same modes: mixed, the f64 reduction, no
+    projection); the launches f32 or mixed only.  Returns the rows and
+    launches."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.batched import (
+        cgmres_many,
+    )
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        clear_core_cache,
+    )
+
+    f32 = torch.float32
+    ref = _reference_script()
+    rows, paths = {}, {}
+    s, pre = rk[RK17[0]][f32]
+    p = ref.lkdvrk_field(s.fem, s.prob.mlength,
+                         s.z0[:s.n0].double().cpu().numpy())
+    states = torch.as_tensor(ref.lkdvrk_stage_states(
+        p, RK_B, s.prob.ns, s.n0, s.prob.dt), device=DEVICE, dtype=f32)
+    rk_items = [s.step_update(z) for z in states]
+    s2, pre2 = p2_32
+    field = torch.as_tensor(ref.heat_p2_field(s2.prob.fem(),
+                                              s2.z0.double().cpu().numpy()),
+                            device=DEVICE, dtype=f32)
+    p2_items = [s2.step_update(s2.z0 + 0.02 * i * field) for i in range(P2_B)]
+    for name, (A, items, pre_, k, tol) in {
+            f"{RK17[0]}_B{RK_B}": (s.A, rk_items, pre, RK_F32_K, 1e-3),
+            f"{P2}_amg_B{P2_B}": (s2.A, p2_items, pre2, P2_K, P2_F32_RTOL
+                                  * float(torch.linalg.norm(
+                                      s2.b.double())))}.items():
+        tag = f"[f32-rest {name}]"
+        Bs = torch.stack([t.b for t in items])
+        cons = [t.constraints() for t in items]
+
+        def many():
+            return cgmres_many(A, Bs, cons, k=k, tol=tol, pre=pre_)
+
+        many()
+        (X, info), walls = _timed(many, reps=3)
+        _reset_launches()
+        many()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        clear_core_cache()
+        singles = [cgmres(A, t.b, k=k, tol=tol, pre=pre_, constraints=c,
+                          loop="while", snap=False, f32_reduce=False)
+                   for t, c in zip(items, cons)]
+        clear_core_cache()
+        print(f"{tag} B={len(items)}: steps {list(map(int, info['steps']))} "
+              f"(single f32 solves {[i1['steps'] for _, i1 in singles]}), "
+              f"safety {list(map(int, info['safety']))}, KKT deviation max "
+              f"{max(info['deviation']):.3e}; wall, median of 3: "
+              f"{1e3 * _median(walls):.3f} ms")
+        _gate17(tag, launches, upcast_ok=True, kernels=A is s.A)
+        for i, (_, i1) in enumerate(singles):
+            check(int(info["safety"][i]) == 1,
+                  f"{tag} item {i}: safety {info['safety'][i]}")
+            check(int(info["steps"][i]) == i1["steps"],
+                  f"{tag} item {i}: {info['steps'][i]} steps, its single "
+                  f"solve {i1['steps']}")
+        rows[name] = {"steps": list(map(int, info["steps"])),
+                      "single_steps": [i1["steps"] for _, i1 in singles],
+                      "wall_ms": 1e3 * _median(walls)}
+        paths[f"{name}_f32"] = launches
+    return rows, paths
+
+
+def _f32_kernels17(rk):
+    """(h) The f32 and mixed instantiations at this slice's shapes, each
+    checked against its plain version (``F32_KERNEL_RTOL`` relative in
+    f32, ``F32_MIXED_RTOL`` for the mixed and f64 forms, repeats bit-equal)
+    and timed with L2 flushed against the f32 bound and cuSPARSE
+    (``_f32_time``): #1 live and dense on lkdvRK (3, 2) A, the f64 #1 on
+    the StageKron inner's kept upcast mass matrix (n0 = 1,600; with its
+    plan), #1b at B = 8 on A, #1 and #1b on heat P2 M=256's DIA level, the
+    mixed #1 on lkdv M=100's mass matrix, and #5 at n = 9,600, m = 8 and
+    n = 1,050,625, m = 31.  Returns the times by label and the largest
+    errors by kernel."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.kernels import ortho
+    from structurepreservingiterativesolvers_torch.models import lkdv
+    from structurepreservingiterativesolvers_torch.ops.sparse import matvec_f64
+
+    f32 = torch.float32
+    gen = torch.Generator(device=DEVICE).manual_seed(33)
+    times, errs = {}, {"dia_spmv": 0.0, "dia_spmm": 0.0, "dia_spmv_mixed": 0.0,
+                       "fused_update_matvec": 0.0}
+
+    def held(kernel, label, y, ref, again, rtol):
+        abs_err, rel = _rel_err(y, ref)
+        print(f"[f32-rest] {label}: max|dy|/max|y| {rel:.3e} against the "
+              f"plain version (bound {rtol:.0e}), a repeat equal "
+              f"{bool(torch.equal(y, again))}")
+        check(math.isfinite(rel) and rel <= rtol and torch.equal(y, again),
+              f"[f32-rest] {label} disagrees with its plain version: "
+              f"{rel:.3e}")
+        errs[kernel] = max(errs[kernel], abs_err)
+
+    s = rk[RK17[0]][f32][0]
+    A = s.A
+    n, nnz = A.shape[0], int(torch.count_nonzero(A.data))
+    x = torch.randn(n, generator=gen, device=DEVICE, dtype=f32)
+    plain = lambda: kd.dia_spmv_torch(A.data, A.offsets, A.wrap, x)  # noqa: E731
+    held("dia_spmv", f"#1 f32 lkdvRK (3, 2) A (live {A.live().share:.3f})",
+         A @ x, plain(), A @ x, F32_KERNEL_RTOL)
+    dense = lambda: kd.dia_spmv_dense_cuda(A.data, A.offsets, A.wrap, x)  # noqa: E731
+    held("dia_spmv", "#1 f32 lkdvRK (3, 2) A, dense", dense(), plain(),
+         dense(), F32_KERNEL_RTOL)
+    csr = _csr_dtype(s.A_csr, f32)
+    for label, fn in (("live", lambda: A @ x), ("dense", dense)):
+        times[f"dia_spmv_{RK17[0]} A {label}"] = _f32_time(
+            f"#1 {RK17[0]} A, {label}", fn, plain, 4 * (nnz + 2 * n),
+            2 * nnz, lambda: csr @ x, " (cuSPARSE f32 CSR)")
+    X = torch.randn(8, n, generator=gen, device=DEVICE, dtype=f32).T
+    plainB = lambda: kd.dia_spmm_torch(A.data, A.offsets, A.wrap, X)  # noqa: E731
+    held("dia_spmm", f"#1b f32 {RK17[0]} A, B = 8", A @ X, plainB(), A @ X,
+         F32_KERNEL_RTOL)
+    Xc = X.contiguous()
+    times[f"dia_spmm_{RK17[0]} A B=8"] = _f32_time(
+        f"#1b {RK17[0]} A, B = 8", lambda: A @ X, plainB,
+        4 * (nnz + 16 * n), 16 * nnz, lambda: torch.sparse.mm(csr, Xc),
+        " (cuSPARSE f32 SpMM)")
+    # the StageKron inner's mass matrix: the f64 #1 on its kept upcast
+    M = s.Mmat
+    up = M.upcast()
+    x64 = torch.randn(M.shape[0], generator=gen, device=DEVICE,
+                      dtype=torch.float64)
+    y1, y2 = matvec_f64(M, x64), matvec_f64(M, x64)
+    check(M.upcast() is up and up._launch is not None,
+          "[f32-rest] the upcast mass matrix is not kept with its launch")
+    held("dia_spmv", f"#1 f64 on the kept upcast {RK17[0]} Mmat (n0 = "
+         f"{M.shape[0]})", y1,
+         kd.dia_spmv_torch(up.data, up.offsets, up.wrap, x64), y2,
+         F32_MIXED_RTOL)
+    nz = int(torch.count_nonzero(up.data))
+    times[f"dia_spmv_{RK17[0]} Mmat upcast f64"] = _f32_time(
+        f"#1 f64 on the upcast {RK17[0]} Mmat", lambda: matvec_f64(M, x64),
+        lambda: kd.dia_spmv_torch(up.data, up.offsets, up.wrap, x64),
+        8 * (nz + 2 * M.shape[0]), 2 * nz,
+        lambda c=_csr_dtype(s.Mh, torch.float64): c @ x64,
+        " (cuSPARSE f64 CSR)")
+    # heat P2 M=256's DIA level, kept by phase 30
+    for lvl, L64 in enumerate(KEEP17.get("p2_m256_dia", ())):
+        L = L64.astype(f32)
+        n, nnz = L.shape[0], int(torch.count_nonzero(L.data))
+        x = torch.randn(n, generator=gen, device=DEVICE, dtype=f32)
+        plain = lambda L=L, x=x: kd.dia_spmv_torch(L.data, L.offsets, L.wrap, x)  # noqa: E731
+        held("dia_spmv", f"#1 f32 heat P2 M=256 DIA level (n = {n})", L @ x,
+             plain(), L @ x, F32_KERNEL_RTOL)
+        c = _csr_dtype(_dia_csr(L64), f32)
+        times[f"dia_spmv_heat_P2_M256 level n={n}"] = _f32_time(
+            f"#1 heat P2 M=256 level (n = {n})", lambda L=L, x=x: L @ x, plain,
+            4 * (nnz + 2 * n), 2 * nnz, lambda c=c, x=x: c @ x,
+            " (cuSPARSE f32 CSR)")
+        X = torch.randn(8, n, generator=gen, device=DEVICE, dtype=f32).T
+        plainB = lambda L=L, X=X: kd.dia_spmm_torch(L.data, L.offsets, L.wrap, X)  # noqa: E731
+        held("dia_spmm", f"#1b f32 heat P2 M=256 DIA level, B = 8", L @ X,
+             plainB(), L @ X, F32_KERNEL_RTOL)
+        times[f"dia_spmm_heat_P2_M256 level n={n} B=8"] = _f32_time(
+            f"#1b heat P2 M=256 level (n = {n}), B = 8", lambda L=L, X=X: L @ X,
+            plainB, 4 * (nnz + 16 * n), 16 * nnz,
+            lambda c=c, Xc=X.contiguous(): torch.sparse.mm(c, Xc),
+            " (cuSPARSE f32 SpMM)")
+    # the mixed #1 on lkdv M=100's mass matrix (row (c)'s shape)
+    lk = lkdv.linforms(M=100, degree=3, device=DEVICE, dtype=f32)
+    M = lk.Mmat
+    x = torch.randn(M.shape[0], generator=gen, device=DEVICE, dtype=f32)
+    plain = lambda: kd.dia_spmv_mixed_torch(M.data, M.offsets, M.wrap, x)  # noqa: E731
+    held("dia_spmv_mixed", "mixed #1 lkdv M=100 Mmat", matvec_f64(M, x),
+         plain(), matvec_f64(M, x), F32_MIXED_RTOL)
+    nz, n = int(torch.count_nonzero(M.data)), M.shape[0]
+    times["mixed_lkdv M=100 Mmat"] = _f32_time(
+        "mixed #1 lkdv M=100 Mmat", lambda: matvec_f64(M, x), plain,
+        4 * nz + 4 * n + 8 * n, 2 * nz,
+        lambda c=_csr_dtype(_dia_csr(M), torch.float64), x64=x.double():
+        c @ x64, " (cuSPARSE f64 CSR on the upcast x, the upcast not timed)")
+    # #5 in f32 at lkdvRK's and heat P2 M=512's shapes
+    for n, m in ((LKDVRK_N, 8), (P2_N, 31)):
+        Q = torch.randn(m, n, generator=gen, device=DEVICE, dtype=f32)
+        w = torch.randn(n, generator=gen, device=DEVICE, dtype=f32)
+        h = torch.randn(m, generator=gen, device=DEVICE, dtype=f32)
+        out = ortho.fused_update_matvec(Q, w, h)
+        ref = ortho.fused_update_matvec_torch(Q, w, h)
+        again = ortho.fused_update_matvec(Q, w, h)
+        for part, (a, b, c) in enumerate(zip(out, ref, again)):
+            held("fused_update_matvec", f"#5 f32 n = {n}, m = {m} "
+                 f"({('w1', 'u2')[part]})", a, b, c, F32_KERNEL_RTOL)
+        times[f"fused_update_matvec n={n} m={m}"] = _f32_time(
+            f"#5 n = {n}, m = {m}",
+            lambda Q=Q, w=w, h=h: ortho.fused_update_matvec(Q, w, h),
+            lambda Q=Q, w=w, h=h: ortho.fused_update_matvec_torch(Q, w, h),
+            4 * (m * n + 2 * n), 4 * m * n)
+    return times, errs
+
+
+def phase_f32_rest(record7, record17, rk=None, p2=None):
+    """Phase 33, the seventeenth slice: f32 storage on lkdvRK, the general
+    constraints, heat P2, the error sweep and the batch, at full width on
+    the card (rows (a)-(f) and the kernels of (h); (g) is phase 31's
+    ``_sharded_f32``).  ``rk``: per lkdvRK row of ``RK17``, its f64 system
+    and composite (phase 14's, cast here); ``p2``: heat P2 M=512's f64
+    system and greedy AMG (phase 28's).  Without them they are built here.
+    Prints the ``[f32-rest]`` JSON line; returns the kernels' times and
+    errors and the launches by path."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat, lkdvrk
+    from structurepreservingiterativesolvers_torch.utils.cast import astype
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    if rk is None:
+        rk = {}
+        for name in RK17:
+            cfg = record7[name]["config"]
+            s = lkdvrk.linforms(device=DEVICE, **cfg["params"])
+            rk[name] = (s, default_pre_builder("lkdvrk")(s))
+    rk = {name: {torch.float64: sp, f32: astype(sp, f32)}
+          for name, sp in rk.items()}
+    if p2 is None:
+        s = heat.linforms(M=P2_M, degree=2, device=DEVICE)
+        p2 = (s, default_pre_builder("heat")(s))
+    print(f"[f32-rest] set-up (casts) {time.perf_counter() - t_phase:.2f} s")
+    secs, paths = {}, {}
+    t0 = time.perf_counter()
+    times, errs = _f32_kernels17(rk)
+    secs["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rk_rows, pa = _f32_rk_rows(record7, record17, rk)
+    paths.update(pa)
+    secs["lkdvrk_rows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    general, pa = _f32_general(record17)
+    paths.update(pa)
+    secs["general"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evolutions, pa = _f32_rk_evolutions(record17, rk)
+    paths.update(pa)
+    secs["evolutions"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2_rows, pa, p2_32 = _f32_p2(record17, p2)
+    paths.update(pa)
+    secs["heat_p2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batched, pa = _f32_batched17(rk, p2_32)
+    paths.update(pa)
+    secs["batched"] = time.perf_counter() - t0
+    secs["phase"] = time.perf_counter() - t_phase
+    print("[f32-rest] " + json.dumps({
+        "lkdvrk": rk_rows, "general": general, "evolutions": evolutions,
+        "heat_p2": p2_rows, "batched": batched, "kernels": times,
+        "seconds": secs}))
+    print(f"[f32-rest] phase took {secs['phase']:.1f} s")
+    return times, errs, paths
+
+
+def _sharded_f32(mesh):
+    """Phase 31's f32 rows (the seventeenth slice's (g)), one NCCL rank:
+    the windowed mixed #1 (f32 window and data, f64 y) on swe M=512's A
+    and heat M=1024's energy matrix against its plain version
+    (``F32_MIXED_RTOL``, repeats bit-equal, on one rank the unsharded mixed
+    launch's bits) and timed; then each f32 row beside its unsharded f32
+    solve (the same steps and latch, x within ``SHARD_F32_X``·max|x|, heat
+    M=1024 within 10x the JAX f32 record's own drift, ``pair``): swe
+    M=512 with the skew-normal Chebyshev (tol 4e-7·||b||) on both loops,
+    heat M=1024 with the AMG on the device core (tol 1e-6·||b||; its energy
+    matrix's certificates through the windowed mixed #1), and a 3-step
+    sharded f32 ``fused_evolve`` on swe M=512.  Returns the windowed mixed
+    kernel's report and the launches by path."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments import wrappers
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.kernels import dia_spmv as kd
+    from structurepreservingiterativesolvers_torch.models import heat, swe
+    from structurepreservingiterativesolvers_torch.ops.sparse import matvec_f64
+    from structurepreservingiterativesolvers_torch.parallel import (
+        gather,
+        shard_matrix,
+        shard_preconditioner,
+        shard_system,
+        shard_vector,
+    )
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+    from structurepreservingiterativesolvers_torch.solvers.cgmres import (
+        clear_core_cache,
+    )
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    gen = torch.Generator(device=DEVICE).manual_seed(34)
+    # heat M=1024 runs to k at its f32 floor, where an f32 solve is settled
+    # no closer than the JAX package's own drift under a one-ulp change of b
+    rec15 = json.loads((PACKAGE / "reference" / "slice15.json").read_text())
+    x_bar = {f"swe_M{SWE_M}_snc": SHARD_F32_X,
+             f"heat_M{HEAT_M}_amg": max(
+                 SHARD_F32_X,
+                 10.0 * rec15[f"heat_M{HEAT_M}_amg_f32"]["own_drift"])}
+    s = swe.linforms(M=SWE_M, device=DEVICE, dtype=f32)
+    h = heat.linforms(M=HEAT_M, device=DEVICE, dtype=f32)
+    win, err = {}, 0.0
+    for label, M, A_csr in ((f"swe M={SWE_M} A", s.A, s.A_csr),
+                            (f"heat M={HEAT_M} Emat", h.Emat, None)):
+        tag = f"[sharded f32 {label}]"
+        A = shard_matrix(M, mesh)
+        x = torch.randn(M.shape[0], generator=gen, device=DEVICE, dtype=f32)
+        xs = shard_vector(x, mesh)
+        ext = A.window(xs)
+        _reset_launches()
+        y = A.matvec_f64(xs)
+        again = A.matvec_f64(xs)
+        torch.cuda.synchronize()
+        counted = _read_launches()
+        twin = kd.dia_spmv_window_mixed_torch(A.data, A.offsets, A.lo, ext)
+        abs_err, rel = _rel_err(y, twin)
+        bits = bool(torch.equal(gather(y, mesh), matvec_f64(M, x)))
+        print(f"{tag} windowed mixed #1 (window {A.xchg.width}, "
+              f"{'live' if A.live().pays else 'dense'} design): max|dy|/max|y|"
+              f" {rel:.3e} against its plain version (bound "
+              f"{F32_MIXED_RTOL:.0e}), a repeat equal "
+              f"{bool(torch.equal(y, again))}, the unsharded mixed launch's "
+              f"bits {bits}; counted {counted['dia_spmv_mixed_window']} "
+              f"windowed of {counted['dia_spmv_mixed']} mixed launches")
+        check(y.dtype == torch.float64 and rel <= F32_MIXED_RTOL
+              and torch.equal(y, again), f"{tag} {rel:.3e}")
+        check(counted["dia_spmv_mixed_window"] == 2
+              and counted["dia_spmv_mixed"] == 2,
+              f"{tag} counted {counted['dia_spmv_mixed_window']} windowed, "
+              f"{counted['dia_spmv_mixed']} mixed")
+        if mesh.size == 1:
+            check(bits, f"{tag} on one rank the windowed mixed product must "
+                        "give the unsharded bits")
+        err = max(err, abs_err)
+        nnz = int(torch.count_nonzero(A.data))
+        rec = A._resolved(ext)
+        c64 = _csr_dtype(A_csr if A_csr is not None else _dia_csr(M),
+                         torch.float64)
+        x64 = x.double()
+        t = {"ms": _time_cold_ms(lambda: kd.launch_mixed(rec, ext)),
+             "sharded_ms": _time_cold_ms(lambda: A.matvec_f64(xs)),
+             "plain_ms": _time_cold_ms(lambda: kd.dia_spmv_window_mixed_torch(
+                 A.data, A.offsets, A.lo, ext), reps=10),
+             "library_ms": _time_cold_ms(lambda: c64 @ x64),
+             "window": A.xchg.width, "n_local": A.n_local}
+        # f32 data and window read once, f64 y written once; f64 operations
+        t["bound_ms"], t["bound_by"] = _bound_ms(
+            4 * nnz + 4 * A.xchg.width + 8 * A.n_local, 2 * nnz)
+        print(f"{tag} times (L2 flushed): windowed mixed launch "
+              f"{t['ms']:.4f} ms (bound {t['bound_ms']:.4f} ms, "
+              f"{t['bound_by']}, at {t['bound_ms'] / t['ms']:.1%}), with the "
+              f"window's exchange {t['sharded_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, cuSPARSE f64 CSR on the upcast x "
+              f"{t['library_ms']:.4f} ms")
+        win[label] = t
+        del A, x, xs, ext, c64, x64
+    win["max_abs_err"] = err
+    paths, walls = {}, {}
+
+    def pair(name, full, sharded, loops, **kw):
+        """The sharded f32 solve of each loop beside the unsharded one, both
+        from x0 None (a given zero start changes the f32 modes: the f32
+        reduction and its floors apply from x0 None only): the same latch
+        and steps, x within ``SHARD_F32_X`` of max|x| (heat M=1024, which
+        runs to k at its floor, within max(``SHARD_F32_X``, 10x the JAX f32
+        record's own drift))."""
+        for loop in loops:
+            key = f"{name}_{loop}"
+            tag = f"[sharded f32 {key}]"
+            run_u = lambda: cgmres(*full, loop=loop, **kw)  # noqa: E731
+            run_s = lambda: cgmres(sharded[0], sharded[1], None,  # noqa: E731
+                                   loop=loop, **{**kw, **sharded[3]})
+            run_u()
+            run_s()
+            (xu, iu), wu = _median_walls(run_u, reps=3)
+            (xsh, ish), wsh = _median_walls(run_s, reps=3)
+            _reset_launches()
+            run_s()
+            torch.cuda.synchronize()
+            launches = _read_launches()
+            d = _rel(gather(xsh, mesh).double(), xu.double())
+            print(f"{tag} steps {ish['steps']} (unsharded {iu['steps']}), "
+                  f"safety {ish['safety']} ({iu['safety']}), deviation "
+                  f"{ish['deviation']:.3e} ({iu['deviation']:.3e}), x "
+                  f"against the unsharded f32 solve {d:.3e}; wall, median of"
+                  f" 3: sharded {_med_ms(wsh):.3f} ms, unsharded "
+                  f"{_med_ms(wu):.3f} ms; #1 windowed "
+                  f"{launches['dia_spmv_window']}, mixed windowed "
+                  f"{launches['dia_spmv_mixed_window']}, all_reduce "
+                  f"{launches['all_reduce']}")
+            _gate17(tag, launches)
+            check(ish["safety"] == iu["safety"] is True,
+                  f"{tag} safety {ish['safety']} vs {iu['safety']}")
+            check(ish["steps"] == iu["steps"],
+                  f"{tag} steps {ish['steps']} vs {iu['steps']}")
+            check(d <= x_bar[name], f"{tag} x {d:.3e} from the unsharded "
+                                    f"(bar {x_bar[name]:.3e})")
+            check(launches["dia_spmv_window"] > 0
+                  and launches["all_reduce"] > 0, f"{tag} launches")
+            paths[key] = launches
+            walls[key] = {"sharded_ms": _med_ms(wsh),
+                          "unsharded_ms": _med_ms(wu), "steps": ish["steps"]}
+            clear_core_cache()
+        return launches
+
+    tol = F32_SWE_RTOL * float(torch.linalg.norm(s.b.double()))
+    pre = default_pre_builder("swe")(s)
+    A, b, x0, cons = shard_system(s.A, s.b, torch.zeros_like(s.b),
+                                  s.constraints(), mesh)
+    opts = wrappers.reduction_mode(s, tol)
+    pair(f"swe_M{SWE_M}_snc", (s.A, s.b, None),
+         (A, b, x0, {"constraints": cons,
+                     "pre": shard_preconditioner(pre, mesh)}),
+         ("host", "while"), k=F32_K, tol=tol, constraints=s.constraints(),
+         pre=pre, **opts)
+    del A, b, x0, cons, pre
+    torch.cuda.empty_cache()
+    tol = F32_HEAT_RTOL * float(torch.linalg.norm(h.b.double()))
+    hpre = default_pre_builder("heat")(h)
+    hA, hb, hx0, hcons = shard_system(h.A, h.b, torch.zeros_like(h.b),
+                                      h.constraints(), mesh)
+    opts = wrappers.reduction_mode(h, tol)
+    got = pair(f"heat_M{HEAT_M}_amg", (h.A, h.b, None),
+               (hA, hb, hx0, {"constraints": hcons,
+                              "pre": shard_preconditioner(hpre, mesh)}),
+               ("while",), k=F32_K, tol=tol, constraints=h.constraints(),
+               pre=hpre, **opts)
+    check(got["dia_spmv_mixed_window"] > 0,
+          f"[sharded f32 heat_M{HEAT_M}_amg] the energy matrix's "
+          "certificates did not run the windowed mixed #1")
+    del h, hpre, hA, hb, hx0, hcons
+    torch.cuda.empty_cache()
+    params = dict(M=SWE_M, N=3, T=0.3)
+    s3 = swe.linforms(device=DEVICE, dtype=f32, **params)
+    pre3 = default_pre_builder("swe")(s3)
+    tol = F32_SWE_RTOL * float(torch.linalg.norm(s3.b.double()))
+    runs = {}
+    for key, m in (("unsharded", None), ("sharded", mesh)):
+        fused_evolve("swe", k=F32_K, tol=tol, pre=pre3, mesh=m, dtype=f32,
+                     device=DEVICE, **params)
+        _reset_launches()
+        runs[key] = fused_evolve("swe", k=F32_K, tol=tol, pre=pre3, mesh=m,
+                                 dtype=f32, device=DEVICE, **params)
+        torch.cuda.synchronize()
+    fu, fs = runs["unsharded"], runs["sharded"]
+    d = _rel(fs["sol"].double(), fu["sol"].double())
+    tag = f"[sharded f32 swe_M{SWE_M}_fused_evolve]"
+    print(f"{tag} steps {fs['steps'].tolist()} (unsharded "
+          f"{fu['steps'].tolist()}), safety {fs['safety'].tolist()} "
+          f"({fu['safety'].tolist()}), sol against the unsharded {d:.3e}")
+    _gate17(tag, fs["timings"]["launches"])
+    check(list(fs["steps"]) == list(fu["steps"])
+          and all(int(v) == 1 for v in fs["safety"])
+          and all(int(v) == 1 for v in fu["safety"]),
+          f"{tag} steps or safety")
+    check(d <= SHARD_F32_X, f"{tag} sol {d:.3e} from the unsharded")
+    paths[f"swe_M{SWE_M}_fused_evolve_f32"] = fs["timings"]["launches"]
+    walls["fused_evolve"] = {"steps": fs["steps"].tolist()}
+    del s3, pre3, runs, fu, fs, s
+    clear_core_cache()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    print("[sharded f32] " + json.dumps({"window_mixed": win, "walls": walls,
+                                         "seconds": secs}))
+    print(f"[sharded f32] phase 31's f32 rows took {secs:.1f} s")
+    return win, paths
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -5911,7 +6858,7 @@ def main() -> int:
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
                for name in ("slice1.json", "slice2.json", "slice3.json",
                             "slice4.json", "slice7.json", "slice8.json",
-                            "slice9.json", "slice15.json")}
+                            "slice9.json", "slice15.json", "slice17.json")}
     t_start = time.perf_counter()
     phase_build()
     shapes = SpmmShapes()
@@ -6049,6 +6996,8 @@ def main() -> int:
     torch.cuda.synchronize()
     shapes.checks()
     spmm_err = max(spmm_err, _check_path_spmm_any(shapes, "lkdvrk_B8", gen12))
+    # the f64 systems and composites phase 33 casts to f32
+    rk17 = {name: kept[name] for name in RK17}
     del kept, s32, pre32, s12
     torch.cuda.empty_cache()
     shapes.path("lkdv_hard_graph_core", keep=True)
@@ -6104,6 +7053,8 @@ def main() -> int:
         f"{P2}_m{p2['ortho_m']}", P2_N, p2["ortho_m"],
         torch.Generator(device=DEVICE).manual_seed(30))
     p2_paths = {**p2["paths"], f"{P2}_amg_B{P2_B}": p2_batch}
+    # heat P2 M=512's f64 system and hierarchy, which phase 33 casts to f32
+    p2_keep = (p2_sys, p2_pre)
     del p2_sys, p2_pre
     torch.cuda.empty_cache()
     anchor_paths, err_a, times_a, err_b, spmm_a = phase_heat_p2_dia_anchor(
@@ -6117,13 +7068,21 @@ def main() -> int:
     phase_native()
     torch.cuda.synchronize()
     # the fourteenth slice: the row-sharded path (phase 31)
-    win, shard_paths = phase_sharded()
+    win, shard_paths, (win17, shard17_paths) = phase_sharded()
     import torch.distributed as dist
 
     dist.destroy_process_group()
     # the fifteenth slice: f32 storage (phase 32)
     torch.cuda.empty_cache()
     f32_times, mixed_entry, f32_paths = phase_f32(records["slice15.json"])
+    # the seventeenth slice: f32 on lkdvRK, general constraints, heat P2,
+    # the sweep and the batch (phase 33)
+    torch.cuda.empty_cache()
+    f17_times, f17_errs, f17_paths = phase_f32_rest(
+        records["slice7.json"], records["slice17.json"], rk17, p2_keep)
+    del rk17, p2_keep
+    f32_paths.update(f17_paths)
+    f32_paths.update({f"sharded_{k}": v for k, v in shard17_paths.items()})
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
@@ -6298,12 +7257,44 @@ def main() -> int:
             ("fused_update_matvec",
              (f"fused_update_matvec_swe M={SWE_M} m=21",))):
         by_name[name]["f32"] = {label: f32_times[label] for label in labels}
+    # phase 33's shapes beside them
+    for name in ("dia_spmv", "dia_spmm", "fused_update_matvec"):
+        by_name[name]["f32"].update({label: t for label, t in f17_times.items()
+                                     if label.startswith(name)})
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                           f17_errs[name])
     for name in ("dia_spmv", "dia_spmm", "stencil_spmv", "stencil_spmm",
                  "cheb_apply", "neumann_apply", "fused_update_matvec"):
         by_name[name]["f32_launches_by_path"] = {
             path: n[f"{name}_f32"] for path, n in f32_paths.items()
-            if n[f"{name}_f32"]}
+            if n.get(f"{name}_f32")}
+    mixed_entry["times"].update({k: v for k, v in f17_times.items()
+                                 if k.startswith("mixed_")})
+    mixed_entry["max_abs_err"] = max(mixed_entry["max_abs_err"],
+                                     f17_errs["dia_spmv_mixed"])
+    mixed_entry["launches_by_path"] = {
+        path: n["dia_spmv_mixed"] for path, n in f32_paths.items()
+        if n.get("dia_spmv_mixed")}
+    mixed_entry["launches"] = sum(mixed_entry["launches_by_path"].values())
     kernels.append(mixed_entry)
+    # the mixed #1's windowed launch on the sharded f32 paths (row "1m w")
+    head = f"heat M={HEAT_M} Emat"
+    kernels.append(
+        {"name": "dia_spmv_mixed_window", "route": "cuda",
+         "source": src + "dia_spmv.cu",
+         "replaces": "structurepreservingiterativesolvers_tpu/ops/dd.py:213",
+         "replaces_note": "ops/dd.py::spmv_dia on a row-sharded operator "
+                          "(GSPMD partitions it in the JAX package)",
+         "launch_of": "dia_spmv_mixed",
+         "launches": sum(n.get("dia_spmv_mixed_window", 0)
+                         for n in shard17_paths.values()),
+         "launches_by_path": {path: n["dia_spmv_mixed_window"]
+                              for path, n in shard17_paths.items()
+                              if n.get("dia_spmv_mixed_window")},
+         "max_abs_err": win17["max_abs_err"], "timed_at": head,
+         **{key: win17[head][key] for key in ("ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+         "times": {k: v for k, v in win17.items() if k != "max_abs_err"}})
     print("[heat11] " + json.dumps({"walls": heat11_walls, "batched": {
         name: {key: row[key] for key in ("wall_ms", "single_ms", "capture_s",
                                          "idle")}

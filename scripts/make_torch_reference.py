@@ -740,11 +740,287 @@ def record_f32(name):
     raise ValueError(f"unknown f32 record {name!r}")
 
 
+# the seventeenth slice: the JAX package in f32 storage on the paths the
+# fifteenth left out.  name -> (kind, arguments).  "timed": lkdvRK through
+# its wrappers (``cgmres_wrapper``, ``gmres_wrapper``) with the default
+# RAS + Neumann composite, built in f32 as the JAX ``ras(...,
+# dtype=system.b.dtype)`` does; "general": lkdv with its energy as a
+# ``GeneralConstraint`` (``CORE["lkdv_M50_general"]``), the projection off;
+# "p2": heat P2 with ``amg(A_csr, dtype=float32)`` at each of ``P2_F32_TOLS``
+# (times ||b||), k=60; "sweep": the error sweep in f32
+# (``SPIS_FORCE_DTYPE=float32``, which the JAX package's ``default_dtype``
+# reads) beside the same sweep in f64; "dd": ``_dd_matvec`` of a
+# ``StageKron``, a ``MatComb``, lkdv's ``_BlockDiag3`` and an ELL at seeded
+# f32 vectors; "mesh": the f32 solve on one device and row-sharded over
+# ``MESH17`` CPU devices (the error kept where the JAX package raises).
+SLICE17 = {
+    "lkdvrk_M20_f32": ("timed", dict(M=20, N=10, degree=3, tstages=2), 50,
+                       1e-3),
+    "lkdvrk_M20_deg5_s4_f32": ("timed", dict(M=20, N=10, degree=5,
+                                             tstages=4), 50, 1e-7),
+    "lkdv_M50_general_f32": ("general", dict(M=50, degree=3, N=100), 50,
+                             1e-6),
+    "heat_P2_M16_f32": ("p2", 16),
+    "heat_P2_M32_f32": ("p2", 32),
+    "heat_P2_M64_f32": ("p2", 64),
+    "lkdvrk_M20_sweep_f32": ("sweep", dict(grid=[(3, 2, 1e-3)],
+                                           solvers=("CGMRES",), N=3, M=20,
+                                           k=50)),
+    "dd_matvec_f32": ("dd",),
+    "swe_M16_snc_sharded_f32": ("mesh", "swe", 16, 20, 4e-7),
+    "heat_M31_amg_sharded_f32": ("mesh", "heat", 31, 20, 1e-6),
+}
+P2_F32_TOLS = (1e-6, 1e-5, 1e-4)
+MESH17 = 2
+
+
+def record_slice17(name):
+    """Run the JAX package in f32 storage on ``SLICE17[name]``; returns its
+    entry.  A solve's entry: steps, constrained steps, latch, reported
+    deviation, residual trace, the certified deviations of the returned
+    iterate (double-f32, ``certified_deviations``; for the general solve
+    the f64 invariants of x), its true residual, x whole (n ≤ ``X_KEEP``)
+    and the JAX package's own drift under a one-ulp change of b (as
+    ``record_f32``)."""
+    _jax_cpu()
+    import dataclasses
+    import tempfile
+    import time
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments import wrappers
+    from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
+        certified_deviations,
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_tpu.solvers import cgmres
+
+    kind, *args = SLICE17[name]
+    f32 = jnp.float32
+    eps32 = float(np.finfo(np.float32).eps)
+    t_start = time.perf_counter()
+
+    def vec(x):
+        return [float(v) for v in np.asarray(x, np.float64)]
+
+    def solve_info(info):
+        return {"steps": int(info["steps"]),
+                "constrained_steps": int(info.get("constrained_steps", 0)),
+                "safety": info.get("safety"),
+                "deviation": float(info.get("deviation", np.nan)),
+                "res": [float(v) for v in np.asarray(info["res"])]}
+
+    def solved(s, run, certify=True):
+        """The entry of ``run(s)``, with its drift under b·(1 + eps32·g)."""
+        x, info = run(s)
+        xv = np.asarray(x, np.float64)
+        noise = np.random.default_rng(0).standard_normal(s.b.shape[0])
+        sp_ = dataclasses.replace(
+            s, b=(s.b * (1.0 + eps32 * jnp.asarray(noise))).astype(f32))
+        xp = np.asarray(run(sp_)[0], np.float64)
+        out = {**solve_info(info), "x_max": float(np.abs(xv).max()),
+               "x_sum": float(xv.sum()),
+               "true_residual": float(np.linalg.norm(
+                   np.asarray(s.A @ x - s.b, np.float64))),
+               "own_drift": float(np.abs(xp - xv).max() / np.abs(xv).max())}
+        if certify:
+            out["certified"] = certified_deviations(s, x)
+        if xv.shape[0] <= X_KEEP:
+            out["x"] = vec(xv)
+        return out
+
+    if kind == "timed":
+        from structurepreservingiterativesolvers_tpu.models import lkdvrk
+
+        params, k, tol = args
+        s = lkdvrk.linforms(dtype=f32, **params)
+        pre = default_pre_builder("lkdvrk")(s)
+        out = {"config": {"kind": kind, "problem": "lkdvrk", "params": params,
+                          "k": k, "tol": tol, "pre": "default",
+                          "dtype": "float32"},
+               "n": int(s.b.shape[0]), "operator": operator_format(s.A),
+               "ras_blocks": list(pre.inner.idx.shape),
+               "ras_dtype": str(pre.inner.inv.dtype),
+               "reduction_mode": wrappers.reduction_mode(s, tol)}
+        out["cgmres"] = solved(s, lambda t: wrappers.cgmres_wrapper(
+            t, k=k, tol=tol, pre=pre))
+        xg, ig = wrappers.gmres_wrapper(s, k=k, tol=tol, pre=pre)
+        out["gmres"] = {**solve_info(ig),
+                        "certified": certified_deviations(s, xg)}
+    elif kind == "general":
+        from structurepreservingiterativesolvers_tpu.constraints.general import (
+            GeneralConstraint,
+        )
+        from structurepreservingiterativesolvers_tpu.models import lkdv
+
+        params, k, tol = args
+        s = lkdv.linforms(dtype=f32, **params)
+        Mmat, e0 = s.Mmat, s.e0
+
+        def energy(x):
+            u, _, w = jnp.split(x, 3)
+            return (0.5 * jnp.dot(w, Mmat @ w) - 0.5 * jnp.dot(u, Mmat @ u)
+                    - e0)
+
+        cons = list(s.constraints())
+        cons[2] = GeneralConstraint(func=energy, name="energy")
+
+        def run(t):
+            return cgmres(t.A, t.b, k=k, tol=tol, constraints=cons)
+
+        out = {"config": {"kind": kind, "problem": "lkdv", "params": params,
+                          "k": k, "tol": tol, "dtype": "float32",
+                          "loop": "while"},
+               "n": int(s.b.shape[0]),
+               "targets": {"mass": float(s.m0), "momentum": float(s.mo0),
+                           "energy": float(s.e0)}}
+        out["cgmres"] = solved(s, run, certify=False)
+        x = np.asarray(out["cgmres"]["x"])
+        n0 = x.shape[0] // 3
+        Mh = np.asarray(s.Mmat.todense(), np.float64)
+        om = np.asarray(s.omega, np.float64)
+        u, w = x[:n0], x[2 * n0:]
+        out["cgmres"]["invariants"] = {
+            "mass": float(om @ u), "momentum": float(0.5 * u @ Mh @ u),
+            "energy": float(0.5 * w @ Mh @ w - 0.5 * u @ Mh @ u)}
+    elif kind == "p2":
+        from structurepreservingiterativesolvers_tpu.models import heat
+        from structurepreservingiterativesolvers_tpu.precond.amg import amg
+
+        (M,) = args
+        s = heat.linforms(M=M, degree=2, dtype=f32)
+        pre = amg(s.A_csr, dtype=f32)
+        beta = float(np.linalg.norm(np.asarray(s.b, np.float64)))
+        out = {"config": {"kind": kind, "problem": "heat",
+                          "params": {"M": M, "degree": 2}, "k": P2_K,
+                          "tols": list(P2_F32_TOLS), "tol_mode": "rhs",
+                          "pre": "amg(A_csr, dtype=float32)",
+                          "dtype": "float32"},
+               "n": int(s.b.shape[0]), "beta": beta,
+               "operator": operator_format(s.A),
+               "amg_levels": amg_levels(pre), "solves": {}}
+        for tol in P2_F32_TOLS:
+            tol_abs = tol * beta
+            out["solves"][repr(tol)] = {
+                "tol_abs": tol_abs,
+                "reduction_mode": wrappers.reduction_mode(s, tol_abs),
+                **solved(s, lambda t: wrappers.cgmres_wrapper(
+                    t, k=P2_K, tol=tol_abs, pre=pre))}
+    elif kind == "sweep":
+        from structurepreservingiterativesolvers_tpu.experiments.error_sweep import (
+            run_sweep,
+        )
+
+        (sweep,) = args
+        out = {"config": {**sweep, "grid": [list(g) for g in sweep["grid"]],
+                          "solvers": list(sweep["solvers"]),
+                          "force_dtype": "float32"}}
+        for key, forced in (("f32", "float32"), ("f64", None)):
+            old = os.environ.pop("SPIS_FORCE_DTYPE", None)
+            if forced:
+                os.environ["SPIS_FORCE_DTYPE"] = forced
+            try:
+                with tempfile.TemporaryDirectory() as tmpdir:
+                    runs = run_sweep(tmpdir=tmpdir, **sweep)
+            finally:
+                os.environ.pop("SPIS_FORCE_DTYPE", None)
+                if old is not None:
+                    os.environ["SPIS_FORCE_DTYPE"] = old
+            out[key] = {
+                f"{r['solver']}_{r['degree']}_{r['tstages']}": {
+                    "time": [float(t) for t in r["time"]],
+                    "steps": [int(i) for i in r["steps"]],
+                    **{k2: [float(v) for v in np.asarray(r[k2])]
+                       for k2 in ("err", "dm", "dmo", "de")}}
+                for r in runs}
+    elif kind == "dd":
+        from structurepreservingiterativesolvers_tpu.constraints import (
+            quadratic as jq,
+        )
+        from structurepreservingiterativesolvers_tpu.models import heat, lkdvrk
+        from structurepreservingiterativesolvers_tpu.ops import dd
+
+        rk = lkdvrk.linforms(M=20, N=10, degree=3, tstages=2, dtype=f32)
+        p2 = heat.linforms(M=16, degree=2, dtype=f32)
+        ops = {"StageKron": rk.constraints()[2].M,
+               "BlockDiag3": rk.constraints()[2].M.inner,
+               "MatComb": jq.MatComb((1.0, -0.5), (rk.Mmat, rk.Gmat)),
+               "ELL": p2.Emat}
+        out = {"config": {"lkdvrk": dict(M=20, N=10, degree=3, tstages=2),
+                          "heat_p2": dict(M=16, degree=2),
+                          "x": "z0-free: numpy default_rng(seed 11) normal, "
+                               "rounded to f32"},
+               "ops": {}}
+        sizes = {"StageKron": rk.b.shape[0], "BlockDiag3": 3 * rk.n0,
+                 "MatComb": rk.n0, "ELL": p2.b.shape[0]}
+        for i, (key, M) in enumerate(ops.items()):
+            n = int(sizes[key])
+            x = np.random.default_rng(11 + i).standard_normal(n).astype(
+                np.float32)
+            y = np.asarray(dd.to_f64(jq._dd_matvec(M, dd.from_f32(
+                jnp.asarray(x)))), np.float64)
+            out["ops"][key] = {"seed": 11 + i, "n": n, "y": vec(y)}
+    elif kind == "mesh":
+        from structurepreservingiterativesolvers_tpu import precond
+        from structurepreservingiterativesolvers_tpu.models import heat, swe
+        from structurepreservingiterativesolvers_tpu.parallel import (
+            make_mesh,
+            shard_preconditioner,
+            shard_system,
+        )
+
+        problem, M, k, tol = args
+        if len(jax.devices()) < MESH17:
+            raise RuntimeError(f"{len(jax.devices())} JAX devices; the record "
+                               f"needs {MESH17}")
+        mesh = make_mesh(MESH17)
+        if problem == "swe":
+            s = swe.linforms(M=M, N=100, dtype=f32)
+            pre = precond.skew_normal_chebyshev(s.A, a=1.0 / s.prob.dt)
+            shard_pre = lambda: shard_preconditioner(pre, mesh)  # noqa: E731
+        else:
+            from structurepreservingiterativesolvers_tpu.precond.amg import amg
+
+            s = heat.linforms(M=M, dtype=f32)
+            pre = amg(s.A, grid=(M + 1, M + 1))
+            shard_pre = lambda: shard_preconditioner(  # noqa: E731
+                pre, mesh, replicate_below=512)
+        beta = float(np.linalg.norm(np.asarray(s.b, np.float64)))
+        tol_abs = tol * beta
+        opts = wrappers.reduction_mode(s, tol_abs)
+        out = {"config": {"kind": kind, "problem": problem,
+                          "params": {"M": M}, "k": k, "tol": tol,
+                          "tol_mode": "rhs", "mesh_devices": MESH17,
+                          "dtype": "float32", "reduction_mode": opts},
+               "n": int(s.b.shape[0]), "beta": beta, "tol_abs": tol_abs}
+        x1, i1 = cgmres(s.A, s.b, k=k, tol=tol_abs,
+                        constraints=s.constraints(), pre=pre, **opts)
+        out["single"] = {**solve_info(i1), "x": vec(x1),
+                         "certified": certified_deviations(s, x1)}
+        try:
+            A, b, x0, cons = shard_system(s.A, s.b, jnp.zeros_like(s.b),
+                                          s.constraints(), mesh)
+            x2, i2 = cgmres(A, b, x0, k=k, tol=tol_abs, constraints=cons,
+                            pre=shard_pre(), **opts)
+            out["sharded"] = {**solve_info(i2), "x": vec(x2)}
+        except Exception as exc:  # the JAX package's refusal, kept
+            out["sharded"] = {"error": f"{type(exc).__name__}: {exc}"}
+    else:
+        raise ValueError(f"unknown slice-17 record {name!r}")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def out_path(name) -> Path:
     """The record file that holds configuration ``name``: by its
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in SLICE17:
+        return REFERENCE / "slice17.json"
     if name in SLICE15:
         return REFERENCE / "slice15.json"
     if name in SLICE14:
@@ -1446,12 +1722,13 @@ def main(names):
 
     for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED,
                           *CORE, *P2_TIMED, *REPORTS, *sorted(SLICE14),
-                          *SLICE15]:
+                          *SLICE15, *SLICE17]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
             "JAX package on the CPU in "
-            + ("f32 storage" if name in SLICE15 else "f64")
+            + ("f32 storage" if name in SLICE15 or name in SLICE17
+               else "f64")
             + " (jax " + jax.__version__ + "); "
             "written by scripts/make_torch_reference.py"
         )
@@ -1464,6 +1741,7 @@ def main(names):
                      else record_report(name) if name in REPORTS
                      else record_parallel(name) if name in SLICE14
                      else record_f32(name) if name in SLICE15
+                     else record_slice17(name) if name in SLICE17
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1471,7 +1749,8 @@ def main(names):
 
 
 if __name__ == "__main__":
-    if not sys.argv[1:] or SLICE14 & set(sys.argv[1:]):
+    if not sys.argv[1:] or (SLICE14 | {n for n, v in SLICE17.items()
+                                       if v[0] == "mesh"}) & set(sys.argv[1:]):
         # the sharded records need the 8-device CPU mesh, set before JAX
         # starts; no other record reads past the first device
         flags = os.environ.get("XLA_FLAGS", "")

@@ -43,33 +43,43 @@ class GeneralConstraint:
 
 
 def taylor_model(con: GeneralConstraint, y0: torch.Tensor, Z: torch.Tensor,
-                 x0: torch.Tensor):
+                 x0: torch.Tensor, cdtype: torch.dtype = None):
     """The quadratic model of the reduced constraint about y0,
     g̃(y) ≈ t0 + t1·y + yᵀ T2 y, as tensors on the solve's device: t0
     (0-dim), t1 (k,) and T2 (k, k), from y0 (k,), the basis ``Z`` (k, n)
     and ``x0`` (n,).  No host read and no host copy: the device core runs
     it inside its ``kkt_start`` graph, where the value's ``A @ x`` is
     kernel #1 and the Hessian's vmapped products one launch of #1b at width
-    k (``ops/sparse.py::_DiaProduct``)."""
+    k (``ops/sparse.py::_DiaProduct``).
+
+    g, its gradient and its Hessian are taken in the storage dtype (over
+    f32 storage, through the f32 kernels) and the model is formed in
+    ``cdtype`` (the solver's k-sized dtype, f64 over f32 storage; None:
+    the storage's), as the JAX package's mixed core builds its kinds
+    ``"g"`` (``constraints/general.py:45-66`` there)."""
+    cd = cdtype or Z.dtype
 
     def reduced(y):
         return con.func(x0 + y @ Z)
 
-    val = reduced(y0)
-    grad = torch.func.grad(reduced)(y0)
-    hess = torch.func.hessian(reduced)(y0)
+    y0s = y0.to(Z.dtype)
+    val = reduced(y0s).to(cd)
+    grad = torch.func.grad(reduced)(y0s).to(cd)
+    hess = torch.func.hessian(reduced)(y0s).to(cd)
+    y0 = y0.to(cd)
     hy = hess @ y0
     t0 = val - torch.dot(grad, y0) + 0.5 * torch.dot(y0, hy)
     return t0, grad - hy, 0.5 * hess
 
 
 def taylor_buffers(con: GeneralConstraint, y0: torch.Tensor, Z: torch.Tensor,
-                   x0: torch.Tensor) -> ReducedBuffers:
+                   x0: torch.Tensor, cdtype: torch.dtype = None
+                   ) -> ReducedBuffers:
     """``taylor_model`` for the host loop: ``y0`` (k,) lies on the host,
     the basis ``Z`` (k, n) and ``x0`` on the solve's device; the buffers
-    land on the host, read in one copy."""
+    land on the host in ``cdtype``, read in one copy."""
     k = y0.shape[0]
-    t0, t1, T2 = taylor_model(con, y0.to(Z.device, Z.dtype), Z, x0)
+    t0, t1, T2 = taylor_model(con, y0.to(Z.device), Z, x0, cdtype)
     host = torch.cat([t0.reshape(1), t1, T2.reshape(-1)]).to(HOST)
     return ReducedBuffers(t0=host[0], t1=host[1:k + 1],
                           T2=host[k + 1:].reshape(k, k))

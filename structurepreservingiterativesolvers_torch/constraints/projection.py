@@ -12,7 +12,11 @@ products and sums, where the JAX package computes in double-f32 pairs) and
 moves x onto the manifold:
 
 1. dense Newton stages: the least-norm step x ← x − Dᵀ(DDᵀ)⁻¹ g with D the
-   constraint Jacobian, damped by a backtracking τ;
+   constraint Jacobian, damped by a backtracking τ, and rounded to f32
+   without bias (``_dithered``): on a large vector the step is a fraction
+   of an ulp a component, which a rounding to nearest drops (heat P2 at
+   n ≈ 10^6 stalled near 5e-9 so, its trim windows' rough steps raising
+   the energy through the stiffness);
 2. windowed trim stages: the same step restricted to a small window of
    components, whose re-rounding noise scales as √window instead of √n.
 
@@ -28,6 +32,16 @@ comparison, the accept guard a ``torch.where``, the backtracking τ an
 argmin on the device; nothing is read on the host.  The JAX package keeps
 its τ grid as a module-level array (``_TAUS``), which leaks a tracer when
 the module is first imported inside a trace; here it is built per call.
+
+On row-sharded data (the constraints' ``mesh``) x, D and the directions
+are each rank's rows: every n-length f64 reduction of a stage (its dots,
+the Gram matrix) is one all-reduce (``parallel/comm.py::psum``), the
+evaluations all-reduce their terms (``value_and_scale_f64``), the trim
+window is picked once over the global vector (``_window_mask``: the chunk
+scores all-reduced, so every rank trims the same components), and the
+certificate's trim bound takes the global maximum (``pmax``).  Every
+accept guard and τ then derives from all-reduced values, alike on every
+rank.
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..ops.sparse import f64_supported
+from ..parallel.comm import mesh_of, pmax, psum
 from .quadratic import QuadraticConstraint, value_and_scale_f64, value_f64
 
 # Shrinking-window ladder of the JAX package (measured there, swe M=64..256
@@ -57,7 +72,8 @@ def snap_supported(cons: Sequence) -> bool:
 
 
 def _dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a · b with f32 loads, f64 products and an f64 sum."""
+    """a · b with f32 loads, f64 products and an f64 sum (this rank's rows;
+    the caller all-reduces a stage's dots together)."""
     return torch.dot(a.double(), b.double())
 
 
@@ -66,51 +82,108 @@ def _deviations(cons, x: torch.Tensor) -> torch.Tensor:
     return torch.stack([value_f64(c, x) for c in cons])
 
 
-def _window_mask(D: torch.Tensor, w: int) -> torch.Tensor:
+def _global(n: int, mesh) -> tuple:
+    """The global length of a row-sharded vector of ``n`` local rows, and
+    this rank's first row (n and 0 without a mesh)."""
+    if mesh is None:
+        return n, 0
+    n_all = n * mesh.size
+    return n_all, mesh.rows(n_all)[0]
+
+
+def _window_mask(D: torch.Tensor, w: int, mesh=None) -> torch.Tensor:
     """(n,) mask in D's dtype selecting the width-``w`` aligned chunk on
     which every constraint's gradient is strongest (max over chunks of the
     min over constraints of the chunk gradient norm²): a fixed corner
-    window can be gradient-degenerate (swe's Gaussian's far corner)."""
+    window can be gradient-degenerate (swe's Gaussian's far corner).
+    Under a mesh D holds this rank's columns: the chunks are those of the
+    global vector, their scores summed over the ranks (one all-reduce), so
+    every rank picks the same chunk and masks its own part of it."""
     m, n = D.shape
-    nc = n // w
-    scores = (D[:, : nc * w].reshape(m, nc, w) ** 2).sum(-1).amin(0)
-    start = scores.argmax() * w
-    idx = torch.arange(n, device=D.device)
+    if mesh is None:
+        nc = n // w
+        scores = (D[:, : nc * w].reshape(m, nc, w) ** 2).sum(-1).amin(0)
+        start = scores.argmax() * w
+        idx = torch.arange(n, device=D.device)
+    else:
+        n_all, r0 = _global(n, mesh)
+        nc = n_all // w
+        idx = torch.arange(r0, r0 + n, device=D.device)
+        # the rows past the last whole chunk into a spare bucket
+        chunk = torch.clamp(idx // w, max=nc)
+        sq = torch.zeros((m, nc + 1), dtype=D.dtype, device=D.device)
+        sq.index_add_(1, chunk, D ** 2)
+        start = psum(sq, mesh)[:, :nc].amin(0).argmax() * w
     return ((idx >= start) & (idx < start + w)).to(D.dtype)
 
 
 def _newton_direction(D: torch.Tensor, x: torch.Tensor, g: torch.Tensor,
-                      window: int = 0) -> torch.Tensor:
+                      window: int = 0, mesh=None) -> torch.Tensor:
     """Least-norm Newton direction −Dᵀ(DDᵀ+λI)⁻¹ g, optionally with D
     restricted to the strongest aligned window of ``window`` components.
     The Gram matrix is formed in f32 and solved in f64 (Newton needs ~1e-3
     relative accuracy in it; the f64 re-evaluation of g certifies); the
-    Tikhonov floor keeps a rank-deficient window from a huge step."""
+    Tikhonov floor, 1e-6 of its trace (about 8·eps32: below the f32 Gram
+    matrix's own rounding its eigen-directions are noise), keeps a
+    rank-deficient window from a huge step.  (The JAX package's 1e-12 lets
+    a window where two gradients are nearly parallel, lkdvRK's momentum and
+    energy over a stage's u field, take steps that raise every deviation
+    by four orders: the guard then rejects each trim stage, and a
+    warm-started lkdvRK M=400 step stalls above its certificate floor.)"""
     from ..solvers.kkt import solve_dense
 
     if window:
-        D = D * _window_mask(D, window)[None, :]
-    G = (D @ D.T).double()
-    lam = 1e-12 * torch.clamp(torch.trace(G), min=1e-30)
+        D = D * _window_mask(D, window, mesh)[None, :]
+    G = psum(D @ D.T, mesh).double()
+    lam = 1e-6 * torch.clamp(torch.trace(G), min=1e-30)
     eye = torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
     alpha = solve_dense(G + lam * eye, -g)
     # the (roundoff-sized) coefficients in x's dtype before the n-sized work
     return alpha.to(x.dtype) @ D
 
 
-def _increment(cons, D, g, x, x_entry, delta) -> torch.Tensor:
+def _dither(n: int, mesh, device) -> torch.Tensor:
+    """(n,) f64 thresholds in [0, 1) for this rank's rows: the golden-ratio
+    sequence frac((i + 1)·φ⁻¹) of each row's global index i, so that the
+    thresholds of neighbouring rows spread evenly over [0, 1)."""
+    r0 = _global(n, mesh)[1]
+    i = torch.arange(r0 + 1, r0 + n + 1, dtype=torch.float64, device=device)
+    return torch.frac(i * 0.6180339887498949)
+
+
+def _dithered(x: torch.Tensor, step: torch.Tensor,
+              dither: torch.Tensor) -> torch.Tensor:
+    """x + step (f64) rounded to x's dtype without bias: each component
+    goes to the nearest value r or to its neighbour on the far side of
+    x + step, the neighbour where the component's threshold is below the
+    share of the gap between them that x + step covers.  A step below half
+    an ulp then still moves that share of the components by one ulp, so
+    the realised step keeps the direction's sums (a nearest rounding drops
+    every such component, and a dense stage on a large vector, whose
+    per-component step is a tenth of an ulp, moves almost nothing)."""
+    t = x.double() + step
+    r = t.to(x.dtype)
+    e = t - r.double()
+    inf = torch.full_like(r, float("inf"))
+    nb = torch.nextafter(r, torch.where(e > 0, inf, -inf))
+    share = e.abs() / (nb.double() - r.double()).abs()
+    return torch.where(dither < share, nb, r)
+
+
+def _increment(cons, D, g, x, x_entry, delta, mesh=None) -> torch.Tensor:
     """The deviations after the realised update ``delta`` through the exact
     quadratic increment  g(x+Δ) = g(x) + ∇g(x)·Δ + ½ΔᵀMΔ  with
     ∇g(x) = D_entry + M(x − x_entry):
-    (M(x−x_entry))·Δ + ½Δ·MΔ = (MΔ)·((x − x_entry) + ½Δ)."""
+    (M(x−x_entry))·Δ + ½Δ·MΔ = (MΔ)·((x − x_entry) + ½Δ); the m
+    increments in one all-reduce under a mesh."""
     out = []
     for ci, con in enumerate(cons):
         t = _dot64(D[ci], delta)
         if con.M is not None:
             md = con.M @ delta
             t = t + _dot64(md, (x - x_entry) + 0.5 * delta)
-        out.append(g[ci] + t)
-    return torch.stack(out)
+        out.append(t)
+    return g + psum(torch.stack(out), mesh)
 
 
 def snap(x: torch.Tensor, cons: Sequence[QuadraticConstraint],
@@ -129,10 +202,12 @@ def snap(x: torch.Tensor, cons: Sequence[QuadraticConstraint],
     m = len(cons)
     if m == 0:
         return x, torch.zeros(0, dtype=torch.float64, device=x.device)
-    n = x.shape[0]
+    mesh = mesh_of(*cons)
+    n = _global(x.shape[0], mesh)[0]
     taus = torch.pow(2.0, -torch.arange(_NTAUS, dtype=torch.float64,
                                         device=x.device))
     g = _deviations(cons, x)
+    dither = _dither(x.shape[0], mesh, x.device)
     for _ in range(max(int(rounds), 1)):
         D = torch.stack([c.grad(x) for c in cons])  # (m, n) in x's dtype
         x_entry = x
@@ -144,7 +219,7 @@ def snap(x: torch.Tensor, cons: Sequence[QuadraticConstraint],
                 # manifold from a large deviation: refresh it
                 D = torch.stack([c.grad(x) for c in cons])
                 x_entry = x
-            dirn = _newton_direction(D, x, g, window)
+            dirn = _newton_direction(D, x, g, window, mesh)
             if window == 0:
                 # the damped dense stage: the increment along τ·dirn is
                 # exactly quadratic in τ, so the whole grid costs one
@@ -160,16 +235,17 @@ def snap(x: torch.Tensor, cons: Sequence[QuadraticConstraint],
                         quad_c = 0.5 * _dot64(md, dirn)
                     lin.append(lin_c)
                     quad.append(quad_c)
-                lin, quad = torch.stack(lin), torch.stack(quad)
+                # one all-reduce for the stage's 2m dots
+                lin, quad = psum(torch.stack(lin + quad), mesh).split(m)
                 gmod = (g[None, :] + taus[:, None] * lin[None, :]
                         + (taus ** 2)[:, None] * quad[None, :])
                 # the τ of the least worst deviation, picked on the device
                 tau = taus.gather(0, gmod.abs().amax(1).argmin().reshape(1))
-                x_new = x + tau.to(x.dtype) * dirn
+                x_new = _dithered(x, tau * dirn.double(), dither)
             else:
                 x_new = x + dirn
             delta = x_new - x  # the realised (post-rounding) update
-            g_new = _increment(cons, D, g, x, x_entry, delta)
+            g_new = _increment(cons, D, g, x, x_entry, delta, mesh)
             better = ((g_new.abs().amax() < g.abs().amax())
                       & torch.isfinite(g_new).all())
             x = torch.where(better, x_new, x)
@@ -197,11 +273,11 @@ def certified_floor(cons: Sequence[QuadraticConstraint], x: torch.Tensor,
     eps64 = torch.finfo(torch.float64).eps
     eps32 = torch.finfo(torch.float32).eps
     xd = x.double()
-    out = []
+    scale, big = [], []
     for c in cons:
-        s = value_and_scale_f64(c, x)[1]
-        trim = (0.5 * _LADDER[-2] * eps32
-                * (xd * c.grad(x).double()).abs().amax())
-        out.append(torch.clamp(torch.maximum(32.0 * eps64 * s, trim),
-                               min=ctol))
-    return torch.stack(out)
+        scale.append(value_and_scale_f64(c, x)[1])
+        big.append((xd * c.grad(x).double()).abs().amax())
+    # the largest |x_i ∂g/∂x_i| over every rank's rows
+    trim = 0.5 * _LADDER[-2] * eps32 * pmax(torch.stack(big), mesh_of(*cons))
+    return torch.clamp(torch.maximum(32.0 * eps64 * torch.stack(scale), trim),
+                       min=ctol)

@@ -117,7 +117,13 @@ class StageKron:
 
     def matvec_f64(self, X):
         """The product in f64 from f32 storage: P, the inner product and Pᵀ
-        each in f64 (``ops/sparse.py::matvec_f64``)."""
+        each in f64 (``ops/sparse.py::matvec_f64``), the map's weights the
+        f64 product of the stored b and dt.  (The JAX package's
+        ``_dd_matvec`` rounds b·dt to f32 first, 1.5e-8 off relative: an
+        offset of the quadratic term that at lkdvRK M=400 is above the
+        projection's certificate floor.)  The inner operator takes the f64
+        vector P x (an f32 DIA on its kept upcast operator,
+        ``DIA.upcast``)."""
         bd = self.b.double() * self.dt
         Xs = X.double().reshape(self.ns, -1, *X.shape[1:])
         w = matvec_f64(self.inner, torch.tensordot(bd, Xs, dims=1))

@@ -14,6 +14,7 @@
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --device cpu
     python -m structurepreservingiterativesolvers_torch timed --problem lkdvrk --sizes 50 --loop while --device cpu
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --loop while --device cpu
+    python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --dtype float32 --device cpu
     python -m structurepreservingiterativesolvers_torch timed --problem heat --degree 2 --sizes 16 32 --k 60 --device cpu
     python -m structurepreservingiterativesolvers_torch single --problem lkdv --M 20 --plot --device cpu
     python -m structurepreservingiterativesolvers_torch evolve --problem lkdv --M 20 --N 5 --plot --device cpu
@@ -27,7 +28,7 @@ while`` run the solvers on the device core, the JAX package's default
 loop.  ``single --plot`` tabulates both solvers and draws the convergence
 figure, ``evolve --plot`` runs GMRES and CGMRES evolutions and draws their
 drifts (``plots/``; pandas and matplotlib needed then only).
-``--dtype float32`` (``single``, ``timed``, ``evolve``) stores the vectors
+``--dtype float32`` (``single``, ``timed``, ``evolve``, ``sweep``) stores the vectors
 in f32, the JAX package's TPU mode (its ``SPIS_FORCE_DTYPE``): the models'
 ``dtype=``, the solvers' f32 modes (``solvers/cgmres.py::resolve_modes``).
 ``dist-bench`` is one process of a row-sharded benchmark job (the
@@ -109,6 +110,10 @@ def main(argv=None):
                         "device core (CUDA graphs on the card)")
     p.add_argument("--device", default="cuda",
                    help="torch device to solve on (default cuda)")
+    p.add_argument("--dtype", default="float64",
+                   choices=["float64", "float32"],
+                   help="storage dtype of the vectors (default float64; "
+                        "float32: the f32 storage mode)")
 
     p = sub.add_parser(
         "dist-bench",
@@ -166,16 +171,19 @@ def main(argv=None):
                 if key in out:
                     print(f"final {key}: {out[key][-1]:.3e}")
     elif args.cmd == "sweep":
+        import torch
+
         from .error_sweep import error_plot, run_sweep
 
+        dtype = getattr(torch, args.dtype)
         merged = run_sweep(parallel=args.parallel, N=args.N, M=args.M,
-                           loop=args.loop, device=args.device)
+                           loop=args.loop, dtype=dtype, device=args.device)
         for run in merged:
             print(f"{run['solver']} q={run['degree']} s={run['tstages']}: "
                   f"final err {run['err'][-1]:.6e}, dm {run['dm'][-1]:.3e}, "
                   f"de {run['de'][-1]:.3e}")
         if args.plot:
-            error_plot()
+            error_plot(dtype=dtype)
     elif args.cmd == "dist-bench":
         if args.spawn:
             from .scaling import dist_efficiency

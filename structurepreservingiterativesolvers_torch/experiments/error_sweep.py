@@ -16,11 +16,17 @@ on the same device.  ``loop`` is the iterative solvers' loop: ``"host"``
 JAX package's default; there one cached core serves every step of an
 evolution (the stepped systems share A, the preconditioner and the
 constraints' operators), so on the card its graphs are captured once and
-replayed for every step.
+replayed for every step.  ``dtype`` is the storage dtype (f64, or f32:
+the JAX package's TPU mode, its ``SPIS_FORCE_DTYPE=float32`` read by
+``default_dtype()``): the models', the preconditioner's, and the solvers'
+f32 modes; each run's pickle names it, and the merged file of an f32 sweep
+is ``error_float32.pickle``, so f32 and f64 sweeps never overwrite each
+other.
 
     python -m structurepreservingiterativesolvers_torch sweep --M 400 --N 10
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --device cpu
     python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --loop while --device cpu
+    python -m structurepreservingiterativesolvers_torch sweep --M 50 --N 3 --dtype float32 --device cpu
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import subprocess
 import sys
 from typing import List, Optional, Sequence, Tuple
 
+import torch
+
 # the reference's grid (lkdvRK/ErrorGenerator.py:28-39)
 DEFAULT_GRID: Sequence[Tuple[int, int, float]] = (
     (3, 2, 1e-3),
@@ -40,10 +48,24 @@ DEFAULT_GRID: Sequence[Tuple[int, int, float]] = (
 SOLVERS = ("Exact", "GMRES", "CGMRES")
 
 
-def _pickle_path(tmpdir, solver, tstages, degree, tol, N, M):
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _pickle_path(tmpdir, solver, tstages, degree, tol, N, M,
+                 dtype=torch.float64):
     return os.path.join(
-        tmpdir, f"error{solver}{tstages}{degree}{tol}{N}{M}.pickle"
+        tmpdir,
+        f"error{solver}{tstages}{degree}{tol}{N}{M}{_dtype_name(dtype)}.pickle"
     )
+
+
+def _merged_path(tmpdir, dtype=torch.float64):
+    """``error.pickle`` for an f64 sweep, ``error_float32.pickle`` for an
+    f32 one."""
+    name = _dtype_name(dtype)
+    return os.path.join(tmpdir, "error.pickle" if name == "float64"
+                        else f"error_{name}.pickle")
 
 
 def run_single(
@@ -57,13 +79,14 @@ def run_single(
     tmpdir: str = "tmp",
     precondition: bool = True,
     loop: str = "host",
+    dtype=torch.float64,
     *,
     device,
 ) -> dict:
-    """One evolution on ``device`` (the reference's ``subcall``), with the
-    RAS + Neumann composite of the TimedSolve pre-builder built once on its
-    first system, each step's solve on ``loop``; the result is pickled and
-    returned."""
+    """One evolution on ``device`` (the reference's ``subcall``) in storage
+    ``dtype``, with the RAS + Neumann composite of the TimedSolve
+    pre-builder built once on its first system (its inverses in ``dtype``),
+    each step's solve on ``loop``; the result is pickled and returned."""
     from ..models import lkdvrk
     from . import wrappers
     from .evolve import evolve
@@ -73,7 +96,7 @@ def run_single(
     pre = None
     if precondition and solver != "Exact":
         sys0 = lkdvrk.linforms(N=N, M=M, degree=degree, tstages=tstages,
-                               T=1.0, device=device)
+                               T=1.0, dtype=dtype, device=device)
         pre = default_pre_builder("lkdvrk")(sys0)
 
     if solver == "Exact":
@@ -88,10 +111,11 @@ def run_single(
 
     out = evolve("lkdvrk", N=N, M=M, degree=degree, tstages=tstages, T=1.0,
                  k=k, tol=tol, solver=step_solver, pre=pre,
-                 compute_error=True, device=device)
+                 compute_error=True, dtype=dtype, device=device)
     out.pop("sol", None)  # a device tensor; the pickles stay portable
-    out.update(degree=degree, tstages=tstages, solver=solver)
-    with open(_pickle_path(tmpdir, solver, tstages, degree, tol, N, M),
+    out.update(degree=degree, tstages=tstages, solver=solver,
+               dtype=_dtype_name(dtype))
+    with open(_pickle_path(tmpdir, solver, tstages, degree, tol, N, M, dtype),
               "wb") as fh:
         pickle.dump(out, fh)
     return out
@@ -107,11 +131,13 @@ def run_sweep(
     parallel: bool = False,
     max_processes: int = 12,
     loop: str = "host",
+    dtype=torch.float64,
     *,
     device,
 ) -> List[dict]:
-    """The whole sweep on ``device``, the iterative solvers on ``loop``; the
-    merged results are written to ``<tmpdir>/error.pickle`` and
+    """The whole sweep on ``device`` in storage ``dtype``, the iterative
+    solvers on ``loop``; the merged results are written to
+    ``<tmpdir>/error.pickle`` (f64; ``error_float32.pickle`` in f32) and
     returned."""
     os.makedirs(tmpdir, exist_ok=True)
     runs = [(solver, degree, tstages, tol)
@@ -125,39 +151,41 @@ def run_sweep(
                 sys.executable, "-m",
                 "structurepreservingiterativesolvers_torch.experiments.error_sweep",
                 solver, str(degree), str(tstages), str(tol), str(N), str(M),
-                str(k), tmpdir, str(device), loop]))
+                str(k), tmpdir, str(device), loop, _dtype_name(dtype)]))
         for proc in procs:
             proc.wait()
     else:
         for solver, degree, tstages, tol in runs:
             run_single(solver, degree, tstages, tol, N=N, M=M, k=k,
-                       tmpdir=tmpdir, loop=loop, device=device)
+                       tmpdir=tmpdir, loop=loop, dtype=dtype, device=device)
 
     # merge, skipping the runs that failed (reference ErrorGenerator.py:62-74)
     merged = []
     for solver in solvers:
         for degree, tstages, tol in grid:
-            path = _pickle_path(tmpdir, solver, tstages, degree, tol, N, M)
+            path = _pickle_path(tmpdir, solver, tstages, degree, tol, N, M,
+                                dtype)
             try:
                 with open(path, "rb") as fh:
                     merged.append(pickle.load(fh))
             except (OSError, pickle.UnpicklingError, EOFError) as e:
                 print(f"Loading {path} failed with: {e}")
-    with open(os.path.join(tmpdir, "error.pickle"), "wb") as fh:
+    with open(_merged_path(tmpdir, dtype), "wb") as fh:
         pickle.dump(merged, fh)
     return merged
 
 
-def error_plot(tmpdir: str = "tmp", filename: Optional[str] = None):
+def error_plot(tmpdir: str = "tmp", filename: Optional[str] = None,
+               dtype=torch.float64):
     """L2 error against time per solver and configuration (reference
-    ErrorPlotter.py).  Needs matplotlib, which raises ``ImportError`` where
-    it is not installed."""
+    ErrorPlotter.py), of the sweep in ``dtype``.  Needs matplotlib, which
+    raises ``ImportError`` where it is not installed."""
     import matplotlib
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
 
-    with open(os.path.join(tmpdir, "error.pickle"), "rb") as fh:
+    with open(_merged_path(tmpdir, dtype), "rb") as fh:
         data = pickle.load(fh)
 
     styles = {"Exact": "solid", "GMRES": "dotted", "CGMRES": "dashed"}
@@ -183,7 +211,8 @@ def error_plot(tmpdir: str = "tmp", filename: Optional[str] = None):
 
 if __name__ == "__main__":
     # a worker of the fan-out: solver degree tstages tol N M k tmpdir device
-    # loop
+    # loop dtype
     a = sys.argv[1:]
     run_single(a[0], int(a[1]), int(a[2]), float(a[3]), int(a[4]), int(a[5]),
-               int(a[6]), a[7], loop=a[9], device=a[8])
+               int(a[6]), a[7], loop=a[9], dtype=getattr(torch, a[10]),
+               device=a[8])

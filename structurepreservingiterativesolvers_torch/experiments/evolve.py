@@ -232,7 +232,6 @@ def fused_evolve(
             "workaround, not ported on purpose)")
     from ..parallel import gather, shard_constraint, shard_matrix, shard_vector
     from ..solvers.cgmres import DeviceCore, resolve_modes
-    from ..solvers.gmres import refuse_f32_mesh
 
     sys0 = get_model(problem).linforms(N=N, M=M, degree=degree, device=device,
                                        **params)
@@ -259,7 +258,6 @@ def fused_evolve(
                                            for c in cons]
 
     A = sys0.A if whole is None else shard_matrix(sys0.A, whole)
-    refuse_f32_mesh(A, sys0.b)
     # f32 storage: mixed, with the projection inside the core's solve, the
     # in-loop reduction in f64 (x0 is a tensor every step, as the JAX
     # package's scan passes it: evolve.py:192-206 there)

@@ -33,6 +33,15 @@ F32 = {name: _Count() for name in (
     "neumann_apply", "fused_update_matvec")}
 
 
+# the f64 launches of kernel #1 on the kept upcast operator of an f32 DIA
+# (``ops/sparse.py::DIA.upcast``: a stage map's f64 P x over f32 storage),
+# counted beside ``dia_spmv``'s own
+UPCAST = _Count()
+# the mixed #1's windowed launches (a row-sharded operator's f64 product
+# from f32 storage), counted beside ``dia_spmv_mixed``'s own
+MIXED_WINDOW = _Count()
+
+
 def count_f32(name: str, dtype: torch.dtype) -> None:
     """Count a launch of ``name``'s f32 instantiation."""
     if dtype == torch.float32:
@@ -47,7 +56,9 @@ def launch_counters() -> dict:
     ``dia_spmm``: ``_live`` and ``_dense`` by its
     operator's plan, ``_tile`` and ``_spread`` by its design;
     ``dia_spmv_window`` and ``dia_spmm_window`` the windowed launches of a
-    row-sharded operator); ``<name>_f32`` the launches of a kernel's f32
+    row-sharded operator, ``dia_spmv_mixed_window`` the mixed form's;
+    ``dia_spmv_upcast`` the f64 launches on an f32 DIA's upcast operator);
+    ``<name>_f32`` the launches of a kernel's f32
     instantiation (``F32``; a block form's and a design's among them).
     ``utils.counters.all_counters`` adds the collectives' counters to
     these."""
@@ -58,6 +69,8 @@ def launch_counters() -> dict:
             "dia_spmv_dense": dia_spmv.dia_spmv_dense_cuda,
             "dia_spmv_window": dia_spmv.dia_spmv_window_cuda,
             "dia_spmv_mixed": dia_spmv.dia_spmv_mixed_cuda,
+            "dia_spmv_mixed_window": MIXED_WINDOW,
+            "dia_spmv_upcast": UPCAST,
             "dia_spmm": dia_spmv.dia_spmm_cuda,
             "dia_spmm_live": dia_spmv.dia_spmm_live_cuda,
             "dia_spmm_dense": dia_spmv.dia_spmm_dense_cuda,

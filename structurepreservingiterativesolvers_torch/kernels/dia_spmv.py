@@ -57,7 +57,10 @@ and f64 reductions (``ops/sparse.py::matvec_f64``), the counterpart of the
 JAX package's double-f32 ``ops/dd.py::spmv_dia``.  It launches in the
 operator's live or dense design through the same resolved launch, and
 counts in ``dia_spmv_mixed_cuda`` alone.  Its plain twin
-(``dia_spmv_mixed_torch``) upcasts, then takes the f64 product.
+(``dia_spmv_mixed_torch``) upcasts, then takes the f64 product.  On a
+row-sharded operator it takes the shard's windowed launch
+(``window_launch``, f32 window and data, f64 y; ``MIXED_WINDOW`` counts it
+too), whose plain twin is ``dia_spmv_window_mixed_torch``.
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from . import count_f32
+from . import MIXED_WINDOW, UPCAST, count_f32
 
 MAX_DIAGS = 64  # DIA_MAX_DIAGS in csrc/dia_spmv.cu; from_scipy caps ndiag here
 # the entry points' ``wrap`` argument of a windowed launch (DIA_EDGE_WINDOW in
@@ -285,6 +288,13 @@ def dia_spmv_window_torch(data: torch.Tensor, offsets: Sequence[int], lo: int,
     return y
 
 
+def dia_spmv_window_mixed_torch(data: torch.Tensor, offsets: Sequence[int],
+                                lo: int, x_ext: torch.Tensor) -> torch.Tensor:
+    """The plain version of the windowed mixed product: f32 data and window
+    upcast, then the f64 windowed product."""
+    return dia_spmv_window_torch(data.double(), offsets, lo, x_ext.double())
+
+
 def dia_spmm_window_torch(data: torch.Tensor, offsets: Sequence[int], lo: int,
                           X_ext: torch.Tensor) -> torch.Tensor:
     """The plain version of the windowed product with a block: X_ext (W, B)
@@ -399,6 +409,9 @@ class DiaLaunch:
     window: bool = False
     base: int = 0
     width: int = 0
+    # the launch of an f32 DIA's kept f64 operator (``ops/sparse.py::
+    # DIA.upcast``): ``launch`` counts it in ``UPCAST`` too
+    upcast: bool = False
 
     def takes(self, x: torch.Tensor) -> bool:
         return x.dtype == self.dtype and x.device == self.device
@@ -464,7 +477,7 @@ def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
     """Launch the kernel as ``rec`` resolved it, on PyTorch's current
     stream; does not synchronise.  The launch counts in its design's counter
     and in ``dia_spmv_cuda``'s (a windowed one in ``dia_spmv_window_cuda``'s
-    too)."""
+    too, one on an upcast operator in ``UPCAST``)."""
     if (not rec.takes(x) or x.dim() != 1 or x.shape[0] != rec.cols
             or not x.is_contiguous()):
         raise ValueError(f"the launch takes a contiguous {rec.dtype} vector "
@@ -485,14 +498,16 @@ def launch(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
     count_f32("dia_spmv", rec.dtype)
     if rec.window:
         dia_spmv_window_cuda.launches += 1
+    if rec.upcast:
+        UPCAST.launches += 1
     return y
 
 
 def launch_mixed(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
     """Launch the mixed form as ``rec`` resolved it (an operator of f32 data,
     in its design) on the f32 vector x, on PyTorch's current stream; returns
-    the f64 product.  Counts in ``dia_spmv_mixed_cuda``; does not
-    synchronise."""
+    the f64 product.  Counts in ``dia_spmv_mixed_cuda`` (a windowed launch,
+    ``window_launch``, in ``MIXED_WINDOW`` too); does not synchronise."""
     if (rec.dtype != torch.float32 or not rec.takes(x) or x.dim() != 1
             or x.shape[0] != rec.cols or not x.is_contiguous()):
         raise ValueError(f"the mixed launch takes f32 data and a contiguous "
@@ -508,6 +523,8 @@ def launch_mixed(rec: DiaLaunch, x: torch.Tensor) -> torch.Tensor:
             raise RuntimeError(f"dia_spmv_mixed kernel launch failed "
                                f"({rec.design}): cudaError {err}")
     dia_spmv_mixed_cuda.launches += 1
+    if rec.window:
+        MIXED_WINDOW.launches += 1
     return y
 
 

@@ -77,6 +77,12 @@ class DIA:
         default=None, init=False, repr=False, compare=False)
     _transpose: Optional["DIA"] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    _upcast: Optional["DIA"] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+    # this DIA is another's kept upcast operator: its launches count in
+    # ``kernels.UPCAST`` too
+    _is_upcast: bool = dataclasses.field(
+        default=False, init=False, repr=False, compare=False)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -111,6 +117,19 @@ class DIA:
             object.__setattr__(self, "_transpose", At)
         return self._transpose
 
+    def upcast(self) -> "DIA":
+        """The operator in f64 (itself where it is f64), built on the first
+        call and kept, with its own plan and launch: the f64 kernel #1 on
+        an f64 vector from f32 storage (a stage map's P x) runs with a plan
+        and copies no operator per product."""
+        if self.dtype == torch.float64:
+            return self
+        if self._upcast is None:
+            up = self.astype(torch.float64)
+            object.__setattr__(up, "_is_upcast", True)
+            object.__setattr__(self, "_upcast", up)
+        return self._upcast
+
     def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
         if _traced(other):
             return _DiaProduct.apply(other, self)
@@ -143,6 +162,8 @@ def _resolved(A: DIA, x: torch.Tensor) -> DiaLaunch:
         like = x if x.dim() == 1 else x.new_empty(x.shape[0])
         rec = dia_launch(A.data, A.offsets, A.wrap, like,
                          plan if plan.pays else None)
+        if A._is_upcast:
+            rec = dataclasses.replace(rec, upcast=True)
         object.__setattr__(A, "_launch", rec)
     return rec
 
@@ -371,7 +392,9 @@ def matvec_f64(M, x: torch.Tensor) -> torch.Tensor:
     f32-rounded entries are the operator the certificate holds.
 
     A DIA takes the mixed kernel #1 on the card (``launch_mixed``, in the
-    design its live plan picks), its plain twin on the CPU; an ELL an
+    design its live plan picks), its plain twin on the CPU, and an f64 x
+    (a stage map's P x) the f64 kernel #1 on its kept upcast operator
+    (``DIA.upcast``); an ELL an
     upcast gather; a dense matrix an upcast product; an operator with a
     ``matvec_f64`` method (``MatComb``, ``StageKron``, the models' block
     operators) its own, a term at a time.  A tall x (n, B) is taken a column
@@ -384,8 +407,8 @@ def matvec_f64(M, x: torch.Tensor) -> torch.Tensor:
         if M.dtype == torch.float64:
             return M @ x.double()
         if x.dtype == torch.float64:
-            # an f64 vector (a stage map's P x): the upcast operator
-            return _dia_spmv(M.data.double(), M.offsets, M.wrap, x)
+            # an f64 vector (a stage map's P x): the upcast operator, kept
+            return M.upcast() @ x
         if x.device.type != "cuda":
             return dia_spmv_mixed_torch(M.data, M.offsets, M.wrap, x)
         return launch_mixed(_resolved(M, x), x)

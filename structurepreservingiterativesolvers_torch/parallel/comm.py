@@ -104,6 +104,18 @@ def psum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return t
 
 
+def pmax(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The elementwise maximum of t over the mesh's ranks, in place (t is a
+    fresh result); t itself without a mesh."""
+    if mesh is None:
+        return t
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+    all_reduce_calls.launches += 1
+    return t
+
+
 def pdot(a: torch.Tensor, b: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """The dot product of two row-sharded vectors."""
     return psum(torch.dot(a, b), mesh)

@@ -28,6 +28,13 @@ their row axis and lets GSPMD partition the rolled-shift or gather product
 
 Every product takes a local vector (n_local,) or a block (n_local, B), the
 JAX package's tall operand, and all ranks call it together (SPMD).
+
+Each of them has its f64 product from f32 storage (``matvec_f64``, the f32
+storage mode's certificates and f64 reductions, ``ops/sparse.py::
+matvec_f64``): a ``ShardedDIA`` the mixed kernel #1's windowed launch on
+the f32 window (f32 data, f64 y), a ``ShardedELL`` the upcast gather of its
+window, a ``ShardedScale`` its f64 diagonal, a ``Gathered`` operator its
+own f64 product of the gathered vector.
 """
 
 from __future__ import annotations
@@ -42,14 +49,16 @@ from ..kernels.dia_spmv import (
     DiaLaunch,
     LivePlan,
     dia_spmm_window_torch,
+    dia_spmv_window_mixed_torch,
     dia_spmv_window_torch,
     launch,
     launch_many,
+    launch_mixed,
     live_chunk,
     live_plan,
     window_launch,
 )
-from ..ops.sparse import ELL, ell_spmm, ell_spmv
+from ..ops.sparse import ELL, ell_spmm, ell_spmv, f64_supported, matvec_f64
 from .comm import Mesh, all_to_all_calls, gather
 
 # a rank's own part of its window copied as slices up to this many runs,
@@ -182,6 +191,22 @@ class ShardedDIA:
     def n_local(self) -> int:
         return self.data.shape[1]
 
+    def matvec_f64(self, x: torch.Tensor) -> torch.Tensor:
+        """The local rows of M x in f64 from f32 storage: the f32 window,
+        then on the card the mixed kernel #1's windowed launch (f32 data
+        and window, f64 products, sums and y; the shard's plan), on the CPU
+        its plain twin; with f64 storage the product."""
+        if self.dtype == torch.float64:
+            return self @ x.double()
+        ext = self.xchg(x)
+        if ext.device.type == "cuda":
+            return launch_mixed(self._resolved(ext), ext)
+        return dia_spmv_window_mixed_torch(self.data, self.offsets, self.lo,
+                                           ext)
+
+    def f64_supported(self) -> bool:
+        return True
+
     def live(self) -> LivePlan:
         if self._plan is None:
             object.__setattr__(self, "_plan",
@@ -256,6 +281,15 @@ class ShardedELL:
             return ell_spmm(self.local, x)
         return ell_spmm(self.local, self.xchg(x.T).T)
 
+    def matvec_f64(self, x: torch.Tensor) -> torch.Tensor:
+        """The local rows in f64 from f32 storage: the upcast gather of the
+        window (``ops/sparse.py::matvec_f64``'s ELL product)."""
+        return matvec_f64(self.local, self.xchg(x) if self.xchg is not None
+                          else x)
+
+    def f64_supported(self) -> bool:
+        return True
+
 
 def shard_ell(A: ELL, mesh: Mesh, rows: bool = True,
               cols: bool = True) -> ShardedELL:
@@ -291,9 +325,30 @@ class ShardedScale:
     d: torch.Tensor
     shape: Tuple[int, int]
     mesh: Mesh
+    # d in another storage dtype, kept per dtype
+    _cast: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
+
+    def _d(self, dtype: torch.dtype) -> torch.Tensor:
+        if dtype == self.d.dtype:
+            return self.d
+        if dtype not in self._cast:
+            self._cast[dtype] = self.d.to(dtype)
+        return self._cast[dtype]
 
     def __matmul__(self, x: torch.Tensor) -> torch.Tensor:
-        return self.d * x if x.dim() == 1 else self.d[:, None] * x
+        d = self._d(x.dtype)
+        return d * x if x.dim() == 1 else d[:, None] * x
+
+    def matvec_f64(self, x: torch.Tensor) -> torch.Tensor:
+        """The f64 diagonal times the upcast x (``models/swe.py::
+        _EnergyDiag.matvec_f64``)."""
+        d = self._d(torch.float64)
+        xd = x.double()
+        return d * xd if x.dim() == 1 else d[:, None] * xd
+
+    def f64_supported(self) -> bool:
+        return True
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -318,6 +373,15 @@ class Gathered:
 
     def solve(self, v: torch.Tensor) -> torch.Tensor:
         return self(v)
+
+    def matvec_f64(self, v: torch.Tensor) -> torch.Tensor:
+        """The local rows of the operator's f64 product of the gathered
+        vector (``ops/sparse.py::matvec_f64``)."""
+        r0, r1 = self.mesh.rows(self.n)
+        return matvec_f64(self.op, gather(v, self.mesh))[r0:r1]
+
+    def f64_supported(self) -> bool:
+        return f64_supported(self.op)
 
 
 def _box_repeat(T, e: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,7 @@ import torch
 
 from ..config import check_storage
 from ..precond.base import as_preconditioner
-from .gmres import as_operand, refuse_f32_mesh
+from .gmres import as_operand
 
 
 def cg(A, b: torch.Tensor, x0=None, k: int = 100, tol: float = 1e-8,
@@ -27,7 +27,6 @@ def cg(A, b: torch.Tensor, x0=None, k: int = 100, tol: float = 1e-8,
     the last entry is replaced by the recomputed true residual, as the JAX
     package does, without an extra product per iteration."""
     check_storage(b)
-    refuse_f32_mesh(A, b)
     x0 = as_operand(x0, b)
     x = torch.zeros_like(b) if x0 is None else x0
     prefunc = as_preconditioner(pre)

@@ -92,9 +92,7 @@ from ..constraints.projection import (
     snap_supported,
 )
 from ..constraints.quadratic import (
-    MatComb,
     QuadraticConstraint,
-    StageKron,
     catch_up,
     catchup_buffers,
     device_buffers,
@@ -121,7 +119,7 @@ from .arnoldi import (
     lsq_residual_estimate,
     start,
 )
-from .gmres import as_operand, refuse_f32_mesh, warn_breakdown
+from .gmres import as_operand, warn_breakdown
 from .graphs import GraphRunner
 from .kkt import (
     constrained_lsq,
@@ -191,12 +189,11 @@ def resolve_modes(dt: torch.dtype, cons, mixed=None, snap=None,
       plain f32 (the snap-first mode); it applies from a zero start only
       (the caller's ``x0 is None``).
 
-    With f64 storage all three are off.  f32 storage is refused, naming its
-    ROADMAP.md item, for what the slice leaves out: a general constraint or
-    a stage-mapped or combined operator (lkdvRK) and an ELL operator (heat
-    P2)."""
-    from ..ops.sparse import ELL
-
+    With f64 storage all three are off.  A general constraint over f32
+    storage resolves to mixed with the projection off, as in the JAX
+    package: no f64 evaluation certifies a callable, so its Taylor model
+    (``constraints/general.py``) is held in f64 and the latch checks the
+    true g at the accepted coefficients."""
     cons = tuple(cons)
     f32 = dt == torch.float32
     general = [c.name for c in cons if isinstance(c, GeneralConstraint)]
@@ -210,18 +207,6 @@ def resolve_modes(dt: torch.dtype, cons, mixed=None, snap=None,
             raise ValueError(
                 f"snap=True but constraint operator(s) {bad} have no f64 "
                 "product (constraints/projection.py::snap_supported)")
-    if f32:
-        for c in cons:
-            if isinstance(c, GeneralConstraint) or isinstance(
-                    c.M, (StageKron, MatComb)):
-                raise NotImplementedError(
-                    f"f32 storage with constraint {c.name!r} (a general "
-                    "constraint or a stage-mapped or combined operator, "
-                    "lkdvRK): ROADMAP.md, Queue 1, item 2")
-            if isinstance(c.M, ELL):
-                raise NotImplementedError(
-                    f"f32 storage with constraint {c.name!r} on an ELL "
-                    "operator (heat P2): ROADMAP.md, Queue 1, item 3")
     mixed = f32 if mixed is None else bool(mixed) and f32
     if snap is None:
         snap = (f32 and not prototypical and len(cons) > 0 and not general
@@ -309,7 +294,7 @@ class _Solve:
         # model about the warm coefficients for each general one
         quad = iter(bufs)
         bufs = tuple(
-            taylor_buffers(c, yk, st.Z, self.x0) if g else next(quad)
+            taylor_buffers(c, yk, st.Z, self.x0, cd) if g else next(quad)
             for c, g in zip(self.cons, self.general))
         # the roundoff scales at x0 of the quadratic constraints (|t0| for
         # a general one's Taylor model), and the pins of the device core's
@@ -1025,7 +1010,7 @@ class DeviceCore:
             # a fresh Taylor model about the warm coefficients, which both
             # starts share (B = 1), with |t0| as its value's scale
             t0, t1, T2 = taylor_model(con, self.yk[0, :ka],
-                                      self.st.Z[0, :ka], self.x0[0])
+                                      self.st.Z[0, :ka], self.x0[0], self.cd)
             buf.t0.copy_(torch.where(mask, t0, buf.t0))
             buf.t1[:, :ka] = torch.where(mask[:, None], t1, buf.t1[:, :ka])
             buf.T2[:, :ka, :ka] = torch.where(mask[:, None, None], T2,
@@ -1123,7 +1108,7 @@ class DeviceCore:
         for b in range(self.B):
             cons = [QuadraticConstraint(
                 M=c.M, v=None if c.v is None else c.v[b], c=c.c[b],
-                name=c.name) for c in self.cons]
+                name=c.name, mesh=c.mesh) for c in self.cons]
             x_sn, g = snap_iterate(self.x[b], cons)
             self.x[b] = torch.where(ok[b], x_sn, self.x[b])
             self.dev[b] = torch.where(ok[b], g.abs().amax(), self.dev[b])
@@ -1254,7 +1239,6 @@ def _run(A, b, x0, k, tol, contol, constraints, pre, ctol, history, timing,
          prototypical, ortho="cgs2", loop="host", mixed=None, snap=None,
          f32_reduce=None):
     check_storage(b)
-    refuse_f32_mesh(A, b)
     x0 = as_operand(x0, b)
     constraints = tuple(constraints)
     modes = resolve_modes(b.dtype, constraints, mixed, snap, f32_reduce,

@@ -36,14 +36,6 @@ def as_operand(x0, b: torch.Tensor):
     return torch.as_tensor(x0, dtype=b.dtype, device=b.device)
 
 
-def refuse_f32_mesh(A, b: torch.Tensor) -> None:
-    """f32 storage on row-sharded operands is not ported yet."""
-    if b.dtype == torch.float32 and mesh_of(A) is not None:
-        raise NotImplementedError(
-            "f32 storage under a mesh (parallel/): ROADMAP.md, Queue 1, "
-            "item 5")
-
-
 def warn_breakdown() -> None:
     warnings.warn(
         "GMRES broke down, either initial guess is exact or, more likely, "
@@ -86,7 +78,6 @@ def gmres(
     core).
     """
     check_storage(b)
-    refuse_f32_mesh(A, b)
     x0 = as_operand(x0, b)
     if loop == "while":
         return _gmres_device(A, b, x0, k, tol, pre, history, ortho)

@@ -1,5 +1,6 @@
 """Utilities of the port: checkpointing of long evolutions, profiling
 ranges, the launch counters of the kernels and the collectives
-(``counters.py``), and the native host kernels (``native.py``)."""
+(``counters.py``), the native host kernels (``native.py``) and a system
+or a preconditioner in another storage dtype (``cast.py``)."""
 
-from . import checkpoint, counters, native, profiling  # noqa: F401
+from . import cast, checkpoint, counters, native, profiling  # noqa: F401

@@ -12,9 +12,9 @@
   displacement below 1e-2·||x||, the reported values those of an
   independent f64 evaluation at the returned x;
 * the refusals: ``snap=True`` with a general constraint raises
-  ``ValueError`` naming it (JAX ``tests/test_solver_options.py:80-98``),
-  and what the slice leaves out raises ``NotImplementedError`` naming its
-  ROADMAP.md item.
+  ``ValueError`` naming it (JAX ``tests/test_solver_options.py:80-98``);
+  f32 storage with a general constraint or lkdvRK's stage-mapped
+  constraints, refused before the seventeenth slice, now solves.
 
 The JAX package runs live here, in f32 storage, at M ≤ 64.
 """
@@ -143,19 +143,27 @@ def test_snap_reaches_near_ulp_deviation():
 def test_refusals():
     """``snap=True`` with a general constraint raises ``ValueError`` naming
     it, before anything runs (JAX ``test_solver_options.py:80-98``); f32
-    storage with what the slice leaves out raises ``NotImplementedError``
-    naming its ROADMAP.md item: a general constraint (without the snap) and
-    lkdvRK's stage-mapped constraints (item 2); with f64 storage the modes
-    resolve off and an explicit ``snap=True`` changes nothing."""
+    storage with a general constraint (without the snap) and with lkdvRK's
+    stage-mapped constraints, which earlier slices refused, solves: the
+    general one (the unit sphere, which ten Krylov steps cannot meet in f64
+    either) as its f64 twin does, its latch tripped at the twin's
+    deviation, and lkdvRK certified; with f64 storage the modes resolve
+    off and an explicit ``snap=True`` changes nothing."""
     s = theat.linforms(M=16, device="cpu", dtype=F32)
     gen = TGeneral(func=lambda x: torch.dot(x, x) - 1.0, name="unit-sphere")
     with pytest.raises(ValueError, match="unit-sphere"):
         cgmres(s.A, s.b, k=10, tol=1e-5, constraints=(gen,), snap=True)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        cgmres(s.A, s.b, k=10, tol=1e-5, constraints=(gen,))
+    s64 = theat.linforms(M=16, device="cpu")
+    with pytest.warns(RuntimeWarning, match="failed to preserve"):
+        x32, i32 = cgmres(s.A, s.b, k=10, tol=1e-5, constraints=(gen,))
+        _, i64 = cgmres(s64.A, s64.b, k=10, tol=1e-5, constraints=(gen,))
+    assert x32.dtype == F32
+    assert (i32["steps"], i32["safety"]) == (i64["steps"], i64["safety"])
+    assert abs(i32["deviation"] - i64["deviation"]) <= 1e-3 * i64["deviation"]
     rk = tlkdvrk.linforms(M=20, degree=3, tstages=2, device="cpu", dtype=F32)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        cgmres(rk.A, rk.b, k=10, tol=1e-5, constraints=rk.constraints())
+    x, info = cgmres(rk.A, rk.b, k=10, tol=1e-5, constraints=rk.constraints())
+    assert x.dtype == F32 and info["safety"] is True
+    assert info["deviation"] <= 1e-8
     s64 = tlkdv.linforms(M=50, degree=1, device="cpu")
     x1, i1 = cgmres(s64.A, s64.b, k=20, tol=1e-8,
                     constraints=s64.constraints())

@@ -349,11 +349,89 @@ def case_meshes(mesh):
             "ranks": hc.devices.tolist(), "coordinator": is_coordinator()}
 
 
+def case_f32(mesh):
+    """f32 storage under the mesh: swe M=16 with the skew-normal Chebyshev
+    (k=20, tol 4e-7·||b||) and heat M=31 with the structured AMG (k=20,
+    tol 1e-6·||b||, the levels of 512 rows or more sharded), each on both
+    loops beside the unsharded f32 solve, with the wrappers' reduction
+    mode; heat M=31's energy matrix and operator's f64 products from f32
+    storage sharded (the windowed mixed form) and not; and a 3-step f32
+    ``fused_evolve`` on swe M=16 (tol 4e-7·||b|| of its first system),
+    unsharded and on the mesh."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch import precond
+    from structurepreservingiterativesolvers_torch.experiments.evolve import (
+        fused_evolve,
+    )
+    from structurepreservingiterativesolvers_torch.experiments.wrappers import (
+        reduction_mode,
+    )
+    from structurepreservingiterativesolvers_torch.models import heat, swe
+    from structurepreservingiterativesolvers_torch.parallel import (
+        shard_preconditioner,
+        shard_system,
+    )
+    from structurepreservingiterativesolvers_torch.precond.amg import amg
+    from structurepreservingiterativesolvers_torch.solvers import cgmres
+
+    f32 = torch.float32
+    out = {}
+    for key, M, tol in (("swe", 16, 4e-7), ("heat", 31, 1e-6)):
+        if key == "swe":
+            s = swe.linforms(M=M, N=100, device="cpu", dtype=f32)
+            pre = precond.skew_normal_chebyshev(s.A, a=1.0 / s.prob.dt)
+            pre_sh = shard_preconditioner(pre, mesh)
+        else:
+            s = heat.linforms(M=M, device="cpu", dtype=f32)
+            pre = amg(s.A, dtype=f32, grid=(M + 1, M + 1))
+            pre_sh = shard_preconditioner(pre, mesh, replicate_below=512)
+        tol_abs = tol * float(torch.linalg.norm(s.b.double()))
+        opts = reduction_mode(s, tol_abs)
+        A, b, x0, cons = shard_system(s.A, s.b, torch.zeros_like(s.b),
+                                      s.constraints(), mesh)
+        # from x0 None on both sides: a given zero start changes the f32
+        # modes (the f32 reduction applies from x0 None only)
+        out[key] = _solve_pair(
+            cgmres, (s.A, s.b, None),
+            (A, b, None, {"constraints": cons, "pre": pre_sh}), mesh, k=20,
+            tol=tol_abs, constraints=s.constraints(), pre=pre, **opts)
+        out[key]["tol_abs"] = tol_abs
+    # the f64 products from f32 storage of the sharded operators (a
+    # ShardedDIA's through the windowed mixed form), gathered, beside the
+    # unsharded ones
+    from structurepreservingiterativesolvers_torch.ops.sparse import (
+        matvec_f64,
+    )
+    from structurepreservingiterativesolvers_torch.parallel import (
+        gather,
+        shard_matrix,
+        shard_vector,
+    )
+
+    h = heat.linforms(M=31, device="cpu", dtype=f32)
+    x = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        h.b.shape[0]), dtype=f32)
+    out["f64_products"] = {
+        key: (_np(gather(shard_matrix(M, mesh).matvec_f64(
+            shard_vector(x, mesh)), mesh)), _np(matvec_f64(M, x)))
+        for key, M in (("Emat", h.Emat), ("A", h.A.dia))}
+    s = swe.linforms(M=16, device="cpu", dtype=f32)
+    tol_abs = 4e-7 * float(torch.linalg.norm(s.b.double()))
+    for key, m in (("single", None), ("sharded", mesh)):
+        r = fused_evolve("swe", N=3, M=16, k=20, tol=tol_abs, T=0.3, mesh=m,
+                         dtype=f32, device="cpu")
+        out[("fused", key)] = {k: np.asarray(r[k]) for k in (
+            "steps", "safety", "de", "dm")}
+        out[("fused", key)]["sol"] = _np(r["sol"])
+    return out
+
+
 CASES = {"swe": case_swe, "ell": case_ell, "halo": case_halo,
          "halo_gmres": case_halo_gmres, "heat_amg": case_heat_amg,
          "snc": case_snc, "fused": case_fused,
          "fused_fields": case_fused_fields, "refusals": case_refusals,
-         "meshes": case_meshes}
+         "meshes": case_meshes, "f32": case_f32}
 
 
 def main(world: int, rank: int, tmp: Path, cases) -> None:
