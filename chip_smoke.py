@@ -274,6 +274,25 @@ imported.  Phases, each of which raises on a failed check:
     plain version and timed, swe M=512 with the skew-normal Chebyshev on
     both loops, heat M=1024 with the AMG on the device core and a 3-step
     f32 ``fused_evolve``, each beside its unsharded f32 solve.
+34. CG on the device core (``phase_cg``): heat M=1024 in f64 with the
+    structured AMG on the system phases 20-23 built, ``cg(k=200,
+    tol=1e-7)`` on both loops (the device core's ``cg_init``, ``cg_step``
+    and ``cg_finish`` graphs): equal steps, residual traces within 1e-10
+    relative, x within 1e-10 of its max-norm, the true residual below tol,
+    x within 1e-6 of the device-core GMRES solutions at tol 1e-7 and
+    1e-10; each ``cg_step`` replay launching one stencil product (#2,
+    tiled) and the V-cycle's DIA products (#1, dense); walls (medians of
+    5) beside the device-core GMRES at the same tol, ``time_capture``,
+    busy and idle of one profiled device-core solve; then one f32 solve of
+    the row (system and hierarchy cast), its steps within 2 of f64's and
+    its true residual within the f32 floor (eps32·‖|A||x| + |b|‖) or tol;
+35. the convergence-order study's refinement on the card
+    (``phase_order``): lkdvRK at degree 5, M=120, one GL stage, N = 4 and
+    8, tol=1e-11, Exact and CGMRES on the device core
+    (``scripts/run_error_order_torch.py::final_error``): the observed order
+    within 0.4 of 2 for both, CGMRES ≤ 1.05 × Exact, each error within
+    1e-9 (Exact) or 1e-6 (CGMRES) relative of the JAX record
+    (``reference/slice18.json``).
 
 Every main path checks, by the launch counters, that its DIA products ran
 the design its operators' plans pick (live on swe, dense on heat; on an
@@ -6831,6 +6850,232 @@ def _sharded_f32(mesh):
     return win, paths
 
 
+# the eighteenth slice: CG on the device core (phase 34) and the
+# convergence-order refinement on the card (phase 35)
+CG_K, CG_TOL = 200, 1e-7
+# the yardstick GMRES: its k; CG's x is held within CG_X_GMRES of max|x|
+# to its solution at CG's tol and at CG_GMRES_REF_TOL (at CG's tol GMRES's
+# own error is near the bar: 8.6e-7 of max|x| at heat M=1024 on the card)
+CG_GMRES_K, CG_GMRES_REF_TOL, CG_X_GMRES = 60, 1e-10, 1e-6
+ORDER = dict(M=120, degree=5, tol=1e-11)
+ORDER_NS = (4, 8)
+ORDER_EXACT_RTOL, ORDER_CGMRES_RTOL = 1e-9, 1e-6
+
+
+def phase_cg(s):
+    """CG on heat M=1024 (n = 1,050,625) with the structured AMG, on the
+    system ``s`` of phases 20-23: ``cg(k=CG_K, tol=CG_TOL)`` on the host
+    loop and on the device core (``solvers/cg.py::CgCore``, three graphs),
+    held to each other (steps, residual trace, x), to tol and to the
+    device-core GMRES's solution; the launches per ``cg_step`` replay and
+    per solve; walls (medians of 5) beside the device-core GMRES at the
+    same tol; busy and idle of one profiled device-core solve; then one f32
+    solve of the row.  Returns the launches of one device-core solve and
+    of the f32 one, and the phase's figures."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from structurepreservingiterativesolvers_torch.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_torch.solvers import gmres
+    from structurepreservingiterativesolvers_torch.utils.cast import astype
+
+    cgm = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cg")
+    cores = importlib.import_module(
+        "structurepreservingiterativesolvers_torch.solvers.cgmres")
+    tag = f"[heat_M{HEAT_M}_cg]"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre = default_pre_builder("heat")(s)
+    torch.cuda.synchronize()
+    time_pre = time.perf_counter() - t0
+    levels = sum(1 for L in pre.levels if L.P is not None)
+    kw = dict(k=CG_K, tol=CG_TOL, pre=pre)
+
+    def host():
+        return cgm.cg(s.A, s.b, **kw)
+
+    def device():
+        return cgm.cg(s.A, s.b, loop="while", **kw)
+
+    def yardstick():
+        return gmres(s.A, s.b, k=CG_GMRES_K, tol=CG_TOL, pre=pre,
+                     loop="while")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xw, iw = device()  # builds the core and captures its graphs
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    runner = cgm.last_core().runner
+    before = dict(runner.replayed)
+    _reset_launches()
+    x2, i2 = device()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    expected = _replayed(runner, before)
+    per_replay = runner.launches()
+    (xh, ih), host_walls = _timed(host)
+    _, dev_walls = _timed(device)
+    dp = _profiled(device)
+    yardstick()  # its captures
+    (xg, ig), g_walls = _timed(yardstick)
+    xr, ir = gmres(s.A, s.b, k=CG_GMRES_K, tol=CG_GMRES_REF_TOL, pre=pre,
+                   loop="while")
+    true = float(torch.linalg.norm(s.b - s.A @ xw))
+    hmed, dmed, gmed = (_median(w) for w in (host_walls, dev_walls, g_walls))
+    trace = float(np.max(np.abs(iw["res"] - ih["res"]) / ih["res"]))
+    print(f"{tag} AMG setup {time_pre:.4f} s ({levels + 1} levels); device "
+          f"core: steps {iw['steps']}, residual trace "
+          + ", ".join(f"{r:.3e}" for r in iw["res"])
+          + f"; true residual {true:.4e} (tol {CG_TOL:g}); host loop steps "
+          f"{ih['steps']}; trace {trace:.3e} relative and x "
+          f"{_rel(xw, xh):.3e} from the host loop's; a second solve "
+          f"bit-equal {bool(torch.equal(xw, x2))}; x {_rel(xw, xr):.3e} from "
+          f"GMRES at tol {CG_GMRES_REF_TOL:g} ({ir['steps']} steps), "
+          f"{_rel(xw, xg):.3e} from GMRES at tol {CG_TOL:g} ({ig['steps']} "
+          f"steps)")
+    print(f"{tag} wall, median of {GRAPH_SOLVES}: host loop {1e3 * hmed:.3f} "
+          f"ms ({_ms(host_walls)}), device core {1e3 * dmed:.3f} ms "
+          f"({_ms(dev_walls)}), device-core GMRES at the same tol "
+          f"{1e3 * gmed:.3f} ms ({_ms(g_walls)}); first device-core solve "
+          f"{1e3 * first:.1f} ms, time_capture {runner.time_capture:.3f} s "
+          f"({runner.captures} graphs); profiled device-core solve: wall "
+          f"{1e3 * dp[0]:.3f} ms, busy {dp[1]:.3f} ms, idle {dp[2]:.3f} "
+          f"(busy over the unprofiled median: "
+          f"{1.0 - dp[1] / 1e3 / dmed:.3f} idle)")
+    print(f"{tag} launches over one device-core solve "
+          f"{ {k: v for k, v in launches.items() if v} }; per replay by "
+          f"graph {per_replay}")
+    check(iw["steps"] == ih["steps"] == i2["steps"] < CG_K,
+          f"{tag} steps {iw['steps']} (host loop {ih['steps']}, again "
+          f"{i2['steps']})")
+    check(trace <= 1e-10, f"{tag} residual trace {trace:.3e} from the host "
+                          f"loop's")
+    check(_rel(xw, xh) <= 1e-10, f"{tag} x {_rel(xw, xh):.3e} from the host "
+                                 f"loop")
+    check(torch.equal(xw, x2), f"{tag} a second replayed solve differs")
+    check(math.isfinite(true) and true < CG_TOL and iw["res"][-1] < CG_TOL,
+          f"{tag} true residual {true:.3e}")
+    for xy, ty in ((xg, CG_TOL), (xr, CG_GMRES_REF_TOL)):
+        check(_rel(xw, xy) <= CG_X_GMRES, f"{tag} x {_rel(xw, xy):.3e} from "
+                                          f"the device-core GMRES at tol "
+                                          f"{ty:g}")
+    check(launches == expected, f"{tag} launches {launches} are not the "
+                                f"replays' {expected}")
+    step = per_replay.get("cg_step", {})
+    check(step.get("stencil_spmv") == 1 and step.get("dia_spmv") == 7 * levels,
+          f"{tag} a cg_step graph holds {step}, not one stencil product and "
+          f"the V-cycle's {7 * levels} DIA products")
+    for kernel in ("dia_spmv", "stencil_spmv"):
+        _check_design(tag, launches, kernel, designs=HEAT_DESIGNS)
+    kernels = sorted(nm for nm in dp[3] if "dia_spmv" in nm or "stencil" in nm)
+    check(any("dia_spmv" in nm for nm in kernels)
+          and any("stencil" in nm for nm in kernels),
+          f"{tag} the profiler saw {kernels} in the device-core solve")
+
+    # one f32 solve of the row, the system and the hierarchy cast
+    tag32 = f"[heat_M{HEAT_M}_cg f32]"
+    s32, p32 = astype(s, torch.float32), astype(pre, torch.float32)
+
+    def device32():
+        return cgm.cg(s32.A, s32.b, k=CG_K, tol=CG_TOL, pre=p32, loop="while")
+
+    device32()  # its captures
+    _reset_launches()
+    (x32, i32), w32 = _timed(device32, reps=1)
+    launches32 = _read_launches()
+    xa, bh = x32.double().cpu().numpy(), s.b.cpu().numpy()
+    true32 = float(np.linalg.norm(s.A_csr @ xa - bh))
+    floor32 = float(np.finfo(np.float32).eps) * float(np.linalg.norm(
+        abs(s.A_csr) @ np.abs(xa) + np.abs(bh)))
+    print(f"{tag32} steps {i32['steps']} (f64 {iw['steps']}), residual "
+          f"trace " + ", ".join(f"{r:.3e}" for r in i32["res"])
+          + f" (the last the true residual in f32); in f64 at the f32 x "
+          f"{true32:.3e}, against the f32 floor eps32·‖|A||x|+|b|‖ "
+          f"{floor32:.3e} and tol {CG_TOL:g}; wall {1e3 * w32[0]:.3f} ms; x "
+          f"{_rel(x32.double(), xw):.3e} from f64's; launches "
+          f"{ {k: v for k, v in launches32.items() if v} }")
+    check(abs(i32["steps"] - iw["steps"]) <= 2 and i32["steps"] < CG_K,
+          f"{tag32} steps {i32['steps']} against f64's {iw['steps']}")
+    check(true32 <= max(CG_TOL, floor32), f"{tag32} true residual "
+                                          f"{true32:.3e} above the f32 floor "
+                                          f"{floor32:.3e}")
+    _gate17(tag32, launches32)
+    del s32, p32
+    cores.clear_core_cache()
+    walls = {"host_ms": 1e3 * hmed, "device_core_ms": 1e3 * dmed,
+             "gmres_device_core_ms": 1e3 * gmed, "first_ms": 1e3 * first,
+             "capture_s": runner.time_capture, "busy_ms": dp[1],
+             "idle": dp[2], "steps": iw["steps"], "gmres_steps": ig["steps"],
+             "f32_ms": 1e3 * w32[0], "f32_steps": i32["steps"],
+             "f32_true_residual": true32, "f32_floor": floor32,
+             "time_pre_s": time_pre, "cg_step_launches": step}
+    return launches, launches32, walls
+
+
+def _order_script():
+    """``scripts/run_error_order_torch.py`` as a module: the study's own
+    evolution (``final_error``)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "run_error_order_torch", ROOT / "scripts" / "run_error_order_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_order(record):
+    """The s=1 dt-refinement of the convergence-order study at degree 5,
+    M=120, N = 4 and 8, tol=1e-11, every CGMRES step on the device core:
+    the observed order within 0.4 of 2 for Exact and CGMRES, CGMRES ≤ 1.05
+    × Exact at both levels, each error within ``ORDER_EXACT_RTOL`` /
+    ``ORDER_CGMRES_RTOL`` of the JAX record (``reference/slice18.json``).
+    Returns the launches of the CGMRES evolutions and the figures."""
+    import torch
+
+    study = _order_script()
+    rec = record["order_deg5_s1_M120"]["runs"]
+    tag = "[order]"
+    errs, walls, launches = {}, {}, {}
+    for solver in ("Exact", "CGMRES"):
+        _reset_launches()
+        for N in ORDER_NS:
+            key = f"{solver}_N{N}"
+            t0 = time.perf_counter()
+            e, out = study.final_error(solver, N, 1, loop="while",
+                                       device=DEVICE, **ORDER)
+            torch.cuda.synchronize()
+            walls[key], errs[key] = time.perf_counter() - t0, e
+            ref = rec[key]["err"][-1]
+            print(f"{tag} {solver} N={N}: err(T) {e:.9e} (JAX record "
+                  f"{ref:.9e}, {abs(e - ref) / ref:.2e} relative), solver "
+                  f"steps {list(out['steps'])}, wall {walls[key]:.2f} s")
+            rtol = ORDER_EXACT_RTOL if solver == "Exact" else ORDER_CGMRES_RTOL
+            check(abs(e - ref) <= rtol * ref, f"{tag} {key} err(T) {e:.9e} "
+                                              f"against the record's {ref:.9e}")
+        if solver == "CGMRES":
+            launches = _read_launches()
+    orders = {solver: math.log2(errs[f"{solver}_N4"] / errs[f"{solver}_N8"])
+              for solver in ("Exact", "CGMRES")}
+    ratios = [errs[f"CGMRES_N{N}"] / errs[f"Exact_N{N}"] for N in ORDER_NS]
+    print(f"{tag} observed orders {orders} (expected 2), CGMRES/Exact "
+          f"{ratios}; launches over the CGMRES evolutions "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for solver, order in orders.items():
+        check(abs(order - 2.0) < 0.4, f"{tag} {solver} order {order:.4f}")
+    check(max(ratios) < 1.05, f"{tag} CGMRES/Exact {ratios}")
+    check(launches["dia_spmv"] > 0, f"{tag} the CGMRES evolutions launched "
+                                    f"no kernel #1")
+    return launches, {"errors": errs, "orders": orders, "ratios": ratios,
+                      "walls_s": walls}
+
+
 def main() -> int:
     if not all((PACKAGE / "csrc" / src).is_file() for src in SOURCES):
         fail(f"run from a checkout of the repository: {PACKAGE} is missing")
@@ -6858,7 +7103,8 @@ def main() -> int:
     records = {name: json.loads((PACKAGE / "reference" / name).read_text())
                for name in ("slice1.json", "slice2.json", "slice3.json",
                             "slice4.json", "slice7.json", "slice8.json",
-                            "slice9.json", "slice15.json", "slice17.json")}
+                            "slice9.json", "slice15.json", "slice17.json",
+                            "slice18.json")}
     t_start = time.perf_counter()
     phase_build()
     shapes = SpmmShapes()
@@ -7040,7 +7286,7 @@ def main() -> int:
         spmm_err = max(spmm_err, _check_path_spmm(shapes, name, gen11)[0])
         for kernel, err in heat_rows[name]["errs"].items():
             block_err[kernel] = max(block_err[kernel], err)
-    del heat_sys
+    # heat_sys stays for phase 34
     heat11.update({name: row["launches"] for name, row in heat_rows.items()})
     # the thirteenth slice: heat P2 with the greedy host AMG (phases 28-30)
     torch.cuda.empty_cache()
@@ -7083,6 +7329,18 @@ def main() -> int:
     del rk17, p2_keep
     f32_paths.update(f17_paths)
     f32_paths.update({f"sharded_{k}": v for k, v in shard17_paths.items()})
+    # the eighteenth slice: CG on the device core on phase 20's heat M=1024
+    # system (phase 34) and the convergence-order refinement (phase 35)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cg_launches, f32_paths[f"heat_M{HEAT_M}_cg_f32"], cg18 = phase_cg(heat_sys)
+    del heat_sys
+    torch.cuda.synchronize()
+    t_cg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order_launches, order18 = phase_order(records["slice18.json"])
+    t_order = time.perf_counter() - t0
+    print(f"[env] phase 34 took {t_cg:.1f} s, phase 35 {t_order:.1f} s")
     print(f"[env] phases took {time.perf_counter() - t_start:.1f} s")
 
     tpu = "structurepreservingiterativesolvers_tpu/ops/"
@@ -7226,6 +7484,11 @@ def main() -> int:
     by_name["dia_spmv"]["launches_by_path"].update({
         f"sharded_{path}": n["dia_spmv"] for path, n in shard_paths.items()
         if n.get("dia_spmv")})
+    by_name["dia_spmv"]["launches_by_path"].update({
+        f"heat_M{HEAT_M}_cg": cg_launches["dia_spmv"],
+        "lkdvrk_order_deg5_s1_M120": order_launches["dia_spmv"]})
+    by_name["stencil_spmv"]["launches_by_path"][f"heat_M{HEAT_M}_cg"] = (
+        cg_launches["stencil_spmv"])
     by_name["fused_update_matvec"]["launches_by_path"].update({
         f"sharded_{path}": n["fused_update_matvec"]
         for path, n in shard_paths.items() if n.get("fused_update_matvec")})
@@ -7309,6 +7572,8 @@ def main() -> int:
         name: {key: row[key] for key in ("wall_ms", "single_ms", "capture_s",
                                          "idle", "busy_ms")}
         for name, row in rk_batch.items()}}))
+    print("[cg18] " + json.dumps({"cg": cg18, "order": order18,
+                                  "phase_s": {"34": t_cg, "35": t_order}}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,10 @@ M=50) and ``slice14.json`` (the row-sharded solves of the JAX package's
 configuration single-device and sharded, with x in full) and
 ``slice15.json`` (the JAX package's f32 storage mode, ``SLICE15``: solves,
 TimedSolve pairs, a ``fused_evolve`` and ``cgmres_many`` with f32 vectors,
-``record_f32``):
+``record_f32``) and ``slice18.json`` (the convergence-order study's points,
+``SLICE18``: lkdvRK evolutions' L2 errors with the direct solve and with
+CGMRES, ``record_order``; ``python scripts/make_torch_reference.py
+slice18`` writes them all, in under a minute):
 for each solve configuration, GMRES and
 CGMRES through the experiment wrappers, with their steps, constrained
 steps, safety latch, KKT deviation, final true residual and the invariants
@@ -1014,11 +1017,67 @@ def record_slice17(name):
     return out
 
 
+# the convergence-order study's points (``tests/test_convergence_order.py``
+# and ``scripts/run_error_order.py`` there): lkdvRK evolutions to T=1 with
+# k=50, the iterative solver CGMRES through the JAX package's wrapper (its
+# default loop) with the TimedSolve pre-builder's composite built on the
+# first system, beside the direct solve; name: (degree, tstages, M, tol,
+# Ns).  ``slice18`` names them all.
+SLICE18 = {
+    "order_deg5_s1_M60": (5, 1, 60, 1e-11, (4, 8)),
+    "order_deg3_s2_M100": (3, 2, 100, 1e-9, (10,)),
+    "order_deg5_s1_M120": (5, 1, 120, 1e-11, (4, 8)),
+}
+
+
+def record_order(name):
+    """Run the JAX package's lkdvRK evolutions of ``SLICE18[name]``;
+    returns, per solver (Exact, CGMRES) and N, the L2 error series (its
+    last entry the study's err(T)) and the solver's steps per step."""
+    _jax_cpu()
+    import time
+
+    import numpy as np
+
+    from structurepreservingiterativesolvers_tpu.experiments import wrappers
+    from structurepreservingiterativesolvers_tpu.experiments.evolve import evolve
+    from structurepreservingiterativesolvers_tpu.experiments.timed_solve import (
+        default_pre_builder,
+    )
+    from structurepreservingiterativesolvers_tpu.models import lkdvrk
+
+    degree, tstages, M, tol, Ns = SLICE18[name]
+    t0 = time.perf_counter()
+    runs = {}
+    for solver in ("Exact", "CGMRES"):
+        for N in Ns:
+            if solver == "Exact":
+                def fn(system, x0=None, k=50, tol=tol, pre=None):
+                    return wrappers.exact(system)[0], {"steps": -1}
+                pre = None
+            else:
+                s0 = lkdvrk.linforms(N=N, M=M, degree=degree,
+                                     tstages=tstages, T=1.0)
+                pre = default_pre_builder("lkdvrk")(s0)
+                fn = wrappers.cgmres_wrapper
+            out = evolve("lkdvrk", N=N, M=M, degree=degree, tstages=tstages,
+                         T=1.0, k=50, tol=tol, solver=fn, pre=pre,
+                         compute_error=True)
+            runs[f"{solver}_N{N}"] = {
+                "err": [float(e) for e in np.asarray(out["err"])],
+                "steps": [int(i) for i in np.asarray(out["steps"])]}
+    return {"config": {"degree": degree, "tstages": tstages, "M": M,
+                       "tol": tol, "N": list(Ns), "k": 50, "T": 1.0},
+            "runs": runs, "seconds": time.perf_counter() - t0}
+
+
 def out_path(name) -> Path:
     """The record file that holds configuration ``name``: by its
     preconditioner (none, the AMG, a polynomial, the skew-normal
     Chebyshev), and evolutions with the skew-normal slice; the seventh
     slice's entries in their own file."""
+    if name in SLICE18:
+        return REFERENCE / "slice18.json"
     if name in SLICE17:
         return REFERENCE / "slice17.json"
     if name in SLICE15:
@@ -1722,7 +1781,7 @@ def main(names):
 
     for name in names or [*CONFIGS, *EVOLVES, *FUSED, *SWEEPS, *BATCHED,
                           *CORE, *P2_TIMED, *REPORTS, *sorted(SLICE14),
-                          *SLICE15, *SLICE17]:
+                          *SLICE15, *SLICE17, *SLICE18]:
         path = out_path(name)
         rec = load(name) if path.exists() else {}
         rec["_about"] = (
@@ -1742,6 +1801,7 @@ def main(names):
                      else record_parallel(name) if name in SLICE14
                      else record_f32(name) if name in SLICE15
                      else record_slice17(name) if name in SLICE17
+                     else record_order(name) if name in SLICE18
                      else record(name))
         print(name, json.dumps(rec[name]), flush=True)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -1759,4 +1819,6 @@ if __name__ == "__main__":
                 flags + f" --xla_force_host_platform_device_count={MESH_DEVICES}"
             ).strip()
     _jax_cpu()
-    main(sys.argv[1:])
+    # ``slice18``: every convergence-order point of ``SLICE18``
+    main([n for a in sys.argv[1:]
+          for n in (sorted(SLICE18) if a == "slice18" else [a])])

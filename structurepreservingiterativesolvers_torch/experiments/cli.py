@@ -192,10 +192,17 @@ def main(argv=None):
                             process_counts=sorted({1, args.spawn}),
                             device=args.device)
         else:
+            import torch.distributed as dist
+
             from .scaling import dist_bench_worker
 
             dist_bench_worker(args.problem, M=args.M, k=args.k, tol=args.tol,
                               device=args.device)
+            # the ranks leave the group together: a process that exits with
+            # its group alive can abort there (gloo, "terminate called
+            # without an active exception")
+            dist.barrier()
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1158,8 +1158,12 @@ _CORES: "collections.OrderedDict" = collections.OrderedDict()
 
 
 def clear_core_cache() -> None:
-    """Drop the cached device cores (their buffers and graphs)."""
+    """Drop the cached device cores (their buffers and graphs), CG's
+    (``solvers/cg.py``) too."""
+    from .cg import _CORES as cg_cores
+
     _CORES.clear()
+    cg_cores.clear()
 
 
 def last_core() -> DeviceCore:
@@ -1312,11 +1316,13 @@ def cgmres_p(
     ctol: float = CTOL,
     history: bool = False,
     ortho: str = "cgs2",
+    mixed=None,
 ):
     """Prototypical CGMRES: fixed ``k`` iterations, constraints enforced
     cumulatively (iteration j enforces the first j), no stopping tolerance
     (reference solvers.py:328-445; info name 'geosolve').  With f32 storage
-    it runs mixed, without the projection, as the JAX package's."""
+    it runs without the projection, as the JAX package's, and mixed unless
+    ``mixed=False`` (``resolve_modes``)."""
     return _run(A, b, x0, k, tol=0.0, contol=0.0, constraints=constraints,
                 pre=pre, ctol=ctol, history=history, timing=False,
-                prototypical=True, ortho=ortho)
+                prototypical=True, ortho=ortho, mixed=mixed)

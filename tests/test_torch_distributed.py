@@ -22,7 +22,7 @@ WORLD = 2
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     return run_job(WORLD, ("halo", "swe", "fused_fields", "refusals",
-                           "meshes"), tmp_path_factory.mktemp("gloo2"))
+                           "meshes", "cg"), tmp_path_factory.mktemp("gloo2"))
 
 
 def test_same_peer_ring_halo(ranks):
@@ -55,6 +55,26 @@ def test_sharded_swe_two_ranks(ranks):
         np.testing.assert_array_equal(run["x"], ranks[1]["swe"][loop]["x"])
         assert run["info"]["deviation"] == ranks[1]["swe"][loop]["info"]["deviation"]
 
+
+def test_sharded_cg_two_ranks(ranks):
+    """CG on heat M=31 with the structured AMG, the fine level sharded
+    over two ranks (k=200, tol=1e-8): every inner product and norm is
+    all-reduced, so both loops take the unsharded solve's steps, with the
+    gathered x within 1e-10 of its max-norm and the residual trace within
+    1e-10 relative (the last entry, the true residual near tol, within
+    1e-10 of the first); the ranks agree bit for bit."""
+    for loop in ("host", "while"):
+        run = ranks[0]["cg"][loop]
+        assert run["info"]["steps"] == run["info_ref"]["steps"] < 200
+        np.testing.assert_allclose(run["x"], run["x_ref"], rtol=0,
+                                   atol=1e-10 * np.abs(run["x_ref"]).max())
+        res, ref = run["info"]["res"], run["info_ref"]["res"]
+        np.testing.assert_allclose(res[:-1], ref[:-1], rtol=1e-10)
+        np.testing.assert_allclose(res[-1], ref[-1], rtol=0,
+                                   atol=1e-10 * ref[0])
+        np.testing.assert_array_equal(run["x"], ranks[1]["cg"][loop]["x"])
+    np.testing.assert_array_equal(ranks[0]["cg"]["host"]["x"],
+                                  ranks[0]["cg"]["while"]["x"])
 
 def test_fused_evolve_fields_sharded(ranks):
     """``fused_evolve(mesh=)`` on lkdv and lkdvRK, whose states split into

@@ -188,13 +188,15 @@ def test_package_surface_without_jax():
 
 
 def test_port_sources_never_import_jax():
-    """Neither the port nor ``chip_smoke.py`` imports JAX or the JAX
+    """Neither the port, ``chip_smoke.py`` nor the port's convergence-order
+    study (``scripts/run_error_order_torch.py``) imports JAX or the JAX
     package, not even a module of it that does not import JAX."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|structurepreservingiterativesolvers_tpu)\b"
         r"|import_module\(\s*[\"'](jax|structurepreservingiterativesolvers_tpu)\b",
         re.M)
-    sources = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
+    sources = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+               ROOT / "scripts" / "run_error_order_torch.py"]
     offenders = [str(p.relative_to(ROOT)) for p in sources
                  if pattern.search(p.read_text())]
     assert offenders == []

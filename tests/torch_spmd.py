@@ -225,6 +225,30 @@ def case_heat_amg(mesh):
     return out
 
 
+def case_cg(mesh):
+    """heat M=31 (n = 1,024) with the structured AMG, the fine level
+    sharded and the coarser ones whole (replicate_below=512), CG k=200,
+    tol=1e-8, both loops: every inner product and norm over the mesh."""
+    import torch
+
+    from structurepreservingiterativesolvers_torch.models import heat
+    from structurepreservingiterativesolvers_torch.parallel import (
+        shard_preconditioner,
+        shard_system,
+    )
+    from structurepreservingiterativesolvers_torch.precond.amg import amg
+    from structurepreservingiterativesolvers_torch.solvers import cg
+
+    M = 31
+    s = heat.linforms(M=M, device="cpu")
+    pre = amg(s.A, grid=(M + 1, M + 1))
+    A, b, x0, _ = shard_system(s.A, s.b, torch.zeros_like(s.b),
+                               s.constraints(), mesh)
+    pre_sh = shard_preconditioner(pre, mesh, replicate_below=512)
+    return _solve_pair(cg, (s.A, s.b, None), (A, b, x0, {"pre": pre_sh}),
+                       mesh, k=200, tol=1e-8, pre=pre)
+
+
 def case_snc(mesh):
     """swe M=8 with the skew-normal Chebyshev, sharded as chained sharded
     products, CGMRES k=15, tol=1e-8, both loops."""
@@ -429,6 +453,7 @@ def case_f32(mesh):
 
 CASES = {"swe": case_swe, "ell": case_ell, "halo": case_halo,
          "halo_gmres": case_halo_gmres, "heat_amg": case_heat_amg,
+         "cg": case_cg,
          "snc": case_snc, "fused": case_fused,
          "fused_fields": case_fused_fields, "refusals": case_refusals,
          "meshes": case_meshes, "f32": case_f32}
